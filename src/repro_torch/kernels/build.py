@@ -1,0 +1,113 @@
+"""Build the CUDA kernels from ``src/repro_torch/csrc`` and bind them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles with one ``nvcc`` call into its own shared
+library with a plain C interface (seconds, against minutes for a source that
+includes PyTorch's headers). All sources compile in parallel at first use,
+into ``build/repro_torch/`` under the repository root, named by a hash of the
+sources and flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("sparsign", "vote_update", "ef_server")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_c = ctypes
+# argtypes of each library's one C entry point: pointers and the stream as
+# c_void_p, or ctypes would pass them as 32-bit ints and cut them
+SIGNATURES = {
+    "sparsign": ("sparsign_launch",
+                 [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
+                  _c.c_longlong, _c.c_longlong, _c.c_uint32, _c.c_int, _c.c_void_p]),
+    "vote_update": ("vote_update_launch",
+                    [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_longlong,
+                     _c.c_float, _c.c_int, _c.c_int, _c.c_int, _c.c_void_p]),
+    "ef_server": ("ef_server_launch",
+                  [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                   _c.c_void_p, _c.c_longlong, _c.c_void_p]),
+}
+
+_LIBS: dict = {}
+#: nvcc's output (``-Xptxas -v``: registers, spills) and build seconds, per source
+BUILD_LOG: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+                 shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                       "CUDA toolkit is installed")
+
+
+def _source_hash(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    return BUILD_DIR / f"{name}-{_source_hash(name)}.so"
+
+
+def build_all(names=SOURCES) -> dict:
+    """Compile every missing library, one nvcc process per source, all started
+    together; returns {name: seconds} for the sources it compiled."""
+    todo = [n for n in names if n not in _LIBS and not _lib_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for name in todo:
+        out = _lib_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return {n: BUILD_LOG[n]["seconds"] for n in todo}
+
+
+def library(name: str):
+    """The C entry point of ``csrc/<name>.cu``, built on first use."""
+    if name not in _LIBS:
+        build_all((name,))
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        sym, argtypes = SIGNATURES[name]
+        fn = getattr(lib, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LIBS[name] = fn
+    return _LIBS[name]
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if the launch returned a CUDA error (cudaGetLastError)."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")

@@ -1,0 +1,81 @@
+"""Shared plumbing for the port's kernels and their plain versions.
+
+The JAX package runs every kernel on a canonical ``(rows, LANES)`` view with
+rows padded to ``SUBLANE_PAD``; the logical coordinate of element (r, c) is
+``r * LANES + c``, its index in the flat tensor. The CUDA kernels work on the
+flat tensor with a masked tail instead, which gives the same counter stream
+without the pad pass. The view helpers stay for the wire formats of later
+slices and for tests that compare against the JAX layout.
+"""
+
+from __future__ import annotations
+
+import torch
+
+LANES = 512            # lane width of the canonical view (4 * 128)
+SUBLANE_PAD = 32       # row padding multiple (int8 sublane tile)
+DEFAULT_BLOCK_ROWS = 256
+
+
+def canonical_rows(n: int, lanes: int = LANES, row_pad: int = SUBLANE_PAD) -> int:
+    """Rows of the canonical view of an n-element stream: ceil to full lanes,
+    then to the sublane tile."""
+    rows = -(-n // lanes)
+    return -(-rows // row_pad) * row_pad
+
+
+def to_2d(flat: torch.Tensor, lanes: int = LANES, row_pad: int = SUBLANE_PAD):
+    """Zero-pad a flat tensor to its (rows, lanes) view; returns (view, n)."""
+    if flat.dim() != 1:
+        raise ValueError(f"to_2d takes a flat tensor, got shape {tuple(flat.shape)}")
+    n = flat.shape[0]
+    rows = canonical_rows(n, lanes, row_pad)
+    padded = torch.zeros(rows * lanes, dtype=flat.dtype, device=flat.device)
+    padded[:n] = flat
+    return padded.reshape(rows, lanes), n
+
+
+def from_2d(view: torch.Tensor, n: int, shape, dtype=None) -> torch.Tensor:
+    out = view.reshape(-1)[:n].reshape(shape)
+    return out.to(dtype) if dtype is not None else out
+
+
+def block_rows_for(rows: int, want: int = DEFAULT_BLOCK_ROWS) -> int:
+    """Largest divisor of ``rows`` that is <= want and a multiple of SUBLANE_PAD."""
+    want = min(want, rows)
+    want = max(SUBLANE_PAD, (want // SUBLANE_PAD) * SUBLANE_PAD)
+    while rows % want:
+        want -= SUBLANE_PAD
+    return max(want, SUBLANE_PAD)
+
+
+def jnp_sign(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.sign`` semantics: +1/-1 for nonzero x, x itself for +-0.0 and NaN.
+    ``torch.sign`` maps -0.0 to +0.0 and NaN to 0, which changes the bits of
+    the EF server's ``scale * sign(acc)`` and ``acc - out``."""
+    if not x.is_floating_point():
+        return torch.sign(x)
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    return torch.where(x > 0, one, torch.where(x < 0, -one, x))
+
+
+def device_tensor(x, like: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """``x`` (a number, sequence or tensor) as a ``dtype`` tensor on ``like``'s
+    device. A Python number becomes a fill on the device, not a copy from the
+    host, so no call on the round's path waits for the card; a sequence is
+    copied."""
+    if isinstance(x, torch.Tensor):
+        return x.to(like.device, dtype)
+    if isinstance(x, (int, float)):
+        return torch.full((), x, dtype=dtype, device=like.device)
+    return torch.as_tensor(x, dtype=dtype, device=like.device)
+
+
+def check_cuda_tensor(name: str, t: torch.Tensor, dtypes) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of one of ``dtypes``."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must have dtype in {dtypes}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,44 @@
+"""Plain PyTorch oracle of the ternary compressors, bit for bit
+``repro.kernels.ternary.ref.ternary_compress_ref``.
+
+``seed`` is one stream seed (an int or 0-d tensor), with ``g`` of any shape
+and counters running over its flat index; or a 1-D tensor of per-worker
+seeds, with ``g`` of shape (workers, ...) and every row's counters starting
+at ``counter_base`` (the batched form of ``jax.vmap`` over workers). ``param``
+is a scalar or one value per row.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import prng
+from repro_torch.kernels.common import device_tensor
+from repro_torch.kernels.ternary.rules import RULES
+
+
+def as_rows(g: torch.Tensor, seed):
+    """(g as (rows, n), seeds as an int64 (rows, 1) tensor) for ``seed`` in
+    either of the two forms above."""
+    seeds = device_tensor(seed, g, torch.int64)
+    if seeds.dim() == 0:
+        return g.reshape(1, -1), seeds.reshape(1, 1)
+    if seeds.dim() != 1 or g.dim() == 0 or g.shape[0] != seeds.shape[0]:
+        raise ValueError(f"per-row seeds of shape {tuple(seeds.shape)} need g of "
+                         f"shape (rows, ...), got {tuple(g.shape)}")
+    return g.reshape(seeds.shape[0], -1), seeds.reshape(-1, 1)
+
+
+def ternary_compress_ref(g: torch.Tensor, param, seed, counter_base=0, *,
+                         rule: str) -> torch.Tensor:
+    """int8 ternary RULES[rule] symbols, shaped like ``g``."""
+    fn = RULES[rule]
+    rows, seeds = as_rows(g.to(torch.float32), seed)
+    idx = torch.arange(rows.shape[1], dtype=torch.int64, device=g.device) + int(counter_base)
+
+    def u(salt: int):
+        s = seeds if salt == 0 else prng.fold_seed(seeds, salt)
+        return prng.uniform01(s, idx)
+
+    prm = device_tensor(param, g).reshape(-1, 1)
+    return fn(rows, u, prm).to(torch.int8).reshape(g.shape)

@@ -1,0 +1,69 @@
+"""The port's CUDA kernels against their plain versions on the card, bit for
+bit. Needs an NVIDIA GPU (``cuda`` marker; skips without one). Imports no
+JAX, so it runs where the port runs:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.ef_server.ops import ef_server_op
+from repro_torch.kernels.ef_server.ref import ef_server_ref
+from repro_torch.kernels.sparsign.ops import sparsign_op
+from repro_torch.kernels.sparsign.ref import sparsign_ref
+from repro_torch.kernels.vote_update.ops import vote_update_op
+from repro_torch.kernels.vote_update.ref import vote_update_ref
+
+
+def tbits(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy()
+    if t.dtype == torch.float32:
+        return t.view(torch.int32).numpy()
+    return t.numpy()
+
+
+def grad_like(n, seed):
+    g = np.random.RandomState(seed).randn(n).astype(np.float32) * 0.4
+    g[::97] = 0.0
+    g[1::97] = -0.0
+    return g
+
+
+def ef_inputs(n, seed):
+    rng = np.random.RandomState(seed)
+    d = rng.randn(n).astype(np.float32)
+    e = (rng.randn(n) * 0.1).astype(np.float32)
+    d[:4], e[:4] = [0.0, -0.0, -0.0, 0.0], [-0.0, -0.0, 0.0, 0.0]
+    d[4], d[5], e[6] = np.nan, 1.0, -np.nan
+    return d, e
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_on_card(cuda_device):
+    """Each CUDA kernel against its plain version on the card, bit for bit."""
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.from_numpy(grad_like(3 * 4099, 1)).to(cuda_device, dtype).reshape(3, 4099)
+        seeds = torch.tensor([1, 2, 0xFFFFFFFF], device=cuda_device)
+        budget = torch.tensor([0.5, 1.0, 4.0], device=cuda_device)
+        np.testing.assert_array_equal(tbits(sparsign_op(g, budget, seeds, 7)),
+                                      tbits(sparsign_ref(g, budget, seeds, 7)))
+        w = torch.randn(4099, device=cuda_device).to(dtype)
+        for vdt in (torch.int8, torch.int32):
+            v = torch.randint(-5, 6, (4099,), device=cuda_device, dtype=vdt)
+            np.testing.assert_array_equal(tbits(vote_update_op(w, v, 0.01, quorum=2)),
+                                          tbits(vote_update_ref(w, v, 0.01, 2)))
+    d, e = (torch.from_numpy(a).to(cuda_device) for a in ef_inputs(4099, 2))
+    s = torch.tensor([0.5], device=cuda_device)
+    for a, b in zip(ef_server_op(d, e, s), ef_server_ref(d, e, s)):
+        np.testing.assert_array_equal(tbits(a), tbits(b))
