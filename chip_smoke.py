@@ -76,10 +76,13 @@ def max_abs_err(a, b) -> float:
 
 
 class Timer:
-    """Median device time of single calls with CUDA events. Each call is
-    queued behind a spin kernel, so the host's launch overhead falls inside
-    the spin and the events time the device alone; the 50 MB L2 is flushed
-    before each call, so every call reads its inputs from HBM."""
+    """Device time of single calls with CUDA events: median and quartiles.
+    Each call is queued behind a spin kernel, so the host's launch overhead
+    falls inside the spin and the events time the device alone; the 50 MB L2
+    is flushed before each call, so every call reads its inputs from HBM.
+    ``spin=False`` drops the spin: the events then also hold whatever host
+    time the enqueue takes beyond the flush, which is what a caller without a
+    queue ahead of it sees."""
 
     SPIN_CYCLES = 2_000_000   # ~1 ms at the H100's clock: longer than any enqueue here
 
@@ -87,13 +90,14 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(128 << 20, dtype=torch.int8, device="cuda")
 
-    def __call__(self, fn, reps: int = 30) -> float:
+    def __call__(self, fn, reps: int = 30, spin: bool = True) -> dict:
         torch = self.torch
         for _ in range(3):
             fn()
         times = []
         for _ in range(reps):
-            torch.cuda._sleep(self.SPIN_CYCLES)
+            if spin:
+                torch.cuda._sleep(self.SPIN_CYCLES)
             self.flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -102,7 +106,8 @@ class Timer:
             end.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
-        return statistics.median(times)
+        q1, q2, q3 = statistics.quantiles(times, n=4)
+        return {"ms": q2, "p25": q1, "p75": q3}
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -231,31 +236,36 @@ def phase_kernels(torch, timer, report):
 
     # -- timing at the main path's shapes: the launch wrappers themselves
     timings = {}
+
+    def record(key, fn, plain_fn, nbytes, flops, plain_reps=30):
+        t = timer(fn)
+        t_b, by = bound(nbytes, flops)
+        timings[key] = {"ms": t["ms"], "ms_p25": t["p25"], "ms_p75": t["p75"],
+                        "no_spin_ms": timer(fn, spin=False)["ms"],
+                        "plain_ms": timer(plain_fn, reps=plain_reps)["ms"],
+                        "bound_ms": t_b, "bound_by": by}
+
     for rows in (1, 4, 20, 100):
         g = randn(rows, D_CNN, scale=0.01)
         seeds = torch.arange(rows, device=dev) * 7919
         b = torch.ones(1, device=dev)
-        ms = timer(lambda: sparsign_cuda(g, b, seeds))
-        plain = timer(lambda: sparsign_ref(g, b, seeds), reps=10)
-        t_b, by = bound(rows * D_CNN * 5 + rows * 8 + 4, rows * D_CNN * 5)
-        timings[f"sparsign {rows}x{D_CNN} f32"] = (ms, plain, t_b, by)
+        record(f"sparsign {rows}x{D_CNN} f32", lambda: sparsign_cuda(g, b, seeds),
+               lambda: sparsign_ref(g, b, seeds), rows * D_CNN * 5 + rows * 8 + 4,
+               rows * D_CNN * 5, plain_reps=10)
     w = randn(D_CNN)
     v = torch.randint(-20, 21, (D_CNN,), generator=gen, device=dev, dtype=torch.int32)
-    ms = timer(lambda: vote_update_cuda(w, v, 0.03))
-    plain = timer(lambda: vote_update_ref(w, v, 0.03))
-    t_b, by = bound(D_CNN * 12, D_CNN * 2)
-    timings[f"vote_update {D_CNN} f32/int32"] = (ms, plain, t_b, by)
+    record(f"vote_update {D_CNN} f32/int32", lambda: vote_update_cuda(w, v, 0.03),
+           lambda: vote_update_ref(w, v, 0.03), D_CNN * 12, D_CNN * 2)
     d, e = randn(D_CNN, scale=0.1), randn(D_CNN, scale=0.01)
     s = ef_scale(d, e).reshape(1)
-    ms = timer(lambda: ef_server_cuda(d, e, s))
-    plain = timer(lambda: ef_server_ref(d, e, s))
-    t_b, by = bound(D_CNN * 16 + 4, D_CNN * 3)
-    timings[f"ef_server {D_CNN} f32"] = (ms, plain, t_b, by)
-    for key, (ms, plain, t_b, by) in timings.items():
-        print(f"[timing] {key}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"bound {t_b:.4f} ms ({by}), {t_b / ms:.1%} of bound")
-    report["timings"] = {k: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), v))
-                         for k, v in timings.items()}
+    record(f"ef_server {D_CNN} f32", lambda: ef_server_cuda(d, e, s),
+           lambda: ef_server_ref(d, e, s), D_CNN * 16 + 4, D_CNN * 3)
+    for key, t in timings.items():
+        print(f"[timing] {key}: kernel {t['ms']:.4f} ms (quartiles {t['ms_p25']:.4f}-"
+              f"{t['ms_p75']:.4f}; no spin {t['no_spin_ms']:.4f}), plain {t['plain_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"{t['bound_ms'] / t['ms']:.1%} of bound")
+    report["timings"] = timings
     main_shape = {"sparsign": f"sparsign 100x{D_CNN} f32",
                   "vote_update": f"vote_update {D_CNN} f32/int32",
                   "ef_server": f"ef_server {D_CNN} f32"}
@@ -416,11 +426,11 @@ def main() -> int:
 
     rows = []
     for name in ("sparsign", "vote_update", "ef_server"):
-        ms, plain, t_b, by = main_times[name]
+        t = main_times[name]
         rows.append({"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
                      "replaces": REPLACES[name], "launches": totals[name],
-                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
-                     "bound_ms": t_b, "bound_by": by, "library_ms": None})
+                     "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None})
     report["kernels"] = rows
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

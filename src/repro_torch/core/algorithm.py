@@ -42,9 +42,6 @@ class CompressionConfig:
     server: str = "majority_vote"        # majority_vote | scaled_sign_ef | mean
     local_steps: int = 1                 # tau (Alg. 2); 1 recovers Alg. 1
     local_budget: Optional[float] = None # B_l for the inner compressed steps
-    worker_sample_fraction: float = 1.0
-    vote_dtype: str = "int8"
-    pack_wire: bool = False
 
     def __post_init__(self):
         tau = int(self.local_steps)

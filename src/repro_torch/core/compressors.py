@@ -6,7 +6,7 @@ kernels; ``get_spec`` names the ROADMAP queue for them.
 Values functions share the normalized signature
 ``(g, param, seed, counter_base) -> values``, where ``seed`` is one stream
 seed or a 1-D tensor of per-worker seeds for g of shape (workers, ...), and
-``param`` (the budget for scale-free compressors) a scalar or one per row.
+``param`` the budget, a scalar or one per row.
 """
 
 from __future__ import annotations
@@ -17,7 +17,6 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.kernels.common import device_tensor
 from repro_torch.kernels.sparsign.ops import sparsign_op
 from repro_torch.kernels.ternary.ref import as_rows, ternary_compress_ref
 
@@ -41,81 +40,28 @@ def _identity_values(g, param, seed, counter_base):
     return g
 
 
-def _one(like: torch.Tensor) -> torch.Tensor:
-    return torch.ones((), dtype=torch.float32, device=like.device)
-
-
-def sparsign(g: torch.Tensor, *, budget, seed, counter_base=0) -> CompressedGrad:
-    """Magnitude-aware stochastic ternarization (Def. 1):
-    Q(g_i) = sign(g_i) w.p. min(|g_i| * B, 1) else 0. Scale-free."""
-    return CompressedGrad(values=_sparsign_values(g, budget, seed, counter_base), scale=_one(g))
-
-
-def identity(g, *, budget=None, seed=None, counter_base=0) -> CompressedGrad:
-    """Uncompressed baseline (D-SGD)."""
-    return CompressedGrad(values=g, scale=_one(g))
-
-
-SCALE_PROTOCOLS = ("none", "local_norm", "shared_max")
-SERVER_DECODES = ("sign", "scaled_sign", "dequant")
-WIRE_FORMATS = ("pack2", "golomb", "pack8", "float")
-UPLINK_BIT_MODELS = ("dense_sign", "golomb_ternary", "level8", "fp32")
-
-
 @dataclasses.dataclass(frozen=True)
 class CompressorSpec:
-    """One row of the compressor capability table. ``values`` is the plain
-    version; ``kernel_op`` the op that launches the CUDA kernel for a tensor
-    on the card (argument for argument the same)."""
+    """One row of the compressor table, with the fields this slice reads.
+    ``values`` is the plain version; ``kernel_op`` the op that launches the
+    CUDA kernel for a tensor on the card (argument for argument the same).
+    The wire and decode metadata of the JAX table arrive with the wires."""
 
     name: str
-    api: Callable
     values: Callable
     is_ternary: bool
-    scale_protocol: str = "none"
-    local_scale: Optional[Callable] = None
+    scale_protocol: str = "none"   # both rows are scale-free
     kernel_op: Optional[Callable] = None
-    server_decode: str = "sign"
     chunkable: bool = False
-    wire_format: str = "pack2"
     uplink_bits: str = "dense_sign"
-
-    def __post_init__(self):
-        if self.scale_protocol not in SCALE_PROTOCOLS:
-            raise ValueError(f"{self.name}: scale_protocol {self.scale_protocol!r}")
-        if self.server_decode not in SERVER_DECODES:
-            raise ValueError(f"{self.name}: server_decode {self.server_decode!r}")
-        if self.wire_format not in WIRE_FORMATS:
-            raise ValueError(f"{self.name}: wire_format {self.wire_format!r}")
-        if self.uplink_bits not in UPLINK_BIT_MODELS:
-            raise ValueError(f"{self.name}: uplink_bits {self.uplink_bits!r}")
-        if (self.scale_protocol == "none") != (self.local_scale is None):
-            raise ValueError(f"{self.name}: local_scale iff a scale protocol")
-        if (self.wire_format in ("pack2", "golomb")) != self.is_ternary:
-            raise ValueError(f"{self.name}: ternary iff a ternary wire format")
-
-    @property
-    def scale_shared(self) -> bool:
-        return self.scale_protocol in ("none", "shared_max")
-
-    def resolve_scale(self, g, shared_linf=None) -> Optional[torch.Tensor]:
-        """The decode scale for one message, or None for scale-free specs."""
-        if self.scale_protocol == "none":
-            return None
-        if self.scale_protocol == "shared_max" and shared_linf is not None:
-            return device_tensor(shared_linf, g)
-        return self.local_scale(g)
 
 
 SPECS: dict[str, CompressorSpec] = {spec.name: spec for spec in (
     CompressorSpec(
-        name="sparsign", api=sparsign, values=_sparsign_values,
-        is_ternary=True, scale_protocol="none", kernel_op=sparsign_op,
-        server_decode="sign", chunkable=True, uplink_bits="golomb_ternary"),
+        name="sparsign", values=_sparsign_values, is_ternary=True,
+        kernel_op=sparsign_op, chunkable=True, uplink_bits="golomb_ternary"),
     CompressorSpec(
-        name="identity", api=identity, values=_identity_values,
-        is_ternary=False, scale_protocol="none",
-        server_decode="dequant", wire_format="float", uplink_bits="fp32"),
+        name="identity", values=_identity_values, is_ternary=False, uplink_bits="fp32"),
 )}
 
 #: compressors of the JAX package that arrive with their kernels (ROADMAP.md,

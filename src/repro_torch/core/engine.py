@@ -110,25 +110,20 @@ def compress_leaf(
 
     A spec with a kernel op takes the CUDA kernel on the ``cuda`` backend;
     everything else runs the plain version (chunked for the counter-indexed
-    families). ``shared_linf`` feeds the ``linf_share`` budget and the
-    ``shared_max`` scale protocol."""
+    families). ``shared_linf`` feeds the ``linf_share`` budget. Both ported
+    specs are scale-free, so the message scale is 1."""
     backend = resolve_backend(backend, g)
     spec = get_spec(cfg.compressor)
     rows = is_batched(seed)
     budget = resolve_budget(cfg.budget, g, shared_linf=shared_linf, rows=rows)
-    scale = spec.resolve_scale(g, shared_linf=shared_linf)
-    param = budget if scale is None else scale
-    if scale is None:
-        msg_scale = torch.ones((), dtype=torch.float32, device=g.device)
-    else:
-        msg_scale = scale.to(torch.float32)
     if backend == "cuda" and spec.kernel_op is not None:
-        vals = spec.kernel_op(g, param, seed, counter_base)
+        vals = spec.kernel_op(g, budget, seed, counter_base)
     elif spec.chunkable:
-        vals = chunked_values(spec.values, g, param, seed, counter_base)
+        vals = chunked_values(spec.values, g, budget, seed, counter_base)
     else:
-        vals = spec.values(g, param, seed, counter_base)
-    return CompressedGrad(values=vals, scale=msg_scale)
+        vals = spec.values(g, budget, seed, counter_base)
+    return CompressedGrad(values=vals,
+                          scale=torch.ones((), dtype=torch.float32, device=g.device))
 
 
 def server_apply(

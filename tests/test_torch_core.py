@@ -171,9 +171,12 @@ def test_registry_rows_and_not_yet_ported_names():
     with pytest.raises(KeyError, match="unknown compressor"):
         tcomp.get_spec("nope")
     g = torch.from_numpy(heavy_grad(50))
-    msg = tcomp.sparsign(g, budget=100.0, seed=3)
-    assert msg.decode().dtype == torch.float32 and float(msg.scale) == 1.0
-    assert tcomp.identity(g).values is g
+    msg = tengine.compress_leaf(g, talg.CompressionConfig(
+        budget=tbudgets.BudgetConfig(value=100.0)), 3)
+    assert msg.values.dtype == torch.int8 and float(msg.scale) == 1.0
+    assert msg.decode().dtype == torch.float32
+    ident = tengine.compress_leaf(g, talg.CompressionConfig(compressor="identity"), 3)
+    assert ident.values is g and float(ident.scale) == 1.0
 
 
 @pytest.mark.parametrize("batched", [False, True])
