@@ -8,12 +8,21 @@ Phases, in order; any failure exits non-zero before the last line:
      from src/repro_torch/csrc and print the build time and ptxas report;
   2. hold each kernel against its plain PyTorch version on the card, bit for
      bit, at the main path's shapes, an odd size, 2^24 coordinates, bf16 and
-     +-0/NaN inputs; time kernel and plain version with CUDA events;
+     +-0/NaN/+-inf inputs (ternary: each of its four rules, per-row params;
+     weighted_vote_update: scalar and per-coordinate W); time kernel, plain
+     version and, where one exists, the one PyTorch call with CUDA events;
   3. the federated slice: run_fl on cnn_cifar at full width (d = 545,002) in
      the Table 2 protocol (M = 20, 20% participation, batch 32) and at
      FLConfig's defaults (M = 100, full participation, batch 128), each with
      sparsignSGD (B = 1, majority vote) and EF-sparsignSGD with 5 local steps;
-     launch counts are zeroed before each run and checked after it;
+     then every algorithm of the §6 grid (fl/grid.py) in the Table 2 protocol
+     and in the Table 1 protocol (mlp_fashion, d = 235,146, M = 50, Dir(0.1),
+     batch 64); the elastic round (Table 2, weights = shard sizes, q_frac
+     0.25, dropout 0.1) with signSGD and TernGrad; and the Rosenbrock
+     experiment of §6.1, sign against sparsign. Launch counts are zeroed
+     before each run and checked after it; each round's server half with the
+     same sources equals backend="torch" bit for bit and waits for the card
+     nowhere (sync debug mode);
   4. the integer-vote round: 20 workers' sparsign messages summed in int32,
      then engine.server_apply, which takes the vote_update kernel.
 It prints one JSON line of kernel numbers, the card's name and power limit,
@@ -23,6 +32,7 @@ chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -34,11 +44,15 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 D_CNN = 545002
+D_MLP = 235146
 REPLACES = {
     "sparsign": "src/repro/kernels/sparsign/kernel.py:48",
     "vote_update": "src/repro/kernels/vote_update/kernel.py:32",
     "ef_server": "src/repro/kernels/ef_server/kernel.py:30",
+    "ternary": "src/repro/kernels/ternary/kernel.py:79",
+    "weighted_vote_update": "src/repro/kernels/vote_update/kernel.py:58",
 }
+SOURCE = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 
 
 def check(cond, msg: str) -> None:
@@ -110,10 +124,74 @@ class Timer:
         return {"ms": q2, "p25": q1, "p75": q3}
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least ms the card could take: bytes over the memory rate against
+    operations over their peak rate, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = ops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# Operations per coordinate that each drawing rule itself needs
+# (kernels/ternary/rules.py, csrc/common.cuh), one per 32-bit integer or float
+# operation; loads, stores, address arithmetic and row bookkeeping are left out:
+#   uniform  counter * golden, xor the row's seed hash, mix32 (3 shifts,
+#            3 xors, 2 multiplies), >> 8, to float, * 2^-24          13
+#   symbol   jnp_sign to int8: two compares, two selects              4
+#   sparsign uniform, |g|, * B, clamp (2), u < p, select, symbol     23
+#   stochastic_ternary: as sparsign with |g| / s for |g| * B         23
+#   noisy_sign two uniforms, max(u1, eps), log, * -2, sqrt, 2pi * u2,
+#            cos, the product, * sigma, + g, symbol                  39
+# log, cos and sqrt count one operation each: the least the function needs
+# (one special-function instruction); the many more that CUDA's
+# full-precision versions execute are the kernel's cost, not the function's.
+# The row's seed hashes count once per row: mix32(seed + golden) = 9, and for
+# noisy_sign two folded seeds, each a fold (xor, mix32) and a hash, 2 x 18.
+# No rate for 32-bit integer operations is published: every operation is
+# taken at the float32 rate (F32_FLOPS, which counts a multiply-add as two),
+# the highest scalar rate, so the bound stays a lower bound.
+OPS_PER_COORD = {"sparsign": 23, "sign": 4, "noisy_sign": 39, "stochastic_ternary": 23}
+OPS_PER_ROW = {"sparsign": 9, "sign": 0, "noisy_sign": 36, "stochastic_ternary": 11}
+
+
+def rule_ops(rule: str, rows: int, n: int) -> int:
+    """Operations the drawing rule needs for a (rows, n) input."""
+    return rows * n * OPS_PER_COORD[rule] + rows * OPS_PER_ROW[rule]
+
+
+def same_server_half(torch, label, rf, v0, r=0):
+    """The round's server half with the same sources through the kernels and
+    through the plain versions on the card: equal bit for bit. The kernel
+    path runs in sync debug mode "error", so a host read or a host-to-device
+    copy that waits for the card fails the run. Returns the sampled workers'
+    ids."""
+    srcs, seeds, sel = rf.workers(v0, r)
+    ef = torch.zeros_like(v0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = rf.server(v0, ef, srcs, seeds, sel, r)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    b = rf.server(v0, ef, srcs, seeds, sel, r, backend="torch")
+    torch.cuda.synchronize()
+    check(all(same_bits(x, y) for x, y in zip(a, b)),
+          f"{label}: the round's server half differs from its plain version")
+    return sel
+
+
+def traced(torch, report, label, rf, v0) -> None:
+    """Trace one round of ``rf`` (profile_round) and report where its time went."""
+    split = profile_round(torch, rf, v0)
+    report.setdefault("round_profile", []).append({"setting": label, **split})
+    top = ", ".join(f"{k} {v:.1%}" for k, v in split["top_kernels"].items())
+    print(f"[profile] {label}: round {split['round_ms']:.2f} ms, device busy "
+          f"{split['busy_share']:.1%}, port kernels {split['port_kernel_share']:.2%} "
+          f"of device time; top: {top}")
+
+
+def expected(**launches) -> dict:
+    """Launch counts a run implies: the given kernels, and 0 for every other."""
+    return {name: launches.get(name, 0) for name in REPLACES}
 
 
 def profile_round(torch, rf, v) -> dict:
@@ -161,9 +239,13 @@ def phase_kernels(torch, timer, report):
     from repro_torch.kernels.sparsign.kernel import sparsign_cuda
     from repro_torch.kernels.sparsign.ops import sparsign_op
     from repro_torch.kernels.sparsign.ref import sparsign_ref
-    from repro_torch.kernels.vote_update.kernel import vote_update_cuda
-    from repro_torch.kernels.vote_update.ops import vote_update_op
-    from repro_torch.kernels.vote_update.ref import vote_update_ref
+    from repro_torch.kernels.ternary.kernel import ternary_cuda
+    from repro_torch.kernels.ternary.ops import ternary_compress_op
+    from repro_torch.kernels.ternary.ref import ternary_compress_ref
+    from repro_torch.kernels.ternary.rules import RULES
+    from repro_torch.kernels.vote_update.kernel import vote_update_cuda, weighted_vote_update_cuda
+    from repro_torch.kernels.vote_update.ops import vote_update_op, weighted_vote_update_op
+    from repro_torch.kernels.vote_update.ref import vote_update_ref, weighted_vote_update_ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
@@ -177,7 +259,7 @@ def phase_kernels(torch, timer, report):
                                1e-30, -1e30, -0.0], device=dev)
         return x
 
-    errs = {"sparsign": 0.0, "vote_update": 0.0, "ef_server": 0.0}
+    errs = {name: 0.0 for name in REPLACES}
 
     # -- sparsign: (shape, dtype, per-row seeds?, per-row budget?, counter_base)
     cases = [((D_CNN,), torch.float32, False, False, 0),
@@ -234,24 +316,87 @@ def phase_kernels(torch, timer, report):
                 errs["ef_server"] = max(errs["ef_server"], max_abs_err(a, b))
         print(f"[kernels] ef_server n={n} with +-0/NaN, two scales: bitwise ok")
 
+    # -- ternary, each rule: (shape, dtype, per-row seeds?, per-row param?, counter_base)
+    cases = [((4, D_CNN), torch.float32, True, False, 0),
+             ((100, D_CNN), torch.float32, True, True, 0),
+             ((50, D_MLP), torch.float32, True, True, 0),
+             ((12345,), torch.float32, False, False, 2**32 - 5000),
+             ((3, 7777), torch.bfloat16, True, True, 17),
+             ((20, D_CNN), torch.bfloat16, True, False, 0),
+             ((1 << 24,), torch.float32, False, False, 0),
+             ((3, 4099), torch.float32, True, True, 0)]   # +-0 / NaN / +-inf; NaN and 0 params
+    for rule in RULES:
+        for shape, dtype, rows, per_row_p, cb in cases:
+            n = shape[-1]
+            if n == 4099:
+                g = torch.stack([specials(n) for _ in range(shape[0])])
+                param = torch.tensor([0.5, float("nan"), 0.0], device=dev)
+            else:
+                g = randn(*shape, scale=0.5)
+                param = torch.rand(shape[0], generator=gen, device=dev) * 3 if per_row_p else 0.7
+            g = g.to(dtype)
+            seeds = (torch.randint(0, 2**32, (shape[0],), generator=gen, device=dev)
+                     if rows else 0xFFFFFFFF)
+            k = ternary_compress_op(g, param, seeds, cb, rule=rule)
+            r = ternary_compress_ref(g, param, seeds, cb, rule=rule)
+            torch.cuda.synchronize()
+            check(same_bits(k, r), f"ternary {rule} {shape} {dtype} differs from its plain "
+                                   f"version in {int((k != r).sum())} symbols")
+            errs["ternary"] = max(errs["ternary"], max_abs_err(k, r))
+        print(f"[kernels] ternary {rule}: bitwise ok at {len(cases)} shapes "
+              f"(f32/bf16, odd, 2^24, +-0/NaN/+-inf, per-row params)")
+
+    # -- weighted_vote_update: w f32/bf16 x W scalar / per coordinate / 0
+    for n in (D_CNN, D_MLP, 12345, 1 << 24):
+        v = (torch.randint(-8, 9, (n,), generator=gen, device=dev) * 0.5).float()
+        v[0:4] = torch.tensor([-0.0, 0.0, float("nan"), 2.0], device=dev)
+        for wdt in (torch.float32, torch.bfloat16):
+            w = specials(n).to(wdt)
+            for wtot in (torch.full((), 6.0, device=dev), torch.zeros((), device=dev),
+                         torch.rand(n, generator=gen, device=dev) * 8):
+                k = weighted_vote_update_op(w, v, wtot, 0.03, q_frac=0.25)
+                r = weighted_vote_update_ref(w, v, wtot, 0.03, 0.25)
+                torch.cuda.synchronize()
+                check(same_bits(k, r), f"weighted_vote_update n={n} {wdt} W of "
+                                       f"{wtot.numel()} differs from its plain version")
+                errs["weighted_vote_update"] = max(errs["weighted_vote_update"],
+                                                   max_abs_err(k, r))
+        print(f"[kernels] weighted_vote_update n={n} f32/bf16 x W scalar/0/per-coord: bitwise ok")
+
     # -- timing at the main path's shapes: the launch wrappers themselves
     timings = {}
 
-    def record(key, fn, plain_fn, nbytes, flops, plain_reps=30):
+    def record(key, fn, plain_fn, nbytes, ops, plain_reps=30, library=None):
         t = timer(fn)
-        t_b, by = bound(nbytes, flops)
+        t_b, by = bound(nbytes, ops)
         timings[key] = {"ms": t["ms"], "ms_p25": t["p25"], "ms_p75": t["p75"],
                         "no_spin_ms": timer(fn, spin=False)["ms"],
                         "plain_ms": timer(plain_fn, reps=plain_reps)["ms"],
+                        "library_ms": timer(library)["ms"] if library else None,
                         "bound_ms": t_b, "bound_by": by}
 
+    # sparsign and ternary: operations are the rule's own (rule_ops)
     for rows in (1, 4, 20, 100):
         g = randn(rows, D_CNN, scale=0.01)
         seeds = torch.arange(rows, device=dev) * 7919
         b = torch.ones(1, device=dev)
         record(f"sparsign {rows}x{D_CNN} f32", lambda: sparsign_cuda(g, b, seeds),
                lambda: sparsign_ref(g, b, seeds), rows * D_CNN * 5 + rows * 8 + 4,
-               rows * D_CNN * 5, plain_reps=10)
+               rule_ops("sparsign", rows, D_CNN), plain_reps=10)
+    for rule in RULES:
+        for rows, n in ((4, D_CNN), (100, D_CNN), (50, D_MLP)):
+            g = randn(rows, n, scale=0.01)
+            seeds = torch.arange(rows, device=dev) * 7919
+            prm = torch.rand(rows, generator=gen, device=dev) * 0.05 + 0.005
+            # the PyTorch yardstick of the sign rule: torch.sign maps -0.0 to
+            # +0.0 and NaN to 0 where jnp.sign keeps them; the int8 cast
+            # makes the symbols the rule's
+            lib = (lambda: torch.sign(g).to(torch.int8)) if rule == "sign" else None
+            record(f"ternary {rule} {rows}x{n} f32",
+                   lambda: ternary_cuda(g, prm, seeds, rule=rule),
+                   lambda: ternary_compress_ref(g, prm, seeds, rule=rule),
+                   rows * n * 5 + rows * 12,
+                   rule_ops(rule, rows, n), plain_reps=10, library=lib)
     w = randn(D_CNN)
     v = torch.randint(-20, 21, (D_CNN,), generator=gen, device=dev, dtype=torch.int32)
     record(f"vote_update {D_CNN} f32/int32", lambda: vote_update_cuda(w, v, 0.03),
@@ -260,15 +405,28 @@ def phase_kernels(torch, timer, report):
     s = ef_scale(d, e).reshape(1)
     record(f"ef_server {D_CNN} f32", lambda: ef_server_cuda(d, e, s),
            lambda: ef_server_ref(d, e, s), D_CNN * 16 + 4, D_CNN * 3)
+    for n in (D_CNN, D_MLP):
+        v = (torch.randint(-8, 9, (n,), generator=gen, device=dev) * 0.5).float()
+        for wdt in (torch.float32, torch.bfloat16):
+            w = randn(n).to(wdt)
+            for wtot in (torch.full((1,), 6.0, device=dev), torch.rand(n, generator=gen, device=dev) * 8):
+                per = "per-coord" if wtot.numel() == n else "scalar"
+                record(f"weighted_vote_update {n} {str(wdt)[6:]} W {per}",
+                       lambda: weighted_vote_update_cuda(w, v, wtot, 0.03, 0.25),
+                       lambda: weighted_vote_update_ref(w, v, wtot, 0.03, 0.25),
+                       n * (2 * w.element_size() + 4) + wtot.numel() * 4, n * 3)
     for key, t in timings.items():
+        lib = f", library {t['library_ms']:.4f} ms" if t["library_ms"] is not None else ""
         print(f"[timing] {key}: kernel {t['ms']:.4f} ms (quartiles {t['ms_p25']:.4f}-"
-              f"{t['ms_p75']:.4f}; no spin {t['no_spin_ms']:.4f}), plain {t['plain_ms']:.4f} ms, "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"{t['ms_p75']:.4f}; no spin {t['no_spin_ms']:.4f}), plain {t['plain_ms']:.4f} ms"
+              f"{lib}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
               f"{t['bound_ms'] / t['ms']:.1%} of bound")
     report["timings"] = timings
     main_shape = {"sparsign": f"sparsign 100x{D_CNN} f32",
                   "vote_update": f"vote_update {D_CNN} f32/int32",
-                  "ef_server": f"ef_server {D_CNN} f32"}
+                  "ef_server": f"ef_server {D_CNN} f32",
+                  "ternary": f"ternary stochastic_ternary 50x{D_MLP} f32",
+                  "weighted_vote_update": f"weighted_vote_update {D_CNN} float32 W scalar"}
     return errs, {k: timings[v] for k, v in main_shape.items()}
 
 
@@ -315,9 +473,8 @@ def phase_fl(torch, report):
             counts = kernels.launch_counts()
             n_sel = max(1, round(cfg.participation * cfg.n_workers))
             steps = comp.local_steps + 1 if comp.local_steps > 1 else 1
-            want = {"sparsign": rounds * steps,
-                    "ef_server": rounds if comp.server == "scaled_sign_ef" else 0,
-                    "vote_update": 0}
+            want = expected(sparsign=rounds * steps,
+                            ef_server=rounds if comp.server == "scaled_sign_ef" else 0)
             check(counts == want, f"{sname}/{aname}: launches {counts}, expected {want}")
             check(bool(torch.isfinite(res["v"]).all()), f"{sname}/{aname}: non-finite weights")
             check(0.0 <= res["final_acc"] <= 1.0 and 0 < res["mean_nnz"] <= D_CNN,
@@ -336,26 +493,14 @@ def phase_fl(torch, report):
         for aname, (comp, llr) in algos.items():
             cfg = make_cfg(comp, llr)
             rf = build_round_fn(xent_loss(apply_fn), cfg, *parts_of[cfg.n_workers])
-            split = profile_round(torch, rf, v0)
-            report.setdefault("round_profile", []).append(
-                {"setting": sname, "algorithm": aname, **split})
-            top = ", ".join(f"{k} {v:.1%}" for k, v in split["top_kernels"].items())
-            print(f"[profile] {sname}/{aname}: round {split['round_ms']:.2f} ms, device busy "
-                  f"{split['busy_share']:.1%}, port kernels {split['port_kernel_share']:.2%} "
-                  f"of device time; top: {top}")
+            traced(torch, report, f"{sname}/{aname}", rf, v0)
 
     # the server half with injected sources: kernels == plain versions on the card
     # (after the counted runs: comparison launches are not counted)
     xp, yp = parts_of[20]
     for aname, (comp, llr) in algos.items():
         rf = build_round_fn(xent_loss(apply_fn), settings["table2"](comp, llr), xp, yp)
-        srcs, seeds = rf.workers(v0, 0)
-        ef = torch.zeros_like(v0)
-        a = rf.server(v0, ef, srcs, seeds)
-        b = rf.server(v0, ef, srcs, seeds, backend="torch")
-        torch.cuda.synchronize()
-        check(same_bits(a[0], b[0]) and same_bits(a[1], b[1]) and same_bits(a[2], b[2]),
-              f"{aname}: the round's server half differs from its plain version")
+        same_server_half(torch, aname, rf, v0)
         print(f"[fl] {aname}: server half with injected sources == backend='torch', bitwise")
 
     # phase 4: the integer-vote round (the psum wire in one process)
@@ -363,7 +508,7 @@ def phase_fl(torch, report):
     comp = algos["sparsignSGD_B1"][0]
     cfg = FLConfig(n_workers=20, participation=1.0, batch_size=32, lr=0.03, comp=comp, seed=1)
     rf = build_round_fn(xent_loss(apply_fn), cfg, xp, yp)
-    srcs, seeds = rf.workers(v0, 0)
+    srcs, seeds, _ = rf.workers(v0, 0)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     msgs = engine.compress_leaf(srcs, comp, seeds)
@@ -371,7 +516,7 @@ def phase_fl(torch, report):
     v1, _ = engine.server_apply(v0, vote_sum, comp, lr=cfg.lr)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    check(counts == {"sparsign": 1, "vote_update": 1, "ef_server": 0},
+    check(counts == expected(sparsign=1, vote_update=1),
           f"integer-vote round launches {counts}")
     for k in totals:
         totals[k] += counts[k]
@@ -387,6 +532,123 @@ def phase_fl(torch, report):
           f"moved {moved:.4f} of coordinates, launches {counts}, == plain version bitwise")
     report["integer_vote_round"] = {"launches": counts, "moved": moved}
     return totals
+
+
+def phase_baselines(torch, report, totals):
+    """The §6 grid in the Table 1 and Table 2 protocols, the elastic round and
+    the Rosenbrock experiment, each run counted on its own."""
+    from repro_torch import kernels
+    from repro_torch.data.dirichlet import dirichlet_partition
+    from repro_torch.data.synthetic import make_image_dataset
+    from repro_torch.fl import grid, models, rosenbrock
+    from repro_torch.fl.simulation import build_round_fn, run_fl, stack_partitions
+
+    rounds = 3
+
+    def counted(label, fn, want):
+        """Run ``fn`` with every count zeroed just before and read just after."""
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        check(counts == want, f"{label}: launches {counts}, expected {want}")
+        for k in totals:
+            totals[k] += counts[k]
+        return out, counts
+
+    def launches_of(comp, elastic=False):
+        if comp.compressor == "sparsign":
+            return expected(sparsign=rounds,
+                            ef_server=rounds if comp.server == "scaled_sign_ef" else 0)
+        return expected(ternary=rounds, weighted_vote_update=rounds if elastic
+                        and comp.server == "majority_vote" else 0)
+
+    protocols = {
+        # Table 2's training set cut from 6,000 to 2,000 images for time, as above
+        "table2": (dataclasses.replace(grid.TABLE2, data=dataclasses.replace(
+            grid.TABLE2.data, n_train=2000)), models.cnn_cifar, D_CNN),
+        "table1": (grid.TABLE1, models.mlp_fashion, D_MLP),
+    }
+    setups = {}
+    for pname, (proto, make_model, d) in protocols.items():
+        x, y, xt, yt = make_image_dataset(proto.data)
+        parts = dirichlet_partition(y, n_workers=proto.n_workers, alpha=proto.alpha,
+                                    seed=proto.partition_seed)
+        xp, yp = stack_partitions(x, y, parts)
+        v0, apply_fn = make_model(torch.Generator().manual_seed(proto.model_seed), device="cuda")
+        check(v0.numel() == d, f"{proto.model} has {v0.numel()} parameters, not {d}")
+        setups[pname] = (proto, parts, xp, yp, xt, yt, v0, apply_fn)
+        for aname, comp in grid.ALGORITHMS.items():
+            cfg = proto.fl_config(comp, rounds=rounds, eval_every=rounds)
+            res, counts = counted(f"{pname}/{aname}",
+                                  lambda: run_fl(v0, apply_fn, cfg, xp, yp, xt, yt),
+                                  launches_of(comp))
+            check(bool(torch.isfinite(res["v"]).all()) and res["v"].shape == v0.shape,
+                  f"{pname}/{aname}: non-finite weights")
+            check(0.0 <= res["final_acc"] <= 1.0 and 0 < res["mean_nnz"] <= d,
+                  f"{pname}/{aname}: accuracy or nnz out of range")
+            line = {"setting": pname, "algorithm": aname, "workers": round(
+                        cfg.participation * cfg.n_workers), "round_s": res["round_s"],
+                    "final_acc": res["final_acc"], "mean_nnz": res["mean_nnz"],
+                    "d": res["d"], "launches": counts}
+            report.setdefault("fl", []).append(line)
+            print(f"[fl] {json.dumps(line)}")
+            rf = build_round_fn(models.xent_loss(apply_fn), cfg, xp, yp)
+            same_server_half(torch, f"{pname}/{aname}", rf, v0)
+        print(f"[fl] {pname}: every algorithm's server half == backend='torch', bitwise, "
+              f"with no host sync")
+
+    # the elastic round: Table 2 with data-volume weights and report dropout
+    proto, parts, xp, yp, xt, yt, v0, apply_fn = setups["table2"]
+    elastic = dict(worker_weights=tuple(float(len(p)) for p in parts), q_frac=0.25, dropout=0.1)
+    for aname in ("signSGD", "terngrad"):
+        comp = grid.ALGORITHMS[aname]
+        cfg = proto.fl_config(comp, rounds=rounds, eval_every=rounds, **elastic)
+        res, counts = counted(f"elastic/{aname}",
+                              lambda: run_fl(v0, apply_fn, cfg, xp, yp, xt, yt),
+                              launches_of(comp, elastic=True))
+        check(bool(torch.isfinite(res["v"]).all()) and 0.0 <= res["final_acc"] <= 1.0,
+              f"elastic/{aname}: non-finite weights or accuracy out of range")
+        line = {"setting": "elastic", "algorithm": aname,
+                "workers": round(cfg.participation * cfg.n_workers),
+                "round_s": res["round_s"], "final_acc": res["final_acc"],
+                "mean_nnz": res["mean_nnz"], "d": res["d"], "launches": counts}
+        report.setdefault("fl", []).append(line)
+        print(f"[fl] {json.dumps(line)}")
+        rf = build_round_fn(models.xent_loss(apply_fn), cfg, xp, yp)
+        dropped = 0
+        for r in range(rounds):
+            sel = same_server_half(torch, f"elastic/{aname} round {r}", rf, v0, r)
+            dropped += int((~rf.reporting(sel, r)[0]).sum())
+        print(f"[fl] elastic/{aname}: server half == backend='torch' bitwise, with no host "
+              f"sync, in {rounds} rounds ({dropped} reports dropped)")
+
+    # where a round's device time goes in the new cells (after the counted runs)
+    proto, parts, xp, yp, xt, yt, v0, apply_fn = setups["table1"]
+    traced(torch, report, "table1/signSGD", build_round_fn(
+        models.xent_loss(apply_fn), proto.fl_config(grid.ALGORITHMS["signSGD"]), xp, yp), v0)
+    proto, parts, xp, yp, xt, yt, v0, apply_fn = setups["table2"]
+    for aname in ("signSGD", "terngrad"):
+        traced(torch, report, f"elastic/{aname}", build_round_fn(
+            models.xent_loss(apply_fn), proto.fl_config(grid.ALGORITHMS[aname], **elastic),
+            xp, yp), v0)
+
+    # §6.1 Rosenbrock (Fig. 1): sign against sparsign, 100 workers, every one voting
+    ros = {}
+    for name, kernel in (("sign", "ternary"), ("sparsign", "sparsign")):
+        ros[name], _ = counted(
+            f"rosenbrock/{name}",
+            lambda: rosenbrock.run(name, budget=0.01, rounds=120, n_sel=100, lr=1e-3),
+            expected(**{kernel: 120}))
+    r_sign, r_sp = ros["sign"], ros["sparsign"]
+    check(r_sign.wrong_agg.mean() > 0.9 and r_sp.wrong_agg.mean() < 0.5
+          and r_sp.values[-1] < r_sp.values[0] and r_sp.values[-1] < r_sign.values[-1],
+          "Rosenbrock: the paper's Fig. 1 claims do not hold")
+    report["rosenbrock"] = {n: {"wrong_agg_mean": float(r.wrong_agg.mean()),
+                                "F_first": float(r.values[0]), "F_last": float(r.values[-1])}
+                            for n, r in ros.items()}
+    print(f"[rosenbrock] {json.dumps(report['rosenbrock'])}")
 
 
 def main() -> int:
@@ -422,15 +684,17 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
     totals = phase_fl(torch, report)
+    phase_baselines(torch, report, totals)
     check(all(totals[k] > 0 for k in totals), f"a kernel never launched on the path: {totals}")
 
     rows = []
-    for name in ("sparsign", "vote_update", "ef_server"):
+    for name in REPLACES:
         t = main_times[name]
-        rows.append({"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
+        rows.append({"name": name, "route": "cuda", "source": SOURCE[name],
                      "replaces": REPLACES[name], "launches": totals[name],
                      "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
-                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None})
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
     report["kernels"] = rows
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -4,7 +4,8 @@
 Two backends, bit for bit the same by construction (they share the counter
 hash of ``core.prng``, which the CUDA kernels regenerate in registers):
 
-  cuda  — the hand-written kernels: sparsign, vote_update, ef_server.
+  cuda  — the hand-written kernels: sparsign, ternary, vote_update,
+          weighted_vote_update, ef_server.
   torch — the plain PyTorch versions.
 
 The backend follows the tensor: a CUDA tensor takes the kernels and a CPU
@@ -19,8 +20,8 @@ Two primitives:
 
 ``compress_leaf`` takes one message, or all workers' messages at once as a
 (workers, ...) tensor with one seed per row: one kernel launch per round.
-The packed wires and the elastic branches of the JAX engine arrive in later
-slices (ROADMAP.md queue 2 and 3).
+The packed wires of the JAX engine arrive in a later slice (ROADMAP.md
+queue 2).
 """
 
 from __future__ import annotations
@@ -35,8 +36,8 @@ from repro_torch.core.compressors import CompressedGrad, chunked_values, get_spe
 from repro_torch.kernels.common import device_tensor, jnp_sign
 from repro_torch.kernels.ef_server.ops import ef_server_op
 from repro_torch.kernels.ef_server.ref import ef_server_ref
-from repro_torch.kernels.vote_update.ops import vote_update_op
-from repro_torch.kernels.vote_update.ref import vote_update_ref
+from repro_torch.kernels.vote_update.ops import vote_update_op, weighted_vote_update_op
+from repro_torch.kernels.vote_update.ref import vote_update_ref, weighted_vote_update_ref
 
 if TYPE_CHECKING:  # algorithm imports this module
     from repro_torch.core.algorithm import CompressionConfig
@@ -65,6 +66,21 @@ def is_vote_server(cfg: "CompressionConfig") -> bool:
 def needs_server_ef(server: str) -> bool:
     """Does this server rule carry a server-side error-feedback residual?"""
     return server == "scaled_sign_ef"
+
+
+def check_participation_server(server: str, compressor: str) -> None:
+    """Build-time gate for elastic participation: the weighted,
+    participation-normalized vote covers the majority-vote deadband
+    (``|sum w_m sign_m| >= q_frac * W``) and the mean server (divide by the
+    realized participation W instead of |S|). ``scaled_sign_ef`` keeps a
+    server-side residual calibrated against the full fleet's mean delta, which
+    cannot be re-normalized to a shifting reporting set, so it fails here."""
+    if server == "scaled_sign_ef":
+        raise ValueError(
+            f"elastic participation (a ParticipationSpec) is incompatible with server "
+            f"'scaled_sign_ef' (compressor {compressor!r}): the server-side EF residual "
+            f"is calibrated against the full fleet's mean delta and cannot be "
+            f"participation-normalized per round. Use server='majority_vote' or 'mean'.")
 
 
 def needs_shared_linf(cfg: "CompressionConfig") -> bool:
@@ -110,20 +126,32 @@ def compress_leaf(
 
     A spec with a kernel op takes the CUDA kernel on the ``cuda`` backend;
     everything else runs the plain version (chunked for the counter-indexed
-    families). ``shared_linf`` feeds the ``linf_share`` budget. Both ported
-    specs are scale-free, so the message scale is 1."""
+    families). ``shared_linf`` (the max of the workers' L-inf norms) feeds the
+    ``linf_share`` budget and the ``shared_max`` scale; without it TernGrad
+    takes each message's own norm, as the JAX engine does outside a mesh.
+
+    The kernel's param is the spec's decode scale where it has one, else the
+    budget. A scale-carrying batch returns ``scale`` of shape (workers, 1,
+    ...): each row's own norm, or the shared max for every row. Scales are
+    device reductions, never host reads."""
     backend = resolve_backend(backend, g)
     spec = get_spec(cfg.compressor)
     rows = is_batched(seed)
-    budget = resolve_budget(cfg.budget, g, shared_linf=shared_linf, rows=rows)
-    if backend == "cuda" and spec.kernel_op is not None:
-        vals = spec.kernel_op(g, budget, seed, counter_base)
-    elif spec.chunkable:
-        vals = chunked_values(spec.values, g, budget, seed, counter_base)
+    scale = spec.resolve_scale(g, shared_linf, rows=rows)
+    if scale is None:
+        param = resolve_budget(cfg.budget, g, shared_linf=shared_linf, rows=rows)
+        msg_scale = torch.ones((), dtype=torch.float32, device=g.device)
     else:
-        vals = spec.values(g, budget, seed, counter_base)
-    return CompressedGrad(values=vals,
-                          scale=torch.ones((), dtype=torch.float32, device=g.device))
+        param = msg_scale = scale
+        if rows:  # one scale per message, broadcast against (workers, ...)
+            msg_scale = scale.expand(g.shape[0]).reshape((g.shape[0],) + (1,) * (g.dim() - 1))
+    if backend == "cuda" and spec.kernel_op is not None:
+        vals = spec.kernel_op(g, param, seed, counter_base)
+    elif spec.chunkable:
+        vals = chunked_values(spec.values, g, param, seed, counter_base)
+    else:
+        vals = spec.values(g, param, seed, counter_base)
+    return CompressedGrad(values=vals, scale=msg_scale)
 
 
 def server_apply(
@@ -138,6 +166,7 @@ def server_apply(
     scale=None,
     quorum: int = 1,
     part_total=None,
+    q_frac: Optional[float] = None,
     backend: Optional[str] = None,
 ):
     """C(sum of worker messages) [+ EF] + SGD for one flat leaf.
@@ -153,22 +182,37 @@ def server_apply(
       update through the fused ``ef_server`` kernel.
     - ``mean``: p - lr * scale * vote_sum / n_sel.
 
-    ``lr`` is a host scalar. Elastic participation (``part_total``) arrives
-    with the weighted kernels (ROADMAP.md queue 3).
+    ``lr`` is a host scalar.
+
+    Elastic participation (``part_total`` + ``q_frac``): ``vote_sum`` is the
+    weighted float32 vote sum_m w_m * msg_m and ``part_total`` the realized
+    participation W = sum over reporters of w_m (a device scalar, or one value
+    per coordinate). The majority vote steps only where ``|vote_sum| >=
+    q_frac * W``, through the fused ``weighted_vote_update`` kernel. A mean
+    server takes W as its ``n_sel`` instead. ``scaled_sign_ef`` refuses
+    elastic input (``check_participation_server``).
     """
     backend = resolve_backend(backend, p)
     rule = server if server is not None else cfg.server
     if part_total is not None:
-        raise NotImplementedError(
-            "elastic participation (part_total) is not ported yet: it arrives "
-            "with weighted_vote_update (ROADMAP.md queue 3)")
+        check_participation_server(rule, cfg.compressor)
     lr32 = device_tensor(float(lr), p)
 
     def n_sel_f32():
         return torch.clamp(device_tensor(n_sel, p), min=1.0)
 
     if rule == "majority_vote":
-        if not vote_sum.is_floating_point():
+        if part_total is not None:
+            if q_frac is None:
+                raise ValueError(
+                    "elastic majority vote needs q_frac (the quorum as a fraction of "
+                    "realized participation) next to part_total")
+            wv = vote_sum.to(torch.float32)
+            if backend == "cuda":
+                new_p = weighted_vote_update_op(p, wv, part_total, lr, q_frac=float(q_frac))
+            else:
+                new_p = weighted_vote_update_ref(p, wv, part_total, lr, float(q_frac))
+        elif not vote_sum.is_floating_point():
             if backend == "cuda":
                 new_p = vote_update_op(p, vote_sum, lr, quorum=quorum)
             else:

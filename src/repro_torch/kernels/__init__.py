@@ -8,12 +8,15 @@ from __future__ import annotations
 
 from repro_torch.kernels.ef_server.kernel import ef_server_cuda
 from repro_torch.kernels.sparsign.kernel import sparsign_cuda
-from repro_torch.kernels.vote_update.kernel import vote_update_cuda
+from repro_torch.kernels.ternary.kernel import ternary_cuda
+from repro_torch.kernels.vote_update.kernel import vote_update_cuda, weighted_vote_update_cuda
 
 WRAPPERS = {
     "sparsign": sparsign_cuda,
     "vote_update": vote_update_cuda,
     "ef_server": ef_server_cuda,
+    "ternary": ternary_cuda,
+    "weighted_vote_update": weighted_vote_update_cuda,
 }
 
 

@@ -20,7 +20,7 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("sparsign", "vote_update", "ef_server")
+SOURCES = ("sparsign", "vote_update", "ef_server", "ternary", "weighted_vote_update")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,6 +37,13 @@ SIGNATURES = {
     "ef_server": ("ef_server_launch",
                   [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                    _c.c_void_p, _c.c_longlong, _c.c_void_p]),
+    "ternary": ("ternary_launch",
+                [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
+                 _c.c_longlong, _c.c_longlong, _c.c_uint32, _c.c_int, _c.c_int, _c.c_void_p]),
+    "weighted_vote_update": ("weighted_vote_update_launch",
+                             [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                              _c.c_longlong, _c.c_float, _c.c_float, _c.c_int, _c.c_int,
+                              _c.c_void_p]),
 }
 
 _LIBS: dict = {}

@@ -1,0 +1,49 @@
+"""Launch wrapper of the hand-written ternary kernel (``csrc/ternary.cu``),
+which replaces ``repro/kernels/ternary/kernel.py:ternary_compress_2d``."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.prng import MASK32
+from repro_torch.kernels import build
+from repro_torch.kernels.common import check_cuda_tensor
+from repro_torch.kernels.ternary.rules import RULES
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: rule name -> the kernel's template id (RULES' order, as csrc/ternary.cu has it)
+RULE_IDS = {name: i for i, name in enumerate(RULES)}
+
+
+def ternary_cuda(g: torch.Tensor, param: torch.Tensor, seeds: torch.Tensor,
+                 counter_base: int = 0, *, rule: str) -> torch.Tensor:
+    """int8 RULES[rule] symbols of ``g`` (rows, ...) on the card, one launch
+    for all rows.
+
+    ``seeds``: int64 CUDA tensor of ``rows`` uint32 stream seeds, row r of ``g``
+    drawing counters ``counter_base + j``. ``param``: float32 CUDA tensor with
+    one value for all rows or one per row (the rule's budget, sigma or scale).
+    Allocates the output, launches on the current stream and does not
+    synchronise."""
+    if rule not in RULE_IDS:
+        raise ValueError(f"unknown ternary rule {rule!r}; known: {sorted(RULE_IDS)}")
+    check_cuda_tensor("g", g, tuple(_DTYPES))
+    check_cuda_tensor("seeds", seeds, (torch.int64,))
+    check_cuda_tensor("param", param, (torch.float32,))
+    rows = seeds.numel()
+    if rows < 1 or g.numel() % rows or (g.dim() > 0 and rows > 1 and g.shape[0] != rows):
+        raise ValueError(f"{rows} seeds do not split g of shape {tuple(g.shape)} into rows")
+    if param.numel() not in (1, rows):
+        raise ValueError(f"param needs 1 or {rows} values, got {param.numel()}")
+    out = torch.empty(g.shape, dtype=torch.int8, device=g.device)
+    err = build.library("ternary")(
+        g.data_ptr(), out.data_ptr(), seeds.data_ptr(), param.data_ptr(),
+        int(param.numel() == rows and rows > 1), rows, g.numel() // rows,
+        int(counter_base) & MASK32, _DTYPES[g.dtype], RULE_IDS[rule],
+        torch.cuda.current_stream(g.device).cuda_stream)
+    build.check_launch("ternary", err)
+    ternary_cuda.launches += 1
+    return out
+
+
+ternary_cuda.launches = 0

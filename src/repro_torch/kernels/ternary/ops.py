@@ -1,0 +1,32 @@
+"""Public ternary ops: the CUDA kernel for a tensor on the card, the plain
+version for a tensor on the CPU. The named partials are what the compressor
+registry installs as ``kernel_op``, as ``repro.kernels.ternary.ops`` names
+them; every entry shares the signature ``(g, param, seed, counter_base)``."""
+
+from __future__ import annotations
+
+from functools import partial
+
+import torch
+
+from repro_torch.core.prng import MASK32
+from repro_torch.kernels.common import device_tensor
+from repro_torch.kernels.ternary.kernel import ternary_cuda
+from repro_torch.kernels.ternary.ref import ternary_compress_ref
+
+
+def ternary_compress_op(g: torch.Tensor, param, seed, counter_base=0, *,
+                        rule: str) -> torch.Tensor:
+    """int8 ternary RULES[rule] symbols of ``g`` (f32/bf16). ``seed`` is one
+    stream seed over g's flat index, or a 1-D sequence of per-row seeds for g
+    of shape (rows, ...); ``param`` is a scalar or one value per row."""
+    if not g.is_cuda:
+        return ternary_compress_ref(g, param, seed, counter_base, rule=rule)
+    seeds = device_tensor(seed, g, torch.int64).reshape(-1) & MASK32
+    p = device_tensor(param, g).reshape(-1)
+    return ternary_cuda(g.contiguous(), p.contiguous(), seeds, counter_base, rule=rule)
+
+
+sign_op = partial(ternary_compress_op, rule="sign")
+noisy_sign_op = partial(ternary_compress_op, rule="noisy_sign")
+stochastic_ternary_op = partial(ternary_compress_op, rule="stochastic_ternary")

@@ -5,7 +5,7 @@
 and counters running over its flat index; or a 1-D tensor of per-worker
 seeds, with ``g`` of shape (workers, ...) and every row's counters starting
 at ``counter_base`` (the batched form of ``jax.vmap`` over workers). ``param``
-is a scalar or one value per row.
+is a scalar or one value per row: the budget, sigma or scale of the rule.
 """
 
 from __future__ import annotations
@@ -41,4 +41,8 @@ def ternary_compress_ref(g: torch.Tensor, param, seed, counter_base=0, *,
         return prng.uniform01(s, idx)
 
     prm = device_tensor(param, g).reshape(-1, 1)
-    return fn(rows, u, prm).to(torch.int8).reshape(g.shape)
+    sym = fn(rows, u, prm)
+    # a NaN symbol (sign of a NaN input) is 0, as XLA's convert gives it;
+    # the float -> int8 cast itself leaves NaN undefined
+    sym = torch.where(torch.isnan(sym), torch.zeros((), device=g.device), sym)
+    return sym.to(torch.int8).reshape(g.shape)

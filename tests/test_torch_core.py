@@ -157,7 +157,7 @@ def test_bit_model_matches_jax(p):
     for coder in ("golomb", "dense", "naive_index", "packed2bit"):
         assert (tenc.ternary_stream_bits(545002, int(p * 545002), coder=coder)
                 == jenc.ternary_stream_bits(545002, int(p * 545002), coder=coder))
-    for algo in ("sparsign", "identity"):
+    for algo in tcomp.SPECS:
         assert (tenc.baseline_bits_per_round(545002, algo, nnz=p * 545002)
                 == jenc.baseline_bits_per_round(545002, algo, nnz=p * 545002))
 
@@ -165,9 +165,20 @@ def test_bit_model_matches_jax(p):
 # ---------------------------------------------------------------- registry
 
 def test_registry_rows_and_not_yet_ported_names():
-    assert sorted(tcomp.SPECS) == ["identity", "sparsign"]
-    with pytest.raises(KeyError, match="ROADMAP"):
-        tcomp.get_spec("terngrad")
+    """Every row of the JAX table but the two packed-wire rows, with the JAX
+    row's ternariness, scale protocol and server decode; those two name the
+    ROADMAP queue."""
+    from repro.core import compressors as jcomp
+    assert sorted(tcomp.SPECS) == sorted(set(jcomp.SPECS) - {"sparsign_golomb", "qsgd8"})
+    for name, spec in tcomp.SPECS.items():
+        j = jcomp.SPECS[name]
+        assert (spec.is_ternary, spec.scale_protocol, spec.server_decode, spec.chunkable,
+                spec.uplink_bits) == (j.is_ternary, j.scale_protocol, j.server_decode,
+                                      j.chunkable, j.uplink_bits), name
+        assert (spec.kernel_op is None) == (j.pallas_op is None), name
+    for name in ("sparsign_golomb", "qsgd8"):
+        with pytest.raises(KeyError, match="ROADMAP"):
+            tcomp.get_spec(name)
     with pytest.raises(KeyError, match="unknown compressor"):
         tcomp.get_spec("nope")
     g = torch.from_numpy(heavy_grad(50))
@@ -254,9 +265,16 @@ def test_server_apply_matches_jax_engine():
     # the EF scale is an L1 sum, reduced in another order by XLA and torch
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(te.numpy(), np.asarray(je), rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="queue 3"):
-        tengine.server_apply(torch.from_numpy(p), torch.from_numpy(fvotes), tmv, lr=0.1,
-                             part_total=4.0)
+    # the elastic branch: a weighted float vote against q_frac * W
+    wv = fvotes * np.float32(0.75)
+    jp, _ = jengine.server_apply(jnp.asarray(p), jnp.asarray(wv), mv, lr=0.05,
+                                 part_total=jnp.float32(6.0), q_frac=0.5, backend="jnp")
+    tp, _ = tengine.server_apply(torch.from_numpy(p), torch.from_numpy(wv), tmv, lr=0.05,
+                                 part_total=torch.tensor(6.0), q_frac=0.5)
+    np.testing.assert_array_equal(f32bits(tp), f32bits(jp))
+    with pytest.raises(ValueError, match="scaled_sign_ef"):
+        tengine.server_apply(torch.from_numpy(p), torch.from_numpy(fvotes), tef, lr=0.1,
+                             ef=torch.from_numpy(e0), n_sel=4.0, part_total=4.0)
 
 
 # ---------------------------------------------------------------- algorithm

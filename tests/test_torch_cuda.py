@@ -13,8 +13,11 @@ from repro_torch.kernels.ef_server.ops import ef_server_op
 from repro_torch.kernels.ef_server.ref import ef_server_ref
 from repro_torch.kernels.sparsign.ops import sparsign_op
 from repro_torch.kernels.sparsign.ref import sparsign_ref
-from repro_torch.kernels.vote_update.ops import vote_update_op
-from repro_torch.kernels.vote_update.ref import vote_update_ref
+from repro_torch.kernels.ternary.ops import ternary_compress_op
+from repro_torch.kernels.ternary.ref import ternary_compress_ref
+from repro_torch.kernels.ternary.rules import RULES
+from repro_torch.kernels.vote_update.ops import vote_update_op, weighted_vote_update_op
+from repro_torch.kernels.vote_update.ref import vote_update_ref, weighted_vote_update_ref
 
 
 def tbits(t: torch.Tensor) -> np.ndarray:
@@ -67,3 +70,26 @@ def test_kernels_match_plain_versions_on_card(cuda_device):
     s = torch.tensor([0.5], device=cuda_device)
     for a, b in zip(ef_server_op(d, e, s), ef_server_ref(d, e, s)):
         np.testing.assert_array_equal(tbits(a), tbits(b))
+
+
+@pytest.mark.cuda
+def test_ternary_and_weighted_vote_kernels_match_plain_versions_on_card(cuda_device):
+    """csrc/ternary.cu for each rule and csrc/weighted_vote_update.cu against
+    their plain versions on the card, bit for bit (noisy_sign included: both
+    take CUDA's logf, cosf and sqrtf)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.from_numpy(grad_like(3 * 4099, 3)).to(cuda_device, dtype).reshape(3, 4099)
+        g[0, :4] = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e-30])
+        seeds = torch.tensor([1, 2, 0xFFFFFFFF], device=cuda_device)
+        param = torch.tensor([0.5, 1.0, float("nan")], device=cuda_device)
+        for rule in RULES:
+            np.testing.assert_array_equal(
+                tbits(ternary_compress_op(g, param, seeds, 2**32 - 9, rule=rule)),
+                tbits(ternary_compress_ref(g, param, seeds, 2**32 - 9, rule=rule)))
+        w = torch.randn(4099, device=cuda_device).to(dtype)
+        v = torch.randint(-5, 6, (4099,), device=cuda_device).float() * 0.5
+        v[:3] = torch.tensor([-0.0, float("nan"), 0.0])
+        for wtot in (torch.tensor(3.0, device=cuda_device), torch.rand(4099, device=cuda_device) * 5):
+            np.testing.assert_array_equal(
+                tbits(weighted_vote_update_op(w, v, wtot, 0.01, q_frac=0.25)),
+                tbits(weighted_vote_update_ref(w, v, wtot, 0.01, 0.25)))

@@ -162,10 +162,22 @@ def test_integer_vote_round_matches_jax_bitwise():
 
 
 def test_elastic_fields_fail_at_build():
-    cfg = FLConfig(n_workers=2, q_frac=0.5)
-    with pytest.raises(ValueError, match="queue 3"):
-        build_round_fn(lambda v, x, y: v.sum(), cfg, np.zeros((2, 1)), np.zeros((2, 1)),
-                       device="cpu")
+    """Elastic participation with the EF server fails when the round is
+    built, as in the JAX package: the server residual cannot be
+    participation-normalized. A malformed elastic field fails there too."""
+    ef = CompressionConfig(server="scaled_sign_ef")
+    for elastic in (dict(q_frac=0.5), dict(dropout=0.1), dict(worker_weights=(1.0, 2.0))):
+        with pytest.raises(ValueError, match="scaled_sign_ef"):
+            build_round_fn(lambda v, x, y: v.sum(), FLConfig(n_workers=2, comp=ef, **elastic),
+                           np.zeros((2, 1)), np.zeros((2, 1)), device="cpu")
+    with pytest.raises(ValueError, match="scaled_sign_ef"):
+        jengine.check_participation_server("scaled_sign_ef", "sparsign")
+    with pytest.raises(ValueError, match="quorum fraction"):
+        build_round_fn(lambda v, x, y: v.sum(), FLConfig(n_workers=2, q_frac=1.5),
+                       np.zeros((2, 1)), np.zeros((2, 1)), device="cpu")
+    rf = build_round_fn(lambda v, x, y: v.sum(), FLConfig(n_workers=2, q_frac=0.5),
+                        np.zeros((2, 1)), np.zeros((2, 1)), device="cpu")
+    assert rf.q_frac == 0.5
 
 
 # ---------------------------------------------------------------- run level

@@ -26,8 +26,10 @@ from repro_torch.kernels.ef_server.ref import ef_scale, ef_server_ref
 from repro_torch.kernels.sparsign.kernel import sparsign_cuda
 from repro_torch.kernels.sparsign.ops import sparsign_op
 from repro_torch.kernels.sparsign.ref import sparsign_ref
-from repro_torch.kernels.vote_update.kernel import vote_update_cuda
-from repro_torch.kernels.vote_update.ops import vote_update_op
+from repro_torch.kernels.ternary.kernel import ternary_cuda
+from repro_torch.kernels.ternary.ops import ternary_compress_op
+from repro_torch.kernels.vote_update.kernel import vote_update_cuda, weighted_vote_update_cuda
+from repro_torch.kernels.vote_update.ops import vote_update_op, weighted_vote_update_op
 from repro_torch.kernels.vote_update.ref import vote_update_ref
 
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
@@ -197,6 +199,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         vote_update_cuda(g, torch.zeros(8, dtype=torch.int32), 0.1)
     with pytest.raises(ValueError, match="CUDA"):
         ef_server_cuda(g, g, torch.ones(1))
+    with pytest.raises(ValueError, match="CUDA"):
+        ternary_cuda(g, torch.ones(1), torch.zeros(1, dtype=torch.int64), rule="noisy_sign")
+    with pytest.raises(ValueError, match="CUDA"):
+        weighted_vote_update_cuda(g, g, torch.ones(1), 0.1, 0.5)
 
 
 def test_cpu_ops_take_plain_versions_and_count_no_launch():
@@ -205,4 +211,7 @@ def test_cpu_ops_take_plain_versions_and_count_no_launch():
     sparsign_op(g, 1.0, 3)
     vote_update_op(g, torch.ones(100, dtype=torch.int8), 0.1)
     ef_server_op(g, g)
-    assert tkernels.launch_counts() == {"sparsign": 0, "vote_update": 0, "ef_server": 0}
+    ternary_compress_op(g, 0.5, 3, rule="noisy_sign")
+    weighted_vote_update_op(g, g, 2.0, 0.1, q_frac=0.5)
+    assert tkernels.launch_counts() == {"sparsign": 0, "vote_update": 0, "ef_server": 0,
+                                        "ternary": 0, "weighted_vote_update": 0}
