@@ -24,7 +24,22 @@ Phases, in order; any failure exits non-zero before the last line:
      same sources equals backend="torch" bit for bit and waits for the card
      nowhere (sync debug mode);
   4. the integer-vote round: 20 workers' sparsign messages summed in int32,
-     then engine.server_apply, which takes the vote_update kernel.
+     then engine.server_apply, which takes the vote_update kernel;
+  5. the 2-bit packed wire's kernels (sparsign_pack2bit, ternary_pack2bit in
+     each rule, unpack2bit_sum, unpack2bit_wsum) against their plain versions
+     on the card, bit for bit, at w_down's 707,788,800 coordinates in bf16,
+     odd sizes, +-0/NaN/+-inf gradients, M = 1, 4 and 20 messages, zero and
+     fractional weights; timed against their bounds;
+  6. the data-parallel LM trainer: qwen1.5-4b at full width through
+     repro_torch.launch.train's build path, M = 4 workers on the card, one
+     sequence of 4096 tokens each (train_4k's length; the global batch cut
+     from 256 to 4), 3 steps each of sparsign/majority vote on the
+     allgather_packed, psum and hier (2 x 2) wires (parameters bitwise equal
+     across the three), sparsign/scaled_sign_ef, sign, noisy_sign and
+     TernGrad on allgather_packed, and the elastic vote (weights, dropout
+     0.25); per step loss, nnz, wire bytes (== the uplink ledger), host
+     seconds and peak memory; launch counts checked with every plain version
+     barred from running; one step traced with torch.profiler.
 It prints one JSON line of kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Results also go to
 chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device.
@@ -32,8 +47,10 @@ chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -45,14 +62,24 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 D_CNN = 545002
 D_MLP = 235146
+N_WDOWN = 40 * 6912 * 2560   # qwen1.5-4b's largest leaves (w_down, w_gate, w_up)
 REPLACES = {
     "sparsign": "src/repro/kernels/sparsign/kernel.py:48",
     "vote_update": "src/repro/kernels/vote_update/kernel.py:32",
     "ef_server": "src/repro/kernels/ef_server/kernel.py:30",
     "ternary": "src/repro/kernels/ternary/kernel.py:79",
     "weighted_vote_update": "src/repro/kernels/vote_update/kernel.py:58",
+    "sparsign_pack2bit": "src/repro/kernels/sparsign_pack2bit/kernel.py:61",
+    "ternary_pack2bit": "src/repro/kernels/ternary/kernel.py:99",
+    "unpack2bit_sum": "src/repro/kernels/pack2bit/kernel.py:91",
+    "unpack2bit_wsum": "src/repro/kernels/pack2bit/kernel.py:111",
 }
 SOURCE = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
+SOURCE.update({"ternary_pack2bit": "src/repro_torch/csrc/ternary.cu",
+               "unpack2bit_sum": "src/repro_torch/csrc/unpack2bit.cu",
+               "unpack2bit_wsum": "src/repro_torch/csrc/unpack2bit.cu"})
+WIRE_KERNELS = ("sparsign_pack2bit", "ternary_pack2bit", "unpack2bit_sum", "unpack2bit_wsum")
+TRAINER_SEQ_LEN = 4096       # train_4k's sequence, one a worker
 
 
 def check(cond, msg: str) -> None:
@@ -152,11 +179,38 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 # the highest scalar rate, so the bound stays a lower bound.
 OPS_PER_COORD = {"sparsign": 23, "sign": 4, "noisy_sign": 39, "stochastic_ternary": 23}
 OPS_PER_ROW = {"sparsign": 9, "sign": 0, "noisy_sign": 36, "stochastic_ternary": 11}
+# The 2-bit wire: packing a symbol costs 3 (its code: a compare and a select;
+# a shift and an or into the byte), decoding a code 6 per message (shift,
+# and, two compares for the vote, the add; the weighted sum's multiply).
+PACK_OPS_PER_COORD = 3
+DECODE_OPS_PER_CODE = 6
 
 
 def rule_ops(rule: str, rows: int, n: int) -> int:
     """Operations the drawing rule needs for a (rows, n) input."""
     return rows * n * OPS_PER_COORD[rule] + rows * OPS_PER_ROW[rule]
+
+
+def measure(timer, fn, plain_fn, nbytes: float, ops: float, plain_reps: int = 30,
+            library=None) -> dict:
+    """Kernel, no-spin and plain times, the library call's where there is
+    one, and the bound of the work."""
+    t = timer(fn)
+    t_b, by = bound(nbytes, ops)
+    return {"ms": t["ms"], "ms_p25": t["p25"], "ms_p75": t["p75"],
+            "no_spin_ms": timer(fn, spin=False)["ms"],
+            "plain_ms": timer(plain_fn, reps=plain_reps)["ms"],
+            "library_ms": timer(library)["ms"] if library else None,
+            "bound_ms": t_b, "bound_by": by}
+
+
+def print_timings(timings: dict) -> None:
+    for key, t in timings.items():
+        lib = f", library {t['library_ms']:.4f} ms" if t["library_ms"] is not None else ""
+        print(f"[timing] {key}: kernel {t['ms']:.4f} ms (quartiles {t['ms_p25']:.4f}-"
+              f"{t['ms_p75']:.4f}; no spin {t['no_spin_ms']:.4f}), plain {t['plain_ms']:.4f} ms"
+              f"{lib}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"{t['bound_ms'] / t['ms']:.1%} of bound")
 
 
 def same_server_half(torch, label, rf, v0, r=0):
@@ -183,7 +237,7 @@ def traced(torch, report, label, rf, v0) -> None:
     """Trace one round of ``rf`` (profile_round) and report where its time went."""
     split = profile_round(torch, rf, v0)
     report.setdefault("round_profile", []).append({"setting": label, **split})
-    top = ", ".join(f"{k} {v:.1%}" for k, v in split["top_kernels"].items())
+    top = ", ".join(f"{k[:60]} {v:.1%}" for k, v in split["top_kernels"].items())
     print(f"[profile] {label}: round {split['round_ms']:.2f} ms, device busy "
           f"{split['busy_share']:.1%}, port kernels {split['port_kernel_share']:.2%} "
           f"of device time; top: {top}")
@@ -199,35 +253,48 @@ def profile_round(torch, rf, v) -> dict:
     round's host ms, the share of it during which any kernel ran (the union
     of kernel intervals), the port's kernels' share of the summed kernel time
     and the five largest kernels' shares of it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     ef = torch.zeros_like(v)
     rf(v, ef, 0)
     torch.cuda.synchronize()
+    split = profile_call(torch, lambda: rf(v, ef, 1))
+    split["round_ms"] = split.pop("call_ms")
+    return split
+
+
+def profile_call(torch, fn) -> dict:
+    """Trace one call of ``fn`` (ending in a sync) with torch.profiler: its
+    host ms, the share of it during which any kernel ran, the port's
+    kernels' share of the summed kernel time, each port kernel's share and
+    the five largest kernels' shares."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rf(v, ef, 1)
+        fn()
         torch.cuda.synchronize()
-        round_ms = (time.perf_counter() - t0) * 1e3
+        call_ms = (time.perf_counter() - t0) * 1e3
     kern, spans = {}, []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start:
             kern[e.name] = kern.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
             spans.append((e.time_range.start, e.time_range.end))
     total = sum(kern.values())
-    check(total > 0, "the profiler saw no device time in a round")
+    check(total > 0, "the profiler saw no device time")
     busy_us, reach = 0.0, float("-inf")
     for start, end in sorted(spans):
         busy_us += max(0.0, end - max(start, reach))
         reach = max(reach, end)
-    ours = sum(t for k, t in kern.items()
-               if any(f"{n}_kernel" in k for n in REPLACES))
+    per = {n: sum(t for k, t in kern.items() if f"{n}_kernel" in k
+                  and not (n == "vote_update" and "weighted_vote_update" in k))
+           for n in REPLACES}
+    ours = sum(per.values())
     top = dict(sorted(kern.items(), key=lambda kv: -kv[1])[:5])
-    return {"round_ms": round_ms, "kernel_ms": total, "busy_ms": busy_us / 1e3,
-            "busy_share": busy_us / 1e3 / round_ms,
+    return {"call_ms": call_ms, "kernel_ms": total, "busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / 1e3 / call_ms,
             "port_kernel_ms": ours, "port_kernel_share": ours / total,
-            "top_kernels": {k[:60]: t / total for k, t in top.items()}}
+            "kernel_share": {n: t / total for n, t in per.items() if t > 0},
+            "top_kernels": {k: t / total for k, t in top.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -367,13 +434,7 @@ def phase_kernels(torch, timer, report):
     timings = {}
 
     def record(key, fn, plain_fn, nbytes, ops, plain_reps=30, library=None):
-        t = timer(fn)
-        t_b, by = bound(nbytes, ops)
-        timings[key] = {"ms": t["ms"], "ms_p25": t["p25"], "ms_p75": t["p75"],
-                        "no_spin_ms": timer(fn, spin=False)["ms"],
-                        "plain_ms": timer(plain_fn, reps=plain_reps)["ms"],
-                        "library_ms": timer(library)["ms"] if library else None,
-                        "bound_ms": t_b, "bound_by": by}
+        timings[key] = measure(timer, fn, plain_fn, nbytes, ops, plain_reps, library)
 
     # sparsign and ternary: operations are the rule's own (rule_ops)
     for rows in (1, 4, 20, 100):
@@ -415,12 +476,7 @@ def phase_kernels(torch, timer, report):
                        lambda: weighted_vote_update_cuda(w, v, wtot, 0.03, 0.25),
                        lambda: weighted_vote_update_ref(w, v, wtot, 0.03, 0.25),
                        n * (2 * w.element_size() + 4) + wtot.numel() * 4, n * 3)
-    for key, t in timings.items():
-        lib = f", library {t['library_ms']:.4f} ms" if t["library_ms"] is not None else ""
-        print(f"[timing] {key}: kernel {t['ms']:.4f} ms (quartiles {t['ms_p25']:.4f}-"
-              f"{t['ms_p75']:.4f}; no spin {t['no_spin_ms']:.4f}), plain {t['plain_ms']:.4f} ms"
-              f"{lib}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
-              f"{t['bound_ms'] / t['ms']:.1%} of bound")
+    print_timings(timings)
     report["timings"] = timings
     main_shape = {"sparsign": f"sparsign 100x{D_CNN} f32",
                   "vote_update": f"vote_update {D_CNN} f32/int32",
@@ -651,6 +707,284 @@ def phase_baselines(torch, report, totals):
     print(f"[rosenbrock] {json.dumps(report['rosenbrock'])}")
 
 
+def chunked_plain(ref, g, param, seed, counter_base=0, chunk=1 << 24, **kw):
+    """A fused pack op's plain version over a large input in chunks of whole
+    row blocks (2^24 coordinates = 32,768 canonical rows, a multiple of the
+    32-row pad) with the counter running on: the bytes of one call, with the
+    int64 hash temporaries of one chunk."""
+    import torch
+    flat = g.reshape(-1)
+    return torch.cat([ref(flat[s:s + chunk], param, seed, (counter_base + s) & 0xFFFFFFFF, **kw)
+                      for s in range(0, flat.numel(), chunk)])
+
+
+def phase_wire_kernels(torch, timer, report):
+    """The 2-bit packed wire's four kernels against their plain versions on
+    the card, bit for bit, and their times against their bounds."""
+    from repro_torch.kernels.common import canonical_rows
+    from repro_torch.kernels.pack2bit.kernel import unpack2bit_sum_cuda, unpack2bit_wsum_cuda
+    from repro_torch.kernels.pack2bit.ref import unpack2bit_sum_ref, unpack2bit_wsum_ref
+    from repro_torch.kernels.sparsign_pack2bit.kernel import sparsign_pack2bit_cuda
+    from repro_torch.kernels.sparsign_pack2bit.ops import sparsign_pack2bit_op
+    from repro_torch.kernels.sparsign_pack2bit.ref import sparsign_pack2bit_ref
+    from repro_torch.kernels.ternary.kernel import ternary_pack2bit_cuda
+    from repro_torch.kernels.ternary.ops import ternary_pack2bit_op
+    from repro_torch.kernels.ternary.ref import ternary_pack2bit_ref
+    from repro_torch.kernels.ternary.rules import RULES
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dev = "cuda"
+    errs = {name: 0.0 for name in WIRE_KERNELS}
+    params = {"sparsign": 1.0, "sign": 0.0, "noisy_sign": 0.5, "stochastic_ternary": 1.5}
+
+    def grads(n, dtype):
+        g = torch.randn(n, generator=gen, device=dev) * 0.5
+        if n == 4099:   # +-0 / NaN / +-inf / tiny / huge, and a zero in 97
+            g[0:8] = torch.tensor([0.0, -0.0, float("nan"), float("inf"), -float("inf"),
+                                   1e-30, -1e30, -0.0], device=dev)
+            g[::97] = 0.0
+        return g.to(dtype)
+
+    # -- the fused packs: (n, dtype, counter_base); w_down's size is the path's.
+    # sparsign runs through its own kernel and as the ternary kernel's rule
+    cases = [(N_WDOWN, torch.bfloat16, 0), (12345, torch.float32, 2**32 - 5000),
+             (12345, torch.bfloat16, 17), (4099, torch.float32, 0), (1 << 24, torch.float32, 0)]
+    for n, dtype, cb in cases:
+        g = grads(n, dtype)
+        seed = int(torch.randint(0, 2**32, (1,), generator=gen, device=dev))
+        checks = [("sparsign_pack2bit", "sparsign")] + [("ternary_pack2bit", r) for r in RULES]
+        for kind, rule in checks:
+            p = params[rule]
+            if kind == "sparsign_pack2bit":
+                k = sparsign_pack2bit_op(g, p, seed, cb)
+                r = chunked_plain(sparsign_pack2bit_ref, g, p, seed, cb)
+            else:
+                k = ternary_pack2bit_op(g, p, seed, cb, rule=rule)
+                r = chunked_plain(ternary_pack2bit_ref, g, p, seed, cb, rule=rule)
+            torch.cuda.synchronize()
+            check(k.shape == (canonical_rows(n), 128) and same_bits(k, r),
+                  f"{kind} {rule} n={n} {dtype} differs from its plain version in "
+                  f"{int((k != r).sum())} bytes")
+            errs[kind] = max(errs[kind], max_abs_err(k, r))
+            del k, r
+        print(f"[wire] sparsign_pack2bit and ternary_pack2bit (every rule) n={n} "
+              f"{str(dtype)[6:]} cb={cb}: bitwise ok")
+        del g
+
+    # -- the decode-sums: M messages of random bytes (code 3 included)
+    for m, rows in ((1, canonical_rows(N_WDOWN)), (4, canonical_rows(N_WDOWN)),
+                    (20, canonical_rows(N_WDOWN)), (3, canonical_rows(12345))):
+        p = torch.randint(0, 256, (m, rows, 128), generator=gen, device=dev, dtype=torch.uint8)
+        w = torch.rand(m, generator=gen, device=dev) * 2
+        w[::2] = torch.tensor([0.0, 1.0, 0.3, 1.7, 0.5] * 4, device=dev)[:w[::2].numel()]
+        k, r = unpack2bit_sum_cuda(p), unpack2bit_sum_ref(p)
+        torch.cuda.synchronize()
+        check(same_bits(k, r), f"unpack2bit_sum M={m} rows={rows} differs from its plain version")
+        errs["unpack2bit_sum"] = max(errs["unpack2bit_sum"], max_abs_err(k, r))
+        del k, r
+        for wt in (w, torch.zeros(m, device=dev)):
+            k, r = unpack2bit_wsum_cuda(p, wt), unpack2bit_wsum_ref(p, wt)
+            torch.cuda.synchronize()
+            check(same_bits(k, r), f"unpack2bit_wsum M={m} rows={rows} differs from its plain "
+                                   f"version in {int((bits(k) != bits(r)).sum())} values")
+            errs["unpack2bit_wsum"] = max(errs["unpack2bit_wsum"], max_abs_err(k, r))
+            del k, r
+        print(f"[wire] unpack2bit_sum and unpack2bit_wsum (zero and fractional weights) M={m} "
+              f"rows={rows}: bitwise ok")
+        del p
+
+    # -- timing at the path's shapes: w_down in bf16, M = 4 (and 1, 20)
+    timings = {}
+    n, rows = N_WDOWN, canonical_rows(N_WDOWN)
+    g = grads(n, torch.bfloat16)
+    seed = torch.full((1,), 12345, dtype=torch.int64, device=dev)
+    for rule in ("sparsign",) + tuple(RULES):
+        prm = torch.full((1,), params[rule], device=dev)
+        seed0, prm0 = seed[0], prm[0]   # the plain versions take one stream as a 0-d seed
+        nbytes = n * 2 + rows * 128 + 12
+        ops = n * (OPS_PER_COORD[rule] + PACK_OPS_PER_COORD) + OPS_PER_ROW[rule]
+        if rule == "sparsign":
+            timings[f"sparsign_pack2bit w_down bf16"] = measure(
+                timer, lambda: sparsign_pack2bit_cuda(g, prm, seed),
+                lambda: chunked_plain(sparsign_pack2bit_ref, g, prm0, seed0), nbytes, ops,
+                plain_reps=3)
+        timings[f"ternary_pack2bit {rule} w_down bf16"] = measure(
+            timer, lambda: ternary_pack2bit_cuda(g, prm, seed, rule=rule),
+            lambda: chunked_plain(ternary_pack2bit_ref, g, prm0, seed0, rule=rule), nbytes, ops,
+            plain_reps=3)
+    del g
+    for m in (1, 4, 20):
+        p = torch.randint(0, 256, (m, rows, 128), generator=gen, device=dev, dtype=torch.uint8)
+        w = torch.rand(m, generator=gen, device=dev) * 2
+        nbytes = m * rows * 128 + rows * 512 * 4
+        ops = m * rows * 512 * DECODE_OPS_PER_CODE
+        timings[f"unpack2bit_sum M={m} w_down"] = measure(
+            timer, lambda: unpack2bit_sum_cuda(p), lambda: unpack2bit_sum_ref(p), nbytes, ops,
+            plain_reps=3)
+        timings[f"unpack2bit_wsum M={m} w_down"] = measure(
+            timer, lambda: unpack2bit_wsum_cuda(p, w), lambda: unpack2bit_wsum_ref(p, w),
+            nbytes + m * 4, ops, plain_reps=3)
+        del p
+    print_timings(timings)
+    report["wire_timings"] = timings
+    main_shape = {"sparsign_pack2bit": "sparsign_pack2bit w_down bf16",
+                  "ternary_pack2bit": "ternary_pack2bit sign w_down bf16",
+                  "unpack2bit_sum": "unpack2bit_sum M=4 w_down",
+                  "unpack2bit_wsum": "unpack2bit_wsum M=4 w_down"}
+    return errs, {k: timings[v] for k, v in main_shape.items()}
+
+
+@contextlib.contextmanager
+def plain_versions_barred():
+    """Every plain version of a kernel on the trainer's path raises while the
+    block runs, so a counted run shows that none ran on the card."""
+    import repro_torch.core.engine as engine_mod
+    import repro_torch.dist.collectives as coll_mod
+    import repro_torch.kernels.pack2bit.ops as pack_ops
+    import repro_torch.kernels.sparsign.ops as sparsign_ops
+    import repro_torch.kernels.sparsign_pack2bit.ops as spack_ops
+    import repro_torch.kernels.ternary.ops as ternary_ops
+    import repro_torch.kernels.vote_update.ops as vote_ops
+    import repro_torch.kernels.ef_server.ops as ef_ops
+
+    names = [(engine_mod, "pack2bit_ref"), (engine_mod, "vote_update_ref"),
+             (engine_mod, "weighted_vote_update_ref"), (engine_mod, "ef_server_ref"),
+             (coll_mod, "unpack2bit_sum_ref"), (coll_mod, "unpack2bit_wsum_ref"),
+             (pack_ops, "unpack2bit_sum_ref"), (pack_ops, "unpack2bit_wsum_ref"),
+             (sparsign_ops, "sparsign_ref"),
+             (spack_ops, "sparsign_pack2bit_ref"), (ternary_ops, "ternary_compress_ref"),
+             (ternary_ops, "ternary_pack2bit_ref"), (vote_ops, "vote_update_ref"),
+             (vote_ops, "weighted_vote_update_ref"), (ef_ops, "ef_server_ref")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in names]
+
+    def barred(label):
+        def fn(*a, **k):
+            raise RuntimeError(f"a plain version ran on the trainer's path: {label}")
+        return fn
+
+    try:
+        for mod, name, _ in saved:
+            setattr(mod, name, barred(f"{mod.__name__}.{name}"))
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def phase_trainer(torch, report, totals):
+    """qwen1.5-4b at full width through repro_torch.launch.train, M = 4
+    workers on the card, 3 steps a run."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.core import engine
+    from repro_torch.core.compressors import tree_leaves
+    from repro_torch.dist import collectives
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import loop
+
+    steps, m, leaves = 3, 4, 15
+    base = ["--arch", "qwen1.5-4b", "--full", "--host-data", str(m), "--batch", str(m),
+            "--seq-len", str(TRAINER_SEQ_LEN), "--steps", str(steps), "--seed", "0"]
+    sparsign = ["--compressor", "sparsign", "--budget-kind", "l2_norm", "--budget", "0.1"]
+    majority = ["--server", "majority_vote"]
+    packed = ["--vote-impl", "allgather_packed"]
+    voted = dict(unpack2bit_sum=leaves, vote_update=leaves)
+    runs = [  # label, flags, worker group (None: --host-data), launches a step
+        ("sparsign/majority_vote psum", sparsign + majority + ["--vote-impl", "psum"], None,
+         dict(sparsign=leaves * m, vote_update=leaves)),
+        ("sparsign/majority_vote hier 2x2", sparsign + majority + ["--vote-impl", "hier"],
+         ((2, 2), ("pod", "data")), dict(sparsign=leaves * m, vote_update=leaves)),
+        ("sparsign/majority_vote allgather_packed", sparsign + majority + packed, None,
+         dict(sparsign_pack2bit=leaves * m, **voted)),
+        ("sparsign/scaled_sign_ef allgather_packed", sparsign + ["--server", "scaled_sign_ef"]
+         + packed, None, dict(sparsign_pack2bit=leaves * m, unpack2bit_sum=leaves,
+                              ef_server=leaves)),
+        ("sign/majority_vote allgather_packed", ["--compressor", "sign"] + majority + packed,
+         None, dict(ternary_pack2bit=leaves * m, **voted)),
+        ("noisy_sign/majority_vote allgather_packed",
+         ["--compressor", "noisy_sign", "--budget", "1e-4"] + majority + packed, None,
+         dict(ternary_pack2bit=leaves * m, **voted)),
+        ("terngrad/mean allgather_packed", ["--compressor", "terngrad", "--server", "mean"]
+         + packed, None, dict(ternary_pack2bit=leaves * m, unpack2bit_sum=leaves)),
+        ("elastic sparsign/majority_vote allgather_packed", sparsign + majority + packed
+         + ["--worker-weights", "1.5,0.5,2,1", "--dropout", "0.25"], None,
+         dict(sparsign_pack2bit=leaves * m, unpack2bit_wsum=leaves,
+              weighted_vote_update=leaves)),
+    ]
+    reference = None   # the psum run's parameters, for the three-wire comparison
+    for label, flags, mesh, per_step in runs:
+        args = launch.parser().parse_args(base + flags)
+        group = make_mesh(*mesh) if mesh is not None else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cfg, model, group, step, state, comp = launch.build_everything(args, group=group)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        batch_fn = launch.batch_fn_for(cfg, args)
+        peaks = []   # GB at each log point, just after the step's sync
+        kernels.reset_launch_counts()
+        with plain_versions_barred():
+            state, history = loop.run(
+                step, state, batch_fn, loop.LoopConfig(total_steps=steps, log_every=1),
+                log=lambda line: peaks.append(torch.cuda.max_memory_allocated() / 1e9))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = expected(**{k: v * steps for k, v in per_step.items()})
+        check(counts == want, f"trainer {label}: launches {counts}, expected {want}")
+        for k in totals:
+            totals[k] += counts[k]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        share = engine.needs_shared_linf(comp)
+        ledger = float(np.float32(sum(
+            collectives.uplink_ledger(step.mode, step.wire, math.prod(sd.shape), share_linf=share)
+            for sd in tree_leaves(model.param_shapes()))))
+        walls = [h["wall_s"] for h in history]
+        step_s = [b - a for a, b in zip([0.0] + walls[:-1], walls)]
+        for h, s_, pk in zip(history, step_s, peaks):
+            check(math.isfinite(h["loss"]), f"trainer {label}: non-finite loss {h['loss']}")
+            check(h["wire_bytes_per_device"] == ledger,
+                  f"trainer {label}: wire bytes {h['wire_bytes_per_device']} != ledger {ledger}")
+            print(f"[trainer] {label} step {h['step']}: loss {h['loss']:.6f} nnz_frac "
+                  f"{h['nnz_frac']:.6g} wire_bytes_per_device {h['wire_bytes_per_device']:.10g} "
+                  f"participated {h['participated']:g} host {s_:.3f} s peak {pk:.2f} GB")
+        line = {"run": label, "layers": cfg.n_layers, "workers": m,
+                "tokens_per_worker": TRAINER_SEQ_LEN, "build_s": build_s, "step_s": step_s,
+                "peak_gb": peak_gb, "loss": [h["loss"] for h in history],
+                "nnz_frac": [h["nnz_frac"] for h in history],
+                "participated": [h["participated"] for h in history], "peak_gb_by_step": peaks,
+                "wire_bytes_per_device": ledger, "launches": counts}
+        report.setdefault("trainer", []).append(line)
+        print(f"[trainer] {label}: {cfg.n_layers} layers, build {build_s:.2f} s, steps "
+              f"{[round(x, 3) for x in step_s]} s, peak {peak_gb:.2f} GB, launches {counts}")
+        params = tree_leaves(state.params)
+        check(all(bool(torch.isfinite(p).all()) for p in params),
+              f"trainer {label}: non-finite parameters")
+        if reference is None:
+            reference = params
+        elif label.startswith("sparsign/majority_vote"):
+            same = all(torch.equal(bits(a), bits(b)) for a, b in zip(params, reference))
+            check(same, f"trainer {label}: parameters differ from the psum run")
+            print(f"[trainer] {label}: parameters bitwise equal to the psum run")
+        if label == "sparsign/majority_vote allgather_packed":
+            # where a step's device time goes: one more step of this run,
+            # traced after its counted steps (these launches are not counted)
+            reference = params = None
+            batch = batch_fn(steps)
+            split = profile_call(torch, lambda: step(state, batch))
+            report["trainer_profile"] = split
+            shares = ", ".join(f"{k} {v:.3%}" for k, v in split["kernel_share"].items())
+            top = ", ".join(f"{k[:60]} {v:.1%}" for k, v in split["top_kernels"].items())
+            print(f"[profile] trainer step ({label}, {cfg.n_layers} layers): "
+                  f"{split['call_ms']:.1f} ms, device busy {split['busy_share']:.1%}, port "
+                  f"kernels {split['port_kernel_share']:.3%} of device time ({shares}); "
+                  f"top: {top}")
+        del params, step, state, model
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -672,19 +1006,25 @@ def main() -> int:
     built = build.build_all()
     for name in build.SOURCES:
         build.library(name)
-    print(f"[build] {time.perf_counter() - t0:.2f} s wall; per source {built}")
+    build_s = time.perf_counter() - t0
+    print(f"[build] {build_s:.2f} s wall; per source {built}")
     for name, entry in build.BUILD_LOG.items():
         for line in entry["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
 
-    report = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
+    report = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+              "build": {"wall_s": build_s, "per_source_s": built}}
     timer = Timer(torch)
     errs, main_times = phase_kernels(torch, timer, report)
+    wire_errs, wire_times = phase_wire_kernels(torch, timer, report)
+    errs.update(wire_errs)
+    main_times.update(wire_times)
     del timer
     torch.cuda.empty_cache()
     totals = phase_fl(torch, report)
     phase_baselines(torch, report, totals)
+    phase_trainer(torch, report, totals)
     check(all(totals[k] > 0 for k in totals), f"a kernel never launched on the path: {totals}")
 
     rows = []

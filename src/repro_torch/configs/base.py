@@ -1,0 +1,68 @@
+"""Config schema of the model zoo, the port's copy of ``repro.configs.base``.
+
+A model is ``n_layers`` blocks arranged as ``n_repeats`` repetitions of a
+``pattern`` (a tuple of LayerSpec); parameters of a pattern position are
+stacked over the repeats, as in the JAX package, so the parameter leaves
+(and the seeds the trainer derives from their order) are the same. Only the
+fields the ported model reads are kept; the MoE, Mamba and M-RoPE families
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    mixer: str = "attn"            # attn | mamba
+    window: Optional[int] = None   # sliding-window width (attn only); None = global
+    use_rope: bool = True
+    moe: bool = False              # routed-experts FFN instead of dense
+    ffn: bool = True               # False: mixer-only block
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
+    tail_pattern: Tuple[LayerSpec, ...] = ()
+    d_head: Optional[int] = None   # default d_model // n_heads
+    qkv_bias: bool = False
+    causal: bool = True
+    input_kind: str = "tokens"
+    mlp_variant: str = "swiglu"
+    tie_embeddings: bool = False
+    rope_theta: float = 10000.0
+    mrope: bool = False
+    norm_eps: float = 1e-6
+    dtype: str = "bfloat16"
+    attn_chunk: int = 1024         # kv-chunk of the online-softmax attention
+    loss_chunk: int = 512          # seq-chunk of the softmax-xent loop
+    remat: bool = True
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head if self.d_head is not None else self.d_model // self.n_heads
+
+    @property
+    def n_repeats(self) -> int:
+        body = self.n_layers - len(self.tail_pattern)
+        if body % len(self.pattern):
+            raise ValueError(f"{self.name}: {body} layers are not whole repeats of a "
+                             f"{len(self.pattern)}-layer pattern")
+        return body // len(self.pattern)
+
+    @property
+    def activation_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)

@@ -1,0 +1,42 @@
+"""Architecture registry of the port: ``--arch <id>`` resolution with the
+smoke variants and the trainer mode, for the architectures the port runs.
+The JAX registry's other entries raise and name the ported ones."""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.configs import qwen15_4b
+from repro_torch.configs.base import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchEntry:
+    arch_id: str
+    module: object
+    trainer_mode: str      # simple | streamed
+
+
+_ENTRIES = [
+    ArchEntry("qwen1.5-4b", qwen15_4b, "simple"),
+]
+
+REGISTRY = {e.arch_id: e for e in _ENTRIES}
+ARCH_IDS = [e.arch_id for e in _ENTRIES]
+
+
+def get_entry(arch_id: str) -> ArchEntry:
+    try:
+        return REGISTRY[arch_id]
+    except KeyError:
+        raise KeyError(f"arch {arch_id!r} is not ported (or unknown); ported: "
+                       f"{ARCH_IDS}") from None
+
+
+def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
+    e = get_entry(arch_id)
+    return e.module.smoke_config() if smoke else e.module.config()
+
+
+def trainer_mode(arch_id: str) -> str:
+    return get_entry(arch_id).trainer_mode

@@ -42,6 +42,7 @@ class CompressionConfig:
     server: str = "majority_vote"        # majority_vote | scaled_sign_ef | mean
     local_steps: int = 1                 # tau (Alg. 2); 1 recovers Alg. 1
     local_budget: Optional[float] = None # B_l for the inner compressed steps
+    worker_sample_fraction: float = 1.0  # p_s: the trainer's per-round worker sampling
 
     def __post_init__(self):
         tau = int(self.local_steps)

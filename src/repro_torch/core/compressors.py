@@ -22,7 +22,10 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.kernels.sparsign.ops import sparsign_op
-from repro_torch.kernels.ternary.ops import noisy_sign_op, sign_op, stochastic_ternary_op
+from repro_torch.kernels.sparsign_pack2bit.ops import sparsign_pack2bit_op
+from repro_torch.kernels.ternary.ops import (noisy_sign_op, noisy_sign_pack2bit_op, sign_op,
+                                             sign_pack2bit_op, stochastic_ternary_op,
+                                             stochastic_ternary_pack2bit_op)
 from repro_torch.kernels.ternary.ref import as_rows, ternary_compress_ref
 
 
@@ -160,6 +163,10 @@ SCALE_PROTOCOLS = ("none", "local_norm", "shared_max")
 #: what the aggregated message means to the server: scale-free votes, votes
 #: times a scale, or a non-ternary payload
 SERVER_DECODES = ("sign", "scaled_sign", "dequant")
+#: the uplink payload format a row's messages take on a packed wire: the flat
+#: 2-bit ternary codebook, the 8-bit levels, the Golomb stream, or floats
+#: (which ride the decoded psum); only pack2 and float rows are ported
+WIRE_FORMATS = ("pack2", "golomb", "pack8", "float")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,7 +174,9 @@ class CompressorSpec:
     """One row of the compressor table. ``api`` is the public compressor;
     ``values`` the plain version and ``kernel_op`` the op that launches the
     CUDA kernel for a tensor on the card (argument for argument the same).
-    The wire metadata of the JAX table arrives with the wires."""
+    ``wire_format`` is the payload format on a packed wire and
+    ``fused_pack_op`` the op that compresses straight into it (one kernel from
+    gradient to wire bytes), both as the JAX table has them."""
 
     name: str
     api: Callable
@@ -179,6 +188,8 @@ class CompressorSpec:
     server_decode: str = "sign"
     chunkable: bool = False
     uplink_bits: str = "dense_sign"
+    wire_format: str = "pack2"
+    fused_pack_op: Optional[Callable] = None
 
     def __post_init__(self):
         if self.scale_protocol not in SCALE_PROTOCOLS:
@@ -187,6 +198,18 @@ class CompressorSpec:
             raise ValueError(f"{self.name}: unknown server decode {self.server_decode!r}")
         if (self.scale_protocol == "none") != (self.local_scale is None):
             raise ValueError(f"{self.name}: a local_scale goes with a scale protocol")
+        if self.wire_format not in WIRE_FORMATS:
+            raise ValueError(f"{self.name}: unknown wire format {self.wire_format!r}")
+        if (self.wire_format in ("pack2", "golomb")) != self.is_ternary:
+            raise ValueError(f"{self.name}: a ternary row rides a ternary wire format")
+        if self.fused_pack_op is not None and self.wire_format == "float":
+            raise ValueError(f"{self.name}: a fused pack op needs a packed wire format")
+
+    @property
+    def scale_shared(self) -> bool:
+        """Is the decode scale the same on every worker (so ternary votes can
+        ride the integer or packed wire even under a mean server)?"""
+        return self.scale_protocol in ("none", "shared_max")
 
     def resolve_scale(self, g: torch.Tensor, shared_linf=None, *,
                       rows: bool = False) -> Optional[torch.Tensor]:
@@ -204,35 +227,39 @@ class CompressorSpec:
 SPECS: dict[str, CompressorSpec] = {spec.name: spec for spec in (
     CompressorSpec(
         name="sparsign", api=sparsign, values=_sparsign_values, is_ternary=True,
-        kernel_op=sparsign_op, chunkable=True, uplink_bits="golomb_ternary"),
+        kernel_op=sparsign_op, fused_pack_op=sparsign_pack2bit_op, chunkable=True,
+        uplink_bits="golomb_ternary"),
     CompressorSpec(
         name="sign", api=sign_compressor, values=_sign_values, is_ternary=True,
-        kernel_op=sign_op),
+        kernel_op=sign_op, fused_pack_op=sign_pack2bit_op),
     CompressorSpec(
         name="scaled_sign", api=scaled_sign, values=_sign_values, is_ternary=True,
         scale_protocol="local_norm", local_scale=_scale_l1_mean, kernel_op=sign_op,
-        server_decode="scaled_sign"),
+        fused_pack_op=sign_pack2bit_op, server_decode="scaled_sign"),
     CompressorSpec(
         name="noisy_sign", api=noisy_sign, values=_noisy_sign_values, is_ternary=True,
-        kernel_op=noisy_sign_op, chunkable=True),
+        kernel_op=noisy_sign_op, fused_pack_op=noisy_sign_pack2bit_op, chunkable=True),
     CompressorSpec(
         name="qsgd_1bit_l2", api=qsgd_1bit_l2, values=_stochastic_ternary_values,
         is_ternary=True, scale_protocol="local_norm", local_scale=_scale_l2,
-        kernel_op=stochastic_ternary_op, server_decode="scaled_sign", chunkable=True,
+        kernel_op=stochastic_ternary_op, fused_pack_op=stochastic_ternary_pack2bit_op,
+        server_decode="scaled_sign", chunkable=True,
         uplink_bits="golomb_ternary"),
     CompressorSpec(
         name="qsgd_1bit_linf", api=qsgd_1bit_linf, values=_stochastic_ternary_values,
         is_ternary=True, scale_protocol="local_norm", local_scale=_scale_linf,
-        kernel_op=stochastic_ternary_op, server_decode="scaled_sign", chunkable=True,
+        kernel_op=stochastic_ternary_op, fused_pack_op=stochastic_ternary_pack2bit_op,
+        server_decode="scaled_sign", chunkable=True,
         uplink_bits="golomb_ternary"),
     CompressorSpec(
         name="terngrad", api=terngrad, values=_stochastic_ternary_values,
         is_ternary=True, scale_protocol="shared_max", local_scale=_scale_linf,
-        kernel_op=stochastic_ternary_op, server_decode="scaled_sign", chunkable=True,
+        kernel_op=stochastic_ternary_op, fused_pack_op=stochastic_ternary_pack2bit_op,
+        server_decode="scaled_sign", chunkable=True,
         uplink_bits="golomb_ternary"),
     CompressorSpec(
         name="identity", api=identity, values=_identity_values, is_ternary=False,
-        server_decode="dequant", uplink_bits="fp32"),
+        server_decode="dequant", wire_format="float", uplink_bits="fp32"),
 )}
 
 #: compressors of the JAX package that arrive with their wires (ROADMAP.md,
@@ -269,21 +296,44 @@ def chunked_values(values_fn, g, param, seed, counter_base=0, max_chunk: int = 1
     return torch.cat([p.reshape(rows.shape[0], -1) for p in parts], dim=1).reshape(g.shape)
 
 
-def _leaves(tree) -> list:
-    """The tensors of a nested dict / list / tuple, in ``jax.tree_util``'s
-    order (dict keys sorted)."""
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict / list / tuple, in ``jax.tree_util``'s
+    order (dict keys sorted). ``None`` is an empty subtree, as in JAX."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
-        return [x for item in tree for x in _leaves(item)]
+        return [x for item in tree for x in tree_leaves(item)]
     return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like ``like`` holding ``leaves`` in ``tree_leaves``'s
+    order."""
+    it = iter(leaves)
+
+    def walk(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            out = {k: walk(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(x) for x in t)
+        return next(it)
+
+    out = walk(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has")
+    return out
 
 
 def leaf_counter_bases(tree) -> list[int]:
     """Starting logical-coordinate index of each leaf of a gradient tree, so
     that per-leaf compression draws from disjoint slices of one stream."""
     bases, acc = [], 0
-    for leaf in _leaves(tree):
+    for leaf in tree_leaves(tree):
         bases.append(acc)
         acc += int(leaf.numel())
     return bases

@@ -20,8 +20,13 @@ Two primitives:
 
 ``compress_leaf`` takes one message, or all workers' messages at once as a
 (workers, ...) tensor with one seed per row: one kernel launch per round.
-The packed wires of the JAX engine arrive in a later slice (ROADMAP.md
-queue 2).
+With a ``wire`` (``repro_torch.dist.collectives``) it returns one message in
+the wire's native format: the 2-bit packed canonical view on the
+``allgather_packed`` wire, produced by the spec's fused kernel on the card.
+
+Around them, the helpers that keep compressor and server names out of the
+trainer: wire-mode negotiation (``wire_mode``, ``wire_payload_format``) and
+the per-leaf quorum (``broadcast_quorum``).
 """
 
 from __future__ import annotations
@@ -33,9 +38,10 @@ import torch
 
 from repro_torch.core.budgets import BudgetConfig, resolve_budget
 from repro_torch.core.compressors import CompressedGrad, chunked_values, get_spec
-from repro_torch.kernels.common import device_tensor, jnp_sign
+from repro_torch.kernels.common import device_tensor, jnp_sign, to_2d
 from repro_torch.kernels.ef_server.ops import ef_server_op
 from repro_torch.kernels.ef_server.ref import ef_server_ref
+from repro_torch.kernels.pack2bit.ref import pack2bit_ref
 from repro_torch.kernels.vote_update.ops import vote_update_op, weighted_vote_update_op
 from repro_torch.kernels.vote_update.ref import vote_update_ref, weighted_vote_update_ref
 
@@ -45,6 +51,8 @@ if TYPE_CHECKING:  # algorithm imports this module
 BACKENDS = ("cuda", "torch")
 VOTE_SERVERS = ("majority_vote", "scaled_sign_ef")
 SERVER_RULES = ("majority_vote", "scaled_sign_ef", "mean")
+# how a compressor's messages ride the worker wire (see wire_mode)
+WIRE_MODES = ("votes", "scaled_votes", "pack8", "decoded")
 
 
 def resolve_backend(backend: Optional[str], x: torch.Tensor) -> str:
@@ -66,6 +74,72 @@ def is_vote_server(cfg: "CompressionConfig") -> bool:
 def needs_server_ef(server: str) -> bool:
     """Does this server rule carry a server-side error-feedback residual?"""
     return server == "scaled_sign_ef"
+
+
+def wire_mode(cfg: "CompressionConfig", vote_impl: Optional[str] = None) -> str:
+    """How this (compressor, server, vote_impl) triple's uplink rides the
+    worker wire, a lookup on the spec's ``wire_format`` as in the JAX engine:
+
+      votes        -- ternary symbols on the integer or packed vote wire,
+                      consumed raw by a vote server;
+      scaled_votes -- ternary symbols plus ONE shared decode scale (protocol
+                      none or shared_max), for a mean server;
+      pack8        -- int8 levels plus each worker's scale on the gather wire
+                      (the qsgd8 row, not ported yet);
+      decoded      -- decoded float32 messages summed in float32, for a mean
+                      server (per-worker scales, and the float format)."""
+    spec = get_spec(cfg.compressor)
+    if spec.wire_format == "float":
+        return "decoded"
+    if spec.wire_format == "pack8":
+        return "pack8" if vote_impl == "allgather_packed" else "decoded"
+    if is_vote_server(cfg):
+        return "votes"
+    return "scaled_votes" if spec.scale_shared else "decoded"
+
+
+def wire_payload_format(cfg: "CompressionConfig", mode: str,
+                        vote_impl: Optional[str] = None) -> str:
+    """The payload format the wire object speaks for this triple (the
+    ``make_vote_wire`` ``wire_format=`` argument). The JAX engine's third
+    answer, the Golomb stream on the gather wire, arrives with the
+    ``sparsign_golomb`` row."""
+    return "pack8" if mode == "pack8" else "pack2"
+
+
+def broadcast_quorum(quorum, like_tree):
+    """Widen the server quorum deadband to a per-leaf tree shaped like
+    ``like_tree``. ``quorum`` is a positive int (every leaf) or a tree prefix
+    of ``like_tree`` (dicts and tuples) whose leaves are positive ints;
+    validated eagerly, so a malformed quorum fails when the step is built."""
+    def check(q):
+        if isinstance(q, bool) or not isinstance(q, int) or q < 1:
+            raise ValueError(f"quorum entries must be ints >= 1, got {q!r} "
+                             f"({type(q).__name__})")
+        return q
+
+    def fill(q, sub):
+        if isinstance(sub, dict):
+            return {k: fill(q, v) for k, v in sub.items()}
+        if isinstance(sub, (list, tuple)):
+            return type(sub)(fill(q, v) for v in sub)
+        return q
+
+    def walk(q, sub):
+        if isinstance(q, dict):
+            if not isinstance(sub, dict) or set(q) != set(sub):
+                raise ValueError(f"quorum tree is not a prefix of the parameter tree: "
+                                 f"keys {sorted(q) if isinstance(q, dict) else q} against "
+                                 f"{sorted(sub) if isinstance(sub, dict) else type(sub)}")
+            return {k: walk(q[k], sub[k]) for k in sub}
+        if isinstance(q, (list, tuple)):
+            if not isinstance(sub, (list, tuple)) or len(q) != len(sub):
+                raise ValueError("quorum tree is not a prefix of the parameter tree: "
+                                 f"a sequence of {len(q)} against {type(sub).__name__}")
+            return type(sub)(walk(a, b) for a, b in zip(q, sub))
+        return fill(check(q), sub)
+
+    return walk(quorum, like_tree)
 
 
 def check_participation_server(server: str, compressor: str) -> None:
@@ -120,9 +194,17 @@ def compress_leaf(
     *,
     shared_linf=None,
     backend: Optional[str] = None,
+    wire=None,
 ) -> CompressedGrad:
     """Q(g, B): one worker's uplink message, or every worker's at once when
     ``seed`` is a 1-D sequence of per-row seeds and g is (workers, ...).
+
+    ``wire`` (a ``VoteWire``, one message only) selects the message's
+    wire-native format. On the ``pack2`` wire ``values`` is the (rows, 128)
+    uint8 packed canonical view: on the ``cuda`` backend the spec's fused
+    kernel writes it in one pass, and a spec without one raises (the two-pass
+    chain's pack kernel is not ported); the plain versions compress, then
+    pack, the same bytes.
 
     A spec with a kernel op takes the CUDA kernel on the ``cuda`` backend;
     everything else runs the plain version (chunked for the counter-indexed
@@ -137,6 +219,12 @@ def compress_leaf(
     backend = resolve_backend(backend, g)
     spec = get_spec(cfg.compressor)
     rows = is_batched(seed)
+    want_packed = wire is not None and wire.native_format == "pack2"
+    if want_packed and spec.wire_format != "pack2":
+        raise ValueError(f"the 'pack2' wire carries ternary messages only; compressor "
+                         f"{cfg.compressor!r} declares wire format {spec.wire_format!r}")
+    if want_packed and rows:
+        raise ValueError("a packed wire message is one worker's: pass one seed")
     scale = spec.resolve_scale(g, shared_linf, rows=rows)
     if scale is None:
         param = resolve_budget(cfg.budget, g, shared_linf=shared_linf, rows=rows)
@@ -145,12 +233,22 @@ def compress_leaf(
         param = msg_scale = scale
         if rows:  # one scale per message, broadcast against (workers, ...)
             msg_scale = scale.expand(g.shape[0]).reshape((g.shape[0],) + (1,) * (g.dim() - 1))
+    if want_packed and backend == "cuda":
+        if spec.fused_pack_op is None:
+            raise NotImplementedError(
+                f"compressor {cfg.compressor!r} has no fused 2-bit wire kernel, and the "
+                f"two-pass pack kernel is not ported: no plain version runs on the card")
+        return CompressedGrad(values=spec.fused_pack_op(g, param, seed, counter_base),
+                              scale=msg_scale)
     if backend == "cuda" and spec.kernel_op is not None:
         vals = spec.kernel_op(g, param, seed, counter_base)
     elif spec.chunkable:
         vals = chunked_values(spec.values, g, param, seed, counter_base)
     else:
         vals = spec.values(g, param, seed, counter_base)
+    if want_packed:
+        view, _ = to_2d(vals.reshape(-1))
+        vals = pack2bit_ref(view)
     return CompressedGrad(values=vals, scale=msg_scale)
 
 

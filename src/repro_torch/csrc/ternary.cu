@@ -1,6 +1,8 @@
-// ternary: the generic stochastic ternarizer of the Table 1-2 baselines on Hopper.
+// ternary: the generic stochastic ternarizer of the Table 1-2 baselines on Hopper,
+// and its fused variant straight to the 2-bit packed vote wire.
 //
-// Replaces: src/repro/kernels/ternary/kernel.py:79 (ternary_compress_2d, Pallas TPU).
+// Replaces: src/repro/kernels/ternary/kernel.py:79 (ternary_compress_2d) and
+// src/repro/kernels/ternary/kernel.py:99 (ternary_pack2bit_2d), Pallas TPU.
 //
 //   out[r, j] = RULE(g[r, j], u_s(seed[r], counter_base + j), param[r])   in {-1, 0, +1}
 //
@@ -34,7 +36,16 @@
 // away from the plain version; logf, cosf and sqrtf are CUDA's full-precision
 // library functions (the build uses no --use_fast_math), the ones the plain
 // version's torch.log, torch.cos and torch.sqrt call on the card.
-#include "common.cuh"
+//
+// The pack variant (ternary_pack2bit_kernel, ternary_pack2bit_launch) takes one message:
+// the same rule code, with pack2bit.cuh's wire layout instead of the flat
+// pass. A thread owns 4 bytes of a packed row and draws the 16 symbols they
+// pack; coordinates past n (the TPU kernel's n_valid) and the canonical pad
+// rows pack as 0, which matters for noisy_sign, whose rule gives nonzero
+// symbols at zero input. Bound on an H100: bytes, 2.25 B/coord in bf16 (the
+// gradient once, a quarter byte of wire), against the same rule operations
+// plus 3 a coordinate for the packing.
+#include "pack2bit.cuh"
 
 namespace {
 
@@ -159,6 +170,52 @@ int launch_rule(int rule, const void* g, void* out, const void* seeds, const voi
   }
 }
 
+template <int R>
+struct RuleSym {
+  Row row;
+  __device__ __forceinline__ int8_t operator()(float x, uint32_t counter) const {
+    return ternarize<R>(x, row, counter);
+  }
+};
+
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads)
+ternary_pack2bit_kernel(const T* __restrict__ g, uint8_t* __restrict__ out,
+                        const long long* __restrict__ seed, const float* __restrict__ param,
+                        long long n, long long rows, uint32_t counter_base, bool vec_ok) {
+  const RuleSym<R> sym{load_row<R>(seed, param, 0, 0)};
+  pack_thread<T>(g, out, n, rows, counter_base, vec_ok, sym);
+}
+
+template <typename T, int R>
+int launch_pack(const void* g, void* out, const void* seed, const void* param, long long n,
+                long long rows, unsigned int counter_base, cudaStream_t stream) {
+  if (!aligned(out, 4)) return static_cast<int>(cudaErrorMisalignedAddress);
+  const bool vec_ok = aligned(g, sizeof(T) * 4);
+  ternary_pack2bit_kernel<T, R><<<pack_grid(rows), kThreads, 0, stream>>>(
+      static_cast<const T*>(g), static_cast<uint8_t*>(out),
+      static_cast<const long long*>(seed), static_cast<const float*>(param), n, rows,
+      counter_base, vec_ok);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_pack_rule(int rule, const void* g, void* out, const void* seed, const void* param,
+                     long long n, long long rows, unsigned int counter_base, cudaStream_t s) {
+  switch (rule) {
+    case SPARSIGN:
+      return launch_pack<T, SPARSIGN>(g, out, seed, param, n, rows, counter_base, s);
+    case SIGN:
+      return launch_pack<T, SIGN>(g, out, seed, param, n, rows, counter_base, s);
+    case NOISY_SIGN:
+      return launch_pack<T, NOISY_SIGN>(g, out, seed, param, n, rows, counter_base, s);
+    case STOCHASTIC_TERNARY:
+      return launch_pack<T, STOCHASTIC_TERNARY>(g, out, seed, param, n, rows, counter_base, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. rule: the ids above. seeds: int64[rows]
@@ -174,5 +231,21 @@ extern "C" int ternary_launch(const void* g, void* out, const void* seeds, const
   if (dtype == 1)
     return launch_rule<__nv_bfloat16, 8>(rule, g, out, seeds, param, param_per_row, rows, n,
                                          counter_base, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The fused pack variant, one message. g: n contiguous values; out: rows * 128
+// bytes, rows = canonical_rows(n). seed: int64[1] holding a uint32 value;
+// param: float32[1].
+extern "C" int ternary_pack2bit_launch(const void* g, void* out, const void* seed,
+                                       const void* param, long long n, long long rows,
+                                       unsigned int counter_base, int dtype, int rule,
+                                       void* stream) {
+  if (rows <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_pack_rule<float>(rule, g, out, seed, param, n, rows, counter_base, s);
+  if (dtype == 1)
+    return launch_pack_rule<__nv_bfloat16>(rule, g, out, seed, param, n, rows, counter_base, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,13 +1,47 @@
-"""Deterministic synthetic image data for the paper's experiments, a numpy
-copy of the image part of ``repro.data.synthetic`` (same arrays for the same
-config): class-conditional Gaussians around per-class means on a random
-16-dimensional manifold."""
+"""Deterministic synthetic data, a numpy copy of ``repro.data.synthetic``
+(the same arrays for the same config).
+
+LM tokens: a seeded Zipf-like unigram stream with injected bigram structure,
+so losses decrease under training. Images for the paper's experiments:
+class-conditional Gaussians around per-class means on a random
+16-dimensional manifold. Every batch is a pure function of (seed, step)."""
 
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class LMStreamConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    bigram_rank: int = 64     # structure strength
+
+
+def _bigram_table(vocab: int, rank: int, seed: int) -> np.ndarray:
+    """Low-rank 'next token' preference table (vocab -> preferred successor)."""
+    rng = np.random.RandomState(seed ^ 0xB16_AA)
+    return rng.randint(0, vocab, size=(rank,), dtype=np.int64)
+
+
+def lm_batch(cfg: LMStreamConfig, step: int) -> dict:
+    """One global batch: {'inputs', 'labels', 'positions'} int32 numpy arrays."""
+    rng = np.random.RandomState((cfg.seed * 1_000_003 + step) % (2**31 - 1))
+    b, s, v = cfg.global_batch, cfg.seq_len, cfg.vocab_size
+    base = rng.zipf(1.3, size=(b, s + 1)).astype(np.int64) % v
+    table = _bigram_table(v, cfg.bigram_rank, cfg.seed)
+    follow = rng.rand(b, s) < 0.5
+    nxt = table[base[:, :-1] % cfg.bigram_rank]
+    seq = base.copy()
+    seq[:, 1:][follow] = nxt[follow]
+    inputs = seq[:, :-1].astype(np.int32)
+    labels = seq[:, 1:].astype(np.int32)
+    positions = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
+    return {"inputs": inputs, "labels": labels, "positions": positions}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,15 +1,52 @@
-"""Collective contracts of the federated round, the port of
-``repro.dist.collectives``. This slice carries ``ParticipationSpec``, the
-elastic-participation contract the round's weighted vote reads; the
-``VoteWire`` family and its ``torch.distributed`` collectives arrive with the
-packed wires (ROADMAP.md queue 1, item 6)."""
+"""Worker-axis collectives for the vote exchange (Algorithm 1 step 3), the
+port of ``repro.dist.collectives``: the ``VoteWire`` family every trainer
+speaks, and the elastic-participation contract it carries.
+
+The paper's M workers are a ``WorkerGroup``: a leading worker dimension of
+``local`` workers in this process, times the processes of an optional
+``torch.distributed`` group (gloo on the CPU, NCCL with one rank per card),
+in flat worker-index order, rank-major, as ``worker_index`` orders them. On
+one card the group is one process holding all M workers; NCCL refuses two
+ranks on one device, and a 4B-parameter replica per rank would not fit M
+times anyway. Where JAX runs collectives over named mesh axes:
+
+  psum       a sum over the local dimension, then ``all_reduce``;
+  all_gather ``all_gather_into_tensor`` of the local stack (rank-major);
+  pmax       a max over the local dimension, then ``all_reduce(MAX)``.
+
+Integer sums are exact in any order. Float sums (the weighted psum wires,
+the decoded wire, protocol scalars) are gathered first and added in worker
+order, because the reduction order of NCCL and gloo is unspecified.
+
+Three wire-equivalent vote wires return the same per-coordinate vote total:
+
+- ``VoteWire`` (``psum``): one integer sum of int8 votes;
+- ``HierVoteWire`` (``hier``): int8-narrow within the inner axis, widened
+  across the outer one;
+- ``PackedVoteWire`` (``allgather_packed``): all-gather of 2-bit packed
+  messages and the fused decode-sum kernel (``unpack2bit_sum``, or
+  ``unpack2bit_wsum`` under elastic participation); M x d/4 bytes a leaf.
+
+Each wire knows its native message format, how to mask, count and exchange
+messages in it, and its per-device byte ledger (``wire_bytes``), computed
+from the real buffer sizes. The ring-pipelined gather and the pack8 and
+Golomb wires are not ported yet; ``make_vote_wire`` says so.
+"""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import math
+from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.kernels.common import PACKED_WIDTH, canonical_rows, from_2d
+from repro_torch.kernels.pack2bit.ops import unpack2bit_sum_op, unpack2bit_wsum_op
+from repro_torch.kernels.pack2bit.ref import unpack2bit_sum_ref, unpack2bit_wsum_ref
+
+VOTE_IMPLS = ("psum", "hier", "allgather_packed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -17,7 +54,7 @@ class ParticipationSpec:
     """Elastic participation: per-worker vote weights (FedCom-style data-volume
     weighting), a quorum expressed as a FRACTION of realized participation,
     and a per-round report-dropout rate (crashes, stragglers past the round
-    deadline).
+    deadline). A ``VoteWire`` carries it into the weighted exchange.
 
     With a spec, the round's weighted vote is ``sum_m w_m * votes_m`` with the
     realized participation ``W = sum_{reporting} w_m``, and the server
@@ -82,3 +119,445 @@ class ParticipationSpec:
             raise ValueError(f"cannot derive a quorum fraction: integer quorum {quorum!r} "
                              f"is outside [1, M={n_workers}]")
         return q / float(n_workers)
+
+
+# ---------------------------------------------------------------------------
+# The worker group
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class WorkerGroup:
+    """The M workers: named axes with their global sizes (``sizes``, the
+    mesh's worker axes, row-major), held as ``local`` workers in each of the
+    ``world`` processes of ``group``; this process holds flat worker indices
+    ``rank * local .. rank * local + local - 1``. ``group`` None is one
+    process holding every worker."""
+
+    axes: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    group: Optional[object] = None
+    rank: int = 0
+    world: int = 1
+
+    def __post_init__(self):
+        if len(self.axes) != len(self.sizes) or not self.axes:
+            raise ValueError(f"worker axes {self.axes!r} and sizes {self.sizes!r} differ")
+        if self.n_workers % self.world:
+            raise ValueError(f"{self.n_workers} workers do not split over {self.world} "
+                             f"processes")
+
+    @property
+    def n_workers(self) -> int:
+        return math.prod(self.sizes)
+
+    @property
+    def local(self) -> int:
+        return self.n_workers // self.world
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(local, ...) -> (M, ...) in flat worker order: the all-gather."""
+        if self.group is None or self.world == 1:
+            return x
+        out = torch.empty((self.n_workers,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.all_gather_into_tensor(out, x.contiguous(), group=self.group)
+        return out
+
+    def all_reduce(self, x: torch.Tensor, op=None) -> torch.Tensor:
+        """Reduce a per-process partial over the processes (integer sums and
+        maxima only: exact in any order)."""
+        if self.group is not None and self.world > 1:
+            dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=self.group)
+        return x
+
+
+def worker_count(group: WorkerGroup) -> int:
+    """M = the product of the worker-axis sizes."""
+    return group.n_workers
+
+
+def worker_index(group: WorkerGroup, device=None) -> torch.Tensor:
+    """The flat indices of this process's workers: an int64 (local,) tensor."""
+    start = group.rank * group.local
+    return torch.arange(start, start + group.local, dtype=torch.int64, device=device)
+
+
+def ordered_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over dim 0 as a left fold in index order: ((x0 + x1) + x2) + ...,
+    the association a float sum over workers keeps in the port."""
+    acc = x[0]
+    for i in range(1, x.shape[0]):
+        acc = acc + x[i]
+    return acc
+
+
+def _sum_dtype(n_workers: int) -> torch.dtype:
+    """Smallest int dtype holding ternary-vote sums in [-M, M]: the psum
+    payload dtype is the wire format, so it is not widened beyond need."""
+    if n_workers <= 127:
+        return torch.int8
+    if n_workers <= 32767:
+        return torch.int16
+    return torch.int32
+
+
+def packed_nbytes(n_coords: int) -> int:
+    """Bytes of one worker's 2-bit packed message for an n-coordinate leaf:
+    the canonical view padded to the sublane tile, padded rows included."""
+    return canonical_rows(n_coords) * PACKED_WIDTH
+
+
+def vote_psum(votes: torch.Tensor, group: WorkerGroup, n_workers: int) -> torch.Tensor:
+    """Integer sum over the workers of a (local, ...) stack of ternary votes,
+    in the narrowest dtype that holds it."""
+    sd = _sum_dtype(int(n_workers))
+    return group.all_reduce(torch.sum(votes.to(sd), dim=0, dtype=sd))
+
+
+def scalar_psum(x: torch.Tensor, group: WorkerGroup) -> torch.Tensor:
+    """All-reduce of O(1) protocol and metric scalars (loss, nnz,
+    participation counts): ``x`` holds one value per local worker; gathered,
+    then summed in worker order."""
+    return ordered_sum(group.gather(x.reshape(group.local, -1))).reshape(x.shape[1:])
+
+
+def worker_shared_linf(gs: Sequence[torch.Tensor], group: WorkerGroup,
+                       mask=None) -> torch.Tensor:
+    """max_m ||g_m||_inf over the workers (TernGrad's magnitude sharing and
+    the ``linf_share`` budget): ``gs`` holds this process's workers' copies of
+    one leaf, ``mask`` (local,) bool drops non-participants from the max."""
+    local = torch.stack([torch.amax(torch.abs(g.to(torch.float32))) for g in gs])
+    if mask is not None:
+        local = torch.where(mask, local, torch.zeros((), device=local.device))
+    return group.all_reduce(torch.amax(local), op=dist.ReduceOp.MAX)
+
+
+def decoded_message(values: torch.Tensor, scale, mask, *, is_ternary: bool):
+    """One worker's ``decoded``-mode message: decoded locally (values *
+    scale), zeroed for a non-participant. Returns (float32 message, masked
+    nnz): ternary messages count |symbols|, float payloads nonzero decoded
+    coordinates."""
+    zero = torch.zeros((), dtype=torch.float32, device=values.device)
+    dec = torch.where(mask, values.to(torch.float32) * scale, zero)
+    if is_ternary:
+        nnz = torch.where(mask, torch.count_nonzero(values).to(torch.float32), zero)
+    else:
+        nnz = torch.count_nonzero(dec).to(torch.float32)
+    return dec, nnz
+
+
+def decoded_exchange(values: torch.Tensor, scale, mask, group: WorkerGroup, *,
+                     is_ternary: bool):
+    """The ``decoded`` wire mode: decode each local worker's message (a
+    (local, ...) stack, ``scale`` and ``mask`` one entry a worker), zero
+    non-participants, and sum the float32 messages over the workers in worker
+    order. Returns (float sum, (local,) masked nnz)."""
+    pairs = [decoded_message(values[j], scale[j], mask[j], is_ternary=is_ternary)
+             for j in range(values.shape[0])]
+    dec = torch.stack([d for d, _ in pairs])
+    return ordered_sum(group.gather(dec)), torch.stack([n for _, n in pairs])
+
+
+def decoded_wire_bytes(n_coords: int, n_workers: int) -> float:
+    """Per-device bytes of the decoded float32 psum: one ring all-reduce of
+    4 B/coord."""
+    return 2.0 * (n_workers - 1) / n_workers * 4.0 * n_coords
+
+
+def allreduce_scalar_bytes(n_workers: int) -> float:
+    """Ring all-reduce of one float32 scalar (the shared L-inf max)."""
+    return 2.0 * (n_workers - 1) / n_workers * 4.0
+
+
+def uplink_ledger(mode: str, wire: "VoteWire", n_coords: int, *,
+                  share_linf: bool = False) -> float:
+    """Per-device uplink bytes to exchange one n-coordinate leaf under a wire
+    mode (``engine.wire_mode``): the mode's payload (the wire's own
+    ``wire_bytes``, or the decoded float32 psum), the elastic weight side
+    channel of the gather wire, and one float32 all-reduce when the
+    compressor shares a magnitude. The JAX ledger's definition, with its ring
+    chunk count 1 (the ring gather is not ported)."""
+    if mode == "decoded":
+        total = decoded_wire_bytes(n_coords, wire.n_workers)
+    else:
+        total = wire.wire_bytes(n_coords)
+    if mode == "pack8":
+        total += wire.scalar_bytes()
+    if mode != "decoded":
+        total += wire.weight_bytes()
+    if share_linf:
+        total += allreduce_scalar_bytes(wire.n_workers)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# The wire abstraction
+# ---------------------------------------------------------------------------
+
+_NO_SCALE = "exchanges raw integer votes; a decode scale inside the exchange is a pack8-wire concept"
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class VoteWire:
+    """One vote-exchange wire: message format + collective + byte ledger,
+    built once per step by ``make_vote_wire``. ``exchange`` takes the
+    (local, ...) stack of this process's workers' wire-native messages and
+    returns the vote total every worker sees. With a ``participation`` spec
+    the elastic family (``exchange_weighted``) is live: it returns
+    ``(sum_m w_m * votes_m, W)`` with W the realized participation, per
+    coordinate on the psum wires and one scalar on the gather wire."""
+
+    group: WorkerGroup
+    n_workers: int
+    participation: Optional[ParticipationSpec] = None
+
+    name = "psum"
+    #: native uplink message format: "int8" leaf-shaped ternary votes, or
+    #: "pack2" the 2-bit packed uint8 canonical view
+    native_format = "int8"
+
+    def mask_message(self, values: torch.Tensor, mask) -> torch.Tensor:
+        """Zero a non-participating worker's message in wire-native format
+        (an all-zero packed byte decodes to four zero votes)."""
+        return torch.where(mask, values, torch.zeros((), dtype=values.dtype,
+                                                     device=values.device))
+
+    def message_nnz(self, values: torch.Tensor) -> torch.Tensor:
+        """Nonzero votes in one wire-native message (float32 scalar)."""
+        return torch.count_nonzero(values).to(torch.float32)
+
+    def _check_scale(self, scale):
+        if scale is not None:
+            raise ValueError(f"the {self.name!r} vote wire {_NO_SCALE}")
+
+    def exchange(self, values: torch.Tensor, size: int, shape, *, scale=None) -> torch.Tensor:
+        """(local, *shape) int8 votes -> the vote sum in ``_sum_dtype(M)``."""
+        self._check_scale(scale)
+        return vote_psum(values, self.group, self.n_workers)
+
+    def _require_participation(self):
+        if self.participation is None:
+            raise ValueError(
+                f"the {self.name!r} wire was built without a ParticipationSpec; the "
+                f"weighted exchange family is the elastic-participation path: pass "
+                f"participation= to make_vote_wire")
+
+    def _weighted(self, values: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        """(M, ...) float32 products w_m * votes_m, gathered in worker order."""
+        w = weight.to(torch.float32).reshape((-1,) + (1,) * (values.dim() - 1))
+        return self.group.gather(values.to(torch.float32) * w)
+
+    def exchange_weighted(self, values: torch.Tensor, size: int, shape, *, weight,
+                          scale=None):
+        """Elastic exchange: ``(sum_m w_m * votes_m, per-coordinate W)``.
+        ``weight`` is the (local,) effective float32 weight of this process's
+        workers (static weight x report bit, 0.0 for a silent worker whose
+        message is already zeroed). Both sums run in worker order."""
+        self._require_participation()
+        self._check_scale(scale)
+        wv = ordered_sum(self._weighted(values, weight))
+        wtot = ordered_sum(self.group.gather(weight.to(torch.float32)))
+        return wv, wtot.expand(tuple(shape))
+
+    def wire_bytes(self, n_coords: int) -> float:
+        """Per-device wire bytes to exchange one n-coordinate leaf (ring
+        collectives, real payload sizes). Under elastic participation the
+        psum wires move two float32 arrays (weighted vote, participation)."""
+        m = self.n_workers
+        if self.participation is not None:
+            return 2.0 * decoded_wire_bytes(n_coords, m)
+        payload = n_coords * torch.tensor([], dtype=_sum_dtype(m)).element_size()
+        return 2.0 * (m - 1) / m * payload
+
+    def scalar_bytes(self) -> float:
+        """The float32 decode scale riding beside a leaf's payload: one ring
+        all-reduce of 4 bytes."""
+        m = self.n_workers
+        return 2.0 * (m - 1) / m * 4.0
+
+    def weight_bytes(self) -> float:
+        """Elastic weight side channel beside one payload exchange: 0 on the
+        psum wires, whose participation payload is in ``wire_bytes``."""
+        return 0.0
+
+    def gather_hbm_bytes(self, n_coords: int) -> float:
+        """Peak device memory of the gathered payload for one leaf: 0 for the
+        psum wires, which never materialize a gathered tensor."""
+        return 0.0
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class HierVoteWire(VoteWire):
+    """Two-level sum: narrow within ``axes[1]`` (inner), widened across
+    ``axes[0]`` (outer). Needs exactly two worker axes."""
+
+    inner_size: int = 1
+    outer_size: int = 1
+
+    name = "hier"
+
+    def exchange(self, values, size, shape, *, scale=None):
+        self._check_scale(scale)
+        inner_dt = _sum_dtype(self.inner_size)
+        outer_dt = _sum_dtype(self.inner_size * self.outer_size)
+        local = values.shape[0]
+        if local % self.inner_size == 0:
+            # whole inner groups live here: the narrow inner sum, then the
+            # widened outer one (integer sums: exact in any grouping)
+            inner = torch.sum(values.to(inner_dt).reshape(
+                (local // self.inner_size, self.inner_size) + tuple(values.shape[1:])),
+                dim=1, dtype=inner_dt)
+            part = torch.sum(inner.to(outer_dt), dim=0, dtype=outer_dt)
+        else:
+            part = torch.sum(values.to(outer_dt), dim=0, dtype=outer_dt)
+        return self.group.all_reduce(part)
+
+    def _hier_f32_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """(M, ...) float32 -> the inner sums in worker order, then the outer
+        sum over them in order: the two-level association of the hier wire."""
+        grouped = x.reshape((self.outer_size, self.inner_size) + tuple(x.shape[1:]))
+        return ordered_sum(torch.stack([ordered_sum(grouped[o])
+                                        for o in range(self.outer_size)]))
+
+    def exchange_weighted(self, values, size, shape, *, weight, scale=None):
+        self._require_participation()
+        self._check_scale(scale)
+        wv = self._hier_f32_sum(self._weighted(values, weight))
+        wtot = self._hier_f32_sum(self.group.gather(weight.to(torch.float32)))
+        return wv, wtot.expand(tuple(shape))
+
+    def wire_bytes(self, n_coords):
+        ni, no = self.inner_size, self.outer_size
+        if self.participation is not None:
+            inner = 2.0 * (ni - 1) / ni * 4.0 * n_coords
+            outer = 2.0 * (no - 1) / no * 4.0 * n_coords
+            return 2.0 * (inner + outer)
+        isz = torch.tensor([], dtype=_sum_dtype(ni)).element_size()
+        osz = torch.tensor([], dtype=_sum_dtype(ni * no)).element_size()
+        inner = 2.0 * (ni - 1) / ni * n_coords * isz
+        outer = 2.0 * (no - 1) / no * n_coords * osz
+        return inner + outer
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PackedVoteWire(VoteWire):
+    """All-gather of the 2-bit packed wire + the fused decode-sum kernel. The
+    message IS the packed canonical view, written in one pass by the fused
+    compress kernels on the card. ``backend="torch"`` decodes with the plain
+    versions (the kernels' comparison on the card); the default follows the
+    tensor's device."""
+
+    backend: Optional[str] = None
+
+    name = "allgather_packed"
+    native_format = "pack2"
+
+    def message_nnz(self, values):
+        # nonzero 2-bit codes straight off the bytes: codes are {0, 1, 2}, so
+        # (b | b >> 1) has bit 0 of each code set iff the code is nonzero
+        nz = (values | (values >> 1)) & 0x55
+        cnt = (nz & 1) + ((nz >> 2) & 1) + ((nz >> 4) & 1) + ((nz >> 6) & 1)
+        return torch.sum(cnt, dtype=torch.int64).to(torch.float32)
+
+    def _plain(self) -> bool:
+        return self.backend == "torch"
+
+    def exchange(self, values, size, shape, *, scale=None):
+        if scale is not None:
+            raise ValueError("the 2-bit packed vote wire exchanges raw ternary votes; a "
+                             "decode scale inside the exchange is a pack8-wire concept")
+        gathered = self.group.gather(values)
+        if self._plain():
+            total = from_2d(unpack2bit_sum_ref(gathered), size, shape)
+        else:
+            total = unpack2bit_sum_op(gathered, size, shape)
+        return total.to(_sum_dtype(self.n_workers))
+
+    def exchange_weighted(self, values, size, shape, *, weight, scale=None):
+        self._require_participation()
+        if scale is not None:
+            raise ValueError("the 2-bit packed vote wire exchanges raw ternary votes; a "
+                             "decode scale inside the exchange is a pack8-wire concept")
+        gathered = self.group.gather(values)
+        wvec = self.group.gather(weight.to(torch.float32).reshape(-1))
+        if self._plain():
+            wv = from_2d(unpack2bit_wsum_ref(gathered, wvec), size, shape)
+        else:
+            wv = unpack2bit_wsum_op(gathered, wvec, size, shape)
+        return wv, ordered_sum(wvec)
+
+    def weight_bytes(self):
+        # the (1,) float32 effective weight gathered from M - 1 peers
+        if self.participation is None:
+            return 0.0
+        return float((self.n_workers - 1) * 4.0)
+
+    def wire_bytes(self, n_coords):
+        # all-gather: each device sends its padded packed payload to M - 1 peers
+        return float((self.n_workers - 1) * packed_nbytes(n_coords))
+
+    def gather_hbm_bytes(self, n_coords):
+        return float(self.n_workers * canonical_rows(n_coords) * PACKED_WIDTH)
+
+
+def make_vote_wire(impl: str, group: WorkerGroup, *, backend: Optional[str] = None,
+                   wire_format: str = "pack2", golomb_p: Optional[float] = None,
+                   ring_chunk_rows: Optional[int] = None,
+                   participation: Optional[ParticipationSpec] = None) -> VoteWire:
+    """Build the wire for ``impl`` over the worker group at step-build time,
+    with the JAX builder's validation (same cases, same errors). The ring
+    gather and the pack8 and Golomb wires are not ported yet and raise
+    ``NotImplementedError`` once the arguments are valid."""
+    if participation is not None and not isinstance(participation, ParticipationSpec):
+        raise TypeError(f"participation must be a ParticipationSpec, got "
+                        f"{type(participation).__name__}")
+    if impl not in VOTE_IMPLS:
+        raise ValueError(f"unknown vote_impl {impl!r}; known: {VOTE_IMPLS}")
+    axes = tuple(group.axes)
+    if impl == "hier" and len(axes) != 2:
+        raise ValueError(
+            f"vote_impl='hier' needs exactly two worker axes (outer, inner), e.g. "
+            f"('pod', 'data'), got {axes!r}. Use vote_impl='psum' for a flat worker "
+            f"domain.")
+    if wire_format not in ("pack2", "golomb", "pack8"):
+        raise ValueError(
+            f"unknown wire payload format {wire_format!r}; the vote wires speak "
+            f"'pack2'/'golomb' (ternary) or 'pack8' (8-bit levels); the float format "
+            f"rides the decoded psum, not a VoteWire")
+    if wire_format == "pack8" and impl != "allgather_packed":
+        raise ValueError(f"the pack8 wire needs vote_impl='allgather_packed', got {impl!r}")
+    if wire_format == "golomb":
+        if impl != "allgather_packed":
+            raise ValueError(f"the golomb wire needs vote_impl='allgather_packed', got "
+                             f"{impl!r}")
+        if golomb_p is None:
+            raise ValueError("the golomb wire needs golomb_p (the plan-time nonzero "
+                             "fraction that sizes its static capacity)")
+        if not 0.0 < float(golomb_p) < 1.0:
+            raise ValueError(f"golomb plan fraction must be in (0,1), got {golomb_p}")
+    if ring_chunk_rows is not None:
+        if impl != "allgather_packed":
+            raise ValueError(
+                f"ring_chunk_rows is a gather-wire concept; vote_impl={impl!r} never "
+                f"materializes a gathered tensor")
+        r = int(ring_chunk_rows)
+        if r <= 0 or r % 32 != 0:
+            raise ValueError(f"ring_chunk_rows must be a positive multiple of the sublane "
+                             f"tile (32), got {ring_chunk_rows!r}")
+    sizes = tuple(group.sizes)
+    if any(s < 1 for s in sizes):
+        raise ValueError(f"vote wire needs >= 1 worker: axes {axes!r} have sizes {sizes!r}")
+    n = group.n_workers
+    if participation is not None:
+        participation.weights_array(n)   # the weights must cover the fleet
+    if ring_chunk_rows is not None or wire_format != "pack2":
+        what = "the ring-pipelined gather" if ring_chunk_rows is not None \
+            else f"the {wire_format} wire"
+        raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md)")
+    if impl == "hier":
+        return HierVoteWire(group=group, n_workers=n, inner_size=sizes[1],
+                            outer_size=sizes[0], participation=participation)
+    if impl == "allgather_packed":
+        return PackedVoteWire(group=group, n_workers=n, backend=backend,
+                              participation=participation)
+    return VoteWire(group=group, n_workers=n, participation=participation)

@@ -7,8 +7,10 @@ so a run can show that its path went through the kernels."""
 from __future__ import annotations
 
 from repro_torch.kernels.ef_server.kernel import ef_server_cuda
+from repro_torch.kernels.pack2bit.kernel import unpack2bit_sum_cuda, unpack2bit_wsum_cuda
 from repro_torch.kernels.sparsign.kernel import sparsign_cuda
-from repro_torch.kernels.ternary.kernel import ternary_cuda
+from repro_torch.kernels.sparsign_pack2bit.kernel import sparsign_pack2bit_cuda
+from repro_torch.kernels.ternary.kernel import ternary_cuda, ternary_pack2bit_cuda
 from repro_torch.kernels.vote_update.kernel import vote_update_cuda, weighted_vote_update_cuda
 
 WRAPPERS = {
@@ -17,6 +19,10 @@ WRAPPERS = {
     "ef_server": ef_server_cuda,
     "ternary": ternary_cuda,
     "weighted_vote_update": weighted_vote_update_cuda,
+    "sparsign_pack2bit": sparsign_pack2bit_cuda,
+    "ternary_pack2bit": ternary_pack2bit_cuda,
+    "unpack2bit_sum": unpack2bit_sum_cuda,
+    "unpack2bit_wsum": unpack2bit_wsum_cuda,
 }
 
 

@@ -20,30 +20,26 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("sparsign", "vote_update", "ef_server", "ternary", "weighted_vote_update")
+SOURCES = ("sparsign", "vote_update", "ef_server", "ternary", "weighted_vote_update",
+           "sparsign_pack2bit", "unpack2bit")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _c = ctypes
-# argtypes of each library's one C entry point: pointers and the stream as
+_p, _i, _ll, _u32 = _c.c_void_p, _c.c_int, _c.c_longlong, _c.c_uint32
+# argtypes of each library's C entry points: pointers and the stream as
 # c_void_p, or ctypes would pass them as 32-bit ints and cut them
 SIGNATURES = {
-    "sparsign": ("sparsign_launch",
-                 [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
-                  _c.c_longlong, _c.c_longlong, _c.c_uint32, _c.c_int, _c.c_void_p]),
-    "vote_update": ("vote_update_launch",
-                    [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_longlong,
-                     _c.c_float, _c.c_int, _c.c_int, _c.c_int, _c.c_void_p]),
-    "ef_server": ("ef_server_launch",
-                  [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-                   _c.c_void_p, _c.c_longlong, _c.c_void_p]),
-    "ternary": ("ternary_launch",
-                [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
-                 _c.c_longlong, _c.c_longlong, _c.c_uint32, _c.c_int, _c.c_int, _c.c_void_p]),
-    "weighted_vote_update": ("weighted_vote_update_launch",
-                             [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-                              _c.c_longlong, _c.c_float, _c.c_float, _c.c_int, _c.c_int,
-                              _c.c_void_p]),
+    "sparsign": {"sparsign_launch": [_p, _p, _p, _p, _i, _ll, _ll, _u32, _i, _p]},
+    "vote_update": {"vote_update_launch": [_p, _p, _p, _ll, _c.c_float, _i, _i, _i, _p]},
+    "ef_server": {"ef_server_launch": [_p, _p, _p, _p, _p, _ll, _p]},
+    "ternary": {"ternary_launch": [_p, _p, _p, _p, _i, _ll, _ll, _u32, _i, _i, _p],
+                "ternary_pack2bit_launch": [_p, _p, _p, _p, _ll, _ll, _u32, _i, _i, _p]},
+    "weighted_vote_update": {"weighted_vote_update_launch":
+                             [_p, _p, _p, _p, _ll, _c.c_float, _c.c_float, _i, _i, _p]},
+    "sparsign_pack2bit": {"sparsign_pack2bit_launch": [_p, _p, _p, _p, _ll, _ll, _u32, _i, _p]},
+    "unpack2bit": {"unpack2bit_sum_launch": [_p, _p, _i, _ll, _p],
+                   "unpack2bit_wsum_launch": [_p, _p, _p, _i, _ll, _p]},
 }
 
 _LIBS: dict = {}
@@ -75,7 +71,7 @@ def _lib_path(name: str) -> pathlib.Path:
 def build_all(names=SOURCES) -> dict:
     """Compile every missing library, one nvcc process per source, all started
     together; returns {name: seconds} for the sources it compiled."""
-    todo = [n for n in names if n not in _LIBS and not _lib_path(n).exists()]
+    todo = [n for n in names if not _lib_path(n).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -101,17 +97,19 @@ def build_all(names=SOURCES) -> dict:
     return {n: BUILD_LOG[n]["seconds"] for n in todo}
 
 
-def library(name: str):
-    """The C entry point of ``csrc/<name>.cu``, built on first use."""
-    if name not in _LIBS:
+def library(name: str, entry: str | None = None):
+    """The C entry point ``entry`` (default: the source's first in
+    ``SIGNATURES``) of ``csrc/<name>.cu``, built and loaded on first use."""
+    entry = entry or next(iter(SIGNATURES[name]))
+    if (name, entry) not in _LIBS:
         build_all((name,))
         lib = ctypes.CDLL(str(_lib_path(name)))
-        sym, argtypes = SIGNATURES[name]
-        fn = getattr(lib, sym)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _LIBS[name] = fn
-    return _LIBS[name]
+        for sym, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _LIBS[(name, sym)] = fn
+    return _LIBS[(name, entry)]
 
 
 def check_launch(name: str, err: int) -> None:

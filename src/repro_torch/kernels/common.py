@@ -2,10 +2,10 @@
 
 The JAX package runs every kernel on a canonical ``(rows, LANES)`` view with
 rows padded to ``SUBLANE_PAD``; the logical coordinate of element (r, c) is
-``r * LANES + c``, its index in the flat tensor. The CUDA kernels work on the
+``r * LANES + c``, its index in the flat tensor. The int8 kernels work on the
 flat tensor with a masked tail instead, which gives the same counter stream
-without the pad pass. The view helpers stay for the wire formats of later
-slices and for tests that compare against the JAX layout.
+without the pad pass. The 2-bit packed wire keeps the view: a message is the
+``(canonical_rows(n), PACKED_WIDTH)`` uint8 packing of it (``kernels/pack2bit``).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import torch
 LANES = 512            # lane width of the canonical view (4 * 128)
 SUBLANE_PAD = 32       # row padding multiple (int8 sublane tile)
 DEFAULT_BLOCK_ROWS = 256
+PACKED_WIDTH = LANES // 4   # bytes of a packed canonical row (2 bits a coordinate)
 
 
 def canonical_rows(n: int, lanes: int = LANES, row_pad: int = SUBLANE_PAD) -> int:
@@ -22,6 +23,18 @@ def canonical_rows(n: int, lanes: int = LANES, row_pad: int = SUBLANE_PAD) -> in
     then to the sublane tile."""
     rows = -(-n // lanes)
     return -(-rows // row_pad) * row_pad
+
+
+def packed_shape(n: int) -> tuple:
+    """Shape of the 2-bit packed canonical view of an n-element stream."""
+    return (canonical_rows(n), PACKED_WIDTH)
+
+
+def encode2bit(t: torch.Tensor) -> torch.Tensor:
+    """int8 ternary {-1, 0, +1} -> 2-bit code uint8 {2, 0, 1}: the packed
+    wire's codebook."""
+    return torch.where(t < 0, torch.full((), 2, dtype=torch.uint8, device=t.device),
+                       t.to(torch.uint8))
 
 
 def to_2d(flat: torch.Tensor, lanes: int = LANES, row_pad: int = SUBLANE_PAD):

@@ -1,0 +1,58 @@
+"""Launch wrappers of the hand-written decode-sum kernels
+(``csrc/unpack2bit.cu``), which replace
+``repro/kernels/pack2bit/kernel.py:unpack2bit_sum_2d`` and ``:unpack2bit_wsum_2d``."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.common import PACKED_WIDTH, check_cuda_tensor
+
+
+def _check_gathered(gathered: torch.Tensor) -> None:
+    check_cuda_tensor("gathered", gathered, (torch.uint8,))
+    if gathered.dim() != 3 or gathered.shape[2] != PACKED_WIDTH:
+        raise ValueError(f"gathered must be (M, rows, {PACKED_WIDTH}) packed messages, "
+                         f"got shape {tuple(gathered.shape)}")
+    if gathered.data_ptr() % 4:
+        raise ValueError("gathered must be 4-byte aligned")
+
+
+def unpack2bit_sum_cuda(gathered: torch.Tensor) -> torch.Tensor:
+    """(M, rows, 128) uint8 gathered packed messages -> (rows, 512) int32
+    vote sum on the card, one launch. Allocates the output, launches on the
+    current stream and does not synchronise."""
+    _check_gathered(gathered)
+    m, rows, _ = gathered.shape
+    out = torch.empty((rows, 4 * PACKED_WIDTH), dtype=torch.int32, device=gathered.device)
+    err = build.library("unpack2bit", "unpack2bit_sum_launch")(
+        gathered.data_ptr(), out.data_ptr(), m, rows,
+        torch.cuda.current_stream(gathered.device).cuda_stream)
+    build.check_launch("unpack2bit_sum", err)
+    unpack2bit_sum_cuda.launches += 1
+    return out
+
+
+unpack2bit_sum_cuda.launches = 0
+
+
+def unpack2bit_wsum_cuda(gathered: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """(M, rows, 128) uint8 gathered packed messages + (M,) float32 CUDA
+    weights -> (rows, 512) float32 ``sum_m w_m * votes_m`` on the card,
+    accumulated from +0.0 in worker order; one launch, no synchronisation."""
+    _check_gathered(gathered)
+    check_cuda_tensor("weights", weights, (torch.float32,))
+    m, rows, _ = gathered.shape
+    if weights.numel() != m:
+        raise ValueError(f"{m} messages need {m} weights, got {weights.numel()}")
+    out = torch.empty((rows, 4 * PACKED_WIDTH), dtype=torch.float32, device=gathered.device)
+    err = build.library("unpack2bit", "unpack2bit_wsum_launch")(
+        gathered.data_ptr(), weights.data_ptr(), out.data_ptr(), m, rows,
+        torch.cuda.current_stream(gathered.device).cuda_stream)
+    build.check_launch("unpack2bit_wsum", err)
+    unpack2bit_wsum_cuda.launches += 1
+    return out
+
+
+unpack2bit_wsum_cuda.launches = 0

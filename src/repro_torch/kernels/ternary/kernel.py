@@ -1,5 +1,6 @@
-"""Launch wrapper of the hand-written ternary kernel (``csrc/ternary.cu``),
-which replaces ``repro/kernels/ternary/kernel.py:ternary_compress_2d``."""
+"""Launch wrappers of the hand-written ternary kernels (``csrc/ternary.cu``),
+which replace ``repro/kernels/ternary/kernel.py:ternary_compress_2d`` and its
+fused 2-bit wire variant ``:ternary_pack2bit_2d``."""
 
 from __future__ import annotations
 
@@ -7,7 +8,7 @@ import torch
 
 from repro_torch.core.prng import MASK32
 from repro_torch.kernels import build
-from repro_torch.kernels.common import check_cuda_tensor
+from repro_torch.kernels.common import check_cuda_tensor, packed_shape
 from repro_torch.kernels.ternary.rules import RULES
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -47,3 +48,32 @@ def ternary_cuda(g: torch.Tensor, param: torch.Tensor, seeds: torch.Tensor,
 
 
 ternary_cuda.launches = 0
+
+
+def ternary_pack2bit_cuda(g: torch.Tensor, param: torch.Tensor, seed: torch.Tensor,
+                          counter_base: int = 0, *, rule: str) -> torch.Tensor:
+    """The (canonical_rows(n), 128) uint8 packed wire of RULES[rule](g) on
+    the card, one launch; coordinates past g's end pack as 0. ``seed``: int64
+    CUDA tensor of one uint32 stream seed over g's flat index; ``param``:
+    float32 CUDA tensor of one value. Allocates the output, launches on the
+    current stream and does not synchronise."""
+    if rule not in RULE_IDS:
+        raise ValueError(f"unknown ternary rule {rule!r}; known: {sorted(RULE_IDS)}")
+    check_cuda_tensor("g", g, tuple(_DTYPES))
+    check_cuda_tensor("seed", seed, (torch.int64,))
+    check_cuda_tensor("param", param, (torch.float32,))
+    if seed.numel() != 1 or param.numel() != 1:
+        raise ValueError(f"one seed and one param per message, got {seed.numel()} "
+                         f"and {param.numel()}")
+    n = g.numel()
+    out = torch.empty(packed_shape(n), dtype=torch.uint8, device=g.device)
+    err = build.library("ternary", "ternary_pack2bit_launch")(
+        g.data_ptr(), out.data_ptr(), seed.data_ptr(), param.data_ptr(), n, out.shape[0],
+        int(counter_base) & MASK32, _DTYPES[g.dtype], RULE_IDS[rule],
+        torch.cuda.current_stream(g.device).cuda_stream)
+    build.check_launch("ternary_pack2bit", err)
+    ternary_pack2bit_cuda.launches += 1
+    return out
+
+
+ternary_pack2bit_cuda.launches = 0

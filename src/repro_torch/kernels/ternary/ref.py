@@ -13,7 +13,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import prng
-from repro_torch.kernels.common import device_tensor
+from repro_torch.kernels.common import device_tensor, to_2d
+from repro_torch.kernels.pack2bit.ref import pack2bit_ref
 from repro_torch.kernels.ternary.rules import RULES
 
 
@@ -46,3 +47,12 @@ def ternary_compress_ref(g: torch.Tensor, param, seed, counter_base=0, *,
     # the float -> int8 cast itself leaves NaN undefined
     sym = torch.where(torch.isnan(sym), torch.zeros((), device=g.device), sym)
     return sym.to(torch.int8).reshape(g.shape)
+
+
+def ternary_pack2bit_ref(g: torch.Tensor, param, seed, counter_base=0, *,
+                         rule: str) -> torch.Tensor:
+    """The (rows, 128) uint8 packed canonical wire of RULES[rule](g): the
+    two-pass composition; the canonical pad is zeros after the rule, so
+    coordinates past g's end pack as 0."""
+    view, _ = to_2d(ternary_compress_ref(g, param, seed, counter_base, rule=rule).reshape(-1))
+    return pack2bit_ref(view)

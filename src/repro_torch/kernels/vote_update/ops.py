@@ -15,6 +15,8 @@ def vote_update_op(w: torch.Tensor, votes: torch.Tensor, eta, *, quorum: int = 1
     dtype kept. ``eta`` is a host scalar (a launch argument on the card)."""
     if not w.is_cuda:
         return vote_update_ref(w, votes, eta, quorum)
+    if votes.dtype == torch.int16:   # the wires' sum dtype for 128 to 32767 workers
+        votes = votes.to(torch.int32)
     return vote_update_cuda(w.contiguous(), votes.contiguous(), float(eta), quorum)
 
 

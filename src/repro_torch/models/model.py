@@ -1,0 +1,154 @@
+"""Model assembly, the port of ``repro.models.model``: embedding -> the
+pattern blocks over their repeats -> final norm -> chunked LM-head loss.
+
+Parameters are a tree of tensors with JAX's structure:
+``{"blocks": ({name: (n_repeats, ...)},), "embed", "final_norm", "lm_head"}``,
+the block leaves stacked over the repeats, so ``tree_leaves`` gives the JAX
+flatten order (dict keys sorted) and the trainer's per-leaf seeds match. Remat
+is ``torch.utils.checkpoint(use_reentrant=False)`` per block and per loss
+chunk (and per attention chunk inside a block). Prefill and decode wait for
+the serving slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.compressors import tree_leaves, tree_unflatten
+from repro_torch.models import blocks as blocks_lib
+from repro_torch.models.common import dense_init, rms_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeDtype:
+    """A parameter's shape and dtype (``jax.ShapeDtypeStruct``'s role): a
+    leaf of the parameter-shape tree."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        if cfg.input_kind != "tokens" or cfg.tail_pattern or cfg.tie_embeddings:
+            raise NotImplementedError(f"{cfg.name}: embedding inputs, tail blocks and tied "
+                                      f"heads are not ported yet")
+
+    # ------------------------------------------------------------ parameters
+
+    def param_shapes(self) -> dict:
+        """The parameter tree of ``ShapeDtype`` leaves."""
+        cfg = self.cfg
+        r, dt = cfg.n_repeats, cfg.activation_dtype
+        blocks = tuple({k: ShapeDtype((r,) + shape, dtype)
+                        for k, (shape, dtype) in blocks_lib.block_param_defs(cfg, s).items()}
+                       for s in cfg.pattern)
+        return {"embed": ShapeDtype((cfg.vocab_size, cfg.d_model), dt), "blocks": blocks,
+                "final_norm": ShapeDtype((cfg.d_model,), dt),
+                "lm_head": ShapeDtype((cfg.d_model, cfg.vocab_size), dt)}
+
+    def param_count(self) -> int:
+        return sum(math.prod(s.shape) for s in tree_leaves(self.param_shapes()))
+
+    def init(self, seed: int, device=None) -> dict:
+        """Random parameters from ``seed`` on ``device``: zeros for 1-D leaves
+        (norms, biases) and leaves whose last dim is 1, else the truncated
+        normal of ``dense_init`` (fan-in = the leading dim, as JAX's init
+        has it). One generator on the device draws the leaves in flatten
+        order."""
+        device = torch.device(device) if device is not None else torch.device("cuda")
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+
+        def make(sd: ShapeDtype):
+            if len(sd.shape) == 1 or sd.shape[-1] == 1:
+                return torch.zeros(sd.shape, dtype=sd.dtype, device=device)
+            return dense_init(gen, sd.shape, sd.dtype, device)
+
+        shapes = self.param_shapes()
+        return tree_unflatten(shapes, [make(sd) for sd in tree_leaves(shapes)])
+
+    # ---------------------------------------------------------------- stages
+
+    def embed_stage(self, params, batch) -> torch.Tensor:
+        return F.embedding(batch["inputs"].long(), params["embed"])
+
+    def forward_hidden(self, params, batch) -> torch.Tensor:
+        cfg = self.cfg
+        h = self.embed_stage(params, batch)
+        positions = batch["positions"]
+        # one unbind per stacked leaf: the backward stacks the repeats'
+        # gradients once, instead of one full-size gradient per repeat
+        per_repeat = [{k: v.unbind(0) for k, v in bp.items()} for bp in params["blocks"]]
+        for r in range(cfg.n_repeats):
+            for spec, bp in zip(cfg.pattern, per_repeat):
+                p = {k: v[r] for k, v in bp.items()}
+                if cfg.remat:
+                    h = checkpoint(blocks_lib.block_forward, cfg, spec, p, h, positions,
+                                   use_reentrant=False)
+                else:
+                    h = blocks_lib.block_forward(cfg, spec, p, h, positions)
+        return rms_norm(h, params["final_norm"], cfg.norm_eps)
+
+    def head_loss(self, params, h: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """Chunked softmax cross-entropy over the sequence: never holds the
+        [B, S, V] logits. Labels < 0 are ignored."""
+        cfg = self.cfg
+        w = params["lm_head"]
+        b, s, _ = h.shape
+        c = min(cfg.loss_chunk, s)
+        pad = (-s) % c
+        if pad:
+            h = F.pad(h, (0, 0, 0, pad))
+            labels = F.pad(labels, (0, pad), value=-1)
+        nll = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(0, s + pad, c):
+            args = (h[:, i:i + c], labels[:, i:i + c], w)
+            if cfg.remat:
+                part, n = checkpoint(_loss_chunk, *args, use_reentrant=False)
+            else:
+                part, n = _loss_chunk(*args)
+            nll, cnt = nll + part, cnt + n
+        return nll / torch.clamp(cnt, min=1.0)
+
+    def loss(self, params, batch):
+        h = self.forward_hidden(params, batch)
+        loss = self.head_loss(params, h, batch["labels"])
+        return loss, {"loss": loss}
+
+
+def _loss_chunk(h_i: torch.Tensor, y_i: torch.Tensor, w: torch.Tensor):
+    logits = (h_i @ w).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, torch.clamp(y_i, min=0).long()[..., None])[..., 0]
+    mask = (y_i >= 0).to(torch.float32)
+    return torch.sum((logz - tgt) * mask), torch.sum(mask)
+
+
+def params_from_numpy(tree, device="cpu") -> dict:
+    """The JAX package's parameter tree as numpy arrays (``jax.tree_util``
+    structure: dicts and tuples) -> the port's tree of tensors, leaf for leaf,
+    dtypes kept (bfloat16 arrays, numpy's ``ml_dtypes`` kind, included)."""
+    def conv(a):
+        a = np.array(a)   # a writable copy
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
+        return t.to(device)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return tuple(walk(v) for v in t)
+        return conv(t)
+
+    return walk(tree)

@@ -57,7 +57,9 @@ def report_mask(seed, round_idx, worker_idx, dropout: float) -> torch.Tensor:
     return u >= _rate(dropout, u)
 
 
-def round_seed(base_seed, round_idx) -> torch.Tensor:
-    """fold_seed(base_seed, 0x52D) + round * 0x9E3779B9 (mod 2^32)."""
-    return (prng.fold_seed(base_seed, 0x52D)
-            + (int(round_idx) & prng.MASK32) * prng.GOLDEN) & prng.MASK32
+def round_seed(base_seed, round_idx):
+    """fold_seed(base_seed, 0x52D) + round * 0x9E3779B9 (mod 2^32): a host
+    int for a host seed (the trainer's, a launch argument), else a tensor."""
+    base = (prng.fold_seed_int(base_seed, 0x52D) if isinstance(base_seed, int)
+            else prng.fold_seed(base_seed, 0x52D))
+    return (base + (int(round_idx) & prng.MASK32) * prng.GOLDEN) & prng.MASK32

@@ -214,4 +214,6 @@ def test_cpu_ops_take_plain_versions_and_count_no_launch():
     ternary_compress_op(g, 0.5, 3, rule="noisy_sign")
     weighted_vote_update_op(g, g, 2.0, 0.1, q_frac=0.5)
     assert tkernels.launch_counts() == {"sparsign": 0, "vote_update": 0, "ef_server": 0,
-                                        "ternary": 0, "weighted_vote_update": 0}
+                                        "ternary": 0, "weighted_vote_update": 0,
+                                        "sparsign_pack2bit": 0, "ternary_pack2bit": 0,
+                                        "unpack2bit_sum": 0, "unpack2bit_wsum": 0}
