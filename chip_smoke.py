@@ -913,7 +913,8 @@ def phase_trainer(torch, report, totals):
          dict(sparsign_pack2bit=leaves * m, unpack2bit_wsum=leaves,
               weighted_vote_update=leaves)),
     ]
-    reference = None   # the psum run's parameters, for the three-wire comparison
+    first, compared = runs[0][0], {runs[1][0], runs[2][0]}
+    reference = None   # the psum run's parameters, on the host: the card's peaks exclude it
     for label, flags, mesh, per_step in runs:
         args = launch.parser().parse_args(base + flags)
         group = make_mesh(*mesh) if mesh is not None else None
@@ -962,16 +963,21 @@ def phase_trainer(torch, report, totals):
         params = tree_leaves(state.params)
         check(all(bool(torch.isfinite(p).all()) for p in params),
               f"trainer {label}: non-finite parameters")
-        if reference is None:
-            reference = params
-        elif label.startswith("sparsign/majority_vote"):
-            same = all(torch.equal(bits(a), bits(b)) for a, b in zip(params, reference))
+        if label == first:
+            reference = [p.to("cpu") for p in params]
+        elif label in compared:
+            # leaf by leaf, after this run's peak was read
+            same = all(torch.equal(bits(a), bits(b.to(a.device)))
+                       for a, b in zip(params, reference))
             check(same, f"trainer {label}: parameters differ from the psum run")
             print(f"[trainer] {label}: parameters bitwise equal to the psum run")
+            compared.discard(label)
+            if not compared:
+                reference = None
         if label == "sparsign/majority_vote allgather_packed":
             # where a step's device time goes: one more step of this run,
             # traced after its counted steps (these launches are not counted)
-            reference = params = None
+            params = None
             batch = batch_fn(steps)
             split = profile_call(torch, lambda: step(state, batch))
             report["trainer_profile"] = split

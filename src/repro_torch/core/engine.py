@@ -52,7 +52,7 @@ BACKENDS = ("cuda", "torch")
 VOTE_SERVERS = ("majority_vote", "scaled_sign_ef")
 SERVER_RULES = ("majority_vote", "scaled_sign_ef", "mean")
 # how a compressor's messages ride the worker wire (see wire_mode)
-WIRE_MODES = ("votes", "scaled_votes", "pack8", "decoded")
+WIRE_MODES = ("votes", "scaled_votes", "decoded")
 
 
 def resolve_backend(backend: Optional[str], x: torch.Tensor) -> str:
@@ -84,15 +84,14 @@ def wire_mode(cfg: "CompressionConfig", vote_impl: Optional[str] = None) -> str:
                       consumed raw by a vote server;
       scaled_votes -- ternary symbols plus ONE shared decode scale (protocol
                       none or shared_max), for a mean server;
-      pack8        -- int8 levels plus each worker's scale on the gather wire
-                      (the qsgd8 row, not ported yet);
       decoded      -- decoded float32 messages summed in float32, for a mean
-                      server (per-worker scales, and the float format)."""
+                      server (per-worker scales, and the float format).
+
+    The JAX engine's fourth mode, pack8 (the qsgd8 row's levels and scales on
+    the gather wire), arrives with that row."""
     spec = get_spec(cfg.compressor)
     if spec.wire_format == "float":
         return "decoded"
-    if spec.wire_format == "pack8":
-        return "pack8" if vote_impl == "allgather_packed" else "decoded"
     if is_vote_server(cfg):
         return "votes"
     return "scaled_votes" if spec.scale_shared else "decoded"
@@ -101,10 +100,10 @@ def wire_mode(cfg: "CompressionConfig", vote_impl: Optional[str] = None) -> str:
 def wire_payload_format(cfg: "CompressionConfig", mode: str,
                         vote_impl: Optional[str] = None) -> str:
     """The payload format the wire object speaks for this triple (the
-    ``make_vote_wire`` ``wire_format=`` argument). The JAX engine's third
-    answer, the Golomb stream on the gather wire, arrives with the
-    ``sparsign_golomb`` row."""
-    return "pack8" if mode == "pack8" else "pack2"
+    ``make_vote_wire`` ``wire_format=`` argument): the 2-bit codes for every
+    ported row. The JAX engine's other answers, pack8 and the Golomb stream on
+    the gather wire, arrive with the ``qsgd8`` and ``sparsign_golomb`` rows."""
+    return "pack2"
 
 
 def broadcast_quorum(quorum, like_tree):

@@ -280,11 +280,7 @@ def uplink_ledger(mode: str, wire: "VoteWire", n_coords: int, *,
     if mode == "decoded":
         total = decoded_wire_bytes(n_coords, wire.n_workers)
     else:
-        total = wire.wire_bytes(n_coords)
-    if mode == "pack8":
-        total += wire.scalar_bytes()
-    if mode != "decoded":
-        total += wire.weight_bytes()
+        total = wire.wire_bytes(n_coords) + wire.weight_bytes()
     if share_linf:
         total += allreduce_scalar_bytes(wire.n_workers)
     return total
@@ -368,12 +364,6 @@ class VoteWire:
             return 2.0 * decoded_wire_bytes(n_coords, m)
         payload = n_coords * torch.tensor([], dtype=_sum_dtype(m)).element_size()
         return 2.0 * (m - 1) / m * payload
-
-    def scalar_bytes(self) -> float:
-        """The float32 decode scale riding beside a leaf's payload: one ring
-        all-reduce of 4 bytes."""
-        m = self.n_workers
-        return 2.0 * (m - 1) / m * 4.0
 
     def weight_bytes(self) -> float:
         """Elastic weight side channel beside one payload exchange: 0 on the

@@ -43,7 +43,3 @@ def make_production_mesh(*, multi_pod: bool = False):
     raise NotImplementedError("the production meshes (16 x 16 and 2 x 16 x 16 chips, with "
                               "a tensor-parallel 'model' axis) are not ported yet")
 
-
-def worker_axes_of(group: WorkerGroup) -> tuple:
-    """The paper's worker axes of a worker group: all of its axes."""
-    return tuple(group.axes)

@@ -20,7 +20,7 @@ from repro_torch.core.algorithm import CompressionConfig
 from repro_torch.core.budgets import BudgetConfig
 from repro_torch.data.synthetic import LMStreamConfig, lm_batch
 from repro_torch.dist import collectives
-from repro_torch.launch.mesh import make_host_mesh, make_production_mesh, worker_axes_of
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models.model import Model
 from repro_torch.train import loop as loop_lib
 from repro_torch.train.state import LrSchedule, init_state
@@ -57,7 +57,7 @@ def build_everything(args, group=None):
     ring_rows = ((args.ring_chunk_rows or 256) if args.ring else None)
     step = build_train_step(model, TrainStepConfig(
         compression=comp, lr=LrSchedule(base=args.lr, warmup=args.warmup),
-        local_lr=args.local_lr, worker_axes=worker_axes_of(group), vote_impl=args.vote_impl,
+        local_lr=args.local_lr, vote_impl=args.vote_impl,
         quorum=args.quorum, bucketed=args.bucketed, ring_chunk_rows=ring_rows,
         participation=participation_of(args)), group)
     params = model.init(args.seed, device)

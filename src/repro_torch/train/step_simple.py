@@ -28,7 +28,7 @@ gather and the pack8 and Golomb wires are not ported yet and raise.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -49,10 +49,8 @@ class TrainStepConfig:
     compression: CompressionConfig
     lr: LrSchedule
     local_lr: float = 1.0          # eta_L (Alg. 2)
-    worker_axes: Sequence[str] = ("data",)
     vote_impl: str = "psum"        # psum | hier | allgather_packed
     quorum: Any = 1                # int, or a tree prefix of the params with per-leaf ints
-    donate: bool = True            # write the new params / EF into the input state's tensors
     backend: Optional[str] = None  # None: the kernels for CUDA tensors, plain for CPU
     bucketed: bool = False         # not ported yet
     ring_chunk_rows: Optional[int] = None   # not ported yet
@@ -111,16 +109,14 @@ def _local_grads(model, params, batch, comp: CompressionConfig, wseed: int,
 def build_train_step(model, step_cfg: TrainStepConfig, group: WorkerGroup) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics). ``batch`` holds
     the global batch (numpy arrays or tensors); the step moves each worker's
-    share to the parameters' device. Metrics are 0-d float32 tensors.
+    share to the parameters' device. Metrics are 0-d float32 tensors. The
+    worker axes are the group's.
 
-    With ``donate`` (JAX's buffer donation) the step writes each new leaf of
-    the parameters and the EF residual into the input state's tensor, leaf by
+    Like JAX's donated buffers, the step writes each new leaf of the
+    parameters and the EF residual into the input state's tensor, leaf by
     leaf, so one copy of each is alive instead of two; the input state must
     not be read again."""
     comp = step_cfg.compression
-    if tuple(step_cfg.worker_axes) != tuple(group.axes):
-        raise ValueError(f"worker_axes {tuple(step_cfg.worker_axes)!r} must be the worker "
-                         f"group's axes {tuple(group.axes)!r}")
     if step_cfg.bucketed:
         raise NotImplementedError("the bucketed uplink is not ported yet (ROADMAP.md)")
     mode = engine.wire_mode(comp, vote_impl=step_cfg.vote_impl)
@@ -257,12 +253,11 @@ def build_train_step(model, step_cfg: TrainStepConfig, group: WorkerGroup) -> Ca
                                                         n_sel=n_sel, server="mean",
                                                         scale=scales[i][-1], backend=backend)
             del stack
-            if step_cfg.donate:
-                p.copy_(new_p)
-                new_p = p
-                if ef is not None and new_ef is not ef:
-                    ef.copy_(new_ef)
-                    new_ef = ef
+            p.copy_(new_p)
+            new_p = p
+            if ef is not None and new_ef is not ef:
+                ef.copy_(new_ef)
+                new_ef = ef
             total += n
             new_leaves.append(new_p)
             ef_leaves.append(new_ef)

@@ -40,7 +40,7 @@ def run(impl, elastic):
                              server="majority_vote")
     group = make_mesh((2, 2), ("pod", "data")) if impl == "hier" else make_host_mesh(4)
     step = build_train_step(model, TrainStepConfig(
-        compression=comp, lr=LrSchedule(base=0.05), worker_axes=group.axes, vote_impl=impl,
+        compression=comp, lr=LrSchedule(base=0.05), vote_impl=impl,
         participation=part), group)
     state = init_state(model.init(0, device="cpu"), server=comp.server, seed=3)
     for r in range(2):
@@ -70,18 +70,28 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _launch(world: int, tmp: pathlib.Path):
+def _start(world: int, tmp: pathlib.Path):
     script = tmp / "child.py"
     script.write_text(CHILD)
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
            "HOME": os.environ.get("HOME", str(tmp)), "OMP_NUM_THREADS": "1"}
     port = _free_port()
-    procs = [subprocess.Popen([sys.executable, str(script), str(r), str(world), str(port),
-                               str(tmp / f"w{world}r{r}.pt")],
-                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True)
-             for r in range(world)]
+    return [subprocess.Popen([sys.executable, str(script), str(r), str(world), str(port),
+                              str(tmp / f"w{world}r{r}.pt")],
+                             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for r in range(world)]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every case in one process of 4 workers and in two processes of 2, the
+    three processes at once."""
+    tmp = tmp_path_factory.mktemp("dist")
+    procs = []
     try:
+        for world in (1, 2):
+            procs += _start(world, tmp)
         for p in procs:
             out, _ = p.communicate(timeout=PROC_TIMEOUT)
             assert p.returncode == 0, out[-3000:]
@@ -90,14 +100,8 @@ def _launch(world: int, tmp: pathlib.Path):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    return [torch.load(tmp / f"w{world}r{r}.pt") for r in range(world)]
-
-
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """Every case in one process of 4 workers and in two processes of 2."""
-    tmp = tmp_path_factory.mktemp("dist")
-    return _launch(1, tmp)[0], _launch(2, tmp)
+    one = torch.load(tmp / "w1r0.pt")
+    return one, [torch.load(tmp / f"w2r{r}.pt") for r in range(2)]
 
 
 @pytest.mark.parametrize("impl", ["psum", "hier", "allgather_packed"])

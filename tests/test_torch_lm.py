@@ -80,8 +80,8 @@ def test_loss_and_grads_match_jax(b, s):
     tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
     batch = _batch(tm.cfg, b, s, seed=s)
     batch["labels"][0, -1] = -1
-    jl, jg = jax.value_and_grad(
-        lambda p: jm.loss(p, {k: jnp.asarray(v) for k, v in batch.items()})[0])(jp)
+    jl, jg = jax.jit(jax.value_and_grad(lambda p, bt: jm.loss(p, bt)[0]))(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
     leaves = [t.requires_grad_(True) for t in tree_leaves(tp)]
     tl = tm.loss(tree_unflatten(tp, leaves), {k: torch.from_numpy(v) for k, v in batch.items()})[0]
     tg = torch.autograd.grad(tl, leaves)

@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 
 from repro.configs.registry import get_config as jget_config
 from repro.core import engine as jengine
@@ -84,7 +85,10 @@ def test_m1_matches_jax_build_train_step(vote_impl, server, capsys):
                                     vote_impl=vote_impl, donate=False), mesh)
     tstep = build_train_step(tm, TrainStepConfig(compression=tcomp, lr=LrSchedule(base=0.05),
                                                  vote_impl=vote_impl), make_host_mesh(1))
-    jstate = j_init_state(jp, server=server, seed=7)
+    # the state on the mesh as the step returns it, so the second step reuses
+    # the first one's compilation
+    jstate = jax.device_put(j_init_state(jp, server=server, seed=7),
+                            NamedSharding(mesh, PartitionSpec()))
     tstate = init_state(params_from_numpy(jax.tree_util.tree_map(np.asarray, jp)),
                         server=server, seed=7)
     p0 = [np.asarray(x) for x in jax.tree_util.tree_leaves(jp)]
@@ -313,7 +317,7 @@ def test_psum_hier_and_packed_wires_give_equal_parameters(elastic):
                         ("hier", make_mesh((2, 2), ("pod", "data"))),
                         ("allgather_packed", make_mesh((4,), ("data",)))):
         step = build_train_step(tm, TrainStepConfig(
-            compression=comp, lr=LrSchedule(base=0.05), worker_axes=group.axes, vote_impl=impl,
+            compression=comp, lr=LrSchedule(base=0.05), vote_impl=impl,
             participation=part), group)
         state = init_state(tm.init(0, device="cpu"), server=comp.server, seed=3)
         for r in range(2):
@@ -338,9 +342,6 @@ def test_trainer_refuses_what_is_not_ported():
         build_train_step(tm, TrainStepConfig(compression=comp, lr=LrSchedule(),
                                              vote_impl="allgather_packed",
                                              ring_chunk_rows=64), group)
-    with pytest.raises(ValueError, match="worker_axes"):
-        build_train_step(tm, TrainStepConfig(compression=comp, lr=LrSchedule(),
-                                             worker_axes=("pod", "data")), group)
     with pytest.raises(ValueError, match="two worker axes"):
         build_train_step(tm, TrainStepConfig(compression=comp, lr=LrSchedule(),
                                              vote_impl="hier"), group)
