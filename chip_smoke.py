@@ -30,16 +30,30 @@ Phases, in order; any failure exits non-zero before the last line:
      on the card, bit for bit, at w_down's 707,788,800 coordinates in bf16,
      odd sizes, +-0/NaN/+-inf gradients, M = 1, 4 and 20 messages, zero and
      fractional weights; timed against their bounds;
-  6. the data-parallel LM trainer: qwen1.5-4b at full width through
+  6. the Golomb/Rice wire's kernels (sparsign_golomb, golomb_pack,
+     ungolomb_sum, ungolomb_wsum) against their plain versions on the card,
+     bit for bit, the two encoders also against each other: w_down in bf16
+     at the plan density p = 0.05, odd sizes in f32 and bf16 at counter base
+     2^32 - 5000, +-0/NaN/+-inf, a message past capacity (dropped > 0), a
+     lone nonzero at w_down's last coordinate; the decode-sums at M = 1, 4
+     and 20 over real encoder outputs with a masked (all-zero) worker, zero
+     and fractional weights; timed against their bounds; then
+     engine.compress_leaf's two-pass chain (sparsign, golomb_pack), counted;
+  7. the data-parallel LM trainer: qwen1.5-4b at full width through
      repro_torch.launch.train's build path, M = 4 workers on the card, one
      sequence of 4096 tokens each (train_4k's length; the global batch cut
      from 256 to 4), 3 steps each of sparsign/majority vote on the
      allgather_packed, psum and hier (2 x 2) wires (parameters bitwise equal
-     across the three), sparsign/scaled_sign_ef, sign, noisy_sign and
-     TernGrad on allgather_packed, and the elastic vote (weights, dropout
-     0.25); per step loss, nnz, wire bytes (== the uplink ledger), host
-     seconds and peak memory; launch counts checked with every plain version
-     barred from running; one step traced with torch.profiler.
+     across the three), sparsign/scaled_sign_ef, 2 steps each of sign,
+     noisy_sign and TernGrad on allgather_packed, 3 of the elastic vote
+     (weights, dropout 0.25), of sparsign_golomb with a target_sparsity
+     budget of 0.05 on the golomb wire, plain and elastic, and of sparsign
+     with the same budget on the 2-bit wire (parameters bitwise equal to the
+     golomb run's, which drops no nonzero); per step loss, nnz, dropped, wire
+     bytes (== the uplink ledger), host seconds and peak memory; launch
+     counts checked with every plain version barred from running; one step
+     each of the packed and the golomb run traced with torch.profiler; the
+     target_sparsity bisection timed on its own.
 It prints one JSON line of kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Results also go to
 chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device.
@@ -73,12 +87,22 @@ REPLACES = {
     "ternary_pack2bit": "src/repro/kernels/ternary/kernel.py:99",
     "unpack2bit_sum": "src/repro/kernels/pack2bit/kernel.py:91",
     "unpack2bit_wsum": "src/repro/kernels/pack2bit/kernel.py:111",
+    "sparsign_golomb": "src/repro/kernels/golomb/kernel.py:58",
+    "golomb_pack": "src/repro/kernels/golomb/kernel.py:88",
+    "ungolomb_sum": "src/repro/kernels/golomb/kernel.py:109",
+    "ungolomb_wsum": "src/repro/kernels/golomb/kernel.py:130",
 }
 SOURCE = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 SOURCE.update({"ternary_pack2bit": "src/repro_torch/csrc/ternary.cu",
                "unpack2bit_sum": "src/repro_torch/csrc/unpack2bit.cu",
-               "unpack2bit_wsum": "src/repro_torch/csrc/unpack2bit.cu"})
+               "unpack2bit_wsum": "src/repro_torch/csrc/unpack2bit.cu",
+               "sparsign_golomb": "src/repro_torch/csrc/golomb_encode.cu",
+               "golomb_pack": "src/repro_torch/csrc/golomb_encode.cu",
+               "ungolomb_sum": "src/repro_torch/csrc/golomb_decode.cu",
+               "ungolomb_wsum": "src/repro_torch/csrc/golomb_decode.cu"})
 WIRE_KERNELS = ("sparsign_pack2bit", "ternary_pack2bit", "unpack2bit_sum", "unpack2bit_wsum")
+GOLOMB_KERNELS = ("sparsign_golomb", "golomb_pack", "ungolomb_sum", "ungolomb_wsum")
+GOLOMB_P = 0.05              # the plan fraction of the golomb runs (target_sparsity 0.05)
 TRAINER_SEQ_LEN = 4096       # train_4k's sequence, one a worker
 
 
@@ -131,9 +155,9 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(128 << 20, dtype=torch.int8, device="cuda")
 
-    def __call__(self, fn, reps: int = 30, spin: bool = True) -> dict:
+    def __call__(self, fn, reps: int = 30, spin: bool = True, warmup: int = 3) -> dict:
         torch = self.torch
-        for _ in range(3):
+        for _ in range(warmup):
             fn()
         times = []
         for _ in range(reps):
@@ -184,6 +208,16 @@ OPS_PER_ROW = {"sparsign": 9, "sign": 0, "noisy_sign": 36, "stochastic_ternary":
 # and, two compares for the vote, the add; the weighted sum's multiply).
 PACK_OPS_PER_COORD = 3
 DECODE_OPS_PER_CODE = 6
+# The Golomb/Rice wire, per code: encoding takes 8 (the gap: a subtract; its
+# quotient: a shift; the code's end: two adds; the unary run's and the
+# remainder's masks: a shift and a subtract each... counted as 4 for the bit
+# writes), decoding 10 (the stop bit: a not and a find-first-set; the
+# quotient: a subtract; the remainder: a shift and a mask; the gap: a shift
+# and an or; the position: an add; the vote: a select; the add into the sum).
+# Every coordinate the encoder reads costs its test for nonzero (1), besides
+# the drawing rule's operations for the fused kernel.
+GOLOMB_ENC_OPS_PER_CODE = 8
+GOLOMB_DEC_OPS_PER_CODE = 10
 
 
 def rule_ops(rule: str, rows: int, n: int) -> int:
@@ -192,14 +226,15 @@ def rule_ops(rule: str, rows: int, n: int) -> int:
 
 
 def measure(timer, fn, plain_fn, nbytes: float, ops: float, plain_reps: int = 30,
-            library=None) -> dict:
-    """Kernel, no-spin and plain times, the library call's where there is
-    one, and the bound of the work."""
+            library=None, plain_warmup: int = 3) -> dict:
+    """Kernel, no-spin and plain times (None without a plain_fn), the library
+    call's where there is one, and the bound of the work."""
     t = timer(fn)
     t_b, by = bound(nbytes, ops)
     return {"ms": t["ms"], "ms_p25": t["p25"], "ms_p75": t["p75"],
             "no_spin_ms": timer(fn, spin=False)["ms"],
-            "plain_ms": timer(plain_fn, reps=plain_reps)["ms"],
+            "plain_ms": (timer(plain_fn, reps=plain_reps, warmup=plain_warmup)["ms"]
+                         if plain_fn else None),
             "library_ms": timer(library)["ms"] if library else None,
             "bound_ms": t_b, "bound_by": by}
 
@@ -207,8 +242,9 @@ def measure(timer, fn, plain_fn, nbytes: float, ops: float, plain_reps: int = 30
 def print_timings(timings: dict) -> None:
     for key, t in timings.items():
         lib = f", library {t['library_ms']:.4f} ms" if t["library_ms"] is not None else ""
+        plain = f"{t['plain_ms']:.4f} ms" if t["plain_ms"] is not None else "not measured"
         print(f"[timing] {key}: kernel {t['ms']:.4f} ms (quartiles {t['ms_p25']:.4f}-"
-              f"{t['ms_p75']:.4f}; no spin {t['no_spin_ms']:.4f}), plain {t['plain_ms']:.4f} ms"
+              f"{t['ms_p75']:.4f}; no spin {t['no_spin_ms']:.4f}), plain {plain}"
               f"{lib}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
               f"{t['bound_ms'] / t['ms']:.1%} of bound")
 
@@ -261,6 +297,19 @@ def profile_round(torch, rf, v) -> dict:
     return split
 
 
+def golomb_owner(kernel: str):
+    """Which golomb source launched a CUDA kernel, by its name: the encoder's
+    passes and its scans of Segs, or the decoder's passes and its scans of
+    Pairs and first-zero keys; None for any other kernel."""
+    if "golomb::scan" in kernel:
+        return "golomb_encode" if "Seg" in kernel else "golomb_decode"
+    if "tile_stats<" in kernel or "::emit<" in kernel:
+        return "golomb_encode"
+    if any(f in kernel for f in ("zero_keys", "transfer_pass", "count_pass", "emit_pass")):
+        return "golomb_decode"
+    return None
+
+
 def profile_call(torch, fn) -> dict:
     """Trace one call of ``fn`` (ending in a sync) with torch.profiler: its
     host ms, the share of it during which any kernel ran, the port's
@@ -287,7 +336,9 @@ def profile_call(torch, fn) -> dict:
         reach = max(reach, end)
     per = {n: sum(t for k, t in kern.items() if f"{n}_kernel" in k
                   and not (n == "vote_update" and "weighted_vote_update" in k))
-           for n in REPLACES}
+           for n in REPLACES if n not in GOLOMB_KERNELS}
+    for src in ("golomb_encode", "golomb_decode"):
+        per[src] = sum(t for k, t in kern.items() if golomb_owner(k) == src)
     ours = sum(per.values())
     top = dict(sorted(kern.items(), key=lambda kv: -kv[1])[:5])
     return {"call_ms": call_ms, "kernel_ms": total, "busy_ms": busy_us / 1e3,
@@ -834,6 +885,239 @@ def phase_wire_kernels(torch, timer, report):
     return errs, {k: timings[v] for k, v in main_shape.items()}
 
 
+def golomb_header(coded) -> tuple:
+    """(shipped, dropped) from a coded message's header."""
+    import torch
+    return tuple(int(x) for x in coded.reshape(-1)[:8].view(torch.int32).tolist())
+
+
+def phase_golomb_kernels(torch, timer, report):
+    """The Golomb/Rice wire's four kernels against their plain versions on
+    the card, bit for bit (the two encoders also against each other), and
+    their times against their bounds."""
+    from repro_torch.core.budgets import solve_budget_for_sparsity
+    from repro_torch.kernels.golomb import ref as gref
+    from repro_torch.kernels.golomb.kernel import (golomb_pack_cuda, sparsign_golomb_cuda,
+                                                   ungolomb_sum_cuda, ungolomb_wsum_cuda)
+    from repro_torch.kernels.sparsign.ref import sparsign_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    dev = "cuda"
+    p = GOLOMB_P
+    b = gref.rice_b(p)
+    errs = {name: 0.0 for name in GOLOMB_KERNELS}
+    stats = torch.zeros(1, dtype=torch.int64, device=dev)
+    mismatched = []   # segments whose decoded exit is not the next composed entry
+
+    def encode_case(label, g, budget, seed, cb=0):
+        """Both encoders against the plain sparsign -> encode; returns the
+        plain ternary message and its coded bytes."""
+        n = g.numel()
+        rows = gref.golomb_rows(n, p)
+        bud = budget.reshape(1).to(torch.float32)
+        sd = torch.full((1,), seed, dtype=torch.int64, device=dev)
+        t = chunked_plain(sparsign_ref, g, bud[0], sd[0], cb)
+        want = gref.golomb_encode_ref(t, p=p)
+        fused = sparsign_golomb_cuda(g, bud, sd, cb, b=b, rows=rows)
+        two_pass = golomb_pack_cuda(t, b=b, rows=rows)
+        torch.cuda.synchronize()
+        for name, got in (("sparsign_golomb", fused), ("golomb_pack", two_pass)):
+            check(same_bits(got, want), f"{name} {label} differs from its plain version in "
+                                        f"{int((got != want).sum())} bytes")
+            errs[name] = max(errs[name], max_abs_err(got, want))
+        shipped, dropped = golomb_header(want)
+        print(f"[golomb] sparsign_golomb and golomb_pack {label} (n={n}, {str(g.dtype)[6:]}, "
+              f"cb={cb}): bitwise ok, fused == two-pass; shipped {shipped} dropped {dropped} "
+              f"of capacity {rows} rows")
+        del fused, two_pass
+        return t, want
+
+    def decode_case(label, gathered, n, weight_sets):
+        k = ungolomb_sum_cuda(gathered, n, b=b, stats=stats)
+        r = gref.ungolomb_sum_ref(gathered, n, (n,), p=p)
+        torch.cuda.synchronize()
+        check(same_bits(k, r), f"ungolomb_sum {label} differs from its plain version")
+        errs["ungolomb_sum"] = max(errs["ungolomb_sum"], max_abs_err(k, r))
+        mismatched.append({"case": label, "segments": int(stats[0])})
+        check(int(stats[0]) == 0, f"ungolomb_sum {label}: {int(stats[0])} segments' exits are "
+                                  f"not their successors' entries")
+        del k, r
+        for w in weight_sets:
+            k = ungolomb_wsum_cuda(gathered, w, n, b=b)
+            r = gref.ungolomb_wsum_ref(gathered, w, n, (n,), p=p)
+            torch.cuda.synchronize()
+            check(same_bits(k, r), f"ungolomb_wsum {label} differs from its plain version in "
+                                   f"{int((bits(k) != bits(r)).sum())} values")
+            errs["ungolomb_wsum"] = max(errs["ungolomb_wsum"], max_abs_err(k, r))
+            del k, r
+        print(f"[golomb] ungolomb_sum and ungolomb_wsum {label}: bitwise ok, every segment's "
+              f"exit its successor's entry")
+
+    def weights(m):
+        w = torch.rand(m, generator=gen, device=dev) * 2
+        w[1 % m] = 0.0
+        return [w, torch.zeros(m, device=dev)]
+
+    # -- the encoders. w_down in bf16 at the plan density (the target_sparsity
+    # budget), odd sizes in f32 and bf16 near the top of the counter, +-0 /
+    # NaN / +-inf, a message past capacity, and a lone nonzero at w_down's
+    # last coordinate (a 44M-bit unary run)
+    g = (torch.randn(N_WDOWN, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    bud = solve_budget_for_sparsity(g, p)
+    t0, coded0 = encode_case("w_down", g, bud, 1)
+    for n, dtype, cb in ((12345, torch.float32, 2**32 - 5000), (12345, torch.bfloat16, 2**32 - 5000),
+                         (4099, torch.float32, 0)):
+        x = torch.randn(n, generator=gen, device=dev) * 0.5
+        if n == 4099:
+            x[0:8] = torch.tensor([0.0, -0.0, float("nan"), float("inf"), -float("inf"),
+                                   1e-30, -1e30, -0.0], device=dev)
+            x[::97] = 0.0
+        encode_case(f"odd {n}", x.to(dtype), torch.full((), p / 0.4, device=dev), 7, cb)
+    _, over = encode_case("overflow 12345", torch.randn(12345, generator=gen, device=dev),
+                          torch.full((), 3.0, device=dev), 9)
+    check(golomb_header(over)[1] > 0, "the overflow case dropped nothing")
+    lone = torch.zeros(N_WDOWN, dtype=torch.bfloat16, device=dev)
+    lone[-1] = -5.0
+    _, lone_coded = encode_case("lone nonzero at w_down's end", lone,
+                                torch.ones((), device=dev), 3)
+    check(golomb_header(lone_coded) == (1, 0), "the lone nonzero is not one shipped code")
+    del lone
+
+    # -- the decode-sums over real encoder outputs: M = 1 and 4 at w_down (the
+    # third of four an all-zero, masked worker), M = 20 at one layer's w_down
+    # (17,694,720 coordinates; the sixth masked); zero and fractional weights
+    rows = gref.golomb_rows(N_WDOWN, p)
+    sd = [torch.full((1,), s, dtype=torch.int64, device=dev) for s in range(20)]
+    coded = [coded0] + [sparsign_golomb_cuda(g, bud.reshape(1), sd[s], b=b, rows=rows)
+                        for s in (11, 12, 13)]
+    coded[2] = torch.zeros_like(coded0)
+    decode_case("M=1 w_down", coded0[None], N_WDOWN, weights(1))
+    gath4 = torch.stack(coded)
+    decode_case("M=4 w_down", gath4, N_WDOWN, weights(4))
+    lone_t = torch.zeros(N_WDOWN, dtype=torch.int32, device=dev)
+    lone_t[-1] = -1
+    k = ungolomb_sum_cuda(lone_coded[None], N_WDOWN, b=b)
+    torch.cuda.synchronize()
+    check(same_bits(k, lone_t), "ungolomb_sum of the lone nonzero differs")
+    del k, lone_t
+    # a structured message: the embedding leaf's shape (151,936 x 2,560) with
+    # the rows of 16,384 random tokens active, as a 4 x 4,096-token batch
+    # touches them; the budget saturates those rows (density near 0.5), a
+    # low-entropy stretch where speculative parses stay misaligned and the
+    # decoder has to find anchors
+    emb = torch.zeros(151936, 2560, dtype=torch.bfloat16, device=dev)
+    active = torch.randint(0, 151936, (16384,), generator=gen, device=dev)
+    emb[active] = (torch.randn(16384, 2560, generator=gen, device=dev) * 1e-3).to(torch.bfloat16)
+    emb = emb.reshape(-1)
+    bud_e = solve_budget_for_sparsity(emb, p)
+    encode_case("embedding-shaped, active rows saturated", emb, bud_e, 21)
+    rows_e = gref.golomb_rows(emb.numel(), p)
+    gath_e = torch.stack([sparsign_golomb_cuda(emb, bud_e.reshape(1), sd[s], b=b, rows=rows_e)
+                          for s in (3, 4, 5, 6)])
+    del emb
+    decode_case("M=4 embedding-shaped", gath_e, 151936 * 2560, weights(4))
+    n20 = 6912 * 2560
+    g20 = g[:n20]
+    bud20 = solve_budget_for_sparsity(g20, p).reshape(1)
+    rows20 = gref.golomb_rows(n20, p)
+    gath20 = torch.stack([sparsign_golomb_cuda(g20, bud20, sd[s], b=b, rows=rows20)
+                          for s in range(20)])
+    gath20[5] = 0
+    decode_case("M=20 one layer's w_down", gath20, n20, weights(20))
+    del gath20
+    report["golomb_mismatched_segments"] = mismatched
+
+    # -- timing at the path's shapes: w_down in bf16, M = 4 (and 1, 20)
+    timings = {}
+    nnz = golomb_header(coded0)[0]
+    sd0, bud1 = sd[1], bud.reshape(1)
+    timings["sparsign_golomb w_down bf16"] = measure(
+        timer, lambda: sparsign_golomb_cuda(g, bud1, sd0, b=b, rows=rows),
+        lambda: gref.golomb_encode_ref(chunked_plain(sparsign_ref, g, bud1[0], sd0[0]), p=p),
+        N_WDOWN * 2 + rows * 128 + 12,
+        rule_ops("sparsign", 1, N_WDOWN) + N_WDOWN + nnz * GOLOMB_ENC_OPS_PER_CODE,
+        plain_reps=2, plain_warmup=1)
+    del g
+    timings["golomb_pack w_down int8"] = measure(
+        timer, lambda: golomb_pack_cuda(t0, b=b, rows=rows),
+        lambda: gref.golomb_encode_ref(t0, p=p), N_WDOWN + rows * 128,
+        N_WDOWN + nnz * GOLOMB_ENC_OPS_PER_CODE, plain_reps=2, plain_warmup=1)
+    del t0
+    gath1 = coded0[None]
+    gath20 = torch.stack([coded0] * 20)
+    for m, gath in ((1, gath1), (4, gath4), (20, gath20)):
+        shipped = sum(golomb_header(c)[0] for c in gath)
+        w = torch.rand(m, generator=gen, device=dev) * 2
+        nbytes = m * rows * 128 + N_WDOWN * 4
+        ops = shipped * GOLOMB_DEC_OPS_PER_CODE
+        plain = m <= 4   # the plain decode takes about a second a message
+        timings[f"ungolomb_sum M={m} w_down"] = measure(
+            timer, lambda: ungolomb_sum_cuda(gath, N_WDOWN, b=b),
+            (lambda: gref.ungolomb_sum_ref(gath, N_WDOWN, (N_WDOWN,), p=p)) if plain else None,
+            nbytes, ops, plain_reps=2, plain_warmup=1)
+        timings[f"ungolomb_wsum M={m} w_down"] = measure(
+            timer, lambda: ungolomb_wsum_cuda(gath, w, N_WDOWN, b=b),
+            (lambda: gref.ungolomb_wsum_ref(gath, w, N_WDOWN, (N_WDOWN,), p=p)) if plain else None,
+            nbytes + m * 4, ops, plain_reps=2, plain_warmup=1)
+    n_emb = 151936 * 2560
+    shipped = sum(golomb_header(c)[0] for c in gath_e)
+    timings["ungolomb_sum M=4 embedding-shaped"] = measure(
+        timer, lambda: ungolomb_sum_cuda(gath_e, n_emb, b=b), None,
+        4 * rows_e * 128 + n_emb * 4, shipped * GOLOMB_DEC_OPS_PER_CODE)
+    del gath1, gath4, gath20, gath_e, coded, coded0
+    print_timings(timings)
+    report["golomb_timings"] = timings
+    main_shape = {"sparsign_golomb": "sparsign_golomb w_down bf16",
+                  "golomb_pack": "golomb_pack w_down int8",
+                  "ungolomb_sum": "ungolomb_sum M=4 w_down",
+                  "ungolomb_wsum": "ungolomb_wsum M=4 w_down"}
+    return errs, {k: timings[v] for k, v in main_shape.items()}
+
+
+def phase_golomb_two_pass(torch, report, totals):
+    """engine.compress_leaf's two-pass chain on the golomb wire, the path a
+    golomb-format row without a fused kernel takes (no registered row does):
+    the sparsign kernel, then golomb_pack, at w_down in bf16 with a
+    target_sparsity budget. Counted with every plain version barred, and
+    byte for byte the fused kernel's message."""
+    from repro_torch import kernels
+    from repro_torch.core import engine
+    from repro_torch.core.algorithm import CompressionConfig
+    from repro_torch.core.budgets import BudgetConfig
+    from repro_torch.core.compressors import SPECS
+    from repro_torch.dist.collectives import make_vote_wire
+    from repro_torch.launch.mesh import make_mesh
+
+    name = "sparsign_golomb_two_pass"
+    SPECS[name] = dataclasses.replace(SPECS["sparsign_golomb"], name=name, fused_pack_op=None)
+    try:
+        wire = make_vote_wire("allgather_packed", make_mesh((4,), ("data",)),
+                              wire_format="golomb", golomb_p=GOLOMB_P)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        g = (torch.randn(N_WDOWN, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+        cfg = CompressionConfig(compressor=name,
+                                budget=BudgetConfig(kind="target_sparsity", value=GOLOMB_P))
+        kernels.reset_launch_counts()
+        with plain_versions_barred():
+            two = engine.compress_leaf(g, cfg, 1234, wire=wire).values
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        check(counts == expected(sparsign=1, golomb_pack=1),
+              f"the two-pass chain launched {counts}")
+        for k in totals:
+            totals[k] += counts[k]
+        fused = engine.compress_leaf(g, dataclasses.replace(cfg, compressor="sparsign_golomb"),
+                                     1234, wire=wire).values
+        torch.cuda.synchronize()
+        check(same_bits(two, fused), "the two-pass chain's message differs from the fused one")
+        report["golomb_two_pass"] = {"launches": counts, "header": golomb_header(two)}
+        print(f"[golomb] engine two-pass chain (sparsign, golomb_pack) at w_down: launches "
+              f"{ {k: v for k, v in counts.items() if v} }, bytes == the fused kernel's, "
+              f"header {golomb_header(two)}")
+    finally:
+        del SPECS[name]
+
+
 @contextlib.contextmanager
 def plain_versions_barred():
     """Every plain version of a kernel on the trainer's path raises while the
@@ -846,8 +1130,13 @@ def plain_versions_barred():
     import repro_torch.kernels.ternary.ops as ternary_ops
     import repro_torch.kernels.vote_update.ops as vote_ops
     import repro_torch.kernels.ef_server.ops as ef_ops
+    import repro_torch.kernels.golomb.ops as golomb_ops
 
     names = [(engine_mod, "pack2bit_ref"), (engine_mod, "vote_update_ref"),
+             (engine_mod, "golomb_encode_ref"), (coll_mod, "ungolomb_sum_ref"),
+             (coll_mod, "ungolomb_wsum_ref"), (golomb_ops, "golomb_encode_ref"),
+             (golomb_ops, "sparsign_ref"), (golomb_ops, "ungolomb_sum_ref"),
+             (golomb_ops, "ungolomb_wsum_ref"),
              (engine_mod, "weighted_vote_update_ref"), (engine_mod, "ef_server_ref"),
              (coll_mod, "unpack2bit_sum_ref"), (coll_mod, "unpack2bit_wsum_ref"),
              (pack_ops, "unpack2bit_sum_ref"), (pack_ops, "unpack2bit_wsum_ref"),
@@ -871,9 +1160,33 @@ def plain_versions_barred():
             setattr(mod, name, fn)
 
 
+def time_bisection(torch, model, workers: int) -> float:
+    """Device ms of the target_sparsity budget's bisection
+    (budgets.solve_budget_for_sparsity at GOLOMB_P) over every leaf of the
+    model, once a worker: random bf16 gradients of each leaf's shape, one
+    leaf at a time, CUDA events around each solve."""
+    from repro_torch.core.budgets import solve_budget_for_sparsity
+    from repro_torch.core.compressors import tree_leaves
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    total = 0.0
+    for sd in tree_leaves(model.param_shapes()):
+        g = (torch.randn(sd.shape, generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
+        solve_budget_for_sparsity(g, GOLOMB_P)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        solve_budget_for_sparsity(g, GOLOMB_P)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+        del g
+    return total * workers
+
+
 def phase_trainer(torch, report, totals):
     """qwen1.5-4b at full width through repro_torch.launch.train, M = 4
-    workers on the card, 3 steps a run."""
+    workers on the card, 3 steps a run (2 for sign, noisy_sign and TernGrad)."""
     import numpy as np
 
     from repro_torch import kernels
@@ -884,39 +1197,56 @@ def phase_trainer(torch, report, totals):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train import loop
 
-    steps, m, leaves = 3, 4, 15
+    m, leaves = 4, 15
     base = ["--arch", "qwen1.5-4b", "--full", "--host-data", str(m), "--batch", str(m),
-            "--seq-len", str(TRAINER_SEQ_LEN), "--steps", str(steps), "--seed", "0"]
+            "--seq-len", str(TRAINER_SEQ_LEN), "--seed", "0"]
     sparsign = ["--compressor", "sparsign", "--budget-kind", "l2_norm", "--budget", "0.1"]
+    target = ["--budget-kind", "target_sparsity", "--budget", str(GOLOMB_P)]
+    elastic = ["--worker-weights", "1.5,0.5,2,1", "--dropout", "0.25"]
     majority = ["--server", "majority_vote"]
     packed = ["--vote-impl", "allgather_packed"]
     voted = dict(unpack2bit_sum=leaves, vote_update=leaves)
-    runs = [  # label, flags, worker group (None: --host-data), launches a step
+    golomb_voted = dict(sparsign_golomb=leaves * m, ungolomb_sum=leaves, vote_update=leaves)
+    runs = [  # label, flags, worker group (None: --host-data), launches a step, steps
         ("sparsign/majority_vote psum", sparsign + majority + ["--vote-impl", "psum"], None,
-         dict(sparsign=leaves * m, vote_update=leaves)),
+         dict(sparsign=leaves * m, vote_update=leaves), 3),
         ("sparsign/majority_vote hier 2x2", sparsign + majority + ["--vote-impl", "hier"],
-         ((2, 2), ("pod", "data")), dict(sparsign=leaves * m, vote_update=leaves)),
+         ((2, 2), ("pod", "data")), dict(sparsign=leaves * m, vote_update=leaves), 3),
         ("sparsign/majority_vote allgather_packed", sparsign + majority + packed, None,
-         dict(sparsign_pack2bit=leaves * m, **voted)),
+         dict(sparsign_pack2bit=leaves * m, **voted), 3),
         ("sparsign/scaled_sign_ef allgather_packed", sparsign + ["--server", "scaled_sign_ef"]
          + packed, None, dict(sparsign_pack2bit=leaves * m, unpack2bit_sum=leaves,
-                              ef_server=leaves)),
+                              ef_server=leaves), 3),
         ("sign/majority_vote allgather_packed", ["--compressor", "sign"] + majority + packed,
-         None, dict(ternary_pack2bit=leaves * m, **voted)),
+         None, dict(ternary_pack2bit=leaves * m, **voted), 2),
         ("noisy_sign/majority_vote allgather_packed",
          ["--compressor", "noisy_sign", "--budget", "1e-4"] + majority + packed, None,
-         dict(ternary_pack2bit=leaves * m, **voted)),
+         dict(ternary_pack2bit=leaves * m, **voted), 2),
         ("terngrad/mean allgather_packed", ["--compressor", "terngrad", "--server", "mean"]
-         + packed, None, dict(ternary_pack2bit=leaves * m, unpack2bit_sum=leaves)),
+         + packed, None, dict(ternary_pack2bit=leaves * m, unpack2bit_sum=leaves), 2),
         ("elastic sparsign/majority_vote allgather_packed", sparsign + majority + packed
-         + ["--worker-weights", "1.5,0.5,2,1", "--dropout", "0.25"], None,
-         dict(sparsign_pack2bit=leaves * m, unpack2bit_wsum=leaves,
-              weighted_vote_update=leaves)),
+         + elastic, None, dict(sparsign_pack2bit=leaves * m, unpack2bit_wsum=leaves,
+                               weighted_vote_update=leaves), 3),
+        ("sparsign_golomb/majority_vote allgather_packed",
+         ["--compressor", "sparsign_golomb"] + target + majority + packed, None,
+         golomb_voted, 3),
+        ("elastic sparsign_golomb/majority_vote allgather_packed",
+         ["--compressor", "sparsign_golomb"] + target + majority + packed + elastic, None,
+         dict(sparsign_golomb=leaves * m, ungolomb_wsum=leaves, weighted_vote_update=leaves),
+         3),
+        ("sparsign target_sparsity/majority_vote allgather_packed",
+         ["--compressor", "sparsign"] + target + majority + packed, None,
+         dict(sparsign_pack2bit=leaves * m, **voted), 3),
     ]
-    first, compared = runs[0][0], {runs[1][0], runs[2][0]}
-    reference = None   # the psum run's parameters, on the host: the card's peaks exclude it
-    for label, flags, mesh, per_step in runs:
-        args = launch.parser().parse_args(base + flags)
+    # a reference run's parameters, held on the host (the card's peaks
+    # exclude them), and the runs that must equal them bit for bit: the
+    # three vote wires; the golomb wire and the 2-bit wire (the same votes
+    # on two encodings, while no golomb message drops a nonzero)
+    references = {runs[0][0]: {runs[1][0], runs[2][0]}, runs[8][0]: {runs[10][0]}}
+    traced_runs = {runs[2][0]: "trainer_profile", runs[8][0]: "trainer_profile_golomb"}
+    reference, ref_label, compared = None, None, set()
+    for label, flags, mesh, per_step, steps in runs:
+        args = launch.parser().parse_args(base + flags + ["--steps", str(steps)])
         group = make_mesh(*mesh) if mesh is not None else None
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -948,50 +1278,66 @@ def phase_trainer(torch, report, totals):
             check(math.isfinite(h["loss"]), f"trainer {label}: non-finite loss {h['loss']}")
             check(h["wire_bytes_per_device"] == ledger,
                   f"trainer {label}: wire bytes {h['wire_bytes_per_device']} != ledger {ledger}")
+            dropped = ""
+            if "nnz_dropped" in h:
+                check(h["nnz_dropped"] == 0, f"trainer {label}: {h['nnz_dropped']} nonzeros "
+                                             f"dropped at capacity")
+                dropped = f" dropped {h['nnz_dropped']:g}"
             print(f"[trainer] {label} step {h['step']}: loss {h['loss']:.6f} nnz_frac "
-                  f"{h['nnz_frac']:.6g} wire_bytes_per_device {h['wire_bytes_per_device']:.10g} "
-                  f"participated {h['participated']:g} host {s_:.3f} s peak {pk:.2f} GB")
+                  f"{h['nnz_frac']:.6g}{dropped} wire_bytes_per_device "
+                  f"{h['wire_bytes_per_device']:.10g} participated {h['participated']:g} host "
+                  f"{s_:.3f} s peak {pk:.2f} GB")
         line = {"run": label, "layers": cfg.n_layers, "workers": m,
                 "tokens_per_worker": TRAINER_SEQ_LEN, "build_s": build_s, "step_s": step_s,
                 "peak_gb": peak_gb, "loss": [h["loss"] for h in history],
                 "nnz_frac": [h["nnz_frac"] for h in history],
+                "nnz_dropped": [h.get("nnz_dropped") for h in history],
                 "participated": [h["participated"] for h in history], "peak_gb_by_step": peaks,
                 "wire_bytes_per_device": ledger, "launches": counts}
         report.setdefault("trainer", []).append(line)
         print(f"[trainer] {label}: {cfg.n_layers} layers, build {build_s:.2f} s, steps "
-              f"{[round(x, 3) for x in step_s]} s, peak {peak_gb:.2f} GB, launches {counts}")
+              f"{[round(x, 3) for x in step_s]} s, peak {peak_gb:.2f} GB, launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
         params = tree_leaves(state.params)
         check(all(bool(torch.isfinite(p).all()) for p in params),
               f"trainer {label}: non-finite parameters")
-        if label == first:
-            reference = [p.to("cpu") for p in params]
+        if label in references:
+            reference, ref_label = [p.to("cpu", copy=True) for p in params], label
+            compared = set(references[label])
         elif label in compared:
             # leaf by leaf, after this run's peak was read
             same = all(torch.equal(bits(a), bits(b.to(a.device)))
                        for a, b in zip(params, reference))
-            check(same, f"trainer {label}: parameters differ from the psum run")
-            print(f"[trainer] {label}: parameters bitwise equal to the psum run")
+            check(same, f"trainer {label}: parameters differ from the {ref_label} run")
+            print(f"[trainer] {label}: parameters bitwise equal to the {ref_label} run")
             compared.discard(label)
             if not compared:
                 reference = None
-        if label == "sparsign/majority_vote allgather_packed":
+        if label in traced_runs:
             # where a step's device time goes: one more step of this run,
             # traced after its counted steps (these launches are not counted)
             params = None
             batch = batch_fn(steps)
             split = profile_call(torch, lambda: step(state, batch))
-            report["trainer_profile"] = split
+            report[traced_runs[label]] = split
             shares = ", ".join(f"{k} {v:.3%}" for k, v in split["kernel_share"].items())
             top = ", ".join(f"{k[:60]} {v:.1%}" for k, v in split["top_kernels"].items())
             print(f"[profile] trainer step ({label}, {cfg.n_layers} layers): "
                   f"{split['call_ms']:.1f} ms, device busy {split['busy_share']:.1%}, port "
                   f"kernels {split['port_kernel_share']:.3%} of device time ({shares}); "
                   f"top: {top}")
+        if label == runs[8][0]:
+            bisect_ms = time_bisection(torch, model, m)
+            report["bisection_ms_per_step"] = bisect_ms
+            print(f"[trainer] target_sparsity bisection: {bisect_ms:.1f} ms of device time a "
+                  f"step ({m} workers x {leaves} leaves, 30 passes each), "
+                  f"{bisect_ms / 1e3 / statistics.median(step_s):.2%} of the median step")
         del params, step, state, model
         torch.cuda.empty_cache()
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1026,10 +1372,14 @@ def main() -> int:
     wire_errs, wire_times = phase_wire_kernels(torch, timer, report)
     errs.update(wire_errs)
     main_times.update(wire_times)
+    golomb_errs, golomb_times = phase_golomb_kernels(torch, timer, report)
+    errs.update(golomb_errs)
+    main_times.update(golomb_times)
     del timer
     torch.cuda.empty_cache()
     totals = phase_fl(torch, report)
     phase_baselines(torch, report, totals)
+    phase_golomb_two_pass(torch, report, totals)
     phase_trainer(torch, report, totals)
     check(all(totals[k] > 0 for k in totals), f"a kernel never launched on the path: {totals}")
 
@@ -1042,6 +1392,8 @@ def main() -> int:
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
     report["kernels"] = rows
+    report["wall_s"] = time.perf_counter() - t_start
+    print(f"[done] {report['wall_s']:.1f} s wall")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

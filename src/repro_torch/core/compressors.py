@@ -1,9 +1,10 @@
 """Gradient compressors and the ``CompressorSpec`` registry, the port of
 ``repro.core.compressors``: the paper's ``sparsign`` (Def. 1), the Table 1-2
 baselines of §6 / Appendix B (sign, scaled sign, noisy sign, 1-bit QSGD in
-L2 and L-inf, TernGrad) and the uncompressed ``identity``. The rows of the
-packed wires (``sparsign_golomb``, ``qsgd8``) arrive with their kernels;
-``get_spec`` names the ROADMAP queue for them.
+L2 and L-inf, TernGrad), ``sparsign_golomb`` (sparsign on the Golomb/Rice
+entropy-coded wire) and the uncompressed ``identity``. The ``qsgd8`` row of
+the pack8 wire arrives with its kernels; ``get_spec`` names the ROADMAP queue
+for it.
 
 Values functions share the normalized signature
 ``(g, param, seed, counter_base) -> values``, where ``seed`` is one stream
@@ -21,6 +22,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core import prng
+from repro_torch.kernels.golomb.ops import sparsign_golomb_op
 from repro_torch.kernels.sparsign.ops import sparsign_op
 from repro_torch.kernels.sparsign_pack2bit.ops import sparsign_pack2bit_op
 from repro_torch.kernels.ternary.ops import (noisy_sign_op, noisy_sign_pack2bit_op, sign_op,
@@ -165,7 +167,7 @@ SCALE_PROTOCOLS = ("none", "local_norm", "shared_max")
 SERVER_DECODES = ("sign", "scaled_sign", "dequant")
 #: the uplink payload format a row's messages take on a packed wire: the flat
 #: 2-bit ternary codebook, the 8-bit levels, the Golomb stream, or floats
-#: (which ride the decoded psum); only pack2 and float rows are ported
+#: (which ride the decoded psum); no pack8 row is ported yet
 WIRE_FORMATS = ("pack2", "golomb", "pack8", "float")
 
 
@@ -230,6 +232,13 @@ SPECS: dict[str, CompressorSpec] = {spec.name: spec for spec in (
         kernel_op=sparsign_op, fused_pack_op=sparsign_pack2bit_op, chunkable=True,
         uplink_bits="golomb_ternary"),
     CompressorSpec(
+        # the same Def. 1 compressor as 'sparsign' (values, seeds, budget) on
+        # the entropy-coded wire: Rice-coded zero runs and sign bits at a
+        # plan-time capacity instead of the flat 2-bit codebook
+        name="sparsign_golomb", api=sparsign, values=_sparsign_values, is_ternary=True,
+        kernel_op=sparsign_op, fused_pack_op=sparsign_golomb_op, chunkable=True,
+        wire_format="golomb", uplink_bits="golomb_ternary"),
+    CompressorSpec(
         name="sign", api=sign_compressor, values=_sign_values, is_ternary=True,
         kernel_op=sign_op, fused_pack_op=sign_pack2bit_op),
     CompressorSpec(
@@ -263,8 +272,8 @@ SPECS: dict[str, CompressorSpec] = {spec.name: spec for spec in (
 )}
 
 #: compressors of the JAX package that arrive with their wires (ROADMAP.md,
-#: queue 2 "TPU kernels to port": the Golomb rows 14-17 and pack8 rows 12-13)
-NOT_YET_PORTED = ("sparsign_golomb", "qsgd8")
+#: queue 2 "TPU kernels to port": the pack8 rows 12-13)
+NOT_YET_PORTED = ("qsgd8",)
 
 
 def get_spec(name: str) -> CompressorSpec:

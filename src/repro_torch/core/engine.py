@@ -22,11 +22,12 @@ Two primitives:
 (workers, ...) tensor with one seed per row: one kernel launch per round.
 With a ``wire`` (``repro_torch.dist.collectives``) it returns one message in
 the wire's native format: the 2-bit packed canonical view on the
-``allgather_packed`` wire, produced by the spec's fused kernel on the card.
+``allgather_packed`` wire, or the Golomb/Rice coded stream on the golomb
+gather wire, produced by the spec's fused kernel on the card.
 
 Around them, the helpers that keep compressor and server names out of the
-trainer: wire-mode negotiation (``wire_mode``, ``wire_payload_format``) and
-the per-leaf quorum (``broadcast_quorum``).
+trainer: wire-mode negotiation (``wire_mode``, ``wire_payload_format``,
+``resolve_golomb_p``) and the per-leaf quorum (``broadcast_quorum``).
 """
 
 from __future__ import annotations
@@ -41,6 +42,8 @@ from repro_torch.core.compressors import CompressedGrad, chunked_values, get_spe
 from repro_torch.kernels.common import device_tensor, jnp_sign, to_2d
 from repro_torch.kernels.ef_server.ops import ef_server_op
 from repro_torch.kernels.ef_server.ref import ef_server_ref
+from repro_torch.kernels.golomb.ops import golomb_pack_op
+from repro_torch.kernels.golomb.ref import golomb_encode_ref
 from repro_torch.kernels.pack2bit.ref import pack2bit_ref
 from repro_torch.kernels.vote_update.ops import vote_update_op, weighted_vote_update_op
 from repro_torch.kernels.vote_update.ref import vote_update_ref, weighted_vote_update_ref
@@ -100,10 +103,37 @@ def wire_mode(cfg: "CompressionConfig", vote_impl: Optional[str] = None) -> str:
 def wire_payload_format(cfg: "CompressionConfig", mode: str,
                         vote_impl: Optional[str] = None) -> str:
     """The payload format the wire object speaks for this triple (the
-    ``make_vote_wire`` ``wire_format=`` argument): the 2-bit codes for every
-    ported row. The JAX engine's other answers, pack8 and the Golomb stream on
-    the gather wire, arrive with the ``qsgd8`` and ``sparsign_golomb`` rows."""
+    ``make_vote_wire`` ``wire_format=`` argument), a lookup on the spec's
+    ``wire_format`` as in the JAX engine. The entropy-coded stream needs the
+    gather wire (a fabric psum cannot sum variable-length byte streams), so a
+    golomb-format row on the psum and hier impls rides int8 votes: the same
+    votes either way. The JAX engine's pack8 answer arrives with ``qsgd8``."""
+    spec = get_spec(cfg.compressor)
+    if (spec.wire_format == "golomb" and vote_impl == "allgather_packed"
+            and mode in ("votes", "scaled_votes")):
+        return "golomb"
     return "pack2"
+
+
+def resolve_golomb_p(cfg: "CompressionConfig", golomb_p: Optional[float] = None) -> float:
+    """The plan-time nonzero fraction that sizes the golomb wire's static
+    capacity: an explicit setting wins, else a ``target_sparsity`` budget's
+    target is the plan fraction. Anything else fails when the step is built:
+    a guessed p would mis-size the capacity (truncation, or a padded wire
+    that loses to pack2)."""
+    if golomb_p is not None:
+        p = float(golomb_p)
+    elif cfg.budget.kind == "target_sparsity":
+        p = float(cfg.budget.value)
+    else:
+        raise ValueError(
+            f"the golomb wire needs a plan-time nonzero fraction to size its static "
+            f"capacity: set the step config's golomb_p, or use a budget of kind "
+            f"'target_sparsity' (whose target is the plan fraction). Budget kind "
+            f"{cfg.budget.kind!r} carries no nnz fraction to plan against.")
+    if not 0.0 < p < 1.0:
+        raise ValueError(f"golomb plan fraction must be in (0,1), got {p}")
+    return p
 
 
 def broadcast_quorum(quorum, like_tree):
@@ -203,7 +233,10 @@ def compress_leaf(
     uint8 packed canonical view: on the ``cuda`` backend the spec's fused
     kernel writes it in one pass, and a spec without one raises (the two-pass
     chain's pack kernel is not ported); the plain versions compress, then
-    pack, the same bytes.
+    pack, the same bytes. On the ``golomb`` wire ``values`` is the (rows, 128)
+    uint8 coded stream at the wire's plan fraction ``wire.p``: the fused
+    kernel on the card (or, for a golomb row without one, the compress kernel
+    and then the ``golomb_pack`` kernel), the plain versions on the CPU.
 
     A spec with a kernel op takes the CUDA kernel on the ``cuda`` backend;
     everything else runs the plain version (chunked for the counter-indexed
@@ -218,12 +251,16 @@ def compress_leaf(
     backend = resolve_backend(backend, g)
     spec = get_spec(cfg.compressor)
     rows = is_batched(seed)
-    want_packed = wire is not None and wire.native_format == "pack2"
-    if want_packed and spec.wire_format != "pack2":
-        raise ValueError(f"the 'pack2' wire carries ternary messages only; compressor "
+    wire_fmt = wire.native_format if wire is not None else None
+    want_packed = wire_fmt in ("pack2", "golomb")
+    if want_packed and spec.wire_format != wire_fmt:
+        raise ValueError(f"the {wire_fmt!r} wire carries ternary messages only; compressor "
                          f"{cfg.compressor!r} declares wire format {spec.wire_format!r}")
     if want_packed and rows:
         raise ValueError("a packed wire message is one worker's: pass one seed")
+    # the golomb wire's capacity is sized by its plan fraction: the encoders
+    # take the same p, or the message's shape disagrees with the ledger
+    fused_kwargs = {"p": wire.p} if wire_fmt == "golomb" else {}
     scale = spec.resolve_scale(g, shared_linf, rows=rows)
     if scale is None:
         param = resolve_budget(cfg.budget, g, shared_linf=shared_linf, rows=rows)
@@ -233,19 +270,25 @@ def compress_leaf(
         if rows:  # one scale per message, broadcast against (workers, ...)
             msg_scale = scale.expand(g.shape[0]).reshape((g.shape[0],) + (1,) * (g.dim() - 1))
     if want_packed and backend == "cuda":
-        if spec.fused_pack_op is None:
+        if spec.fused_pack_op is not None:
+            return CompressedGrad(
+                values=spec.fused_pack_op(g, param, seed, counter_base, **fused_kwargs),
+                scale=msg_scale)
+        if wire_fmt == "pack2":
             raise NotImplementedError(
                 f"compressor {cfg.compressor!r} has no fused 2-bit wire kernel, and the "
                 f"two-pass pack kernel is not ported: no plain version runs on the card")
-        return CompressedGrad(values=spec.fused_pack_op(g, param, seed, counter_base),
-                              scale=msg_scale)
     if backend == "cuda" and spec.kernel_op is not None:
         vals = spec.kernel_op(g, param, seed, counter_base)
     elif spec.chunkable:
         vals = chunked_values(spec.values, g, param, seed, counter_base)
     else:
         vals = spec.values(g, param, seed, counter_base)
-    if want_packed:
+    if wire_fmt == "golomb":
+        # the two-pass chain: the golomb_pack kernel on the card
+        vals = (golomb_pack_op(vals, p=wire.p) if backend == "cuda"
+                else golomb_encode_ref(vals, p=wire.p))
+    elif want_packed:
         view, _ = to_2d(vals.reshape(-1))
         vals = pack2bit_ref(view)
     return CompressedGrad(values=vals, scale=msg_scale)

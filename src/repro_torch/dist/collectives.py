@@ -25,12 +25,17 @@ Three wire-equivalent vote wires return the same per-coordinate vote total:
   across the outer one;
 - ``PackedVoteWire`` (``allgather_packed``): all-gather of 2-bit packed
   messages and the fused decode-sum kernel (``unpack2bit_sum``, or
-  ``unpack2bit_wsum`` under elastic participation); M x d/4 bytes a leaf.
+  ``unpack2bit_wsum`` under elastic participation); M x d/4 bytes a leaf;
+- ``GolombWire`` (``allgather_packed`` with wire format ``golomb``):
+  all-gather of Golomb/Rice entropy-coded messages at a static plan-time
+  capacity (``kernels/golomb``) and the fused decode-sum kernel
+  (``ungolomb_sum``, or ``ungolomb_wsum``); about (2 + b) p d / 8 bytes a
+  message at plan fraction p.
 
 Each wire knows its native message format, how to mask, count and exchange
 messages in it, and its per-device byte ledger (``wire_bytes``), computed
-from the real buffer sizes. The ring-pipelined gather and the pack8 and
-Golomb wires are not ported yet; ``make_vote_wire`` says so.
+from the real buffer sizes. The ring-pipelined gather and the pack8 wire are
+not ported yet; ``make_vote_wire`` says so.
 """
 
 from __future__ import annotations
@@ -43,6 +48,9 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.kernels.common import PACKED_WIDTH, canonical_rows, from_2d
+from repro_torch.kernels.golomb.ops import ungolomb_sum_op, ungolomb_wsum_op
+from repro_torch.kernels.golomb.ref import (ROW_BYTES, golomb_nbytes, golomb_rows,
+                                            ungolomb_sum_ref, ungolomb_wsum_ref)
 from repro_torch.kernels.pack2bit.ops import unpack2bit_sum_op, unpack2bit_wsum_op
 from repro_torch.kernels.pack2bit.ref import unpack2bit_sum_ref, unpack2bit_wsum_ref
 
@@ -207,6 +215,31 @@ def packed_nbytes(n_coords: int) -> int:
     return canonical_rows(n_coords) * PACKED_WIDTH
 
 
+def golomb_payload_nbytes(n_coords: int, p: float) -> int:
+    """Bytes of one worker's entropy-coded golomb message for an n-coordinate
+    leaf at plan fraction p: the static capacity, padding included."""
+    return golomb_nbytes(n_coords, p)
+
+
+def _golomb_decode_sum(gathered: torch.Tensor, size: int, shape, *, p: float,
+                       backend: Optional[str] = None) -> torch.Tensor:
+    """(M, rows, 128) gathered coded messages -> int32 vote sum of ``shape``:
+    the plain version for ``backend="torch"``, else the op (the kernel on the
+    card)."""
+    if backend == "torch":
+        return ungolomb_sum_ref(gathered, size, shape, p=p)
+    return ungolomb_sum_op(gathered, size, shape, p=p)
+
+
+def _golomb_decode_wsum(gathered: torch.Tensor, weights: torch.Tensor, size: int, shape, *,
+                        p: float, backend: Optional[str] = None) -> torch.Tensor:
+    """The weighted twin of ``_golomb_decode_sum``: float32
+    ``sum_m w_m * votes_m`` of ``shape``, in worker order."""
+    if backend == "torch":
+        return ungolomb_wsum_ref(gathered, weights, size, shape, p=p)
+    return ungolomb_wsum_op(gathered, weights, size, shape, p=p)
+
+
 def vote_psum(votes: torch.Tensor, group: WorkerGroup, n_workers: int) -> torch.Tensor:
     """Integer sum over the workers of a (local, ...) stack of ternary votes,
     in the narrowest dtype that holds it."""
@@ -308,8 +341,9 @@ class VoteWire:
     participation: Optional[ParticipationSpec] = None
 
     name = "psum"
-    #: native uplink message format: "int8" leaf-shaped ternary votes, or
-    #: "pack2" the 2-bit packed uint8 canonical view
+    #: native uplink message format: "int8" leaf-shaped ternary votes,
+    #: "pack2" the 2-bit packed uint8 canonical view, or "golomb" the coded
+    #: uint8 stream
     native_format = "int8"
 
     def mask_message(self, values: torch.Tensor, mask) -> torch.Tensor:
@@ -490,14 +524,88 @@ class PackedVoteWire(VoteWire):
         return float(self.n_workers * canonical_rows(n_coords) * PACKED_WIDTH)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class GolombWire(VoteWire):
+    """All-gather of Golomb/Rice entropy-coded ternary messages + the fused
+    decode-sum kernel: the sub-2-bit variable-length wire.
+
+    The message is a fixed-capacity uint8 stream sized when the step is
+    built from the plan fraction ``p`` (``golomb_rows``): coded zero-run gaps
+    and sign bits behind a header of the shipped and dropped nonzero counts,
+    so a gathered buffer is self-describing. The static capacity keeps the
+    exchange a fixed-shape all-gather, and the ledger (padding included) the
+    bytes the gather moves. A message denser than the plan is truncated at
+    capacity with the dropped count in its header. ``backend="torch"``
+    decodes with the plain versions; the default follows the tensor."""
+
+    backend: Optional[str] = None
+    p: float = 0.05
+
+    name = "allgather_golomb"
+    native_format = "golomb"
+
+    @staticmethod
+    def _header_count(values, at: int) -> torch.Tensor:
+        # a uint32 little-endian header field, as float32 in JAX's order of sums
+        h = values.reshape(-1)[at:at + 4].to(torch.float32)
+        return h[0] + h[1] * 256.0 + h[2] * 65536.0 + h[3] * 16777216.0
+
+    def message_nnz(self, values):
+        # the header is the count: shipped nonzeros, what the vote sum will see
+        return self._header_count(values, 0)
+
+    def message_dropped(self, values):
+        """Nonzeros truncated at capacity (header bytes 4-7): the overflow
+        count a caller can report when the realized nnz outruns the plan."""
+        return self._header_count(values, 4)
+
+    def _no_scale(self, scale):
+        if scale is not None:
+            raise ValueError("the golomb vote wire exchanges entropy-coded ternary votes; a "
+                             "decode scale inside the exchange is a pack8-wire concept")
+
+    def exchange(self, values, size, shape, *, scale=None):
+        self._no_scale(scale)
+        gathered = self.group.gather(values)
+        total = _golomb_decode_sum(gathered, size, shape, p=self.p, backend=self.backend)
+        return total.to(_sum_dtype(self.n_workers))
+
+    def exchange_weighted(self, values, size, shape, *, weight, scale=None):
+        self._require_participation()
+        self._no_scale(scale)
+        gathered = self.group.gather(values)
+        wvec = self.group.gather(weight.to(torch.float32).reshape(-1))
+        wv = _golomb_decode_wsum(gathered, wvec, size, shape, p=self.p, backend=self.backend)
+        return wv, ordered_sum(wvec)
+
+    def weight_bytes(self):
+        # the (1,) float32 effective weight gathered from M - 1 peers
+        if self.participation is None:
+            return 0.0
+        return float((self.n_workers - 1) * 4.0)
+
+    def wire_bytes(self, n_coords):
+        # all-gather of the capacity-padded coded payload to M - 1 peers
+        return float((self.n_workers - 1) * golomb_payload_nbytes(n_coords, self.p))
+
+    def payload_rows(self, n_coords: int) -> int:
+        """Capacity rows of one n-coordinate message at the wire's plan fraction."""
+        return golomb_rows(n_coords, self.p)
+
+    def gather_hbm_bytes(self, n_coords):
+        return float(self.n_workers * golomb_rows(n_coords, self.p) * ROW_BYTES)
+
+
 def make_vote_wire(impl: str, group: WorkerGroup, *, backend: Optional[str] = None,
                    wire_format: str = "pack2", golomb_p: Optional[float] = None,
                    ring_chunk_rows: Optional[int] = None,
                    participation: Optional[ParticipationSpec] = None) -> VoteWire:
     """Build the wire for ``impl`` over the worker group at step-build time,
-    with the JAX builder's validation (same cases, same errors). The ring
-    gather and the pack8 and Golomb wires are not ported yet and raise
-    ``NotImplementedError`` once the arguments are valid."""
+    with the JAX builder's validation (same cases, same errors).
+    ``wire_format="golomb"`` (``allgather_packed`` only) builds the golomb
+    wire at plan fraction ``golomb_p``. The ring gather and the pack8 wire
+    are not ported yet and raise ``NotImplementedError`` once the arguments
+    are valid."""
     if participation is not None and not isinstance(participation, ParticipationSpec):
         raise TypeError(f"participation must be a ParticipationSpec, got "
                         f"{type(participation).__name__}")
@@ -540,10 +648,13 @@ def make_vote_wire(impl: str, group: WorkerGroup, *, backend: Optional[str] = No
     n = group.n_workers
     if participation is not None:
         participation.weights_array(n)   # the weights must cover the fleet
-    if ring_chunk_rows is not None or wire_format != "pack2":
+    if ring_chunk_rows is not None or wire_format == "pack8":
         what = "the ring-pipelined gather" if ring_chunk_rows is not None \
             else f"the {wire_format} wire"
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md)")
+    if wire_format == "golomb":
+        return GolombWire(group=group, n_workers=n, backend=backend, p=float(golomb_p),
+                          participation=participation)
     if impl == "hier":
         return HierVoteWire(group=group, n_workers=n, inner_size=sizes[1],
                             outer_size=sizes[0], participation=participation)

@@ -7,6 +7,8 @@ so a run can show that its path went through the kernels."""
 from __future__ import annotations
 
 from repro_torch.kernels.ef_server.kernel import ef_server_cuda
+from repro_torch.kernels.golomb.kernel import (golomb_pack_cuda, sparsign_golomb_cuda,
+                                               ungolomb_sum_cuda, ungolomb_wsum_cuda)
 from repro_torch.kernels.pack2bit.kernel import unpack2bit_sum_cuda, unpack2bit_wsum_cuda
 from repro_torch.kernels.sparsign.kernel import sparsign_cuda
 from repro_torch.kernels.sparsign_pack2bit.kernel import sparsign_pack2bit_cuda
@@ -23,6 +25,10 @@ WRAPPERS = {
     "ternary_pack2bit": ternary_pack2bit_cuda,
     "unpack2bit_sum": unpack2bit_sum_cuda,
     "unpack2bit_wsum": unpack2bit_wsum_cuda,
+    "sparsign_golomb": sparsign_golomb_cuda,
+    "golomb_pack": golomb_pack_cuda,
+    "ungolomb_sum": ungolomb_sum_cuda,
+    "ungolomb_wsum": ungolomb_wsum_cuda,
 }
 
 

@@ -21,7 +21,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("sparsign", "vote_update", "ef_server", "ternary", "weighted_vote_update",
-           "sparsign_pack2bit", "unpack2bit")
+           "sparsign_pack2bit", "unpack2bit", "golomb_encode", "golomb_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,7 +40,13 @@ SIGNATURES = {
     "sparsign_pack2bit": {"sparsign_pack2bit_launch": [_p, _p, _p, _p, _ll, _ll, _u32, _i, _p]},
     "unpack2bit": {"unpack2bit_sum_launch": [_p, _p, _i, _ll, _p],
                    "unpack2bit_wsum_launch": [_p, _p, _p, _i, _ll, _p]},
+    "golomb_encode": {"golomb_encode_launch": [_p, _p, _p, _p, _p, _ll, _ll, _u32, _i, _i, _p],
+                      "golomb_encode_scratch_bytes": [_ll]},
+    "golomb_decode": {"ungolomb_launch": [_p, _p, _p, _p, _p, _i, _ll, _ll, _i, _p],
+                      "ungolomb_scratch_bytes": [_i, _ll]},
 }
+#: entry points that return something other than a CUDA error code
+RESTYPES = {"golomb_encode_scratch_bytes": _ll, "ungolomb_scratch_bytes": _ll}
 
 _LIBS: dict = {}
 #: nvcc's output (``-Xptxas -v``: registers, spills) and build seconds, per source
@@ -107,7 +113,7 @@ def library(name: str, entry: str | None = None):
         for sym, argtypes in SIGNATURES[name].items():
             fn = getattr(lib, sym)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(sym, ctypes.c_int)
             _LIBS[(name, sym)] = fn
     return _LIBS[(name, entry)]
 

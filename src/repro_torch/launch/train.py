@@ -99,7 +99,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--vote-impl", default="psum", choices=list(collectives.VOTE_IMPLS))
     ap.add_argument("--budget", type=float, default=1.0)
     ap.add_argument("--budget-kind", default="fixed",
-                    choices=["fixed", "linf_share", "l2_norm", "target_sparsity"])
+                    choices=["fixed", "linf_share", "l2_norm", "target_sparsity"],
+                    help="budget semantics; target_sparsity doubles as the golomb wire's "
+                         "plan-time nonzero fraction")
     ap.add_argument("--local-budget", type=float, default=10.0)
     ap.add_argument("--tau", type=int, default=1)
     ap.add_argument("--participation", type=float, default=1.0)

@@ -11,7 +11,8 @@ Algorithm 2 with tau > 1 local steps):
      batch split on axis 0, or axis 1 when tau > 1, in worker order);
   2. it compresses every gradient leaf with its own counter stream, in the
      wire's native format (int8 votes on the psum wires, the 2-bit packed
-     view from one fused kernel on ``allgather_packed``); seeds as in JAX:
+     view or, for a golomb-format row, the Golomb/Rice coded stream from one
+     fused kernel on ``allgather_packed``); seeds as in JAX:
      ``wseed = fold(rseed, 0x5EED) + widx * 0x9E3779B9``, leaf i drawing from
      ``fold(wseed, i)`` with counter base 0, leaves in JAX's flatten order;
   3. one wire exchange per leaf gives the vote total (or the weighted vote
@@ -22,7 +23,12 @@ The workers run one after another, each holding one set of gradients, and
 their messages are kept until the exchange; a compressor that shares the
 workers' L-inf norm (TernGrad, ``linf_share``) keeps every worker's
 gradients until the shared max is known. The bucketed uplink, the ring
-gather and the pack8 and Golomb wires are not ported yet and raise.
+gather and the pack8 wire are not ported yet and raise.
+
+On the golomb wire the step's nnz reads the messages' headers (the shipped
+nonzeros), and ``nnz_dropped`` counts the nonzeros all workers' messages
+truncated at capacity this step (0 unless the realized density outran the
+plan fraction ``golomb_p``).
 """
 
 from __future__ import annotations
@@ -55,6 +61,9 @@ class TrainStepConfig:
     bucketed: bool = False         # not ported yet
     ring_chunk_rows: Optional[int] = None   # not ported yet
     participation: Optional[ParticipationSpec] = None
+    golomb_p: Optional[float] = None   # plan-time nnz fraction sizing the golomb
+                                       # wire's capacity (None: the target of a
+                                       # target_sparsity budget)
 
 
 def worker_batch(batch: dict, widx: int, n_workers: int, batch_axis: int, device) -> dict:
@@ -126,8 +135,11 @@ def build_train_step(model, step_cfg: TrainStepConfig, group: WorkerGroup) -> Ca
         engine.check_participation_server(comp.server, comp.compressor)
     wire = collectives.make_vote_wire(
         step_cfg.vote_impl, group, backend=step_cfg.backend, wire_format=wire_fmt,
+        golomb_p=(engine.resolve_golomb_p(comp, step_cfg.golomb_p)
+                  if wire_fmt == "golomb" else None),
         ring_chunk_rows=step_cfg.ring_chunk_rows,
         participation=part)
+    count_dropped = wire.native_format == "golomb"
     share_linf = engine.needs_shared_linf(comp)
     if mode != "votes" and engine.needs_server_ef(comp.server):
         raise ValueError(
@@ -170,6 +182,7 @@ def build_train_step(model, step_cfg: TrainStepConfig, group: WorkerGroup) -> Ca
         msgs = [[] for _ in range(n_leaves)]
         scales = [[] for _ in range(n_leaves)]
         nnz = [zero] * group.local
+        dropped = [zero] * group.local
         losses, sources, seeds = [], [], []
 
         def compress_worker(j, src, shared):
@@ -188,6 +201,8 @@ def build_train_step(model, step_cfg: TrainStepConfig, group: WorkerGroup) -> Ca
                     msgs[i].append(values)
                     scales[i].append(msg.scale)
                     nnz[j] = nnz[j] + wire.message_nnz(values)
+                    if count_dropped:
+                        dropped[j] = dropped[j] + wire.message_dropped(values)
 
         for j in range(group.local):
             w = group.rank * group.local + j
@@ -270,6 +285,8 @@ def build_train_step(model, step_cfg: TrainStepConfig, group: WorkerGroup) -> Ca
                    "participated": n_sel,
                    "wire_bytes_per_device": torch.tensor(f32(wire_bytes), device=dev),
                    "gather_hbm_bytes": torch.tensor(f32(gather_hbm), device=dev)}
+        if count_dropped:
+            metrics["nnz_dropped"] = collectives.scalar_psum(torch.stack(dropped), group)
         new_state = TrainState(
             params=tree_unflatten(params, new_leaves),
             ef_residual=(tree_unflatten(params, ef_leaves)

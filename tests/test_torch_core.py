@@ -165,20 +165,21 @@ def test_bit_model_matches_jax(p):
 # ---------------------------------------------------------------- registry
 
 def test_registry_rows_and_not_yet_ported_names():
-    """Every row of the JAX table but the two packed-wire rows, with the JAX
-    row's ternariness, scale protocol and server decode; those two name the
-    ROADMAP queue."""
+    """Every row of the JAX table but the pack8 row, with the JAX row's
+    ternariness, scale protocol, server decode, wire format and fused op;
+    ``qsgd8`` names the ROADMAP queue."""
     from repro.core import compressors as jcomp
-    assert sorted(tcomp.SPECS) == sorted(set(jcomp.SPECS) - {"sparsign_golomb", "qsgd8"})
+    assert sorted(tcomp.SPECS) == sorted(set(jcomp.SPECS) - {"qsgd8"})
     for name, spec in tcomp.SPECS.items():
         j = jcomp.SPECS[name]
         assert (spec.is_ternary, spec.scale_protocol, spec.server_decode, spec.chunkable,
-                spec.uplink_bits) == (j.is_ternary, j.scale_protocol, j.server_decode,
-                                      j.chunkable, j.uplink_bits), name
+                spec.uplink_bits, spec.wire_format) == (j.is_ternary, j.scale_protocol,
+                                                        j.server_decode, j.chunkable,
+                                                        j.uplink_bits, j.wire_format), name
         assert (spec.kernel_op is None) == (j.pallas_op is None), name
-    for name in ("sparsign_golomb", "qsgd8"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            tcomp.get_spec(name)
+        assert (spec.fused_pack_op is None) == (j.fused_pack_op is None), name
+    with pytest.raises(KeyError, match="ROADMAP"):
+        tcomp.get_spec("qsgd8")
     with pytest.raises(KeyError, match="unknown compressor"):
         tcomp.get_spec("nope")
     g = torch.from_numpy(heavy_grad(50))

@@ -13,9 +13,13 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core.algorithm import CompressionConfig
 from repro_torch.core.budgets import BudgetConfig
 from repro_torch.core.compressors import tree_leaves
+from repro_torch.dist.collectives import ParticipationSpec
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.ef_server.ops import ef_server_op
 from repro_torch.kernels.ef_server.ref import ef_server_ref
+from repro_torch.kernels.golomb import ref as golomb_ref
+from repro_torch.kernels.golomb.ops import (golomb_pack_op, sparsign_golomb_op,
+                                            ungolomb_sum_op, ungolomb_wsum_op)
 from repro_torch.kernels.pack2bit.ops import unpack2bit_sum_op, unpack2bit_wsum_op
 from repro_torch.kernels.pack2bit.ref import unpack2bit_sum_ref, unpack2bit_wsum_ref
 from repro_torch.kernels.sparsign.ops import sparsign_op
@@ -165,3 +169,77 @@ def test_trainer_step_on_card_matches_plain_versions(cuda_device, tau):
             assert not any(counts.values())
     for a, b in zip(out[None], out["torch"]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_golomb_kernels_match_plain_versions_on_card(cuda_device):
+    """The Golomb/Rice encoders (sparsign of f32 and bf16 gradients near the
+    top of the counter, with +-0/NaN/+-inf; an int8 view; a message past
+    capacity; a lone last nonzero) and the decode-sums (M = 1, 3 with a
+    masked worker, zero and fractional weights) against their plain versions
+    on the card, bit for bit."""
+    p = 0.05
+    for n in (1, 4099, 70001):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.from_numpy(grad_like(n, n)).to(cuda_device, dtype)
+            g[:3] = torch.tensor([float("nan"), float("inf"), -float("inf")])[:n]
+            for budget in (0.12, 3.0):   # near the plan; past the capacity
+                want = golomb_ref.golomb_encode_ref(sparsign_ref(g, budget, 5, 2**32 - 9), p=p)
+                np.testing.assert_array_equal(
+                    tbits(sparsign_golomb_op(g, budget, 5, 2**32 - 9, p=p)), tbits(want))
+    t = torch.zeros(70001, dtype=torch.int8, device=cuda_device)
+    t[-1] = 1
+    for x in (t, torch.from_numpy(np.random.RandomState(1).randint(-1, 2, 70001).astype(
+            np.int8)).to(cuda_device)):
+        np.testing.assert_array_equal(tbits(golomb_pack_op(x, p=p)),
+                                      tbits(golomb_ref.golomb_encode_ref(x, p=p)))
+    n = 70001
+    g = torch.from_numpy(grad_like(n, 7)).to(cuda_device)
+    for m in (1, 3):
+        msgs = torch.stack([sparsign_golomb_op(g, 0.12, s, p=p) for s in range(m)])
+        if m == 3:
+            msgs[1] = 0
+        w = torch.tensor([0.0, 0.3, 1.5][:m], device=cuda_device)
+        np.testing.assert_array_equal(tbits(ungolomb_sum_op(msgs, n, (n,), p=p)),
+                                      tbits(golomb_ref.ungolomb_sum_ref(msgs, n, (n,), p=p)))
+        np.testing.assert_array_equal(tbits(ungolomb_wsum_op(msgs, w, n, (n,), p=p)),
+                                      tbits(golomb_ref.ungolomb_wsum_ref(msgs, w, n, (n,), p=p)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("elastic", [False, True])
+def test_golomb_trainer_step_on_card_matches_plain_versions(cuda_device, elastic):
+    """One smoke-size trainer step at M = 4 on the golomb wire through the
+    kernels and through the plain versions on the card: the same parameters,
+    bit for bit, the golomb kernels launched, and the same parameters as the
+    2-bit packed wire's step."""
+    model = Model(get_config("qwen1.5-4b", smoke=True))
+    rng = np.random.RandomState(0)
+    batch = {"inputs": rng.randint(0, 256, (4, 16)).astype(np.int32),
+             "labels": rng.randint(0, 256, (4, 16)).astype(np.int32),
+             "positions": np.broadcast_to(np.arange(16, dtype=np.int32), (4, 16)).copy()}
+    part = (ParticipationSpec(weights=(1.5, 0.5, 2.0, 1.0), dropout=0.25) if elastic else None)
+    out = {}
+    for name, backend in (("sparsign_golomb", None), ("sparsign_golomb", "torch"),
+                          ("sparsign", None)):
+        comp = CompressionConfig(compressor=name, budget=BudgetConfig(
+            kind="target_sparsity", value=0.05), server="majority_vote")
+        step = build_train_step(model, TrainStepConfig(
+            compression=comp, lr=LrSchedule(base=0.05), vote_impl="allgather_packed",
+            backend=backend, participation=part), make_mesh((4,), ("data",)))
+        state = init_state(model.init(0, device=cuda_device), server=comp.server, seed=1)
+        reset_launch_counts()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        out[(name, backend)] = [tbits(t) for t in tree_leaves(state.params)]
+        if name == "sparsign_golomb":
+            assert float(metrics["nnz_dropped"]) == 0.0
+            if backend is None:
+                decode = "ungolomb_wsum" if elastic else "ungolomb_sum"
+                assert counts["sparsign_golomb"] == 15 * 4 and counts[decode] == 15
+            else:
+                assert not any(counts.values())
+    for key in (("sparsign_golomb", "torch"), ("sparsign", None)):
+        for a, b in zip(out[("sparsign_golomb", None)], out[key]):
+            np.testing.assert_array_equal(a, b)

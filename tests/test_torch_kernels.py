@@ -216,4 +216,6 @@ def test_cpu_ops_take_plain_versions_and_count_no_launch():
     assert tkernels.launch_counts() == {"sparsign": 0, "vote_update": 0, "ef_server": 0,
                                         "ternary": 0, "weighted_vote_update": 0,
                                         "sparsign_pack2bit": 0, "ternary_pack2bit": 0,
-                                        "unpack2bit_sum": 0, "unpack2bit_wsum": 0}
+                                        "unpack2bit_sum": 0, "unpack2bit_wsum": 0,
+                                        "sparsign_golomb": 0, "golomb_pack": 0,
+                                        "ungolomb_sum": 0, "ungolomb_wsum": 0}

@@ -156,12 +156,15 @@ def _injected(seed, tau=1):
     return params, per, batch
 
 
-def jax_oracle(params, per, jcomp, *, seed, step, lr, part=None, local_lr=0.0):
+def jax_oracle(params, per, jcomp, *, seed, step, lr, part=None, local_lr=0.0,
+               golomb_p=None):
     """One round of the trainer, worker by worker, from the JAX package's
     parts: sampling and seeds, the engine's compress_leaf on the packed wire
     (jnp backend), the wire's decode (int8 total, or the weighted decode),
-    and server_apply."""
-    wire = jcoll.PackedVoteWire(axes=("data",), n_workers=M)
+    and server_apply. ``golomb_p`` puts the messages on the golomb wire at
+    that plan fraction instead."""
+    wire = (jcoll.GolombWire(axes=("data",), n_workers=M, p=golomb_p) if golomb_p is not None
+            else jcoll.PackedVoteWire(axes=("data",), n_workers=M))
     rseed = jsampling.round_seed(jnp.uint32(seed), jnp.int32(step))
     wseeds = [jprng.fold_seed(rseed, 0x5EED) + jnp.uint32(w) * jnp.uint32(0x9E3779B9)
               for w in range(M)]
@@ -215,13 +218,18 @@ def jax_oracle(params, per, jcomp, *, seed, step, lr, part=None, local_lr=0.0):
                                         backend="jnp", wire=wire, shared_linf=shared)
             msgs.append(jnp.where(mask[w], msg.values, jnp.zeros((), jnp.uint8)))
         stack = jnp.stack(msgs)
+        if golomb_p is not None:
+            decode_sum = _golomb_decode_sum_jit
+            decode_wsum = _golomb_decode_wsum_jit
+            gkw = {"p": golomb_p}
+        else:
+            decode_sum, decode_wsum, gkw = jcoll._packed_decode_sum, jcoll._packed_decode_wsum, {}
         if part is not None:
-            wv = jcoll._packed_decode_wsum(stack, wvec, p.size, p.shape, backend="jnp")
+            wv = decode_wsum(stack, wvec, p.size, p.shape, backend="jnp", **gkw)
             new, _ = jengine.server_apply(pj, wv, jcomp, lr=lr, part_total=jnp.sum(wvec),
                                           q_frac=part.resolve_q_frac(1, M), backend="jnp")
         else:
-            votes = jcoll._packed_decode_sum(stack, p.size, p.shape,
-                                             backend="jnp").astype(jnp.int8)
+            votes = decode_sum(stack, p.size, p.shape, backend="jnp", **gkw).astype(jnp.int8)
             if mode == "votes":
                 new, _ = jengine.server_apply(pj, votes, jcomp, lr=lr, n_sel=n_sel,
                                               backend="jnp")
@@ -230,6 +238,13 @@ def jax_oracle(params, per, jcomp, *, seed, step, lr, part=None, local_lr=0.0):
                                               server="mean", scale=msg.scale, backend="jnp")
         out.append(np.asarray(new))
     return out
+
+
+# the JAX golomb decode is a while loop over codes: compiled once per leaf
+_golomb_decode_sum_jit = jax.jit(jcoll._golomb_decode_sum, static_argnums=(1, 2),
+                                 static_argnames=("p", "backend"))
+_golomb_decode_wsum_jit = jax.jit(jcoll._golomb_decode_wsum, static_argnums=(2, 3),
+                                  static_argnames=("p", "backend"))
 
 
 CASES = {
