@@ -53,7 +53,25 @@ Phases, in order; any failure exits non-zero before the last line:
      bytes (== the uplink ledger), host seconds and peak memory; launch
      counts checked with every plain version barred from running; one step
      each of the packed and the golomb run traced with torch.profiler; the
-     target_sparsity bisection timed on its own.
+     target_sparsity bisection timed on its own; then qsgd8 with the mean
+     server, 3 steps each on the pack8 wire (allgather_packed), on the
+     decoded psum (parameters bitwise equal to the pack8 run's) and on the
+     elastic pack8 wire. The psum, hier, allgather_packed, scaled_sign_ef
+     and elastic sparsign runs take 2 steps (cut from 3 for time);
+  8. the stand-alone pack and unpack kernels and the pack8 wire's kernels
+     (pack2bit, unpack2bit, qsgd8_pack8, unpack8_sum) against their plain
+     versions on the card, bit for bit: w_down's size, odd sizes, arbitrary
+     int8 bytes, f32 and bf16 gradients with +-0/NaN/+-inf at counter base
+     2^32 - 5000, M = 1, 4 and 20 with zero scales; timed against bounds;
+  9. serving qwen1.5-4b at full width: repro_torch.launch.serve's loop (batch
+     4, a 128-token prompt replayed through decode, 64 new tokens, a
+     synthetic 2-bit weight-update round every 16 tokens: 4 rounds through
+     pack2bit, unpack2bit and vote_update), counted with every plain version
+     barred; a timed prefill of 4 x 2048 tokens; decode after a prefill
+     whose cache is padded to max_len against forward_hidden's last logits;
+     one ingest round on each downlink wire (packed2bit, int8, packed8
+     through qsgd8_pack8), each bitwise equal to backend="torch", the
+     packed2bit route equal to server_apply on the int8 decisions.
 It prints one JSON line of kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Results also go to
 chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device.
@@ -66,6 +84,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -91,6 +110,10 @@ REPLACES = {
     "golomb_pack": "src/repro/kernels/golomb/kernel.py:88",
     "ungolomb_sum": "src/repro/kernels/golomb/kernel.py:109",
     "ungolomb_wsum": "src/repro/kernels/golomb/kernel.py:130",
+    "pack2bit": "src/repro/kernels/pack2bit/kernel.py:77",
+    "unpack2bit": "src/repro/kernels/pack2bit/kernel.py:133",
+    "qsgd8_pack8": "src/repro/kernels/pack8/kernel.py:91",
+    "unpack8_sum": "src/repro/kernels/pack8/kernel.py:111",
 }
 SOURCE = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 SOURCE.update({"ternary_pack2bit": "src/repro_torch/csrc/ternary.cu",
@@ -99,11 +122,25 @@ SOURCE.update({"ternary_pack2bit": "src/repro_torch/csrc/ternary.cu",
                "sparsign_golomb": "src/repro_torch/csrc/golomb_encode.cu",
                "golomb_pack": "src/repro_torch/csrc/golomb_encode.cu",
                "ungolomb_sum": "src/repro_torch/csrc/golomb_decode.cu",
-               "ungolomb_wsum": "src/repro_torch/csrc/golomb_decode.cu"})
+               "ungolomb_wsum": "src/repro_torch/csrc/golomb_decode.cu",
+               "unpack2bit": "src/repro_torch/csrc/pack2bit.cu",
+               "qsgd8_pack8": "src/repro_torch/csrc/pack8.cu",
+               "unpack8_sum": "src/repro_torch/csrc/pack8.cu"})
 WIRE_KERNELS = ("sparsign_pack2bit", "ternary_pack2bit", "unpack2bit_sum", "unpack2bit_wsum")
 GOLOMB_KERNELS = ("sparsign_golomb", "golomb_pack", "ungolomb_sum", "ungolomb_wsum")
+PACK8_KERNELS = ("pack2bit", "unpack2bit", "qsgd8_pack8", "unpack8_sum")
 GOLOMB_P = 0.05              # the plan fraction of the golomb runs (target_sparsity 0.05)
 TRAINER_SEQ_LEN = 4096       # train_4k's sequence, one a worker
+SERVE_ARGS = ["--arch", "qwen1.5-4b", "--full", "--batch", "4", "--prompt-len", "128",
+              "--tokens", "64", "--online-updates", "16", "--seed", "0"]
+PREFILL_BATCH, PREFILL_LEN = 4, 2048
+# decode after a prefill padded to max_len against forward_hidden's last
+# logits, in bf16 at full width with random weights: max |difference| over
+# max |logit|. Measured 0.0946 on "NVIDIA H100 80GB HBM3, 700.00 W" (my chip
+# run R2, PERF.md); the bound leaves a margin of 2.1x. The run also prints
+# the noise floor of bf16 itself: the same logits from a forward one token
+# longer (other GEMM shapes, so other cuBLAS kernels and roundings).
+DECODE_REL_TOL = 0.2
 
 
 def check(cond, msg: str) -> None:
@@ -134,6 +171,9 @@ def same_bits(a, b) -> bool:
 
 def max_abs_err(a, b) -> float:
     import torch
+    if not a.is_floating_point() and a.element_size() == 1:   # bytes: in int16
+        d = (a.to(torch.int16) - b.to(torch.int16)).abs()
+        return float(d.max()) if d.numel() else 0.0
     d = (a.to(torch.float64) - b.to(torch.float64)).abs()
     both_nan = torch.isnan(a.to(torch.float64)) & torch.isnan(b.to(torch.float64))
     d = torch.where(both_nan, torch.zeros_like(d), d)
@@ -218,6 +258,14 @@ DECODE_OPS_PER_CODE = 6
 # the drawing rule's operations for the fused kernel.
 GOLOMB_ENC_OPS_PER_CODE = 8
 GOLOMB_DEC_OPS_PER_CODE = 10
+# The pack8 wire, per coordinate: quantizing takes 27 (the uniform's 13;
+# |g|, the division, floor, the fraction's subtract, u < frac, its select,
+# the add, the clip; the sign's two compares and two selects; the multiply
+# and the convert), and the decode 3 per worker (convert, multiply, add).
+# Unpacking a 2-bit code takes 5 (a shift, a mask, two compares, a select).
+QSGD8_OPS_PER_COORD = 27
+UNPACK8_OPS_PER_LEVEL = 3
+UNPACK_OPS_PER_CODE = 5
 
 
 def rule_ops(rule: str, rows: int, n: int) -> int:
@@ -334,14 +382,16 @@ def profile_call(torch, fn) -> dict:
     for start, end in sorted(spans):
         busy_us += max(0.0, end - max(start, reach))
         reach = max(reach, end)
-    per = {n: sum(t for k, t in kern.items() if f"{n}_kernel" in k
-                  and not (n == "vote_update" and "weighted_vote_update" in k))
+    # a kernel's own name, not a longer one that ends in it (vote_update in
+    # weighted_vote_update, pack2bit in sparsign_pack2bit and unpack2bit)
+    per = {n: sum(t for k, t in kern.items() if re.search(rf"(?<!\w){n}_kernel\b", k))
            for n in REPLACES if n not in GOLOMB_KERNELS}
     for src in ("golomb_encode", "golomb_decode"):
         per[src] = sum(t for k, t in kern.items() if golomb_owner(k) == src)
     ours = sum(per.values())
     top = dict(sorted(kern.items(), key=lambda kv: -kv[1])[:5])
     return {"call_ms": call_ms, "kernel_ms": total, "busy_ms": busy_us / 1e3,
+            "kernels": len(spans),
             "busy_share": busy_us / 1e3 / call_ms,
             "port_kernel_ms": ours, "port_kernel_share": ours / total,
             "kernel_share": {n: t / total for n, t in per.items() if t > 0},
@@ -1074,6 +1124,126 @@ def phase_golomb_kernels(torch, timer, report):
     return errs, {k: timings[v] for k, v in main_shape.items()}
 
 
+def phase_pack8_kernels(torch, timer, report):
+    """The stand-alone pack and unpack kernels (the serving downlink) and the
+    pack8 wire's kernels against their plain versions on the card, bit for
+    bit, and their times against their bounds."""
+    from repro_torch.core.compressors import qsgd8_scale
+    from repro_torch.kernels.common import canonical_rows, to_2d
+    from repro_torch.kernels.pack2bit.kernel import pack2bit_cuda, unpack2bit_cuda
+    from repro_torch.kernels.pack2bit.ref import pack2bit_ref, unpack2bit_ref
+    from repro_torch.kernels.pack8.kernel import qsgd8_pack8_cuda, unpack8_sum_cuda
+    from repro_torch.kernels.pack8.ops import qsgd8_pack8_op
+    from repro_torch.kernels.pack8.ref import qsgd8_pack8_ref, unpack8_sum_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    dev = "cuda"
+    errs = {name: 0.0 for name in PACK8_KERNELS}
+
+    def int8s(n, lo=-1, hi=2):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev, dtype=torch.int8)
+
+    # -- pack2bit and unpack2bit: w_down's size (the downlink's largest leaf),
+    # odd sizes, and arbitrary int8 bytes (which pack as the plain version's
+    # uint8 shifts do)
+    for n, lo, hi in ((N_WDOWN, -1, 2), (12345, -1, 2), (4099, -128, 128), (1, -1, 2)):
+        t = int8s(n, lo, hi)
+        k, r = pack2bit_cuda(t), pack2bit_ref(to_2d(t)[0])
+        torch.cuda.synchronize()
+        check(k.shape == (canonical_rows(n), 128) and same_bits(k, r),
+              f"pack2bit n={n} differs from its plain version in {int((k != r).sum())} bytes")
+        errs["pack2bit"] = max(errs["pack2bit"], max_abs_err(k, r))
+        del r
+        uk, ur = unpack2bit_cuda(k), unpack2bit_ref(k)
+        torch.cuda.synchronize()
+        check(same_bits(uk, ur), f"unpack2bit n={n} differs from its plain version")
+        if hi == 2:
+            check(torch.equal(uk.reshape(-1)[:n], t), f"pack2bit -> unpack2bit n={n} is not "
+                                                      f"the identity on ternary input")
+        errs["unpack2bit"] = max(errs["unpack2bit"], max_abs_err(uk, ur))
+        del k, uk, ur, t
+    print("[pack8] pack2bit and unpack2bit n=707788800, 12345, 4099 (any byte), 1: bitwise ok")
+
+    # -- qsgd8_pack8: the trainer's scale and a small one (levels up to the
+    # clip), f32 and bf16, +-0/NaN/+-inf, the counter past 2^32
+    cases = [(N_WDOWN, torch.bfloat16, 0), (12345, torch.float32, 2**32 - 5000),
+             (12345, torch.bfloat16, 17), (4099, torch.float32, 0), (1 << 24, torch.float32, 0)]
+    for n, dtype, cb in cases:
+        g = torch.randn(n, generator=gen, device=dev) * 0.5
+        if n == 4099:
+            g[0:8] = torch.tensor([0.0, -0.0, float("nan"), float("inf"), -float("inf"),
+                                   1e-30, -1e30, -0.0], device=dev)
+        g = g.to(dtype)
+        seed = int(torch.randint(0, 2**32, (1,), generator=gen, device=dev))
+        for scale in (qsgd8_scale(g), torch.full((), 0.01, device=dev)):
+            k = qsgd8_pack8_op(g, scale, seed, cb)
+            r = chunked_plain(qsgd8_pack8_ref, g, scale, seed, cb).reshape(-1, 512)
+            torch.cuda.synchronize()
+            check(k.shape == (canonical_rows(n), 512) and same_bits(k, r),
+                  f"qsgd8_pack8 n={n} {dtype} scale={float(scale):.3g} differs from its plain "
+                  f"version in {int((k != r).sum())} bytes")
+            errs["qsgd8_pack8"] = max(errs["qsgd8_pack8"], max_abs_err(k, r))
+            del k, r
+        print(f"[pack8] qsgd8_pack8 n={n} {str(dtype)[6:]} cb={cb} (its own scale and 0.01): "
+              f"bitwise ok")
+        del g
+
+    # -- unpack8_sum: M messages of random levels; worker 0's scale is 0, so
+    # its negative levels give -0.0 products, which the +0.0 seed absorbs
+    for m, rows in ((1, canonical_rows(N_WDOWN)), (4, canonical_rows(N_WDOWN)),
+                    (20, canonical_rows(N_WDOWN)), (3, canonical_rows(12345))):
+        lv = torch.randint(-127, 128, (m, rows, 512), generator=gen, device=dev,
+                           dtype=torch.int8)
+        sc = torch.rand(m, generator=gen, device=dev) * 0.01
+        sc[0] = 0.0
+        k, r = unpack8_sum_cuda(lv, sc), unpack8_sum_ref(lv, sc)
+        torch.cuda.synchronize()
+        check(same_bits(k, r), f"unpack8_sum M={m} rows={rows} differs from its plain version "
+                               f"in {int((bits(k) != bits(r)).sum())} values")
+        if m == 1:
+            check(not bool(torch.signbit(k).any()), "unpack8_sum M=1 at scale 0 gave -0.0")
+        errs["unpack8_sum"] = max(errs["unpack8_sum"], max_abs_err(k, r))
+        del k, r, lv
+        print(f"[pack8] unpack8_sum M={m} rows={rows} (a zero scale): bitwise ok")
+
+    # -- timing at the path's shapes: w_down, the trainer's bf16 gradient,
+    # M = 4 (and 1, 20)
+    timings = {}
+    n, rows = N_WDOWN, canonical_rows(N_WDOWN)
+    t = int8s(n)
+    timings["pack2bit w_down"] = measure(
+        timer, lambda: pack2bit_cuda(t), lambda: pack2bit_ref(to_2d(t)[0]),
+        n + rows * 128, n * PACK_OPS_PER_COORD, plain_reps=3)
+    packed = pack2bit_cuda(t)
+    del t
+    timings["unpack2bit w_down"] = measure(
+        timer, lambda: unpack2bit_cuda(packed), lambda: unpack2bit_ref(packed),
+        rows * 128 + rows * 512, n * UNPACK_OPS_PER_CODE, plain_reps=3)
+    del packed
+    g = (torch.randn(n, generator=gen, device=dev) * 1e-3).to(torch.bfloat16)
+    scale = qsgd8_scale(g).reshape(1)
+    seed = torch.full((1,), 12345, dtype=torch.int64, device=dev)
+    timings["qsgd8_pack8 w_down bf16"] = measure(
+        timer, lambda: qsgd8_pack8_cuda(g, scale, seed),
+        lambda: chunked_plain(qsgd8_pack8_ref, g, scale[0], seed[0]),
+        n * 2 + rows * 512 + 12, n * QSGD8_OPS_PER_COORD, plain_reps=3)
+    del g
+    for m in (1, 4, 20):
+        lv = torch.randint(-127, 128, (m, rows, 512), generator=gen, device=dev,
+                           dtype=torch.int8)
+        sc = torch.rand(m, generator=gen, device=dev) * 0.01
+        timings[f"unpack8_sum M={m} w_down"] = measure(
+            timer, lambda: unpack8_sum_cuda(lv, sc), lambda: unpack8_sum_ref(lv, sc),
+            m * rows * 512 + rows * 512 * 4 + m * 4, m * rows * 512 * UNPACK8_OPS_PER_LEVEL,
+            plain_reps=3)
+        del lv
+    print_timings(timings)
+    report["pack8_timings"] = timings
+    main_shape = {"pack2bit": "pack2bit w_down", "unpack2bit": "unpack2bit w_down",
+                  "qsgd8_pack8": "qsgd8_pack8 w_down bf16", "unpack8_sum": "unpack8_sum M=4 w_down"}
+    return errs, {k: timings[v] for k, v in main_shape.items()}
+
+
 def phase_golomb_two_pass(torch, report, totals):
     """engine.compress_leaf's two-pass chain on the golomb wire, the path a
     golomb-format row without a fused kernel takes (no registered row does):
@@ -1120,8 +1290,9 @@ def phase_golomb_two_pass(torch, report, totals):
 
 @contextlib.contextmanager
 def plain_versions_barred():
-    """Every plain version of a kernel on the trainer's path raises while the
-    block runs, so a counted run shows that none ran on the card."""
+    """Every plain version of a kernel on the trainer's and the server's
+    paths raises while the block runs, so a counted run shows that none ran
+    on the card."""
     import repro_torch.core.engine as engine_mod
     import repro_torch.dist.collectives as coll_mod
     import repro_torch.kernels.pack2bit.ops as pack_ops
@@ -1131,6 +1302,8 @@ def plain_versions_barred():
     import repro_torch.kernels.vote_update.ops as vote_ops
     import repro_torch.kernels.ef_server.ops as ef_ops
     import repro_torch.kernels.golomb.ops as golomb_ops
+    import repro_torch.kernels.pack8.ops as pack8_ops
+    import repro_torch.serve.decode as serve_mod
 
     names = [(engine_mod, "pack2bit_ref"), (engine_mod, "vote_update_ref"),
              (engine_mod, "golomb_encode_ref"), (coll_mod, "ungolomb_sum_ref"),
@@ -1143,7 +1316,11 @@ def plain_versions_barred():
              (sparsign_ops, "sparsign_ref"),
              (spack_ops, "sparsign_pack2bit_ref"), (ternary_ops, "ternary_compress_ref"),
              (ternary_ops, "ternary_pack2bit_ref"), (vote_ops, "vote_update_ref"),
-             (vote_ops, "weighted_vote_update_ref"), (ef_ops, "ef_server_ref")]
+             (vote_ops, "weighted_vote_update_ref"), (ef_ops, "ef_server_ref"),
+             (pack_ops, "pack2bit_ref"), (pack_ops, "unpack2bit_ref"),
+             (pack8_ops, "qsgd8_pack8_ref"), (pack8_ops, "unpack8_sum_ref"),
+             (coll_mod, "unpack8_sum_ref"), (serve_mod, "pack2bit_ref"),
+             (serve_mod, "unpack2bit_ref"), (serve_mod, "qsgd8_levels_ref")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in names]
 
     def barred(label):
@@ -1186,7 +1363,7 @@ def time_bisection(torch, model, workers: int) -> float:
 
 def phase_trainer(torch, report, totals):
     """qwen1.5-4b at full width through repro_torch.launch.train, M = 4
-    workers on the card, 3 steps a run (2 for sign, noisy_sign and TernGrad)."""
+    workers on the card, 2 or 3 steps a run."""
     import numpy as np
 
     from repro_torch import kernels
@@ -1207,16 +1384,17 @@ def phase_trainer(torch, report, totals):
     packed = ["--vote-impl", "allgather_packed"]
     voted = dict(unpack2bit_sum=leaves, vote_update=leaves)
     golomb_voted = dict(sparsign_golomb=leaves * m, ungolomb_sum=leaves, vote_update=leaves)
+    qsgd8 = ["--compressor", "qsgd8", "--server", "mean"]
     runs = [  # label, flags, worker group (None: --host-data), launches a step, steps
         ("sparsign/majority_vote psum", sparsign + majority + ["--vote-impl", "psum"], None,
-         dict(sparsign=leaves * m, vote_update=leaves), 3),
+         dict(sparsign=leaves * m, vote_update=leaves), 2),
         ("sparsign/majority_vote hier 2x2", sparsign + majority + ["--vote-impl", "hier"],
-         ((2, 2), ("pod", "data")), dict(sparsign=leaves * m, vote_update=leaves), 3),
+         ((2, 2), ("pod", "data")), dict(sparsign=leaves * m, vote_update=leaves), 2),
         ("sparsign/majority_vote allgather_packed", sparsign + majority + packed, None,
-         dict(sparsign_pack2bit=leaves * m, **voted), 3),
+         dict(sparsign_pack2bit=leaves * m, **voted), 2),
         ("sparsign/scaled_sign_ef allgather_packed", sparsign + ["--server", "scaled_sign_ef"]
          + packed, None, dict(sparsign_pack2bit=leaves * m, unpack2bit_sum=leaves,
-                              ef_server=leaves), 3),
+                              ef_server=leaves), 2),
         ("sign/majority_vote allgather_packed", ["--compressor", "sign"] + majority + packed,
          None, dict(ternary_pack2bit=leaves * m, **voted), 2),
         ("noisy_sign/majority_vote allgather_packed",
@@ -1226,7 +1404,7 @@ def phase_trainer(torch, report, totals):
          + packed, None, dict(ternary_pack2bit=leaves * m, unpack2bit_sum=leaves), 2),
         ("elastic sparsign/majority_vote allgather_packed", sparsign + majority + packed
          + elastic, None, dict(sparsign_pack2bit=leaves * m, unpack2bit_wsum=leaves,
-                               weighted_vote_update=leaves), 3),
+                               weighted_vote_update=leaves), 2),
         ("sparsign_golomb/majority_vote allgather_packed",
          ["--compressor", "sparsign_golomb"] + target + majority + packed, None,
          golomb_voted, 3),
@@ -1237,12 +1415,20 @@ def phase_trainer(torch, report, totals):
         ("sparsign target_sparsity/majority_vote allgather_packed",
          ["--compressor", "sparsign"] + target + majority + packed, None,
          dict(sparsign_pack2bit=leaves * m, **voted), 3),
+        ("qsgd8/mean allgather_packed (pack8)", qsgd8 + packed, None,
+         dict(qsgd8_pack8=leaves * m, unpack8_sum=leaves), 3),
+        ("qsgd8/mean psum (decoded)", qsgd8 + ["--vote-impl", "psum"], None,
+         dict(qsgd8_pack8=leaves * m), 3),
+        ("elastic qsgd8/mean allgather_packed (pack8)", qsgd8 + packed + elastic, None,
+         dict(qsgd8_pack8=leaves * m, unpack8_sum=leaves), 3),
     ]
     # a reference run's parameters, held on the host (the card's peaks
     # exclude them), and the runs that must equal them bit for bit: the
     # three vote wires; the golomb wire and the 2-bit wire (the same votes
-    # on two encodings, while no golomb message drops a nonzero)
-    references = {runs[0][0]: {runs[1][0], runs[2][0]}, runs[8][0]: {runs[10][0]}}
+    # on two encodings, while no golomb message drops a nonzero); the pack8
+    # wire and the decoded psum (the same float sums in worker order)
+    references = {runs[0][0]: {runs[1][0], runs[2][0]}, runs[8][0]: {runs[10][0]},
+                  runs[11][0]: {runs[12][0]}}
     traced_runs = {runs[2][0]: "trainer_profile", runs[8][0]: "trainer_profile_golomb"}
     reference, ref_label, compared = None, None, set()
     for label, flags, mesh, per_step, steps in runs:
@@ -1336,6 +1522,205 @@ def phase_trainer(torch, report, totals):
         torch.cuda.empty_cache()
 
 
+def phase_serve(torch, report, totals):
+    """Serving qwen1.5-4b at full width on the card: the launcher's loop with
+    its 2-bit update rounds, counted with every plain version barred; a
+    timed prefill; decode after a padded prefill against the full forward;
+    one ingest round on each downlink wire against backend="torch"."""
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import engine
+    from repro_torch.core.algorithm import CompressionConfig
+    from repro_torch.core.compressors import tree_leaves
+    from repro_torch.kernels.common import jnp_sign
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.model import Model
+    from repro_torch.serve.decode import (build_decode_step, build_prefill,
+                                          build_update_ingest, encode_weight_update,
+                                          encode_weight_update8)
+
+    leaves, dev = 15, "cuda"
+    out = {}
+    # -- the launcher's loop: prompt replay, 64 greedy tokens, 4 update rounds
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with plain_versions_barred():
+        loop = launch_serve.main(SERVE_ARGS)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    rounds = loop["updates"]
+    want = expected(pack2bit=leaves * rounds, unpack2bit=leaves * rounds,
+                    vote_update=leaves * rounds)
+    check(rounds == 4 and counts == want, f"serve loop: {rounds} rounds, launches {counts}, "
+                                          f"expected {want}")
+    for k in totals:
+        totals[k] += counts[k]
+    out["loop"] = {**loop, "launches": counts,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[serve] launch.serve {' '.join(SERVE_ARGS)}: {loop['tokens']} tokens in "
+          f"{loop['seconds']:.2f} s, decode {loop['decode_ms_median']:.2f} ms a token (median "
+          f"of {loop['decode_steps']} steps), packed2bit ingest ms a round "
+          f"{[round(x, 2) for x in loop['ingest_ms']]}, peak {out['loop']['peak_gb']:.2f} GB, "
+          f"launches { {k: v for k, v in counts.items() if v} }")
+
+    cfg = get_config("qwen1.5-4b")
+    model = Model(cfg)
+    params = model.init(0, dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN), generator=gen,
+                         device=dev, dtype=torch.int32)
+    pos = torch.arange(PREFILL_LEN, device=dev, dtype=torch.int32).expand(PREFILL_BATCH, -1)
+
+    # -- prefill, timed after a warm-up call
+    prefill = build_prefill(model)
+    batch = {"inputs": toks, "positions": pos}
+    logits, caches = prefill(params, batch)
+    del logits, caches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(tuple(logits.shape) == (PREFILL_BATCH, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "prefill: logits not finite or misshapen")
+    ntok = PREFILL_BATCH * PREFILL_LEN
+    out["prefill"] = {"batch": PREFILL_BATCH, "tokens": PREFILL_LEN, "seconds": prefill_s,
+                      "tokens_per_s": ntok / prefill_s,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del logits, caches
+    print(f"[serve] prefill {PREFILL_BATCH} x {PREFILL_LEN} tokens: {prefill_s * 1e3:.1f} ms, "
+          f"{ntok / prefill_s:.0f} tokens/s, peak {out['prefill']['peak_gb']:.2f} GB")
+
+    # -- decode after a prefill whose cache is padded to max_len, against
+    # forward_hidden's last logits over the same tokens
+    s = 128
+    _, caches = prefill(params, {"inputs": toks[:, :s], "positions": pos[:, :s]})
+    padded = model.init_cache(PREFILL_BATCH, s + 1, dev)
+    for c, pc in zip(caches, padded):
+        for key in ("k", "v", "pos"):
+            pc[key][:, :s] = c[key]
+    del caches
+    dec, _ = build_decode_step(model)(params, padded, {
+        "inputs": toks[:, s:s + 1],
+        "positions": torch.full((PREFILL_BATCH, 1), s, dtype=torch.int32, device=dev)})
+    with torch.no_grad():
+        h = model.forward_hidden(params, {"inputs": toks[:, :s + 2], "positions": pos[:, :s + 2]})
+        longer = (h[:, s] @ model.head_weight(params)).to(torch.float32)
+        h = model.forward_hidden(params, {"inputs": toks[:, :s + 1], "positions": pos[:, :s + 1]})
+        ref = (h[:, -1] @ model.head_weight(params)).to(torch.float32)
+    del h, padded
+
+    def rel_to_ref(x):
+        return float((x - ref).abs().max() / ref.abs().max())
+
+    rel, floor = rel_to_ref(dec), rel_to_ref(longer)
+    agree = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
+    check(rel <= DECODE_REL_TOL and agree >= 0.75,
+          f"decode after a padded prefill: {rel:.3g} of max |logit| from the full forward "
+          f"(tolerance {DECODE_REL_TOL}), argmax agreeing for {agree:.0%}")
+    out["decode_vs_forward"] = {"prompt": s, "rel_err": rel, "bf16_floor": floor,
+                                "argmax_agree": agree, "tol": DECODE_REL_TOL}
+    print(f"[serve] decode after a padded {s}-token prefill vs forward_hidden: max |diff| "
+          f"{rel:.4g} of max |logit| (tolerance {DECODE_REL_TOL}; a forward one token longer "
+          f"gives {floor:.4g}), argmax agrees for {agree:.0%} of the batch")
+
+    # -- where a decode step's and a prefill's time goes (launches not counted)
+    caches = model.init_cache(PREFILL_BATCH, s + 1, dev)
+    step = build_decode_step(model)
+    one = {"inputs": toks[:, :1], "positions": pos[:, :1].contiguous()}
+    step(params, caches, one)
+    split = profile_call(torch, lambda: step(params, caches, one))
+    out["decode_profile"] = split
+    print(f"[profile] decode step (batch {PREFILL_BATCH}, {cfg.n_layers} layers): "
+          f"{split['call_ms']:.1f} ms, {split['kernels']} kernels, device busy "
+          f"{split['busy_share']:.1%}; top: "
+          + ", ".join(f"{k[:50]} {v:.1%}" for k, v in split["top_kernels"].items()))
+    del caches
+    split = profile_call(torch, lambda: prefill(params, batch))
+    out["prefill_profile"] = split
+    print(f"[profile] prefill {PREFILL_BATCH} x {PREFILL_LEN}: {split['call_ms']:.1f} ms, "
+          f"device busy {split['busy_share']:.1%}; top: "
+          + ", ".join(f"{k[:50]} {v:.1%}" for k, v in split["top_kernels"].items()))
+
+    # -- one ingest round on each downlink wire: the kernels (counted, plain
+    # versions barred) against backend="torch", bit for bit
+    lr = 1e-4
+    p0 = tree_leaves(params)
+
+    def votes(i):
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+        return torch.randint(-2, 3, p0[i].shape, generator=g, device=dev, dtype=torch.int32)
+
+    def delta(i):
+        g = torch.Generator(device=dev).manual_seed(200 + i)
+        return torch.randn(p0[i].shape, generator=g, device=dev)
+
+    def route(wire, backend):
+        ups, scales = [], []
+        t0 = time.perf_counter()
+        for i in range(len(p0)):
+            if wire == "packed2bit":
+                ups.append(encode_weight_update(votes(i), backend=backend))
+            elif wire == "int8":
+                ups.append(votes(i).to(torch.int8))
+            else:
+                u, sc = encode_weight_update8(delta(i), seed=i, backend=backend)
+                ups.append(u)
+                scales.append(sc)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        ingest = build_update_ingest(model, lr=lr, quorum=2 if wire == "int8" else 1,
+                                     wire=wire, backend=backend)
+        p = [x.clone() for x in p0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = ingest(p, ups, scales or None)
+        torch.cuda.synchronize()
+        return p, ups, enc_s, time.perf_counter() - t0
+
+    launches = {"packed2bit": dict(pack2bit=leaves, unpack2bit=leaves, vote_update=leaves),
+                "int8": dict(vote_update=leaves), "packed8": dict(qsgd8_pack8=leaves)}
+    out["ingest"] = {}
+    for wire, per in launches.items():
+        kernels.reset_launch_counts()
+        with plain_versions_barred():
+            got, ups_k, enc_s, ingest_s = route(wire, None)
+        counts = kernels.launch_counts()
+        check(counts == expected(**per), f"ingest {wire}: launches {counts}")
+        for k in totals:
+            totals[k] += counts[k]
+        plain, ups_t, _, _ = route(wire, "torch")
+        check(all(same_bits(a, b) for a, b in zip(ups_k, ups_t)),
+              f"ingest {wire}: the encoded messages differ from backend='torch'")
+        del ups_k, ups_t
+        check(all(same_bits(a, b) for a, b in zip(got, plain)),
+              f"ingest {wire}: parameters differ from backend='torch'")
+        del plain
+        if wire == "packed2bit":
+            cfg_v = CompressionConfig(server="majority_vote")
+            for i, a in enumerate(got):
+                v = votes(i)
+                decision = torch.where(v.abs() >= 1, jnp_sign(v), torch.zeros_like(v))
+                b, _ = engine.server_apply(p0[i], decision.to(torch.int8), cfg_v, lr=lr)
+                check(same_bits(a, b), f"ingest packed2bit leaf {i}: differs from server_apply "
+                                       f"on the int8 decisions")
+        moved = sum(int((a != b).sum()) for a, b in zip(got, p0))
+        check(moved > 0, f"ingest {wire}: no coordinate moved")
+        del got
+        out["ingest"][wire] = {"encode_ms": enc_s * 1e3, "ingest_ms": ingest_s * 1e3,
+                               "launches": counts, "coords_moved": moved}
+        print(f"[serve] ingest {wire}: encode {enc_s * 1e3:.1f} ms, ingest {ingest_s * 1e3:.1f} "
+              f"ms a round, {moved} coordinates moved, bitwise equal to backend='torch'"
+              + (", and to server_apply on the int8 decisions" if wire == "packed2bit" else "")
+              + f"; launches { {k: v for k, v in counts.items() if v} }")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    report["serve"] = out
+    del params, p0
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1375,12 +1760,16 @@ def main() -> int:
     golomb_errs, golomb_times = phase_golomb_kernels(torch, timer, report)
     errs.update(golomb_errs)
     main_times.update(golomb_times)
+    pack8_errs, pack8_times = phase_pack8_kernels(torch, timer, report)
+    errs.update(pack8_errs)
+    main_times.update(pack8_times)
     del timer
     torch.cuda.empty_cache()
     totals = phase_fl(torch, report)
     phase_baselines(torch, report, totals)
     phase_golomb_two_pass(torch, report, totals)
     phase_trainer(torch, report, totals)
+    phase_serve(torch, report, totals)
     check(all(totals[k] > 0 for k in totals), f"a kernel never launched on the path: {totals}")
 
     rows = []

@@ -49,7 +49,9 @@ class ModelConfig:
     dtype: str = "bfloat16"
     attn_chunk: int = 1024         # kv-chunk of the online-softmax attention
     loss_chunk: int = 512          # seq-chunk of the softmax-xent loop
+    decode_chunk: int = 8192       # kv-chunk of decode attention
     remat: bool = True
+    supports_decode: bool = True   # False: an encoder-only model serves no decode
 
     @property
     def head_dim(self) -> int:

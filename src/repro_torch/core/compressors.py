@@ -2,9 +2,8 @@
 ``repro.core.compressors``: the paper's ``sparsign`` (Def. 1), the Table 1-2
 baselines of §6 / Appendix B (sign, scaled sign, noisy sign, 1-bit QSGD in
 L2 and L-inf, TernGrad), ``sparsign_golomb`` (sparsign on the Golomb/Rice
-entropy-coded wire) and the uncompressed ``identity``. The ``qsgd8`` row of
-the pack8 wire arrives with its kernels; ``get_spec`` names the ROADMAP queue
-for it.
+entropy-coded wire), the FedCom 8-bit QSGD ``qsgd8`` (the pack8 wire) and the
+uncompressed ``identity``: every row of the JAX table.
 
 Values functions share the normalized signature
 ``(g, param, seed, counter_base) -> values``, where ``seed`` is one stream
@@ -23,6 +22,8 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.kernels.golomb.ops import sparsign_golomb_op
+from repro_torch.kernels.pack8.ops import qsgd8_op, qsgd8_pack8_op
+from repro_torch.kernels.pack8.ref import QSGD8_LEVELS, qsgd8_levels_ref
 from repro_torch.kernels.sparsign.ops import sparsign_op
 from repro_torch.kernels.sparsign_pack2bit.ops import sparsign_pack2bit_op
 from repro_torch.kernels.ternary.ops import (noisy_sign_op, noisy_sign_pack2bit_op, sign_op,
@@ -73,6 +74,11 @@ def _scale_linf(g: torch.Tensor, rows: bool = False) -> torch.Tensor:
     """||g||_inf: 1-bit L-inf QSGD and (local) TernGrad."""
     s = torch.amax(torch.abs(_flat(g, rows)), dim=1)
     return s if rows else s[0]
+
+
+def _scale_qsgd(g: torch.Tensor, rows: bool = False, *, s: int = QSGD8_LEVELS) -> torch.Tensor:
+    """max(||g||_2, eps) / s: the per-level decode scale of s-level QSGD."""
+    return torch.clamp(_scale_l2(g, rows), min=1e-12) / float(s)
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +154,21 @@ def terngrad(g, *, budget=None, seed=0, counter_base=0, shared_max=None) -> Comp
     return CompressedGrad(values=stochastic_ternary_op(g, s_t, seed, counter_base), scale=s_t)
 
 
+def qsgd8(g, *, budget=None, seed=0, counter_base=0) -> CompressedGrad:
+    """FedCom-style 8-bit QSGD: 1 sign bit + 7 level bits, s = 127. The
+    signed stochastic level rides the pack8 wire as one int8 byte a
+    coordinate (levels clip at 127); the level rule is
+    ``kernels.pack8.ref.qsgd8_levels_ref``, the kernel's plain version."""
+    scale = qsgd8_scale(g)
+    return CompressedGrad(values=qsgd8_op(g, scale, seed, counter_base), scale=scale)
+
+
+def qsgd8_scale(g: torch.Tensor) -> torch.Tensor:
+    """The qsgd8 decode scale max(||g||_2, eps) / 127, for callers that
+    quantize outside the registry (the serving replica's 8-bit downlink)."""
+    return _scale_qsgd(g)
+
+
 def identity(g, *, budget=None, seed=None, counter_base=0) -> CompressedGrad:
     """Uncompressed baseline (D-SGD)."""
     return CompressedGrad(values=g, scale=_one(g))
@@ -166,8 +187,8 @@ SCALE_PROTOCOLS = ("none", "local_norm", "shared_max")
 #: times a scale, or a non-ternary payload
 SERVER_DECODES = ("sign", "scaled_sign", "dequant")
 #: the uplink payload format a row's messages take on a packed wire: the flat
-#: 2-bit ternary codebook, the 8-bit levels, the Golomb stream, or floats
-#: (which ride the decoded psum); no pack8 row is ported yet
+#: 2-bit ternary codebook, the Golomb stream, the 8-bit levels, or floats
+#: (which ride the decoded psum)
 WIRE_FORMATS = ("pack2", "golomb", "pack8", "float")
 
 
@@ -267,24 +288,21 @@ SPECS: dict[str, CompressorSpec] = {spec.name: spec for spec in (
         server_decode="scaled_sign", chunkable=True,
         uplink_bits="golomb_ternary"),
     CompressorSpec(
+        # FedCom 8-bit baseline: 1 sign bit + 7 level bits (s = 127), so one
+        # worker message is 1 B a coordinate on the pack8 wire + one scale
+        name="qsgd8", api=qsgd8, values=qsgd8_levels_ref, is_ternary=False,
+        scale_protocol="local_norm", local_scale=_scale_qsgd, kernel_op=qsgd8_op,
+        fused_pack_op=qsgd8_pack8_op, server_decode="dequant", chunkable=True,
+        wire_format="pack8", uplink_bits="level8"),
+    CompressorSpec(
         name="identity", api=identity, values=_identity_values, is_ternary=False,
         server_decode="dequant", wire_format="float", uplink_bits="fp32"),
 )}
-
-#: compressors of the JAX package that arrive with their wires (ROADMAP.md,
-#: queue 2 "TPU kernels to port": the pack8 rows 12-13)
-NOT_YET_PORTED = ("qsgd8",)
-
 
 def get_spec(name: str) -> CompressorSpec:
     try:
         return SPECS[name]
     except KeyError:
-        if name in NOT_YET_PORTED:
-            raise KeyError(
-                f"compressor {name!r} is not ported yet: it arrives with its wire and "
-                f"kernels (ROADMAP.md queue 2, 'TPU kernels to port'); ported: "
-                f"{sorted(SPECS)}") from None
         raise KeyError(f"unknown compressor {name!r}; known: {sorted(SPECS)}") from None
 
 

@@ -4,8 +4,8 @@
 Two backends, bit for bit the same by construction (they share the counter
 hash of ``core.prng``, which the CUDA kernels regenerate in registers):
 
-  cuda  — the hand-written kernels: sparsign, ternary, vote_update,
-          weighted_vote_update, ef_server.
+  cuda  — the hand-written kernels: sparsign, ternary, qsgd8, vote_update,
+          weighted_vote_update, ef_server, and the wires' fused encoders.
   torch — the plain PyTorch versions.
 
 The backend follows the tensor: a CUDA tensor takes the kernels and a CPU
@@ -22,8 +22,9 @@ Two primitives:
 (workers, ...) tensor with one seed per row: one kernel launch per round.
 With a ``wire`` (``repro_torch.dist.collectives``) it returns one message in
 the wire's native format: the 2-bit packed canonical view on the
-``allgather_packed`` wire, or the Golomb/Rice coded stream on the golomb
-gather wire, produced by the spec's fused kernel on the card.
+``allgather_packed`` wire, the Golomb/Rice coded stream on the golomb gather
+wire, or the int8 level view on the pack8 wire, produced by the spec's fused
+kernel on the card.
 
 Around them, the helpers that keep compressor and server names out of the
 trainer: wire-mode negotiation (``wire_mode``, ``wire_payload_format``,
@@ -44,6 +45,7 @@ from repro_torch.kernels.ef_server.ops import ef_server_op
 from repro_torch.kernels.ef_server.ref import ef_server_ref
 from repro_torch.kernels.golomb.ops import golomb_pack_op
 from repro_torch.kernels.golomb.ref import golomb_encode_ref
+from repro_torch.kernels.pack2bit.ops import pack2bit_op
 from repro_torch.kernels.pack2bit.ref import pack2bit_ref
 from repro_torch.kernels.vote_update.ops import vote_update_op, weighted_vote_update_op
 from repro_torch.kernels.vote_update.ref import vote_update_ref, weighted_vote_update_ref
@@ -55,7 +57,7 @@ BACKENDS = ("cuda", "torch")
 VOTE_SERVERS = ("majority_vote", "scaled_sign_ef")
 SERVER_RULES = ("majority_vote", "scaled_sign_ef", "mean")
 # how a compressor's messages ride the worker wire (see wire_mode)
-WIRE_MODES = ("votes", "scaled_votes", "decoded")
+WIRE_MODES = ("votes", "scaled_votes", "pack8", "decoded")
 
 
 def resolve_backend(backend: Optional[str], x: torch.Tensor) -> str:
@@ -87,14 +89,19 @@ def wire_mode(cfg: "CompressionConfig", vote_impl: Optional[str] = None) -> str:
                       consumed raw by a vote server;
       scaled_votes -- ternary symbols plus ONE shared decode scale (protocol
                       none or shared_max), for a mean server;
+      pack8        -- int8 sign*level payloads (1 B a coordinate) plus each
+                      worker's float32 decode scale on the gather wire,
+                      dequantized into the mean server's float sum during
+                      the exchange. It needs ``vote_impl='allgather_packed'``:
+                      a psum cannot add levels quantized against different
+                      norms, so the psum and hier impls take the decoded wire;
       decoded      -- decoded float32 messages summed in float32, for a mean
-                      server (per-worker scales, and the float format).
-
-    The JAX engine's fourth mode, pack8 (the qsgd8 row's levels and scales on
-    the gather wire), arrives with that row."""
+                      server (per-worker scales, and the float format)."""
     spec = get_spec(cfg.compressor)
     if spec.wire_format == "float":
         return "decoded"
+    if spec.wire_format == "pack8":
+        return "pack8" if vote_impl == "allgather_packed" else "decoded"
     if is_vote_server(cfg):
         return "votes"
     return "scaled_votes" if spec.scale_shared else "decoded"
@@ -107,7 +114,9 @@ def wire_payload_format(cfg: "CompressionConfig", mode: str,
     ``wire_format`` as in the JAX engine. The entropy-coded stream needs the
     gather wire (a fabric psum cannot sum variable-length byte streams), so a
     golomb-format row on the psum and hier impls rides int8 votes: the same
-    votes either way. The JAX engine's pack8 answer arrives with ``qsgd8``."""
+    votes either way, as the pack8 row falls back to the decoded wire."""
+    if mode == "pack8":
+        return "pack8"
     spec = get_spec(cfg.compressor)
     if (spec.wire_format == "golomb" and vote_impl == "allgather_packed"
             and mode in ("votes", "scaled_votes")):
@@ -231,12 +240,16 @@ def compress_leaf(
     ``wire`` (a ``VoteWire``, one message only) selects the message's
     wire-native format. On the ``pack2`` wire ``values`` is the (rows, 128)
     uint8 packed canonical view: on the ``cuda`` backend the spec's fused
-    kernel writes it in one pass, and a spec without one raises (the two-pass
-    chain's pack kernel is not ported); the plain versions compress, then
-    pack, the same bytes. On the ``golomb`` wire ``values`` is the (rows, 128)
-    uint8 coded stream at the wire's plan fraction ``wire.p``: the fused
-    kernel on the card (or, for a golomb row without one, the compress kernel
-    and then the ``golomb_pack`` kernel), the plain versions on the CPU.
+    kernel writes it in one pass, or, for a spec without one, the compress
+    kernel and then the ``pack2bit`` kernel; the plain versions compress,
+    then pack, the same bytes. On the ``golomb`` wire ``values`` is the
+    (rows, 128) uint8 coded stream at the wire's plan fraction ``wire.p``:
+    the fused kernel on the card (or, for a golomb row without one, the
+    compress kernel and then the ``golomb_pack`` kernel), the plain versions
+    on the CPU. On the ``pack8`` wire ``values`` is the (rows, 512) int8
+    canonical view of the levels and ``scale`` the message's decode scale:
+    the fused ``qsgd8_pack8`` kernel on the card, the levels' canonical view
+    on the CPU.
 
     A spec with a kernel op takes the CUDA kernel on the ``cuda`` backend;
     everything else runs the plain version (chunked for the counter-indexed
@@ -252,9 +265,10 @@ def compress_leaf(
     spec = get_spec(cfg.compressor)
     rows = is_batched(seed)
     wire_fmt = wire.native_format if wire is not None else None
-    want_packed = wire_fmt in ("pack2", "golomb")
+    want_packed = wire_fmt in ("pack2", "golomb", "pack8")
     if want_packed and spec.wire_format != wire_fmt:
-        raise ValueError(f"the {wire_fmt!r} wire carries ternary messages only; compressor "
+        carries = "int8 sign*level" if wire_fmt == "pack8" else "ternary"
+        raise ValueError(f"the {wire_fmt!r} wire carries {carries} messages only; compressor "
                          f"{cfg.compressor!r} declares wire format {spec.wire_format!r}")
     if want_packed and rows:
         raise ValueError("a packed wire message is one worker's: pass one seed")
@@ -269,15 +283,10 @@ def compress_leaf(
         param = msg_scale = scale
         if rows:  # one scale per message, broadcast against (workers, ...)
             msg_scale = scale.expand(g.shape[0]).reshape((g.shape[0],) + (1,) * (g.dim() - 1))
-    if want_packed and backend == "cuda":
-        if spec.fused_pack_op is not None:
-            return CompressedGrad(
-                values=spec.fused_pack_op(g, param, seed, counter_base, **fused_kwargs),
-                scale=msg_scale)
-        if wire_fmt == "pack2":
-            raise NotImplementedError(
-                f"compressor {cfg.compressor!r} has no fused 2-bit wire kernel, and the "
-                f"two-pass pack kernel is not ported: no plain version runs on the card")
+    if want_packed and backend == "cuda" and spec.fused_pack_op is not None:
+        return CompressedGrad(
+            values=spec.fused_pack_op(g, param, seed, counter_base, **fused_kwargs),
+            scale=msg_scale)
     if backend == "cuda" and spec.kernel_op is not None:
         vals = spec.kernel_op(g, param, seed, counter_base)
     elif spec.chunkable:
@@ -288,9 +297,16 @@ def compress_leaf(
         # the two-pass chain: the golomb_pack kernel on the card
         vals = (golomb_pack_op(vals, p=wire.p) if backend == "cuda"
                 else golomb_encode_ref(vals, p=wire.p))
+    elif wire_fmt == "pack8":
+        # the pack8 payload is the canonical int8 view of the levels
+        vals, _ = to_2d(vals.reshape(-1))
     elif want_packed:
-        view, _ = to_2d(vals.reshape(-1))
-        vals = pack2bit_ref(view)
+        # the two-pass chain: the pack2bit kernel on the card
+        if backend == "cuda":
+            vals = pack2bit_op(vals)
+        else:
+            view, _ = to_2d(vals.reshape(-1))
+            vals = pack2bit_ref(view)
     return CompressedGrad(values=vals, scale=msg_scale)
 
 

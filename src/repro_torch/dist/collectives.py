@@ -32,10 +32,17 @@ Three wire-equivalent vote wires return the same per-coordinate vote total:
   (``ungolomb_sum``, or ``ungolomb_wsum``); about (2 + b) p d / 8 bytes a
   message at plan fraction p.
 
+Non-ternary 8-bit payloads (qsgd8's sign*level stream, wire format
+``pack8``) ride ``Pack8Wire``: an all-gather of 1 B a coordinate plus each
+worker's float32 decode scale, dequantized into the mean server's float sum
+by the fused decode-sum kernel (``unpack8_sum``) in worker order, so it
+equals the decoded psum bit for bit. There is no psum variant: a psum cannot
+add levels quantized against different norms.
+
 Each wire knows its native message format, how to mask, count and exchange
 messages in it, and its per-device byte ledger (``wire_bytes``), computed
-from the real buffer sizes. The ring-pipelined gather and the pack8 wire are
-not ported yet; ``make_vote_wire`` says so.
+from the real buffer sizes. The ring-pipelined gather is not ported yet;
+``make_vote_wire`` says so.
 """
 
 from __future__ import annotations
@@ -47,12 +54,14 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.kernels.common import PACKED_WIDTH, canonical_rows, from_2d
+from repro_torch.kernels.common import LANES, PACKED_WIDTH, canonical_rows, from_2d
 from repro_torch.kernels.golomb.ops import ungolomb_sum_op, ungolomb_wsum_op
 from repro_torch.kernels.golomb.ref import (ROW_BYTES, golomb_nbytes, golomb_rows,
                                             ungolomb_sum_ref, ungolomb_wsum_ref)
 from repro_torch.kernels.pack2bit.ops import unpack2bit_sum_op, unpack2bit_wsum_op
 from repro_torch.kernels.pack2bit.ref import unpack2bit_sum_ref, unpack2bit_wsum_ref
+from repro_torch.kernels.pack8.ops import unpack8_sum_op
+from repro_torch.kernels.pack8.ref import unpack8_sum_ref
 
 VOTE_IMPLS = ("psum", "hier", "allgather_packed")
 
@@ -215,6 +224,12 @@ def packed_nbytes(n_coords: int) -> int:
     return canonical_rows(n_coords) * PACKED_WIDTH
 
 
+def packed8_nbytes(n_coords: int) -> int:
+    """Bytes of one worker's pack8 message for an n-coordinate leaf: the
+    canonical (rows, 512) int8 view, padded rows included."""
+    return canonical_rows(n_coords) * LANES
+
+
 def golomb_payload_nbytes(n_coords: int, p: float) -> int:
     """Bytes of one worker's entropy-coded golomb message for an n-coordinate
     leaf at plan fraction p: the static capacity, padding included."""
@@ -306,14 +321,18 @@ def uplink_ledger(mode: str, wire: "VoteWire", n_coords: int, *,
                   share_linf: bool = False) -> float:
     """Per-device uplink bytes to exchange one n-coordinate leaf under a wire
     mode (``engine.wire_mode``): the mode's payload (the wire's own
-    ``wire_bytes``, or the decoded float32 psum), the elastic weight side
-    channel of the gather wire, and one float32 all-reduce when the
-    compressor shares a magnitude. The JAX ledger's definition, with its ring
-    chunk count 1 (the ring gather is not ported)."""
+    ``wire_bytes``, or the decoded float32 psum), the pack8 wire's per-worker
+    decode scales (``scalar_bytes``, widened by the weight under elastic
+    participation), the elastic weight side channel of the ternary gather
+    wires, and one float32 all-reduce when the compressor shares a
+    magnitude. The JAX ledger's definition, with its ring chunk count 1 (the
+    ring gather is not ported)."""
     if mode == "decoded":
         total = decoded_wire_bytes(n_coords, wire.n_workers)
     else:
         total = wire.wire_bytes(n_coords) + wire.weight_bytes()
+    if mode == "pack8":
+        total += wire.scalar_bytes()
     if share_linf:
         total += allreduce_scalar_bytes(wire.n_workers)
     return total
@@ -342,8 +361,8 @@ class VoteWire:
 
     name = "psum"
     #: native uplink message format: "int8" leaf-shaped ternary votes,
-    #: "pack2" the 2-bit packed uint8 canonical view, or "golomb" the coded
-    #: uint8 stream
+    #: "pack2" the 2-bit packed uint8 canonical view, "golomb" the coded
+    #: uint8 stream, or "pack8" the int8 level canonical view
     native_format = "int8"
 
     def mask_message(self, values: torch.Tensor, mask) -> torch.Tensor:
@@ -399,9 +418,17 @@ class VoteWire:
         payload = n_coords * torch.tensor([], dtype=_sum_dtype(m)).element_size()
         return 2.0 * (m - 1) / m * payload
 
+    def scalar_bytes(self) -> float:
+        """The float32 decode scale(s) beside a leaf's payload: one ring
+        all-reduce of 4 bytes (a magnitude-shared scale). The pack8 wire
+        gathers one scale a worker instead."""
+        m = self.n_workers
+        return 2.0 * (m - 1) / m * 4.0
+
     def weight_bytes(self) -> float:
         """Elastic weight side channel beside one payload exchange: 0 on the
-        psum wires, whose participation payload is in ``wire_bytes``."""
+        psum wires, whose participation payload is in ``wire_bytes``, and on
+        the pack8 wire, whose weight widens ``scalar_bytes``."""
         return 0.0
 
     def gather_hbm_bytes(self, n_coords: int) -> float:
@@ -596,6 +623,70 @@ class GolombWire(VoteWire):
         return float(self.n_workers * golomb_rows(n_coords, self.p) * ROW_BYTES)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class Pack8Wire(VoteWire):
+    """All-gather of int8 sign*level payloads (the pack8 wire format) + the
+    fused dequantize-sum kernel: the non-ternary 8-bit twin of
+    ``PackedVoteWire``. The message is the canonical (rows, 512) int8 view of
+    the signed levels, written in one pass by the fused ``qsgd8_pack8``
+    kernel on the card; each worker's float32 decode scale rides the gather
+    beside it, and the exchange returns the float32 decoded sum the mean
+    server consumes. ``backend="torch"`` decodes with the plain version; the
+    default follows the tensor."""
+
+    backend: Optional[str] = None
+
+    name = "allgather_packed8"
+    native_format = "pack8"
+
+    # message_nnz is the base count of nonzero levels (not their magnitudes)
+
+    def _decode_sum(self, gathered, scales, size, shape):
+        if self.backend == "torch":
+            return from_2d(unpack8_sum_ref(gathered, scales), size, shape)
+        return unpack8_sum_op(gathered, scales, size, shape)
+
+    @staticmethod
+    def _need_scale(scale):
+        if scale is None:
+            raise ValueError("the pack8 wire dequantizes during the exchange and needs each "
+                             "worker's decode scale (CompressedGrad.scale)")
+        return torch.as_tensor(scale, dtype=torch.float32).reshape(-1)
+
+    def exchange(self, values, size, shape, *, scale=None):
+        """(local, rows, 512) int8 levels + (local,) float32 decode scales ->
+        the float32 decoded sum ``sum_m scale_m * levels_m`` of ``shape``, in
+        worker (gather) order."""
+        sc = self._need_scale(scale).to(values.device)
+        return self._decode_sum(self.group.gather(values), self.group.gather(sc), size, shape)
+
+    def exchange_weighted(self, values, size, shape, *, weight, scale=None):
+        """Elastic exchange: the effective weight premultiplies the decode
+        scale (a dropped worker's scale * 0 zeroes its contribution; the
+        kernel is unchanged) and ships raw beside it, in the (local, 2) side
+        channel ``[scale * w, w]``. Returns ``(sum_m scale_m w_m levels_m,
+        W)`` with W the realized participation, summed in worker order."""
+        self._require_participation()
+        sc = self._need_scale(scale).to(values.device)
+        w = weight.to(torch.float32).reshape(-1)
+        sides = self.group.gather(torch.stack([sc * w, w], dim=1))
+        wv = self._decode_sum(self.group.gather(values), sides[:, 0].contiguous(), size, shape)
+        return wv, ordered_sum(sides[:, 1])
+
+    def scalar_bytes(self):
+        # each worker's decode scale rides the gather to M - 1 peers; under
+        # elastic participation the slot widens to 8 B (scale * w, w)
+        per = 8.0 if self.participation is not None else 4.0
+        return float((self.n_workers - 1) * per)
+
+    def wire_bytes(self, n_coords):
+        # all-gather of the padded int8 payload to M - 1 peers
+        return float((self.n_workers - 1) * packed8_nbytes(n_coords))
+
+    def gather_hbm_bytes(self, n_coords):
+        return float(self.n_workers * packed8_nbytes(n_coords))
+
+
 def make_vote_wire(impl: str, group: WorkerGroup, *, backend: Optional[str] = None,
                    wire_format: str = "pack2", golomb_p: Optional[float] = None,
                    ring_chunk_rows: Optional[int] = None,
@@ -603,9 +694,10 @@ def make_vote_wire(impl: str, group: WorkerGroup, *, backend: Optional[str] = No
     """Build the wire for ``impl`` over the worker group at step-build time,
     with the JAX builder's validation (same cases, same errors).
     ``wire_format="golomb"`` (``allgather_packed`` only) builds the golomb
-    wire at plan fraction ``golomb_p``. The ring gather and the pack8 wire
-    are not ported yet and raise ``NotImplementedError`` once the arguments
-    are valid."""
+    wire at plan fraction ``golomb_p``, ``wire_format="pack8"``
+    (``allgather_packed`` only) the 8-bit level wire. The ring gather is not
+    ported yet and raises ``NotImplementedError`` once the arguments are
+    valid."""
     if participation is not None and not isinstance(participation, ParticipationSpec):
         raise TypeError(f"participation must be a ParticipationSpec, got "
                         f"{type(participation).__name__}")
@@ -648,10 +740,11 @@ def make_vote_wire(impl: str, group: WorkerGroup, *, backend: Optional[str] = No
     n = group.n_workers
     if participation is not None:
         participation.weights_array(n)   # the weights must cover the fleet
-    if ring_chunk_rows is not None or wire_format == "pack8":
-        what = "the ring-pipelined gather" if ring_chunk_rows is not None \
-            else f"the {wire_format} wire"
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md)")
+    if ring_chunk_rows is not None:
+        raise NotImplementedError("the ring-pipelined gather is not ported yet (ROADMAP.md)")
+    if wire_format == "pack8":
+        return Pack8Wire(group=group, n_workers=n, backend=backend,
+                         participation=participation)
     if wire_format == "golomb":
         return GolombWire(group=group, n_workers=n, backend=backend, p=float(golomb_p),
                           participation=participation)

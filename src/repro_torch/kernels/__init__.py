@@ -9,7 +9,9 @@ from __future__ import annotations
 from repro_torch.kernels.ef_server.kernel import ef_server_cuda
 from repro_torch.kernels.golomb.kernel import (golomb_pack_cuda, sparsign_golomb_cuda,
                                                ungolomb_sum_cuda, ungolomb_wsum_cuda)
-from repro_torch.kernels.pack2bit.kernel import unpack2bit_sum_cuda, unpack2bit_wsum_cuda
+from repro_torch.kernels.pack2bit.kernel import (pack2bit_cuda, unpack2bit_cuda,
+                                                 unpack2bit_sum_cuda, unpack2bit_wsum_cuda)
+from repro_torch.kernels.pack8.kernel import qsgd8_pack8_cuda, unpack8_sum_cuda
 from repro_torch.kernels.sparsign.kernel import sparsign_cuda
 from repro_torch.kernels.sparsign_pack2bit.kernel import sparsign_pack2bit_cuda
 from repro_torch.kernels.ternary.kernel import ternary_cuda, ternary_pack2bit_cuda
@@ -29,6 +31,10 @@ WRAPPERS = {
     "golomb_pack": golomb_pack_cuda,
     "ungolomb_sum": ungolomb_sum_cuda,
     "ungolomb_wsum": ungolomb_wsum_cuda,
+    "pack2bit": pack2bit_cuda,
+    "unpack2bit": unpack2bit_cuda,
+    "qsgd8_pack8": qsgd8_pack8_cuda,
+    "unpack8_sum": unpack8_sum_cuda,
 }
 
 

@@ -21,7 +21,8 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("sparsign", "vote_update", "ef_server", "ternary", "weighted_vote_update",
-           "sparsign_pack2bit", "unpack2bit", "golomb_encode", "golomb_decode")
+           "sparsign_pack2bit", "unpack2bit", "golomb_encode", "golomb_decode", "pack2bit",
+           "pack8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +45,10 @@ SIGNATURES = {
                       "golomb_encode_scratch_bytes": [_ll]},
     "golomb_decode": {"ungolomb_launch": [_p, _p, _p, _p, _p, _i, _ll, _ll, _i, _p],
                       "ungolomb_scratch_bytes": [_i, _ll]},
+    "pack2bit": {"pack2bit_launch": [_p, _p, _ll, _ll, _p],
+                 "unpack2bit_launch": [_p, _p, _ll, _p]},
+    "pack8": {"qsgd8_pack8_launch": [_p, _p, _p, _p, _ll, _ll, _u32, _i, _p],
+              "unpack8_sum_launch": [_p, _p, _p, _i, _ll, _p]},
 }
 #: entry points that return something other than a CUDA error code
 RESTYPES = {"golomb_encode_scratch_bytes": _ll, "ungolomb_scratch_bytes": _ll}

@@ -1,13 +1,54 @@
-"""Launch wrappers of the hand-written decode-sum kernels
-(``csrc/unpack2bit.cu``), which replace
-``repro/kernels/pack2bit/kernel.py:unpack2bit_sum_2d`` and ``:unpack2bit_wsum_2d``."""
+"""Launch wrappers of the hand-written 2-bit wire kernels: the stand-alone
+pack and unpack (``csrc/pack2bit.cu``), which replace
+``repro/kernels/pack2bit/kernel.py:pack2bit_2d`` and ``:unpack2bit_2d``, and
+the decode-sums (``csrc/unpack2bit.cu``), which replace ``:unpack2bit_sum_2d``
+and ``:unpack2bit_wsum_2d``."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import PACKED_WIDTH, check_cuda_tensor
+from repro_torch.kernels.common import LANES, PACKED_WIDTH, check_cuda_tensor, packed_shape
+
+
+def pack2bit_cuda(t: torch.Tensor) -> torch.Tensor:
+    """int8 ternary ``t`` (any shape, read as its flat stream) -> the
+    (canonical_rows(n), 128) uint8 packed canonical view on the card, one
+    launch; coordinates past n pack as 0. Allocates the output, launches on
+    the current stream and does not synchronise."""
+    check_cuda_tensor("t", t, (torch.int8,))
+    n = t.numel()
+    out = torch.empty(packed_shape(n), dtype=torch.uint8, device=t.device)
+    err = build.library("pack2bit", "pack2bit_launch")(
+        t.data_ptr(), out.data_ptr(), n, out.shape[0],
+        torch.cuda.current_stream(t.device).cuda_stream)
+    build.check_launch("pack2bit", err)
+    pack2bit_cuda.launches += 1
+    return out
+
+
+pack2bit_cuda.launches = 0
+
+
+def unpack2bit_cuda(packed: torch.Tensor) -> torch.Tensor:
+    """(rows, 128) uint8 packed view -> (rows, 512) int8 ternary view on the
+    card, one launch, no synchronisation."""
+    check_cuda_tensor("packed", packed, (torch.uint8,))
+    if packed.dim() != 2 or packed.shape[1] != PACKED_WIDTH:
+        raise ValueError(f"packed must be (rows, {PACKED_WIDTH}), got shape "
+                         f"{tuple(packed.shape)}")
+    rows = packed.shape[0]
+    out = torch.empty((rows, LANES), dtype=torch.int8, device=packed.device)
+    err = build.library("pack2bit", "unpack2bit_launch")(
+        packed.data_ptr(), out.data_ptr(), rows,
+        torch.cuda.current_stream(packed.device).cuda_stream)
+    build.check_launch("unpack2bit", err)
+    unpack2bit_cuda.launches += 1
+    return out
+
+
+unpack2bit_cuda.launches = 0
 
 
 def _check_gathered(gathered: torch.Tensor) -> None:

@@ -1,9 +1,10 @@
-"""Attention, the port of ``repro.models.attention.chunked_attention``:
-GQA with an online-softmax loop over KV chunks, in float32 as the JAX package
-computes it. Each chunk's body runs under ``torch.utils.checkpoint``, so its
+"""Attention, the port of ``repro.models.attention``: GQA with an
+online-softmax loop over KV chunks (``chunked_attention``), in float32 as the
+JAX package computes it, and the one-token ``decode_attention`` against a KV
+cache. Each chunk's body runs under ``torch.utils.checkpoint``, so its
 probabilities are recomputed in the backward pass, not saved (the JAX scan's
-``jax.checkpoint``). The windowed and decode variants wait for the families
-and the serving slice that need them."""
+``jax.checkpoint``). Sliding windows (the windowed variant, and a window in
+decode) wait for the model families that use them."""
 
 from __future__ import annotations
 
@@ -76,3 +77,17 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = acc / torch.clamp(l[..., None], min=1e-30)
     out = torch.where(l[..., None] > 0, out, torch.zeros((), device=q.device))
     return out.transpose(1, 2).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     cache_pos: torch.Tensor, positions_q: torch.Tensor, *,
+                     window: Optional[int] = None, chunk: int = 8192) -> torch.Tensor:
+    """One-token attention over a KV cache: q [B, 1, H, D], the caches [B, W,
+    KV, D], ``cache_pos`` [B, W] ints with -1 for an empty slot. Chunked over
+    the cache, so a long cache holds only [B, H, chunk] score tiles."""
+    if window is not None:
+        raise NotImplementedError("windowed decode attention is not ported yet (ROADMAP.md: "
+                                  "the windowed families follow the streamed trainer)")
+    return chunked_attention(q, k_cache, v_cache, positions_q=positions_q,
+                             positions_kv=cache_pos, kv_valid=cache_pos >= 0, causal=True,
+                             chunk=chunk, remat=False)

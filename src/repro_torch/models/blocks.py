@@ -1,9 +1,13 @@
 """Block assembly, the port of ``repro.models.blocks``: (mixer -> residual) +
-(FFN -> residual), both pre-normed. The attention mixer with the dense
-SwiGLU FFN is ported; MoE FFNs, Mamba2 mixers and the GELU MLP raise.
+(FFN -> residual), both pre-normed, for training and prefill
+(``block_forward``) and for one-token decode against a KV cache
+(``block_decode``). The global attention mixer with the dense SwiGLU FFN is
+ported; MoE FFNs, Mamba2 mixers, sliding windows (and their ring caches) and
+the GELU MLP raise.
 
 ``block_param_defs`` is the one source of parameter shapes and dtypes; the
-model stacks them over the pattern repeats."""
+model stacks them over the pattern repeats. ``block_cache_defs`` gives one
+block's decode cache."""
 
 from __future__ import annotations
 
@@ -66,22 +70,73 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
             v.reshape(b, s, cfg.n_kv_heads, hd))
 
 
+def _rope_qk(cfg: ModelConfig, spec: LayerSpec, q, k, positions):
+    if not spec.use_rope:
+        return q, k
+    return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta)
+
+
+def _ffn_residual(cfg: ModelConfig, spec: LayerSpec, p: dict, h: torch.Tensor) -> torch.Tensor:
+    if not spec.ffn:
+        return h
+    x = rms_norm(h, p["ln2"], cfg.norm_eps)
+    return h + swiglu(x @ p["w_gate"], x @ p["w_up"]) @ p["w_down"]
+
+
 def block_forward(cfg: ModelConfig, spec: LayerSpec, p: dict, h: torch.Tensor,
-                  positions: torch.Tensor) -> torch.Tensor:
-    """Training forward of one block: h [B, S, D] -> [B, S, D]."""
+                  positions: torch.Tensor, return_cache: bool = False):
+    """Training and prefill forward of one block: h [B, S, D] -> [B, S, D],
+    and with ``return_cache`` its decode cache: the prompt's K and V after
+    RoPE and their positions, as deep as the prompt (JAX's dense branch)."""
     if spec.window is not None:
         raise _not_ported("windowed attention")
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(cfg, p, x)
-    if spec.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = _rope_qk(cfg, spec, q, k, positions)
     out = attn_lib.chunked_attention(q, k, v, positions_q=positions, positions_kv=positions,
                                      causal=cfg.causal, chunk=cfg.attn_chunk,
                                      remat=cfg.remat)
     b, s = out.shape[:2]
     h = h + out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
-    if spec.ffn:
-        x = rms_norm(h, p["ln2"], cfg.norm_eps)
-        h = h + swiglu(x @ p["w_gate"], x @ p["w_up"]) @ p["w_down"]
-    return h
+    h = _ffn_residual(cfg, spec, p, h)
+    if not return_cache:
+        return h
+    pos = positions.to(torch.int32).clone(memory_format=torch.contiguous_format)
+    return h, {"k": k, "v": v, "pos": pos}
+
+
+def block_decode(cfg: ModelConfig, spec: LayerSpec, p: dict, h: torch.Tensor, cache: dict,
+                 positions: torch.Tensor):
+    """One-token decode of one block: h [B, 1, D] at ``positions`` [B, 1]
+    against ``cache`` -> (h', cache). The new K, V and position go into slot
+    ``position % W`` of the cache in place (``index_copy_``, where JAX
+    returns an updated copy of its donated cache), then the token attends to
+    every filled slot."""
+    if spec.window is not None:
+        raise _not_ported("windowed attention")
+    x = rms_norm(h, p["ln1"], cfg.norm_eps)
+    q, k, v = _project_qkv(cfg, p, x)
+    q, k = _rope_qk(cfg, spec, q, k, positions)
+    b, w = cache["k"].shape[:2]
+    # flat slot index b * W + position % W into the (B * W, ...) views
+    flat = torch.arange(b, device=h.device) * w + (positions[:, 0].long() % w)
+    cache["k"].view((b * w,) + tuple(cache["k"].shape[2:])).index_copy_(0, flat, k[:, 0])
+    cache["v"].view((b * w,) + tuple(cache["v"].shape[2:])).index_copy_(0, flat, v[:, 0])
+    cache["pos"].view(-1).index_copy_(0, flat, positions[:, 0].to(torch.int32))
+    out = attn_lib.decode_attention(q, cache["k"], cache["v"], cache["pos"], positions,
+                                    window=spec.window, chunk=cfg.decode_chunk)
+    h = h + out.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    return _ffn_residual(cfg, spec, p, h), cache
+
+
+def block_cache_defs(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int) -> dict:
+    """name -> (shape, dtype) of one block's decode cache; position slots are
+    int32 (-1 marks an empty slot)."""
+    if spec.mixer != "attn":
+        raise _not_ported(f"the {spec.mixer!r} mixer's decode cache")
+    if spec.window is not None:
+        raise _not_ported("the windowed ring cache")
+    dt = cfg.activation_dtype
+    return {"k": ((batch, max_len, cfg.n_kv_heads, cfg.head_dim), dt),
+            "v": ((batch, max_len, cfg.n_kv_heads, cfg.head_dim), dt),
+            "pos": ((batch, max_len), torch.int32)}

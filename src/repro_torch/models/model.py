@@ -6,8 +6,12 @@ Parameters are a tree of tensors with JAX's structure:
 the block leaves stacked over the repeats, so ``tree_leaves`` gives the JAX
 flatten order (dict keys sorted) and the trainer's per-leaf seeds match. Remat
 is ``torch.utils.checkpoint(use_reentrant=False)`` per block and per loss
-chunk (and per attention chunk inside a block). Prefill and decode wait for
-the serving slice.
+chunk (and per attention chunk inside a block).
+
+Serving: ``prefill`` and ``decode_step``. A decode cache is a list of
+per-layer dicts (``{"k", "v", "pos"}``), one per block in execution order
+(repeat-major), where JAX stacks the layers of a pattern position;
+``decode_step`` writes each new K/V into it in place.
 """
 
 from __future__ import annotations
@@ -74,6 +78,18 @@ class Model:
         shapes = self.param_shapes()
         return tree_unflatten(shapes, [make(sd) for sd in tree_leaves(shapes)])
 
+    def head_weight(self, params) -> torch.Tensor:
+        return params["lm_head"]
+
+    def _layers(self, params):
+        """(spec, block params) of every block in execution order. One unbind
+        per stacked leaf: the backward stacks the repeats' gradients once,
+        instead of one full-size gradient per repeat."""
+        cfg = self.cfg
+        per_repeat = [{k: v.unbind(0) for k, v in bp.items()} for bp in params["blocks"]]
+        return [(spec, {k: v[r] for k, v in bp.items()})
+                for r in range(cfg.n_repeats) for spec, bp in zip(cfg.pattern, per_repeat)]
+
     # ---------------------------------------------------------------- stages
 
     def embed_stage(self, params, batch) -> torch.Tensor:
@@ -83,17 +99,12 @@ class Model:
         cfg = self.cfg
         h = self.embed_stage(params, batch)
         positions = batch["positions"]
-        # one unbind per stacked leaf: the backward stacks the repeats'
-        # gradients once, instead of one full-size gradient per repeat
-        per_repeat = [{k: v.unbind(0) for k, v in bp.items()} for bp in params["blocks"]]
-        for r in range(cfg.n_repeats):
-            for spec, bp in zip(cfg.pattern, per_repeat):
-                p = {k: v[r] for k, v in bp.items()}
-                if cfg.remat:
-                    h = checkpoint(blocks_lib.block_forward, cfg, spec, p, h, positions,
-                                   use_reentrant=False)
-                else:
-                    h = blocks_lib.block_forward(cfg, spec, p, h, positions)
+        for spec, p in self._layers(params):
+            if cfg.remat:
+                h = checkpoint(blocks_lib.block_forward, cfg, spec, p, h, positions,
+                               use_reentrant=False)
+            else:
+                h = blocks_lib.block_forward(cfg, spec, p, h, positions)
         return rms_norm(h, params["final_norm"], cfg.norm_eps)
 
     def head_loss(self, params, h: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -122,6 +133,50 @@ class Model:
         h = self.forward_hidden(params, batch)
         loss = self.head_loss(params, h, batch["labels"])
         return loss, {"loss": loss}
+
+    # --------------------------------------------------------------- serving
+
+    def cache_shapes(self, batch_size: int, max_len: int) -> list:
+        """One dict of ``ShapeDtype`` leaves per block, in execution order."""
+        cfg = self.cfg
+        return [{k: ShapeDtype(shape, dtype) for k, (shape, dtype)
+                 in blocks_lib.block_cache_defs(cfg, spec, batch_size, max_len).items()}
+                for _ in range(cfg.n_repeats) for spec in cfg.pattern]
+
+    def init_cache(self, batch_size: int, max_len: int, device=None) -> list:
+        """An empty decode cache: zero K/V, position slots -1 (empty)."""
+        device = torch.device(device) if device is not None else torch.device("cuda")
+
+        def make(sd: ShapeDtype):
+            if sd.dtype == torch.int32:
+                return torch.full(sd.shape, -1, dtype=sd.dtype, device=device)
+            return torch.zeros(sd.shape, dtype=sd.dtype, device=device)
+
+        return [{k: make(sd) for k, sd in layer.items()}
+                for layer in self.cache_shapes(batch_size, max_len)]
+
+    def prefill(self, params, batch):
+        """Forward that also emits the decode caches: (final hidden [B, S, D],
+        caches). Each block's cache is as deep as the prompt, as JAX's is."""
+        h = self.embed_stage(params, batch)
+        positions = batch["positions"]
+        caches = []
+        for spec, p in self._layers(params):
+            h, cache = blocks_lib.block_forward(self.cfg, spec, p, h, positions,
+                                                return_cache=True)
+            caches.append(cache)
+        return rms_norm(h, params["final_norm"], self.cfg.norm_eps), caches
+
+    def decode_step(self, params, caches, batch):
+        """One token for every sequence. batch: {"inputs": [B, 1],
+        "positions": [B, 1]}. Returns (float32 logits [B, V], caches), the
+        caches updated in place."""
+        h = self.embed_stage(params, batch)
+        positions = batch["positions"]
+        for (spec, p), cache in zip(self._layers(params), caches):
+            h, _ = blocks_lib.block_decode(self.cfg, spec, p, h, cache, positions)
+        h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
+        return (h[:, 0] @ self.head_weight(params)).to(torch.float32), caches
 
 
 def _loss_chunk(h_i: torch.Tensor, y_i: torch.Tensor, w: torch.Tensor):

@@ -10,20 +10,22 @@ Algorithm 2 with tau > 1 local steps):
   1. every worker computes the local gradient of its microbatch (the global
      batch split on axis 0, or axis 1 when tau > 1, in worker order);
   2. it compresses every gradient leaf with its own counter stream, in the
-     wire's native format (int8 votes on the psum wires, the 2-bit packed
-     view or, for a golomb-format row, the Golomb/Rice coded stream from one
-     fused kernel on ``allgather_packed``); seeds as in JAX:
+     wire's native format (int8 votes on the psum wires; on
+     ``allgather_packed`` the 2-bit packed view, for a golomb-format row the
+     Golomb/Rice coded stream, or for the pack8 row, qsgd8, the int8 level
+     view and its decode scale, each from one fused kernel); seeds as in JAX:
      ``wseed = fold(rseed, 0x5EED) + widx * 0x9E3779B9``, leaf i drawing from
      ``fold(wseed, i)`` with counter base 0, leaves in JAX's flatten order;
-  3. one wire exchange per leaf gives the vote total (or the weighted vote
-     and the realized participation W under elastic participation);
+  3. one wire exchange per leaf gives the vote total, or on the pack8 wire
+     the dequantized sum (or the weighted sum and the realized participation
+     W under elastic participation);
   4. ``engine.server_apply`` steps the parameters once: C(.) and SGD.
 
 The workers run one after another, each holding one set of gradients, and
 their messages are kept until the exchange; a compressor that shares the
 workers' L-inf norm (TernGrad, ``linf_share``) keeps every worker's
-gradients until the shared max is known. The bucketed uplink, the ring
-gather and the pack8 wire are not ported yet and raise.
+gradients until the shared max is known. The bucketed uplink and the ring
+gather are not ported yet and raise.
 
 On the golomb wire the step's nnz reads the messages' headers (the shipped
 nonzeros), and ``nnz_dropped`` counts the nonzeros all workers' messages
@@ -247,26 +249,28 @@ def build_train_step(model, step_cfg: TrainStepConfig, group: WorkerGroup) -> Ca
                 new_p, new_ef = engine.server_apply(p, vote_sum, comp, lr=lr, ef=ef,
                                                     n_sel=n_or_w, server="mean",
                                                     backend=backend)
-            elif part is not None:
-                wv, wtot = wire.exchange_weighted(stack, n, shape, weight=w_eff)
-                if mode == "votes":
-                    new_p, new_ef = engine.server_apply(p, wv, comp, lr=lr, ef=ef,
-                                                        part_total=wtot, q_frac=q_fracs[i],
+            else:
+                # pack8 gathers every worker's decode scale and returns the
+                # dequantized sum; scaled_votes carries ONE shared scale
+                wire_scale = torch.stack(scales[i]) if mode == "pack8" else None
+                mean_scale = scales[i][-1] if mode == "scaled_votes" else None
+                if part is not None:
+                    agg, n_or_w = wire.exchange_weighted(stack, n, shape, weight=w_eff,
+                                                         scale=wire_scale)
+                else:
+                    agg, n_or_w = wire.exchange(stack, n, shape, scale=wire_scale), n_sel
+                if mode != "votes":
+                    new_p, new_ef = engine.server_apply(p, agg, comp, lr=lr, ef=ef,
+                                                        n_sel=n_or_w, server="mean",
+                                                        scale=mean_scale, backend=backend)
+                elif part is not None:
+                    new_p, new_ef = engine.server_apply(p, agg, comp, lr=lr, ef=ef,
+                                                        part_total=n_or_w, q_frac=q_fracs[i],
                                                         backend=backend)
                 else:
-                    new_p, new_ef = engine.server_apply(p, wv, comp, lr=lr, ef=ef, n_sel=wtot,
-                                                        server="mean", scale=scales[i][-1],
-                                                        backend=backend)
-            else:
-                vote_sum = wire.exchange(stack, n, shape)
-                if mode == "votes":
-                    new_p, new_ef = engine.server_apply(p, vote_sum, comp, lr=lr, ef=ef,
+                    new_p, new_ef = engine.server_apply(p, agg, comp, lr=lr, ef=ef,
                                                         n_sel=n_sel, quorum=quorum_leaves[i],
                                                         backend=backend)
-                else:
-                    new_p, new_ef = engine.server_apply(p, vote_sum, comp, lr=lr, ef=ef,
-                                                        n_sel=n_sel, server="mean",
-                                                        scale=scales[i][-1], backend=backend)
             del stack
             p.copy_(new_p)
             new_p = p

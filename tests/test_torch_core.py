@@ -165,11 +165,11 @@ def test_bit_model_matches_jax(p):
 # ---------------------------------------------------------------- registry
 
 def test_registry_rows_and_not_yet_ported_names():
-    """Every row of the JAX table but the pack8 row, with the JAX row's
-    ternariness, scale protocol, server decode, wire format and fused op;
-    ``qsgd8`` names the ROADMAP queue."""
+    """Every row of the JAX table, the pack8 row ``qsgd8`` included, with the
+    JAX row's ternariness, scale protocol, server decode, wire format and
+    fused op; nothing is left to port, and an unknown name raises."""
     from repro.core import compressors as jcomp
-    assert sorted(tcomp.SPECS) == sorted(set(jcomp.SPECS) - {"qsgd8"})
+    assert sorted(tcomp.SPECS) == sorted(jcomp.SPECS)
     for name, spec in tcomp.SPECS.items():
         j = jcomp.SPECS[name]
         assert (spec.is_ternary, spec.scale_protocol, spec.server_decode, spec.chunkable,
@@ -178,8 +178,8 @@ def test_registry_rows_and_not_yet_ported_names():
                                                         j.uplink_bits, j.wire_format), name
         assert (spec.kernel_op is None) == (j.pallas_op is None), name
         assert (spec.fused_pack_op is None) == (j.fused_pack_op is None), name
-    with pytest.raises(KeyError, match="ROADMAP"):
-        tcomp.get_spec("qsgd8")
+    assert tcomp.get_spec("qsgd8").wire_format == "pack8"
+    assert not hasattr(tcomp, "NOT_YET_PORTED")
     with pytest.raises(KeyError, match="unknown compressor"):
         tcomp.get_spec("nope")
     g = torch.from_numpy(heavy_grad(50))

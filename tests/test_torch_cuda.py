@@ -20,8 +20,13 @@ from repro_torch.kernels.ef_server.ref import ef_server_ref
 from repro_torch.kernels.golomb import ref as golomb_ref
 from repro_torch.kernels.golomb.ops import (golomb_pack_op, sparsign_golomb_op,
                                             ungolomb_sum_op, ungolomb_wsum_op)
-from repro_torch.kernels.pack2bit.ops import unpack2bit_sum_op, unpack2bit_wsum_op
-from repro_torch.kernels.pack2bit.ref import unpack2bit_sum_ref, unpack2bit_wsum_ref
+from repro_torch.kernels.common import to_2d
+from repro_torch.kernels.pack2bit.ops import (pack2bit_op, unpack2bit_op, unpack2bit_sum_op,
+                                              unpack2bit_wsum_op)
+from repro_torch.kernels.pack2bit.ref import (pack2bit_ref, unpack2bit_ref, unpack2bit_sum_ref,
+                                              unpack2bit_wsum_ref)
+from repro_torch.kernels.pack8.ops import qsgd8_pack8_op, unpack8_sum_op
+from repro_torch.kernels.pack8.ref import qsgd8_pack8_ref, unpack8_sum_ref
 from repro_torch.kernels.sparsign.ops import sparsign_op
 from repro_torch.kernels.sparsign.ref import sparsign_ref
 from repro_torch.kernels.sparsign_pack2bit.ops import sparsign_pack2bit_op
@@ -33,6 +38,8 @@ from repro_torch.kernels.vote_update.ops import vote_update_op, weighted_vote_up
 from repro_torch.kernels.vote_update.ref import vote_update_ref, weighted_vote_update_ref
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.model import Model
+from repro_torch.serve.decode import (build_update_ingest, encode_weight_update,
+                                      encode_weight_update8)
 from repro_torch.train.state import LrSchedule, init_state
 from repro_torch.train.step_simple import TrainStepConfig, build_train_step
 
@@ -242,4 +249,131 @@ def test_golomb_trainer_step_on_card_matches_plain_versions(cuda_device, elastic
                 assert not any(counts.values())
     for key in (("sparsign_golomb", "torch"), ("sparsign", None)):
         for a, b in zip(out[("sparsign_golomb", None)], out[key]):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_pack_unpack_and_pack8_kernels_match_plain_versions_on_card(cuda_device):
+    """pack2bit and unpack2bit (ternary and arbitrary int8 bytes, odd sizes),
+    qsgd8_pack8 (f32 and bf16, +-0/NaN/+-inf, a counter base near 2^32, a
+    zero and a NaN scale) and unpack8_sum (M = 1, 4, 20; zero scales with negative
+    levels) against their plain versions on the card, bit for bit."""
+    rng = np.random.RandomState(9)
+    for n in (1, 4099, 70001):
+        for lo, hi in ((-1, 2), (-128, 128)):
+            t = torch.from_numpy(rng.randint(lo, hi, n).astype(np.int8)).to(cuda_device)
+            packed = pack2bit_op(t)
+            np.testing.assert_array_equal(tbits(packed), tbits(pack2bit_ref(to_2d(t)[0])))
+            np.testing.assert_array_equal(tbits(unpack2bit_op(packed, n, (n,))),
+                                          tbits(unpack2bit_ref(packed).reshape(-1)[:n]))
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.from_numpy(grad_like(n, n)).to(cuda_device, dtype)
+            g[:3] = torch.tensor([float("nan"), float("inf"), -float("inf")])[:n]
+            for scale in (0.0, 1e-3, 0.05, float("nan")):
+                np.testing.assert_array_equal(
+                    tbits(qsgd8_pack8_op(g, scale, 0xFFFFFFFF, 2**32 - 9)),
+                    tbits(qsgd8_pack8_ref(g, scale, 0xFFFFFFFF, 2**32 - 9)))
+    for m in (1, 4, 20):
+        lv = torch.randint(-127, 128, (m, 96, 512), device=cuda_device, dtype=torch.int8)
+        sc = torch.rand(m, device=cuda_device) * 0.1
+        sc[::2] = 0.0
+        want = unpack8_sum_ref(lv, sc)
+        np.testing.assert_array_equal(tbits(unpack8_sum_op(lv, sc, 96 * 512, (96, 512))),
+                                      tbits(want))
+        assert not bool(torch.signbit(want[want == 0]).any())
+
+
+@pytest.mark.cuda
+def test_two_pass_pack2_chain_on_card_matches_the_fused_kernel(cuda_device):
+    """engine.compress_leaf on the 2-bit wire for a row without a fused
+    kernel (a copy of ``sign`` with none): the ternary kernel, then the
+    pack2bit kernel, the bytes of the fused kernel."""
+    import dataclasses
+
+    from repro_torch.core import engine
+    from repro_torch.core.compressors import SPECS
+    from repro_torch.dist.collectives import make_vote_wire
+
+    name = "sign_two_pass"
+    SPECS[name] = dataclasses.replace(SPECS["sign"], name=name, fused_pack_op=None)
+    try:
+        wire = make_vote_wire("allgather_packed", make_mesh((4,), ("data",)))
+        g = torch.from_numpy(grad_like(70001, 11)).to(cuda_device, torch.bfloat16)
+        reset_launch_counts()
+        two = engine.compress_leaf(g, CompressionConfig(compressor=name), 5, wire=wire).values
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert counts["ternary"] == counts["pack2bit"] == 1
+        fused = engine.compress_leaf(g, CompressionConfig(compressor="sign"), 5, wire=wire).values
+        np.testing.assert_array_equal(tbits(two), tbits(fused))
+    finally:
+        del SPECS[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("elastic", [False, True])
+def test_pack8_trainer_step_on_card_matches_plain_versions(cuda_device, elastic):
+    """One smoke-size qsgd8 step at M = 4 with the mean server on the pack8
+    wire through the kernels, and through the plain versions on the card, and
+    on the decoded psum: the same parameters, bit for bit, with 60
+    qsgd8_pack8 and 15 unpack8_sum launches on the pack8 wire."""
+    model = Model(get_config("qwen1.5-4b", smoke=True))
+    rng = np.random.RandomState(0)
+    batch = {"inputs": rng.randint(0, 256, (4, 16)).astype(np.int32),
+             "labels": rng.randint(0, 256, (4, 16)).astype(np.int32),
+             "positions": np.broadcast_to(np.arange(16, dtype=np.int32), (4, 16)).copy()}
+    part = (ParticipationSpec(weights=(1.5, 0.5, 2.0, 1.0), dropout=0.25) if elastic else None)
+    comp = CompressionConfig(compressor="qsgd8", server="mean")
+    out = {}
+    for impl, backend in (("allgather_packed", None), ("allgather_packed", "torch"),
+                          ("psum", None)):
+        step = build_train_step(model, TrainStepConfig(
+            compression=comp, lr=LrSchedule(base=0.05), vote_impl=impl, backend=backend,
+            participation=part), make_mesh((4,), ("data",)))
+        state = init_state(model.init(0, device=cuda_device), server=comp.server, seed=1)
+        reset_launch_counts()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        out[(impl, backend)] = [tbits(t) for t in tree_leaves(state.params)]
+        if backend is None:
+            assert counts["qsgd8_pack8"] == 15 * 4
+            assert counts["unpack8_sum"] == (15 if impl == "allgather_packed" else 0)
+        else:
+            assert not any(counts.values())
+    for key in (("allgather_packed", "torch"), ("psum", None)):
+        for a, b in zip(out[("allgather_packed", None)], out[key]):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_update_ingest_on_card_matches_plain_versions(cuda_device):
+    """The three downlink wires at smoke size on the card: encoded and
+    ingested through the kernels (pack2bit, unpack2bit, qsgd8_pack8,
+    vote_update), and through the plain versions: the same bytes and the
+    same parameters, bit for bit."""
+    model = Model(get_config("qwen1.5-4b", smoke=True))
+    params = model.init(0, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    votes = [torch.randint(-3, 4, p.shape, generator=gen, device=cuda_device,
+                           dtype=torch.int32) for p in tree_leaves(params)]
+    deltas = [torch.randn(p.shape, generator=gen, device=cuda_device) * 1e-3
+              for p in tree_leaves(params)]
+    reset_launch_counts()
+    got, want = {}, {}
+    for backend, out in ((None, got), ("torch", want)):
+        packed = [encode_weight_update(v, backend=backend) for v in votes]
+        enc8 = [encode_weight_update8(d, seed=i, backend=backend) for i, d in enumerate(deltas)]
+        for wire, ups, sc, q in (("packed2bit", packed, None, 1),
+                                 ("int8", [v.to(torch.int8) for v in votes], None, 2),
+                                 ("packed8", [e[0] for e in enc8], [e[1] for e in enc8], 1)):
+            p = [t.clone() for t in tree_leaves(params)]
+            ingest = build_update_ingest(model, lr=0.05, quorum=q, wire=wire, backend=backend)
+            out[wire] = [tbits(t) for t in ingest(p, ups, sc)]
+        out["bytes"] = [tbits(x) for x in packed] + [tbits(e[0]) for e in enc8]
+    counts = launch_counts()
+    assert counts["pack2bit"] == counts["unpack2bit"] == counts["qsgd8_pack8"] == 15
+    assert counts["vote_update"] == 30
+    for key in got:
+        for a, b in zip(got[key], want[key]):
             np.testing.assert_array_equal(a, b)

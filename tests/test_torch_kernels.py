@@ -218,4 +218,6 @@ def test_cpu_ops_take_plain_versions_and_count_no_launch():
                                         "sparsign_pack2bit": 0, "ternary_pack2bit": 0,
                                         "unpack2bit_sum": 0, "unpack2bit_wsum": 0,
                                         "sparsign_golomb": 0, "golomb_pack": 0,
-                                        "ungolomb_sum": 0, "ungolomb_wsum": 0}
+                                        "ungolomb_sum": 0, "ungolomb_wsum": 0,
+                                        "pack2bit": 0, "unpack2bit": 0, "qsgd8_pack8": 0,
+                                        "unpack8_sum": 0}

@@ -322,12 +322,13 @@ def test_make_vote_wire_validation_matches_jax():
         with pytest.raises(jerr):
             tcoll.make_vote_wire(*args, hier if on_hier else flat, **tkw)
     # valid arguments for what is not ported yet: a loud refusal; the golomb
-    # wire is ported
-    for kw in ({"ring_chunk_rows": 64}, {"wire_format": "pack8"}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tcoll.make_vote_wire("allgather_packed", flat, **kw)
+    # and pack8 wires are ported
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tcoll.make_vote_wire("allgather_packed", flat, ring_chunk_rows=64)
     wire = tcoll.make_vote_wire("allgather_packed", flat, wire_format="golomb", golomb_p=0.05)
     assert isinstance(wire, tcoll.GolombWire) and wire.p == 0.05
+    assert isinstance(tcoll.make_vote_wire("allgather_packed", flat, wire_format="pack8"),
+                      tcoll.Pack8Wire)
 
 
 @pytest.mark.parametrize("name", list(SPECS))
