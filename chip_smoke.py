@@ -2,8 +2,12 @@
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --golomb-split [CSRC ...]   # the Golomb kernels alone
 
-Phases, in order; any failure exits non-zero before the last line:
+The second form times the Golomb wire's four kernels at w_down and splits
+each call's device time by launch, for the kernel sources of each CSRC
+directory given (default: the checkout's), A B B A for two. Phases of the
+first, in order; any failure exits non-zero before the last line:
   1. card, versions and TF32 flags (both set False); build the CUDA kernels
      from src/repro_torch/csrc and print the build time and ptxas report;
   2. hold each kernel against its plain PyTorch version on the card, bit for
@@ -35,29 +39,31 @@ Phases, in order; any failure exits non-zero before the last line:
      bit for bit, the two encoders also against each other: w_down in bf16
      at the plan density p = 0.05, odd sizes in f32 and bf16 at counter base
      2^32 - 5000, +-0/NaN/+-inf, a message past capacity (dropped > 0), a
-     lone nonzero at w_down's last coordinate; the decode-sums at M = 1, 4
-     and 20 over real encoder outputs with a masked (all-zero) worker, zero
-     and fractional weights; timed against their bounds; then
-     engine.compress_leaf's two-pass chain (sparsign, golomb_pack), counted;
+     lone nonzero at w_down's last coordinate, codes on each side of the
+     encoder's and the decoder's tile edges and a unary run over empty
+     tiles; the decode-sums at M = 1, 4 and 20 over real encoder outputs
+     with a masked (all-zero) worker, M = 20's in the middle, zero and
+     fractional weights, and embedding-shaped messages with saturated rows;
+     timed against their bounds; then engine.compress_leaf's two-pass chain
+     (sparsign, golomb_pack), counted;
   7. the data-parallel LM trainer: qwen1.5-4b at full width through
      repro_torch.launch.train's build path, M = 4 workers on the card, one
      sequence of 4096 tokens each (train_4k's length; the global batch cut
-     from 256 to 4), 3 steps each of sparsign/majority vote on the
+     from 256 to 4), 2 steps each of sparsign/majority vote on the
      allgather_packed, psum and hier (2 x 2) wires (parameters bitwise equal
-     across the three), sparsign/scaled_sign_ef, 2 steps each of sign,
-     noisy_sign and TernGrad on allgather_packed, 3 of the elastic vote
-     (weights, dropout 0.25), of sparsign_golomb with a target_sparsity
-     budget of 0.05 on the golomb wire, plain and elastic, and of sparsign
-     with the same budget on the 2-bit wire (parameters bitwise equal to the
-     golomb run's, which drops no nonzero); per step loss, nnz, dropped, wire
+     across the three), of sparsign/scaled_sign_ef, of sign, noisy_sign and
+     TernGrad on allgather_packed and of the elastic vote (weights, dropout
+     0.25); 3 steps each of sparsign_golomb with a target_sparsity budget of
+     0.05 on the golomb wire, plain and elastic, and of sparsign with the
+     same budget on the 2-bit wire (parameters bitwise equal to the golomb
+     run's, which drops no nonzero); per step loss, nnz, dropped, wire
      bytes (== the uplink ledger), host seconds and peak memory; launch
      counts checked with every plain version barred from running; one step
      each of the packed and the golomb run traced with torch.profiler; the
      target_sparsity bisection timed on its own; then qsgd8 with the mean
      server, 3 steps each on the pack8 wire (allgather_packed), on the
      decoded psum (parameters bitwise equal to the pack8 run's) and on the
-     elastic pack8 wire. The psum, hier, allgather_packed, scaled_sign_ef
-     and elastic sparsign runs take 2 steps (cut from 3 for time);
+     elastic pack8 wire;
   8. the stand-alone pack and unpack kernels and the pack8 wire's kernels
      (pack2bit, unpack2bit, qsgd8_pack8, unpack8_sum) against their plain
      versions on the card, bit for bit: w_down's size, odd sizes, arbitrary
@@ -68,7 +74,8 @@ Phases, in order; any failure exits non-zero before the last line:
      synthetic 2-bit weight-update round every 16 tokens: 4 rounds through
      pack2bit, unpack2bit and vote_update), counted with every plain version
      barred; a timed prefill of 4 x 2048 tokens; decode after a prefill
-     whose cache is padded to max_len against forward_hidden's last logits;
+     whose cache is padded to max_len against forward_hidden's last logits,
+     in bf16 and once more in float32 (15.8 GB of weights);
      one ingest round on each downlink wire (packed2bit, int8, packed8
      through qsgd8_pack8), each bitwise equal to backend="torch", the
      packed2bit route equal to server_apply on the int8 decisions.
@@ -136,11 +143,19 @@ SERVE_ARGS = ["--arch", "qwen1.5-4b", "--full", "--batch", "4", "--prompt-len", 
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
 # decode after a prefill padded to max_len against forward_hidden's last
 # logits, in bf16 at full width with random weights: max |difference| over
-# max |logit|. Measured 0.0946 on "NVIDIA H100 80GB HBM3, 700.00 W" (my chip
-# run R2, PERF.md); the bound leaves a margin of 2.1x. The run also prints
-# the noise floor of bf16 itself: the same logits from a forward one token
-# longer (other GEMM shapes, so other cuBLAS kernels and roundings).
+# max |logit|. Measured 0.0946 on "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md);
+# the bound leaves a margin of 2.1x. The gap is bf16's rounding: the same
+# check in float32 at full width reads 2.8e-4, and with every float32 cast of
+# the norms, RoPE and attention made float64 decode equals the full forward
+# (tests/test_torch_serve.py). The run also prints the noise floor of the
+# dtype itself: the same logits from a forward one token longer (other GEMM
+# shapes, so other cuBLAS kernels and roundings).
 DECODE_REL_TOL = 0.2
+# the same check in float32 at full width: a fault in the decode path (the
+# cache write, the masks, the decode chunking) moves the logits by a share of
+# their own size, where float32's rounding over 40 layers stays far below
+# 1e-3 (4.9e-6 at smoke size on the CPU)
+DECODE_F32_REL_TOL = 1e-3
 
 
 def check(cond, msg: str) -> None:
@@ -347,13 +362,12 @@ def profile_round(torch, rf, v) -> dict:
 
 def golomb_owner(kernel: str):
     """Which golomb source launched a CUDA kernel, by its name: the encoder's
-    passes and its scans of Segs, or the decoder's passes and its scans of
-    Pairs and first-zero keys; None for any other kernel."""
-    if "golomb::scan" in kernel:
-        return "golomb_encode" if "Seg" in kernel else "golomb_decode"
-    if "tile_stats<" in kernel or "::emit<" in kernel:
+    one pass, or the decoder's passes and its scans of transfer functions and
+    of (positions, codes) pairs; None for any other kernel."""
+    if "encode_tiles<" in kernel:
         return "golomb_encode"
-    if any(f in kernel for f in ("zero_keys", "transfer_pass", "count_pass", "emit_pass")):
+    if "golomb::scan" in kernel or any(
+            f in kernel for f in ("class_pass<", "count_pass<", "mark_pass", "emit_tiles<")):
         return "golomb_decode"
     return None
 
@@ -1032,10 +1046,27 @@ def phase_golomb_kernels(torch, timer, report):
                                 torch.ones((), device=dev), 3)
     check(golomb_header(lone_coded) == (1, 0), "the lone nonzero is not one shipped code")
     del lone
+    # the designs at their edges (the w_down message above is 43,200 encoder
+    # tiles, far more than the card holds at once, so its look-back crosses
+    # waves): codes on each side of output-tile (2,048) and encoder-tile
+    # (16,384) edges, and a unary run that crosses five empty encoder tiles
+    # and many output-tile edges; the budget makes sparsign(g) = sign(g)
+    n_e = 1 << 20
+    at = [2047, 2048, 16383, 16384, 16385 + 5 * 16384 + 2100, n_e - 1]
+    edges = torch.zeros(n_e, device=dev)
+    edges[at] = torch.tensor([1.0, -1.0, -1.0, 1.0, -1.0, 1.0], device=dev)
+    t_e, coded_e = encode_case("tile edges and a run over empty tiles", edges,
+                               torch.full((), 1e30, device=dev), 5)
+    check(golomb_header(coded_e) == (len(at), 0), "the tile-edge message lost a code")
+    decode_case("tile edges, M=1", coded_e[None], n_e, weights(1))
+    check(same_bits(ungolomb_sum_cuda(coded_e[None], n_e, b=b), t_e.to(torch.int32)),
+          "ungolomb_sum of the tile-edge message differs from its votes")
+    del edges, t_e, coded_e
 
     # -- the decode-sums over real encoder outputs: M = 1 and 4 at w_down (the
     # third of four an all-zero, masked worker), M = 20 at one layer's w_down
-    # (17,694,720 coordinates; the sixth masked); zero and fractional weights
+    # (17,694,720 coordinates; the eleventh, in the middle, masked); zero and
+    # fractional weights
     rows = gref.golomb_rows(N_WDOWN, p)
     sd = [torch.full((1,), s, dtype=torch.int64, device=dev) for s in range(20)]
     coded = [coded0] + [sparsign_golomb_cuda(g, bud.reshape(1), sd[s], b=b, rows=rows)
@@ -1072,7 +1103,7 @@ def phase_golomb_kernels(torch, timer, report):
     rows20 = gref.golomb_rows(n20, p)
     gath20 = torch.stack([sparsign_golomb_cuda(g20, bud20, sd[s], b=b, rows=rows20)
                           for s in range(20)])
-    gath20[5] = 0
+    gath20[10] = 0
     decode_case("M=20 one layer's w_down", gath20, n20, weights(20))
     del gath20
     report["golomb_mismatched_segments"] = mismatched
@@ -1522,6 +1553,39 @@ def phase_trainer(torch, report, totals):
         torch.cuda.empty_cache()
 
 
+def decode_vs_forward(torch, model, params, toks, pos, s: int) -> tuple:
+    """Decode of token s after a prefill of s tokens whose cache is padded to
+    s + 1, against forward_hidden's last logits over the same s + 1 tokens:
+    max |difference| over max |logit|, the same for the logits of a forward
+    one token longer (other GEMM shapes: the dtype's own noise), and the
+    share of the batch whose argmax agrees."""
+    from repro_torch.serve.decode import build_decode_step, build_prefill
+
+    batch, dev = toks.shape[0], toks.device
+    _, caches = build_prefill(model)(params, {"inputs": toks[:, :s], "positions": pos[:, :s]})
+    padded = model.init_cache(batch, s + 1, dev)
+    for c, pc in zip(caches, padded):
+        for key in ("k", "v", "pos"):
+            pc[key][:, :s] = c[key]
+    del caches
+    dec, _ = build_decode_step(model)(params, padded, {
+        "inputs": toks[:, s:s + 1],
+        "positions": torch.full((batch, 1), s, dtype=torch.int32, device=dev)})
+    with torch.no_grad():
+        h = model.forward_hidden(params, {"inputs": toks[:, :s + 2], "positions": pos[:, :s + 2]})
+        longer = (h[:, s] @ model.head_weight(params)).to(torch.float32)
+        h = model.forward_hidden(params, {"inputs": toks[:, :s + 1], "positions": pos[:, :s + 1]})
+        ref = (h[:, -1] @ model.head_weight(params)).to(torch.float32)
+    del h, padded
+    dec = dec.to(torch.float32)
+
+    def rel_to_ref(x):
+        return float((x - ref).abs().max() / ref.abs().max())
+
+    return (rel_to_ref(dec), rel_to_ref(longer),
+            float((dec.argmax(-1) == ref.argmax(-1)).float().mean()))
+
+
 def phase_serve(torch, report, totals):
     """Serving qwen1.5-4b at full width on the card: the launcher's loop with
     its 2-bit update rounds, counted with every plain version barred; a
@@ -1594,29 +1658,10 @@ def phase_serve(torch, report, totals):
           f"{ntok / prefill_s:.0f} tokens/s, peak {out['prefill']['peak_gb']:.2f} GB")
 
     # -- decode after a prefill whose cache is padded to max_len, against
-    # forward_hidden's last logits over the same tokens
+    # forward_hidden's last logits over the same tokens: in bf16, then once in
+    # float32 (the same check with the rounding of bf16 taken away)
     s = 128
-    _, caches = prefill(params, {"inputs": toks[:, :s], "positions": pos[:, :s]})
-    padded = model.init_cache(PREFILL_BATCH, s + 1, dev)
-    for c, pc in zip(caches, padded):
-        for key in ("k", "v", "pos"):
-            pc[key][:, :s] = c[key]
-    del caches
-    dec, _ = build_decode_step(model)(params, padded, {
-        "inputs": toks[:, s:s + 1],
-        "positions": torch.full((PREFILL_BATCH, 1), s, dtype=torch.int32, device=dev)})
-    with torch.no_grad():
-        h = model.forward_hidden(params, {"inputs": toks[:, :s + 2], "positions": pos[:, :s + 2]})
-        longer = (h[:, s] @ model.head_weight(params)).to(torch.float32)
-        h = model.forward_hidden(params, {"inputs": toks[:, :s + 1], "positions": pos[:, :s + 1]})
-        ref = (h[:, -1] @ model.head_weight(params)).to(torch.float32)
-    del h, padded
-
-    def rel_to_ref(x):
-        return float((x - ref).abs().max() / ref.abs().max())
-
-    rel, floor = rel_to_ref(dec), rel_to_ref(longer)
-    agree = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
+    rel, floor, agree = decode_vs_forward(torch, model, params, toks, pos, s)
     check(rel <= DECODE_REL_TOL and agree >= 0.75,
           f"decode after a padded prefill: {rel:.3g} of max |logit| from the full forward "
           f"(tolerance {DECODE_REL_TOL}), argmax agreeing for {agree:.0%}")
@@ -1625,6 +1670,23 @@ def phase_serve(torch, report, totals):
     print(f"[serve] decode after a padded {s}-token prefill vs forward_hidden: max |diff| "
           f"{rel:.4g} of max |logit| (tolerance {DECODE_REL_TOL}; a forward one token longer "
           f"gives {floor:.4g}), argmax agrees for {agree:.0%} of the batch")
+    t0 = time.perf_counter()
+    model32 = Model(dataclasses.replace(cfg, dtype="float32"))
+    params32 = model32.init(0, dev)
+    gb32 = sum(x.numel() * x.element_size() for x in tree_leaves(params32)) / 1e9
+    rel32, floor32, agree32 = decode_vs_forward(torch, model32, params32, toks, pos, s)
+    del params32, model32
+    torch.cuda.empty_cache()
+    f32_s = time.perf_counter() - t0
+    check(rel32 <= DECODE_F32_REL_TOL,
+          f"decode after a padded prefill in float32: {rel32:.3g} of max |logit| from the full "
+          f"forward (tolerance {DECODE_F32_REL_TOL})")
+    out["decode_vs_forward_f32"] = {"prompt": s, "rel_err": rel32, "floor": floor32,
+                                    "argmax_agree": agree32, "tol": DECODE_F32_REL_TOL,
+                                    "seconds": f32_s, "weights_gb": gb32}
+    print(f"[serve] the same in float32 ({f32_s:.1f} s, {gb32:.2f} GB of weights): "
+          f"max |diff| {rel32:.4g} of max |logit| (tolerance {DECODE_F32_REL_TOL}; a forward "
+          f"one token longer gives {floor32:.4g}), argmax agrees for {agree32:.0%}")
 
     # -- where a decode step's and a prefill's time goes (launches not counted)
     caches = model.init_cache(PREFILL_BATCH, s + 1, dev)
@@ -1721,6 +1783,90 @@ def phase_serve(torch, report, totals):
     torch.cuda.empty_cache()
 
 
+def launch_split(torch, fn) -> list:
+    """One traced call of ``fn``: its device activities (kernels, memsets,
+    copies) by name in order of first appearance, [name, count, us]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    acts = sorted((e.time_range.start, e.name, e.time_range.end - e.time_range.start)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+    split = {}
+    for _, name, us in acts:
+        row = split.setdefault(name, [name, 0, 0.0])
+        row[1] += 1
+        row[2] += us
+    return list(split.values())
+
+
+def golomb_split(torch, trees: list) -> dict:
+    """``--golomb-split [CSRC ...]``: the Golomb kernels at w_down (the
+    encoders in bf16 and int8, the decode-sums at M = 1, 4 and 20) built from
+    each kernel source tree in turn (default: the checkout's; with two, in
+    the order A, B, B, A on one card; with more, once each), each timed with
+    CUDA events and its device time split by launch from one traced call.
+    Every tree's outputs must equal the first tree's bit for bit; returns
+    the times and splits by tree."""
+    from repro_torch.core.budgets import solve_budget_for_sparsity
+    from repro_torch.kernels import build
+    from repro_torch.kernels.golomb import ref as gref
+    from repro_torch.kernels.golomb.kernel import (golomb_pack_cuda, sparsign_golomb_cuda,
+                                                   ungolomb_sum_cuda, ungolomb_wsum_cuda)
+    from repro_torch.kernels.sparsign.kernel import sparsign_cuda
+
+    dev, p = "cuda", GOLOMB_P
+    b, rows = gref.rice_b(p), gref.golomb_rows(N_WDOWN, p)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    g = (torch.randn(N_WDOWN, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    bud = solve_budget_for_sparsity(g, p).reshape(1)
+    sd = [torch.full((1,), s, dtype=torch.int64, device=dev) for s in (1, 11, 12, 13)]
+    w = {m: torch.rand(m, generator=gen, device=dev) * 2 for m in (1, 4, 20)}
+    timer = Timer(torch)
+    order = [trees[0], trees[1], trees[1], trees[0]] if len(trees) == 2 else trees
+    first, out = {}, {"device": nvidia_smi(), "runs": []}
+    t0 = None
+    for tree in order:
+        build.CSRC = pathlib.Path(tree).resolve()
+        build._LIBS.clear()
+        build.build_all(("golomb_encode", "golomb_decode", "sparsign"))
+        if t0 is None:
+            t0 = sparsign_cuda(g, bud, sd[0])
+        coded = [sparsign_golomb_cuda(g, bud, s, b=b, rows=rows) for s in sd]
+        coded[2] = torch.zeros_like(coded[0])
+        gath = {1: coded[0][None], 4: torch.stack(coded), 20: torch.stack([coded[0]] * 20)}
+        calls = {"sparsign_golomb w_down bf16":
+                 lambda: sparsign_golomb_cuda(g, bud, sd[0], b=b, rows=rows),
+                 "golomb_pack w_down int8": lambda: golomb_pack_cuda(t0, b=b, rows=rows)}
+        for m in (1, 4, 20):
+            calls[f"ungolomb_sum M={m} w_down"] = (
+                lambda m=m: ungolomb_sum_cuda(gath[m], N_WDOWN, b=b))
+            calls[f"ungolomb_wsum M={m} w_down"] = (
+                lambda m=m: ungolomb_wsum_cuda(gath[m], w[m], N_WDOWN, b=b))
+        run = {"csrc": str(tree), "calls": {}}
+        for key, fn in calls.items():
+            got = fn()
+            torch.cuda.synchronize()
+            if key in first:
+                check(same_bits(got, first[key]), f"golomb split {key}: {tree} differs from "
+                                                  f"{order[0]}")
+            else:
+                first[key] = got
+            del got
+            t = timer(fn, reps=20)
+            split = launch_split(torch, fn)
+            run["calls"][key] = {**t, "split": split}
+            print(f"[split] {tree} {key}: {t['ms']:.4f} ms (quartiles {t['p25']:.4f}-"
+                  f"{t['p75']:.4f}); traced: " + "; ".join(
+                      f"{name[:70]} x{n} {us / 1e3:.4f} ms" for name, n, us in split))
+        out["runs"].append(run)
+        del coded, gath, calls
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1729,6 +1875,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port runs on the card only", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    if "--golomb-split" in sys.argv:
+        trees = sys.argv[sys.argv.index("--golomb-split") + 1:] or [
+            str(ROOT / "src" / "repro_torch" / "csrc")]
+        print(nvidia_smi())
+        golomb_split(torch, trees)
+        return 0
     from repro_torch import kernels
     from repro_torch.kernels import build
 

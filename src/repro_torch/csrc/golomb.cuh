@@ -1,5 +1,6 @@
 // Shared pieces of the Golomb/Rice wire's kernels (golomb_encode.cu,
-// golomb_decode.cu): the stream layout and a two-level exclusive scan.
+// golomb_decode.cu): the stream layout, a two-level exclusive scan and a
+// single-pass chained scan with decoupled look-back (Chain, below).
 //
 // Stream layout (repro.kernels.golomb.ref): a message of `rows` 128-byte rows
 // is read as rows * 32 little-endian uint32 words. Words 0 and 1 are the
@@ -22,12 +23,6 @@ namespace golomb {
 constexpr int kScanThreads = 1024;
 constexpr int kHeaderWords = 2;
 
-__device__ __forceinline__ unsigned long long shfl_up(unsigned long long x, int d) {
-  return __shfl_up_sync(0xffffffffu, x, d);
-}
-__device__ __forceinline__ int shfl_up(int x, int d) {
-  return __shfl_up_sync(0xffffffffu, x, d);
-}
 __device__ __forceinline__ unsigned int shfl_up(unsigned int x, int d) {
   return __shfl_up_sync(0xffffffffu, x, d);
 }
@@ -115,6 +110,124 @@ template <typename T, typename Op>
 __device__ __forceinline__ T scanned(const T* prefix, const T* totals, long long i,
                                      const Op& op) {
   return op(totals[i / kScanThreads], prefix[i]);
+}
+
+// A single-pass chained scan with decoupled look-back (Merrill and Garland):
+// each block takes its tile from a ticket counter, so every predecessor of a
+// running tile is running or done, and publishes its tile's aggregate, then
+// its inclusive prefix, each a record of whole 32-bit words stored before
+// its flag (0 none, 1 aggregate, 2 inclusive) with release order. The ticket
+// and the flags are zeroed before the launch. Ops need not commute.
+template <typename T>
+struct Chain {
+  unsigned int* ticket;  // [1]
+  unsigned int* flag;    // [tiles]
+  T* agg;                // [tiles]
+  T* incl;               // [tiles]
+};
+
+__device__ __forceinline__ unsigned int ld_acquire(const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned int* p, unsigned int v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ void store_cg(T* p, const T& v) {
+  static_assert(sizeof(T) % 4 == 0, "records are whole 32-bit words");
+  const unsigned int* s = reinterpret_cast<const unsigned int*>(&v);
+  unsigned int* d = reinterpret_cast<unsigned int*>(p);
+#pragma unroll
+  for (int k = 0; k < static_cast<int>(sizeof(T) / 4); ++k) __stcg(d + k, s[k]);
+}
+
+template <typename T>
+__device__ __forceinline__ T load_cg(const T* p) {
+  T v;
+  unsigned int* d = reinterpret_cast<unsigned int*>(&v);
+  const unsigned int* s = reinterpret_cast<const unsigned int*>(p);
+#pragma unroll
+  for (int k = 0; k < static_cast<int>(sizeof(T) / 4); ++k) d[k] = __ldcg(s + k);
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ T shfl_down_words(const T& v, int d) {
+  T r;
+  const unsigned int* s = reinterpret_cast<const unsigned int*>(&v);
+  unsigned int* o = reinterpret_cast<unsigned int*>(&r);
+#pragma unroll
+  for (int k = 0; k < static_cast<int>(sizeof(T) / 4); ++k)
+    o[k] = __shfl_down_sync(0xffffffffu, s[k], d);
+  return r;
+}
+
+template <typename T>
+__device__ __forceinline__ T shfl_words(const T& v, int lane) {
+  T r;
+  const unsigned int* s = reinterpret_cast<const unsigned int*>(&v);
+  unsigned int* o = reinterpret_cast<unsigned int*>(&r);
+#pragma unroll
+  for (int k = 0; k < static_cast<int>(sizeof(T) / 4); ++k)
+    o[k] = __shfl_sync(0xffffffffu, s[k], lane);
+  return r;
+}
+
+// The block's tile: its ticket. Every thread of the block calls it.
+template <typename T>
+__device__ __forceinline__ long long chain_ticket(const Chain<T>& c) {
+  __shared__ unsigned int ticket;
+  if (threadIdx.x == 0) ticket = atomicAdd(c.ticket, 1u);
+  __syncthreads();
+  return ticket;
+}
+
+// Called by one whole warp with the tile's aggregate: publishes it, walks
+// back over the predecessors 32 at a time (lane 0 the nearest) until one has
+// its inclusive prefix, folds them in stream order, publishes the inclusive
+// prefix and returns the exclusive one in every lane.
+template <typename T, typename Op>
+__device__ T chain_exclusive(const Chain<T>& c, long long tile, const T& agg, const Op& op) {
+  const int lane = threadIdx.x & 31;
+  if (tile == 0) {
+    if (lane == 0) {
+      store_cg(c.incl, agg);
+      st_release(c.flag, 2u);
+    }
+    return op.identity();
+  }
+  if (lane == 0) {
+    store_cg(c.agg + tile, agg);
+    st_release(c.flag + tile, 1u);
+  }
+  T run = op.identity();
+  for (long long hi = tile - 1;; hi -= 32) {
+    const long long t = hi - lane;
+    unsigned int f, inc, upto;
+    do {  // until every lane up to the nearest inclusive prefix has a record
+      f = t >= 0 ? ld_acquire(c.flag + t) : 2u;
+      inc = __ballot_sync(0xffffffffu, f == 2u);
+      upto = inc ? (inc & (0u - inc)) * 2u - 1u : 0xffffffffu;
+    } while (__ballot_sync(0xffffffffu, f == 0u) & upto);
+    T v = op.identity();
+    if (t >= 0 && ((upto >> lane) & 1u)) v = load_cg((f == 2u ? c.incl : c.agg) + t);
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {  // lane l + d is the earlier tile
+      const T o = shfl_down_words(v, d);
+      if (lane + d < 32) v = op(o, v);
+    }
+    run = op(shfl_words(v, 0), run);
+    if (inc) break;
+  }
+  if (lane == 0) {
+    store_cg(c.incl + tile, op(run, agg));
+    st_release(c.flag + tile, 2u);
+  }
+  return run;
 }
 
 inline long long body_bits(long long rows) { return (rows * 32 - kHeaderWords) * 32; }

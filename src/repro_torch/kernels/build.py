@@ -44,7 +44,7 @@ SIGNATURES = {
     "golomb_encode": {"golomb_encode_launch": [_p, _p, _p, _p, _p, _ll, _ll, _u32, _i, _i, _p],
                       "golomb_encode_scratch_bytes": [_ll]},
     "golomb_decode": {"ungolomb_launch": [_p, _p, _p, _p, _p, _i, _ll, _ll, _i, _p],
-                      "ungolomb_scratch_bytes": [_i, _ll]},
+                      "ungolomb_scratch_bytes": [_i, _ll, _ll, _i]},
     "pack2bit": {"pack2bit_launch": [_p, _p, _ll, _ll, _p],
                  "unpack2bit_launch": [_p, _p, _ll, _p]},
     "pack8": {"qsgd8_pack8_launch": [_p, _p, _p, _p, _ll, _ll, _u32, _i, _p],

@@ -83,7 +83,7 @@ def _decode(gathered: torch.Tensor, weights, n: int, b: int, stats) -> torch.Ten
     m, rows, _ = gathered.shape
     out = torch.empty(n, dtype=torch.int32 if weights is None else torch.float32,
                       device=gathered.device)
-    nbytes = build.library("golomb_decode", "ungolomb_scratch_bytes")(m, rows)
+    nbytes = build.library("golomb_decode", "ungolomb_scratch_bytes")(m, rows, n, b)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=gathered.device)
     err = build.library("golomb_decode", "ungolomb_launch")(
         gathered.data_ptr(), None if weights is None else weights.data_ptr(), out.data_ptr(),

@@ -18,6 +18,7 @@ from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.ef_server.ops import ef_server_op
 from repro_torch.kernels.ef_server.ref import ef_server_ref
 from repro_torch.kernels.golomb import ref as golomb_ref
+from repro_torch.kernels.golomb.kernel import ungolomb_sum_cuda
 from repro_torch.kernels.golomb.ops import (golomb_pack_op, sparsign_golomb_op,
                                             ungolomb_sum_op, ungolomb_wsum_op)
 from repro_torch.kernels.common import to_2d
@@ -211,6 +212,39 @@ def test_golomb_kernels_match_plain_versions_on_card(cuda_device):
                                       tbits(golomb_ref.ungolomb_sum_ref(msgs, n, (n,), p=p)))
         np.testing.assert_array_equal(tbits(ungolomb_wsum_op(msgs, w, n, (n,), p=p)),
                                       tbits(golomb_ref.ungolomb_wsum_ref(msgs, w, n, (n,), p=p)))
+
+
+@pytest.mark.cuda
+def test_golomb_kernels_stress_cases_on_card(cuda_device):
+    """The Golomb kernels' designs at their edges, bit for bit against the
+    plain versions: a message of 2^23 coordinates (2,048 encoder tiles, more
+    than the card holds at once, so the look-back crosses waves); codes on
+    each side of an output-tile edge (2,048 coordinates) and a unary run that
+    crosses several empty 4,096-coordinate encoder tiles and a tile edge; M =
+    20 with the masked worker in the middle."""
+    p, n = 0.05, 1 << 23
+    b = golomb_ref.rice_b(p)
+    g = torch.from_numpy(grad_like(n, 3)).to(cuda_device, torch.bfloat16)
+    want = golomb_ref.golomb_encode_ref(sparsign_ref(g, 0.12, 9), p=p)
+    np.testing.assert_array_equal(tbits(sparsign_golomb_op(g, 0.12, 9, p=p)), tbits(want))
+    edges = torch.zeros(70001, dtype=torch.int8, device=cuda_device)
+    edges[[2047, 2048, 4095, 4096, 6143, 6144 + 5 * 4096 + 3, 70000]] = torch.tensor(
+        [1, -1, -1, 1, 1, -1, 1], dtype=torch.int8, device=cuda_device)
+    coded = golomb_pack_op(edges, p=p)
+    np.testing.assert_array_equal(tbits(coded), tbits(golomb_ref.golomb_encode_ref(edges, p=p)))
+    np.testing.assert_array_equal(tbits(ungolomb_sum_op(coded[None], 70001, (70001,), p=p)),
+                                  tbits(edges.to(torch.int32)))
+    m, n = 20, 70001
+    g = torch.from_numpy(grad_like(n, 4)).to(cuda_device)
+    msgs = torch.stack([sparsign_golomb_op(g, 0.12, s, p=p) for s in range(m)])
+    msgs[m // 2] = 0
+    w = torch.from_numpy(np.random.RandomState(5).rand(m).astype(np.float32) * 2).to(cuda_device)
+    stats = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    np.testing.assert_array_equal(tbits(ungolomb_sum_cuda(msgs, n, b=b, stats=stats)),
+                                  tbits(golomb_ref.ungolomb_sum_ref(msgs, n, (n,), p=p)))
+    assert int(stats[0]) == 0
+    np.testing.assert_array_equal(tbits(ungolomb_wsum_op(msgs, w, n, (n,), p=p)),
+                                  tbits(golomb_ref.ungolomb_wsum_ref(msgs, w, n, (n,), p=p)))
 
 
 @pytest.mark.cuda

@@ -19,6 +19,8 @@ The kernels of the path (pack2bit, unpack2bit, qsgd8_pack8, vote_update) are
 held against these plain versions on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,6 +40,10 @@ from repro_torch.kernels.common import packed_shape
 from repro_torch.kernels.pack2bit.kernel import pack2bit_cuda, unpack2bit_cuda
 from repro_torch.kernels.pack2bit.ops import pack2bit_op, unpack2bit_op
 from repro_torch.launch import serve as launch_serve
+from repro_torch.models import attention as tattention
+from repro_torch.models import common as tcommon
+from repro_torch.models import model as tmodel
+from repro_torch.models import rope as trope
 from repro_torch.models.model import Model, params_from_numpy
 from repro_torch.serve import decode as tserve
 
@@ -149,6 +155,45 @@ def test_decode_after_prefill_overwrites_slot_zero_as_jax_does(models):
         h = tm.forward_hidden(tp, {k: torch.from_numpy(v) for k, v in full.items()})
     ref = (h[:, -1] @ tm.head_weight(tp)).numpy()
     assert float(np.abs(tl.numpy() - ref).max()) > REL_TOL * float(np.abs(ref).max())
+
+
+class _Float64Everywhere:
+    """``torch`` with ``float32`` read as ``float64``, for the modules that
+    compute in float32 whatever the model's dtype (norms, RoPE, attention)."""
+
+    def __getattr__(self, name):
+        return torch.float64 if name == "float32" else getattr(torch, name)
+
+
+@pytest.mark.parametrize("precision", ["float32", "float64"])
+def test_decode_after_a_padded_prefill_is_the_full_forward(precision, monkeypatch):
+    """Decode of token S after a prefill of S tokens whose cache is padded to
+    S + 1 (as chip_smoke.py checks at full width) against forward_hidden's
+    last logits over the S + 1 tokens: in float32 within REL_TOL (the two
+    round in other orders: a one-token query against the cache, the chunked
+    online softmax), and in float64 throughout, the float32 casts of the
+    norms, RoPE and attention included, equal to 1e-12, so the cache write,
+    the masks and the decode chunking add nothing but rounding."""
+    cfg = get_config("qwen1.5-4b", smoke=True)
+    if precision == "float64":
+        for mod in (tattention, tcommon, tmodel, trope, tserve):
+            monkeypatch.setattr(mod, "torch", _Float64Everywhere())
+        cfg = dataclasses.replace(cfg, dtype="float64")
+    tm = Model(cfg)
+    tp = tm.init(0, "cpu")
+    toks, pos = (torch.from_numpy(a) for a in _prompt(S + 1, seed=5))
+    with torch.no_grad():
+        _, caches = tserve.build_prefill(tm)(tp, {"inputs": toks[:, :S],
+                                                  "positions": pos[:, :S]})
+        padded = tm.init_cache(B, S + 1, "cpu")
+        for c, pc in zip(caches, padded):
+            for key in ("k", "v", "pos"):
+                pc[key][:, :S] = c[key]
+        logits, _ = tserve.build_decode_step(tm)(tp, padded, {"inputs": toks[:, S:],
+                                                              "positions": pos[:, S:]})
+        ref = tm.forward_hidden(tp, {"inputs": toks, "positions": pos})[:, -1] @ tm.head_weight(tp)
+    err = float((logits - ref).abs().max() / ref.abs().max())
+    assert err <= (REL_TOL if precision == "float32" else 1e-12), err
 
 
 def test_pack_and_unpack_ops_match_the_pallas_kernels_in_interpret_mode():
