@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --golomb-split [CSRC ...]   # the Golomb kernels alone
+    python3 chip_smoke.py --pack2-split [CSRC ...]    # the fused 2-bit encoders alone
 
-The second form times the Golomb wire's four kernels at w_down and splits
-each call's device time by launch, for the kernel sources of each CSRC
-directory given (default: the checkout's), A B B A for two. Phases of the
-first, in order; any failure exits non-zero before the last line:
+The split forms time the Golomb wire's four kernels, or the two fused 2-bit
+encoders in every rule, at w_down and split each call's device time by
+launch, for the kernel sources of each CSRC directory given (default: the
+checkout's), A B B A for two, with each tree's ptxas report and SASS census
+(listings under chiprun_out/sass/). Phases of the first, in order; any
+failure exits non-zero before the last line:
   1. card, versions and TF32 flags (both set False); build the CUDA kernels
      from src/repro_torch/csrc and print the build time and ptxas report;
   2. hold each kernel against its plain PyTorch version on the card, bit for
@@ -33,7 +36,12 @@ first, in order; any failure exits non-zero before the last line:
      each rule, unpack2bit_sum, unpack2bit_wsum) against their plain versions
      on the card, bit for bit, at w_down's 707,788,800 coordinates in bf16,
      odd sizes, +-0/NaN/+-inf gradients, M = 1, 4 and 20 messages, zero and
-     fractional weights; timed against their bounds;
+     fractional weights; the shared encoder's edges (sizes about a row and a
+     tile, a gradient off 16-byte alignment, a counter base wrapping inside a
+     thread's span, params -1/0/NaN/inf/2^24, subnormal gradients under tiny
+     and huge budgets, sparsign_pack2bit == ternary_pack2bit's sparsign rule);
+     timed against their bounds, and the server kernels (vote_update,
+     weighted_vote_update, ef_server) at w_down's shape;
   6. the Golomb/Rice wire's kernels (sparsign_golomb, golomb_pack,
      ungolomb_sum, ungolomb_wsum) against their plain versions on the card,
      bit for bit, the two encoders also against each other: w_down in bf16
@@ -88,10 +96,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gzip
 import json
 import math
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -134,9 +144,15 @@ SOURCE.update({"ternary_pack2bit": "src/repro_torch/csrc/ternary.cu",
                "qsgd8_pack8": "src/repro_torch/csrc/pack8.cu",
                "unpack8_sum": "src/repro_torch/csrc/pack8.cu"})
 WIRE_KERNELS = ("sparsign_pack2bit", "ternary_pack2bit", "unpack2bit_sum", "unpack2bit_wsum")
+PACK2_ENCODERS = WIRE_KERNELS[:2]
 GOLOMB_KERNELS = ("sparsign_golomb", "golomb_pack", "ungolomb_sum", "ungolomb_wsum")
 PACK8_KERNELS = ("pack2bit", "unpack2bit", "qsgd8_pack8", "unpack8_sum")
 GOLOMB_P = 0.05              # the plan fraction of the golomb runs (target_sparsity 0.05)
+# the fused 2-bit encoders' param by rule, where phase 5 and --pack2-split time them
+PACK2_PARAMS = {"sparsign": 1.0, "sign": 0.0, "noisy_sign": 0.5, "stochastic_ternary": 1.5}
+PACK2_TILE = 16 * 512        # coordinates of a tile of csrc/pack2_encode.cuh (kEncTileCoords)
+EDGE_PARAMS = (-1.0, 0.0, float("nan"), float("inf"), 2.0**24, 0.5)
+SUBNORMAL_PARAMS = (2.0**-20, 1e-30, 2.0**20, 2.0**126)
 TRAINER_SEQ_LEN = 4096       # train_4k's sequence, one a worker
 SERVE_ARGS = ["--arch", "qwen1.5-4b", "--full", "--batch", "4", "--prompt-len", "128",
               "--tokens", "64", "--online-updates", "16", "--seed", "0"]
@@ -372,6 +388,16 @@ def golomb_owner(kernel: str):
     return None
 
 
+def pack2_owner(kernel: str):
+    """Which fused 2-bit encoder launched a CUDA kernel, by its name: both
+    run csrc/pack2_encode.cuh's encode_kernel, told apart by the rule (a
+    sparsign message goes through sparsign_pack2bit on every path here);
+    None for any other kernel."""
+    if "encode_kernel<" not in kernel:
+        return None
+    return "sparsign_pack2bit" if "SparsignRule" in kernel else "ternary_pack2bit"
+
+
 def profile_call(torch, fn) -> dict:
     """Trace one call of ``fn`` (ending in a sync) with torch.profiler: its
     host ms, the share of it during which any kernel ran, the port's
@@ -399,9 +425,11 @@ def profile_call(torch, fn) -> dict:
     # a kernel's own name, not a longer one that ends in it (vote_update in
     # weighted_vote_update, pack2bit in sparsign_pack2bit and unpack2bit)
     per = {n: sum(t for k, t in kern.items() if re.search(rf"(?<!\w){n}_kernel\b", k))
-           for n in REPLACES if n not in GOLOMB_KERNELS}
+           for n in REPLACES if n not in GOLOMB_KERNELS + PACK2_ENCODERS}
     for src in ("golomb_encode", "golomb_decode"):
         per[src] = sum(t for k, t in kern.items() if golomb_owner(k) == src)
+    for src in PACK2_ENCODERS:
+        per[src] = sum(t for k, t in kern.items() if pack2_owner(k) == src)
     ours = sum(per.values())
     top = dict(sorted(kern.items(), key=lambda kv: -kv[1])[:5])
     return {"call_ms": call_ms, "kernel_ms": total, "busy_ms": busy_us / 1e3,
@@ -837,6 +865,8 @@ def phase_wire_kernels(torch, timer, report):
     """The 2-bit packed wire's four kernels against their plain versions on
     the card, bit for bit, and their times against their bounds."""
     from repro_torch.kernels.common import canonical_rows
+    from repro_torch.kernels.ef_server.kernel import ef_server_cuda
+    from repro_torch.kernels.ef_server.ref import ef_scale, ef_server_ref
     from repro_torch.kernels.pack2bit.kernel import unpack2bit_sum_cuda, unpack2bit_wsum_cuda
     from repro_torch.kernels.pack2bit.ref import unpack2bit_sum_ref, unpack2bit_wsum_ref
     from repro_torch.kernels.sparsign_pack2bit.kernel import sparsign_pack2bit_cuda
@@ -846,11 +876,13 @@ def phase_wire_kernels(torch, timer, report):
     from repro_torch.kernels.ternary.ops import ternary_pack2bit_op
     from repro_torch.kernels.ternary.ref import ternary_pack2bit_ref
     from repro_torch.kernels.ternary.rules import RULES
+    from repro_torch.kernels.vote_update.kernel import vote_update_cuda, weighted_vote_update_cuda
+    from repro_torch.kernels.vote_update.ref import vote_update_ref, weighted_vote_update_ref
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     dev = "cuda"
     errs = {name: 0.0 for name in WIRE_KERNELS}
-    params = {"sparsign": 1.0, "sign": 0.0, "noisy_sign": 0.5, "stochastic_ternary": 1.5}
+    params = PACK2_PARAMS
 
     def grads(n, dtype):
         g = torch.randn(n, generator=gen, device=dev) * 0.5
@@ -885,6 +917,47 @@ def phase_wire_kernels(torch, timer, report):
         print(f"[wire] sparsign_pack2bit and ternary_pack2bit (every rule) n={n} "
               f"{str(dtype)[6:]} cb={cb}: bitwise ok")
         del g
+
+    # -- the shared encoder's edges (csrc/pack2_encode.cuh): sizes about a row
+    # and a tile, a gradient one element off 16-byte alignment (no vector
+    # path), a counter base that wraps inside a thread's span, every rule's
+    # param at -1, 0, NaN, inf and 2^24, subnormal gradients under tiny and
+    # huge budgets; sparsign_pack2bit equal to ternary_pack2bit's sparsign rule
+    t = PACK2_TILE
+    edge = [(1, torch.bfloat16, 0, 0, None), (511, torch.bfloat16, 3, 0, None),
+            (512, torch.float32, 0, 0, None), (513, torch.bfloat16, 0, 0, None),
+            (t - 1, torch.bfloat16, 2**32 - 7, 0, None), (t, torch.bfloat16, 2**32 - 7, 0, None),
+            (t + 1, torch.float32, 2**32 - 7, 0, EDGE_PARAMS),
+            (t + 1, torch.bfloat16, 11, 0, EDGE_PARAMS),
+            (2 * t + 513, torch.bfloat16, 2**32 - 7, 1, None), (t + 1, torch.float32, 5, 1, None),
+            (3 * t, torch.bfloat16, 0, 0, SUBNORMAL_PARAMS),
+            (3 * t + 7, torch.float32, 2**32 - 7, 0, SUBNORMAL_PARAMS)]
+    for n, dtype, cb, off, sweep in edge:
+        g = grads(n + off, dtype)[off:]
+        if sweep is SUBNORMAL_PARAMS:   # |g| about 2^-130: subnormal in f32 and bf16
+            g = (grads(n, torch.float32) * 2.0**-130).to(dtype)
+        elif n > 8:
+            g[:8] = torch.tensor([0.0, -0.0, float("nan"), float("inf"), -float("inf"),
+                                  1e-30, -1e30, -0.0], device=dev).to(dtype)
+        seed = int(torch.randint(0, 2**32, (1,), generator=gen, device=dev))
+        for rule in RULES:
+            for p in sweep or (params[rule],):
+                k = ternary_pack2bit_op(g, p, seed, cb, rule=rule)
+                r = ternary_pack2bit_ref(g, p, seed, cb, rule=rule)
+                torch.cuda.synchronize()
+                check(k.shape == (canonical_rows(n), 128) and same_bits(k, r),
+                      f"ternary_pack2bit {rule} n={n} {dtype} offset {off} cb={cb} param={p} "
+                      f"differs from its plain version in {int((k != r).sum())} bytes")
+                if rule == "sparsign":
+                    ks = sparsign_pack2bit_op(g, p, seed, cb)
+                    torch.cuda.synchronize()
+                    check(same_bits(ks, k), f"sparsign_pack2bit n={n} {dtype} offset {off} "
+                                            f"cb={cb} B={p} differs from ternary_pack2bit's "
+                                            f"sparsign rule in {int((ks != k).sum())} bytes")
+                errs["ternary_pack2bit"] = max(errs["ternary_pack2bit"], max_abs_err(k, r))
+        print(f"[wire] encoder edge n={n} {str(dtype)[6:]} offset {off} cb={cb} params "
+              f"{'sweep' if sweep else 'default'}: every rule bitwise ok, sparsign_pack2bit "
+              f"== ternary_pack2bit(sparsign)")
 
     # -- the decode-sums: M messages of random bytes (code 3 included)
     for m, rows in ((1, canonical_rows(N_WDOWN)), (4, canonical_rows(N_WDOWN)),
@@ -940,6 +1013,25 @@ def phase_wire_kernels(torch, timer, report):
             timer, lambda: unpack2bit_wsum_cuda(p, w), lambda: unpack2bit_wsum_ref(p, w),
             nbytes + m * 4, ops, plain_reps=3)
         del p
+    # the server kernels at the trainer's shape: each leaf of w_down's size,
+    # f32 parameters, int8 vote sums (f32 weighted sums, scalar W)
+    w = torch.randn(n, generator=gen, device=dev)
+    v = torch.randint(-4, 5, (n,), generator=gen, device=dev, dtype=torch.int8)
+    timings["vote_update w_down f32/int8"] = measure(
+        timer, lambda: vote_update_cuda(w, v, 0.03), lambda: vote_update_ref(w, v, 0.03),
+        n * 9, n * 2, plain_reps=3)
+    wv, wtot = v.float() * 0.5, torch.full((1,), 6.0, device=dev)
+    del v
+    timings["weighted_vote_update w_down f32 W scalar"] = measure(
+        timer, lambda: weighted_vote_update_cuda(w, wv, wtot, 0.03, 0.25),
+        lambda: weighted_vote_update_ref(w, wv, wtot, 0.03, 0.25), n * 12 + 4, n * 3,
+        plain_reps=3)
+    e = torch.randn(n, generator=gen, device=dev) * 0.01
+    sc = ef_scale(wv, e).reshape(1)
+    timings["ef_server w_down f32"] = measure(
+        timer, lambda: ef_server_cuda(wv, e, sc), lambda: ef_server_ref(wv, e, sc),
+        n * 16 + 4, n * 3, plain_reps=3)
+    del w, wv, e
     print_timings(timings)
     report["wire_timings"] = timings
     main_shape = {"sparsign_pack2bit": "sparsign_pack2bit w_down bf16",
@@ -1802,16 +1894,129 @@ def launch_split(torch, fn) -> list:
     return list(split.values())
 
 
+def split_trees(torch, trees: list, sources: tuple, make_calls, tag: str) -> dict:
+    """The loop of the split modes: build ``sources`` from each kernel source
+    tree in turn (default: the checkout's; with two, in the order A, B, B, A
+    on one card; with more, once each), then time each call of
+    ``make_calls()`` with CUDA events and split its device time by launch
+    from one traced call. Every tree's outputs must equal the first tree's
+    bit for bit. Also keeps each tree's ptxas report and, where cuobjdump
+    runs, its SASS census (``sass_census``). Returns the times and splits by
+    tree, also written to chiprun_out/<tag>_split.json."""
+    from repro_torch.kernels import build
+
+    timer = Timer(torch)
+    order = [trees[0], trees[1], trees[1], trees[0]] if len(trees) == 2 else trees
+    first, out = {}, {"device": nvidia_smi(), "runs": []}
+    for tree in order:
+        build.CSRC = pathlib.Path(tree).resolve()
+        build._LIBS.clear()
+        run = {"csrc": str(tree), "calls": {}, "ptxas": {}, "sass": {}}
+        for name in build.build_all(sources):   # the sources this tree compiled anew
+            run["ptxas"][name] = ptxas_report(build.BUILD_LOG[name]["log"])
+            for line in run["ptxas"][name]:
+                print(f"[ptxas] {tree} {name}: {line}")
+            run["sass"][name] = sass_census(
+                build._lib_path(name),
+                ROOT / "chiprun_out" / "sass" / f"{tag}-{len(out['runs'])}-{name}.sass.gz")
+        calls = make_calls()
+        for key, fn in calls.items():
+            got = fn()
+            torch.cuda.synchronize()
+            if key in first:
+                check(same_bits(got, first[key]), f"{tag} split {key}: {tree} differs from "
+                                                  f"{order[0]}")
+            else:
+                first[key] = got
+            del got
+            t = timer(fn, reps=20)
+            split = launch_split(torch, fn)
+            run["calls"][key] = {**t, "split": split}
+            print(f"[split] {tree} {key}: {t['ms']:.4f} ms (quartiles {t['p25']:.4f}-"
+                  f"{t['p75']:.4f}); traced: " + "; ".join(
+                      f"{name[:70]} x{n} {us / 1e3:.4f} ms" for name, n, us in split))
+        out["runs"].append(run)
+        del calls
+        torch.cuda.empty_cache()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / f"{tag}_split.json").write_text(json.dumps(out, indent=1))
+    return out
+
+
+def ptxas_report(log: str) -> list:
+    """nvcc -Xptxas -v's report as one line a kernel: its (mangled) name,
+    registers, stack frame and spills."""
+    lines, fn, props = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        elif "stack frame" in line:
+            props = line.strip()
+        elif "registers" in line and fn:
+            lines.append(f"{fn[:90]}: {line.split(':', 1)[-1].strip()}; {props}")
+            fn, props = None, ""
+    return lines
+
+
+def sass_census(lib: pathlib.Path, dump: pathlib.Path) -> dict:
+    """``sass_loops`` of cuobjdump -sass of a built library, whose listing
+    goes to ``dump`` gzipped; or {"error": ...} where cuobjdump does not run."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        res = subprocess.run([exe, "-sass", str(lib)], capture_output=True, text=True,
+                             timeout=120)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return {"error": str(e)}
+    if res.returncode != 0:
+        return {"error": res.stderr.strip()[-300:]}
+    dump.parent.mkdir(parents=True, exist_ok=True)
+    dump.write_bytes(gzip.compress(res.stdout.encode()))
+    return sass_loops(res.stdout)
+
+
+def sass_loops(listing: str) -> dict:
+    """{kernel: {"instructions": n, "loops": [{"instructions": n, "by_opcode":
+    {...}}, ...]}} from a cuobjdump -sass listing: each loop is the span from
+    a backward branch's target to the branch, so a kernel's instructions a
+    coordinate are its main loop's over the coordinates one pass covers.
+    ``python3 chip_smoke.py --sass LISTING[.gz]`` prints it for a saved listing."""
+    census, fn, ins = {}, None, []
+
+    def close():
+        if fn is None:
+            return
+        loops = []
+        for addr, op, arg in ins:
+            target = re.search(r"0x([0-9a-f]+)", arg) if op == "BRA" else None
+            if target and int(target.group(1), 16) < addr:
+                body = [o for a, o, _ in ins if int(target.group(1), 16) <= a <= addr]
+                loops.append({"instructions": len(body),
+                              "by_opcode": dict(sorted(
+                                  ((o, body.count(o)) for o in set(body)),
+                                  key=lambda kv: -kv[1]))})
+        census[fn] = {"instructions": len(ins), "loops": loops}
+
+    for line in listing.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            close()
+            fn, ins = m.group(1), []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)\S*\s*([^;]*);",
+                     line)
+        if m and fn:
+            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    close()
+    return census
+
+
 def golomb_split(torch, trees: list) -> dict:
     """``--golomb-split [CSRC ...]``: the Golomb kernels at w_down (the
-    encoders in bf16 and int8, the decode-sums at M = 1, 4 and 20) built from
-    each kernel source tree in turn (default: the checkout's; with two, in
-    the order A, B, B, A on one card; with more, once each), each timed with
-    CUDA events and its device time split by launch from one traced call.
-    Every tree's outputs must equal the first tree's bit for bit; returns
-    the times and splits by tree."""
+    encoders in bf16 and int8, the decode-sums at M = 1, 4 and 20), through
+    ``split_trees``."""
     from repro_torch.core.budgets import solve_budget_for_sparsity
-    from repro_torch.kernels import build
     from repro_torch.kernels.golomb import ref as gref
     from repro_torch.kernels.golomb.kernel import (golomb_pack_cuda, sparsign_golomb_cuda,
                                                    ungolomb_sum_cuda, ungolomb_wsum_cuda)
@@ -1824,63 +2029,77 @@ def golomb_split(torch, trees: list) -> dict:
     bud = solve_budget_for_sparsity(g, p).reshape(1)
     sd = [torch.full((1,), s, dtype=torch.int64, device=dev) for s in (1, 11, 12, 13)]
     w = {m: torch.rand(m, generator=gen, device=dev) * 2 for m in (1, 4, 20)}
-    timer = Timer(torch)
-    order = [trees[0], trees[1], trees[1], trees[0]] if len(trees) == 2 else trees
-    first, out = {}, {"device": nvidia_smi(), "runs": []}
-    t0 = None
-    for tree in order:
-        build.CSRC = pathlib.Path(tree).resolve()
-        build._LIBS.clear()
-        build.build_all(("golomb_encode", "golomb_decode", "sparsign"))
-        if t0 is None:
-            t0 = sparsign_cuda(g, bud, sd[0])
+    t0 = []
+
+    def make_calls():
+        if not t0:
+            t0.append(sparsign_cuda(g, bud, sd[0]))
         coded = [sparsign_golomb_cuda(g, bud, s, b=b, rows=rows) for s in sd]
         coded[2] = torch.zeros_like(coded[0])
         gath = {1: coded[0][None], 4: torch.stack(coded), 20: torch.stack([coded[0]] * 20)}
         calls = {"sparsign_golomb w_down bf16":
                  lambda: sparsign_golomb_cuda(g, bud, sd[0], b=b, rows=rows),
-                 "golomb_pack w_down int8": lambda: golomb_pack_cuda(t0, b=b, rows=rows)}
+                 "golomb_pack w_down int8": lambda: golomb_pack_cuda(t0[0], b=b, rows=rows)}
         for m in (1, 4, 20):
             calls[f"ungolomb_sum M={m} w_down"] = (
                 lambda m=m: ungolomb_sum_cuda(gath[m], N_WDOWN, b=b))
             calls[f"ungolomb_wsum M={m} w_down"] = (
                 lambda m=m: ungolomb_wsum_cuda(gath[m], w[m], N_WDOWN, b=b))
-        run = {"csrc": str(tree), "calls": {}}
-        for key, fn in calls.items():
-            got = fn()
-            torch.cuda.synchronize()
-            if key in first:
-                check(same_bits(got, first[key]), f"golomb split {key}: {tree} differs from "
-                                                  f"{order[0]}")
-            else:
-                first[key] = got
-            del got
-            t = timer(fn, reps=20)
-            split = launch_split(torch, fn)
-            run["calls"][key] = {**t, "split": split}
-            print(f"[split] {tree} {key}: {t['ms']:.4f} ms (quartiles {t['p25']:.4f}-"
-                  f"{t['p75']:.4f}); traced: " + "; ".join(
-                      f"{name[:70]} x{n} {us / 1e3:.4f} ms" for name, n, us in split))
-        out["runs"].append(run)
-        del coded, gath, calls
-        torch.cuda.empty_cache()
-    return out
+        return calls
+
+    return split_trees(torch, trees, ("golomb_encode", "golomb_decode", "sparsign"),
+                       make_calls, "golomb")
+
+
+def pack2_split(torch, trees: list) -> dict:
+    """``--pack2-split [CSRC ...]``: the fused 2-bit encoders at w_down in
+    bf16, sparsign_pack2bit and ternary_pack2bit in each of its four rules,
+    through ``split_trees``."""
+    from repro_torch.kernels.sparsign_pack2bit.kernel import sparsign_pack2bit_cuda
+    from repro_torch.kernels.ternary.kernel import ternary_pack2bit_cuda
+    from repro_torch.kernels.ternary.rules import RULES
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(1)
+    g = (torch.randn(N_WDOWN, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    seed = torch.full((1,), 12345, dtype=torch.int64, device=dev)
+    prm = {rule: torch.full((1,), PACK2_PARAMS[rule], device=dev) for rule in RULES}
+
+    def make_calls():
+        calls = {"sparsign_pack2bit w_down bf16":
+                 lambda: sparsign_pack2bit_cuda(g, prm["sparsign"], seed)}
+        for rule in RULES:
+            calls[f"ternary_pack2bit {rule} w_down bf16"] = (
+                lambda rule=rule: ternary_pack2bit_cuda(g, prm[rule], seed, rule=rule))
+        return calls
+
+    return split_trees(torch, trees, ("sparsign_pack2bit", "ternary"), make_calls, "pack2")
 
 
 def main() -> int:
     t_start = time.perf_counter()
+    if "--sass" in sys.argv:   # a saved listing (--pack2-split's): no card
+        path = pathlib.Path(sys.argv[sys.argv.index("--sass") + 1])
+        data = path.read_bytes()
+        text = (gzip.decompress(data) if path.suffix == ".gz" else data).decode()
+        for fn, c in sass_loops(text).items():
+            print(f"{fn}: {c['instructions']} instructions")
+            for loop in c["loops"]:
+                print(f"  loop of {loop['instructions']}: {loop['by_opcode']}")
+        return 0
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port runs on the card only", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    if "--golomb-split" in sys.argv:
-        trees = sys.argv[sys.argv.index("--golomb-split") + 1:] or [
-            str(ROOT / "src" / "repro_torch" / "csrc")]
-        print(nvidia_smi())
-        golomb_split(torch, trees)
-        return 0
+    for flag, split in (("--golomb-split", golomb_split), ("--pack2-split", pack2_split)):
+        if flag in sys.argv:
+            trees = sys.argv[sys.argv.index(flag) + 1:] or [
+                str(ROOT / "src" / "repro_torch" / "csrc")]
+            print(nvidia_smi())
+            split(torch, trees)
+            return 0
     from repro_torch import kernels
     from repro_torch.kernels import build
 
@@ -1898,9 +2117,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"[build] {build_s:.2f} s wall; per source {built}")
     for name, entry in build.BUILD_LOG.items():
-        for line in entry["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+        for line in ptxas_report(entry["log"]):
+            print(f"[build] {name}: {line}")
 
     report = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build": {"wall_s": build_s, "per_source_s": built}}

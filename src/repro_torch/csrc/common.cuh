@@ -33,6 +33,32 @@ __device__ __forceinline__ float uniform01(uint32_t seed_hash, uint32_t counter)
   return __uint2float_rn(bits >> 8) * (1.0f / 16777216.0f);
 }
 
+// repro.core.prng.fold_seed with one salt
+__device__ __forceinline__ uint32_t fold_seed(uint32_t seed, uint32_t salt) {
+  return mix32(seed ^ (salt * RNG_GOLDEN));
+}
+
+// The fused encoders' form of uniform01 (pack2_encode.cuh), equal to it bit
+// for bit: uniform01(seed_hash, c) == uniform01_folded(fold_hash(seed_hash),
+// c * RNG_GOLDEN). mix32's first xor-shift distributes over the seed's xor,
+// (a ^ s) ^ ((a ^ s) >> 16) == a ^ (a >> 16) ^ (s ^ (s >> 16)), so the seed's
+// half is taken once a stream and the step is one three-way xor. The last
+// step keeps the top 24 bits where they are ((x ^ x >> 16) & ~0xFF, one
+// three-input op): 256 k converts exactly, and times 2^-32 it is k * 2^-24,
+// uniform01's float.
+__device__ __forceinline__ uint32_t fold_hash(uint32_t seed_hash) {
+  return seed_hash ^ (seed_hash >> 16);
+}
+
+__device__ __forceinline__ float uniform01_folded(uint32_t folded, uint32_t a) {
+  uint32_t x = a ^ (a >> 16) ^ folded;
+  x *= RNG_C1;
+  x ^= x >> 13;
+  x *= RNG_C2;
+  x = (x ^ (x >> 16)) & 0xFFFFFF00u;
+  return __fmul_rn(__uint2float_rn(x), 1.0f / 4294967296.0f);
+}
+
 // jnp.sign: +1 / -1 for nonzero, and x itself for +-0.0 and NaN
 // (torch.sign and copysign would turn -0.0 into +0.0 and NaN into 0).
 __device__ __forceinline__ float jnp_sign(float x) {

@@ -11,58 +11,17 @@
 //
 // Bound on an H100 (3.35 TB/s): bytes. Each coordinate reads its gradient
 // once (2 B bf16, 4 B f32) and writes a quarter byte: 2.25 B/coord in bf16.
-// The rule's 23 operations a coordinate (chip_smoke.py's OPS_PER_COORD) and
-// the packing's 3 take less than half that time at the float32 rate.
+// The rule's operations (chip_smoke.py's OPS_PER_COORD) and the packing's
+// take less than half that time at the float32 rate, but the counter hash's
+// integer instructions come close to the ALU pipe's limit.
 //
-// Design: one pass from gradient to wire bytes; the int8 ternary tensor
-// never exists. A thread owns 4 bytes of a packed row (16 coordinates in four
-// column blocks of the row, each a 16-byte f32 or 8-byte bf16 vector load) and
-// writes one 4-byte word; a warp covers one 512-coordinate row, so every load
-// and store is contiguous across the warp. The layout is the wire's, not a
-// flat pass as in sparsign.cu: a byte's four symbols lie 128 columns apart.
-// Rows past the tensor's end are the canonical pad and come out as zero
-// bytes. The seed and B are read from device memory, so a budget reduced on
-// the card costs no host round trip. Every float operation is an _rn
-// intrinsic, as in sparsign.cu, so no contraction moves a bit from the plain
-// version.
-#include "pack2bit.cuh"
-
-namespace {
-
-using namespace repro;
-
-struct SparsignSym {
-  uint32_t seed_hash;
-  float b;
-  __device__ __forceinline__ int8_t operator()(float x, uint32_t counter) const {
-    const float p = fminf(fmaxf(__fmul_rn(fabsf(x), b), 0.0f), 1.0f);
-    if (!(uniform01(seed_hash, counter) < p)) return 0;
-    return x > 0.0f ? int8_t(1) : (x < 0.0f ? int8_t(-1) : int8_t(0));
-  }
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-sparsign_pack2bit_kernel(const T* __restrict__ g, uint8_t* __restrict__ out,
-                         const long long* __restrict__ seed, const float* __restrict__ budget,
-                         long long n, long long rows, uint32_t counter_base, bool vec_ok) {
-  const SparsignSym sym{mix32(static_cast<uint32_t>(seed[0]) + RNG_GOLDEN), budget[0]};
-  pack_thread<T>(g, out, n, rows, counter_base, vec_ok, sym);
-}
-
-template <typename T>
-int launch(const void* g, void* out, const void* seed, const void* budget, long long n,
-           long long rows, unsigned int counter_base, cudaStream_t stream) {
-  const bool vec_ok = aligned(g, sizeof(T) * 4) && aligned(out, 4);
-  if (!aligned(out, 4)) return static_cast<int>(cudaErrorMisalignedAddress);
-  sparsign_pack2bit_kernel<T><<<pack_grid(rows), kThreads, 0, stream>>>(
-      static_cast<const T*>(g), static_cast<uint8_t*>(out),
-      static_cast<const long long*>(seed), static_cast<const float*>(budget), n, rows,
-      counter_base, vec_ok);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+// Design: the sparsign instantiation of pack2_encode.cuh's encoder, the
+// template that ternary.cu's pack variant launches for every rule; its notes
+// say how it keeps the hash's instructions few and the loads in flight. One
+// pass from gradient to wire bytes: the int8 ternary tensor never exists. The
+// seed and B are read from device memory, once a block, so a budget reduced
+// on the card costs no host round trip.
+#include "pack2_encode.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16. g: n contiguous values; out: rows * 128
 // bytes, rows = canonical_rows(n). seed: int64[1] holding a uint32 value;
@@ -70,9 +29,13 @@ int launch(const void* g, void* out, const void* seed, const void* budget, long 
 extern "C" int sparsign_pack2bit_launch(const void* g, void* out, const void* seed,
                                         const void* budget, long long n, long long rows,
                                         unsigned int counter_base, int dtype, void* stream) {
+  using namespace repro;
   if (rows <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(g, out, seed, budget, n, rows, counter_base, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(g, out, seed, budget, n, rows, counter_base, s);
+  if (dtype == 0)
+    return launch_encode<float, SparsignRule>(g, out, seed, budget, n, rows, counter_base, s);
+  if (dtype == 1)
+    return launch_encode<__nv_bfloat16, SparsignRule>(g, out, seed, budget, n, rows,
+                                                      counter_base, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -37,78 +37,27 @@
 // library functions (the build uses no --use_fast_math), the ones the plain
 // version's torch.log, torch.cos and torch.sqrt call on the card.
 //
-// The pack variant (ternary_pack2bit_kernel, ternary_pack2bit_launch) takes one message:
-// the same rule code, with pack2bit.cuh's wire layout instead of the flat
-// pass. A thread owns 4 bytes of a packed row and draws the 16 symbols they
-// pack; coordinates past n (the TPU kernel's n_valid) and the canonical pad
-// rows pack as 0, which matters for noisy_sign, whose rule gives nonzero
-// symbols at zero input. Bound on an H100: bytes, 2.25 B/coord in bf16 (the
-// gradient once, a quarter byte of wire), against the same rule operations
-// plus 3 a coordinate for the packing.
-#include "pack2bit.cuh"
+// The pack variant (ternary_pack2bit_launch) takes one message: the rule's
+// instantiation of pack2_encode.cuh's encoder, the template that
+// sparsign_pack2bit.cu launches for sparsign; coordinates past n (the TPU
+// kernel's n_valid) and the canonical pad rows pack as 0, which matters for
+// noisy_sign, whose rule gives nonzero symbols at zero input. Bound on an
+// H100: bytes, 2.25 B/coord in bf16 (the gradient once, a quarter byte of
+// wire), against the same rule operations plus 3 a coordinate for the
+// packing. The rules themselves (pack2_encode.cuh) are shared by both
+// variants.
+#include "pack2_encode.cuh"
 
 namespace {
 
 using namespace repro;
 
-enum Rule : int { SPARSIGN = 0, SIGN = 1, NOISY_SIGN = 2, STOCHASTIC_TERNARY = 3 };
-
-constexpr float kTwoPi = 6.28318530717958647692f;  // float32(2 * pi), as XLA rounds it
-constexpr float kEps = 1e-12f;
-
-// repro.core.prng.fold_seed with one salt
-__device__ __forceinline__ uint32_t fold_seed(uint32_t seed, uint32_t salt) {
-  return mix32(seed ^ (salt * RNG_GOLDEN));
-}
-
-// The int8 symbol of jnp.sign(x).astype(int8): +-0.0 and NaN give 0.
-__device__ __forceinline__ int8_t symbol(float x) {
-  return x > 0.0f ? int8_t(1) : (x < 0.0f ? int8_t(-1) : int8_t(0));
-}
-
-// What a row contributes: the hashed seeds its rule draws from, and its param.
-struct Row {
-  uint32_t h0, h1, h2;
-  float param;
-};
-
+// What a row contributes: its rule, built from its seed and param.
 template <int R>
-__device__ __forceinline__ Row load_row(const long long* __restrict__ seeds,
-                                        const float* __restrict__ param, int param_per_row,
-                                        long long r) {
-  Row row{0u, 0u, 0u, 0.0f};
-  const uint32_t seed = static_cast<uint32_t>(seeds[r]);
-  if (R == SPARSIGN || R == STOCHASTIC_TERNARY) row.h0 = mix32(seed + RNG_GOLDEN);
-  if (R == NOISY_SIGN) {
-    row.h1 = mix32(fold_seed(seed, 1u) + RNG_GOLDEN);
-    row.h2 = mix32(fold_seed(seed, 2u) + RNG_GOLDEN);
-  }
-  if (R != SIGN) {
-    float p = param[param_per_row ? r : 0];
-    // jnp.maximum(s, 1e-12): a NaN normalizer stays NaN (fmaxf would drop it)
-    if (R == STOCHASTIC_TERNARY) p = (p != p) ? p : fmaxf(p, kEps);
-    row.param = p;
-  }
-  return row;
-}
-
-template <int R>
-__device__ __forceinline__ int8_t ternarize(float x, const Row& row, uint32_t counter) {
-  if constexpr (R == SIGN) {
-    return symbol(x);
-  } else if constexpr (R == NOISY_SIGN) {
-    const float u1 = fmaxf(uniform01(row.h1, counter), kEps);
-    const float u2 = uniform01(row.h2, counter);
-    const float noise = __fmul_rn(sqrtf(__fmul_rn(-2.0f, logf(u1))), cosf(__fmul_rn(kTwoPi, u2)));
-    return symbol(__fadd_rn(x, __fmul_rn(row.param, noise)));
-  } else {
-    // clip(., 0, 1) with fmaxf/fminf maps a NaN probability to 0, where the
-    // plain version keeps NaN: both then fail u < p, so the symbol is 0 either way
-    const float r = (R == SPARSIGN) ? __fmul_rn(fabsf(x), row.param)
-                                    : __fdiv_rn(fabsf(x), row.param);
-    const float p = fminf(fmaxf(r, 0.0f), 1.0f);
-    return uniform01(row.h0, counter) < p ? symbol(x) : int8_t(0);
-  }
+__device__ __forceinline__ RuleFor<R> load_row(const long long* __restrict__ seeds,
+                                               const float* __restrict__ param,
+                                               int param_per_row, long long r) {
+  return RuleFor<R>::make(static_cast<uint32_t>(seeds[r]), param[param_per_row ? r : 0]);
 }
 
 template <typename T, int N, int R>
@@ -123,7 +72,7 @@ ternary_kernel(const T* __restrict__ g, int8_t* __restrict__ out,
   const Vec<T, N> gv = load_vec<T, N>(g, i, total, vec_ok);
   long long r = i / n;
   long long col = i - r * n;
-  Row row = load_row<R>(seeds, param, param_per_row, r);
+  RuleFor<R> row = load_row<R>(seeds, param, param_per_row, r);
   Vec<int8_t, N> o;
 #pragma unroll
   for (int k = 0; k < N; ++k) {
@@ -132,7 +81,8 @@ ternary_kernel(const T* __restrict__ g, int8_t* __restrict__ out,
       col = 0;
       if (r < rows) row = load_row<R>(seeds, param, param_per_row, r);
     }
-    o.v[k] = ternarize<R>(to_f32<T>(gv.v[k]), row, counter_base + static_cast<uint32_t>(col));
+    o.v[k] = rule_symbol(row, to_f32<T>(gv.v[k]),
+                         (counter_base + static_cast<uint32_t>(col)) * RNG_GOLDEN);
     ++col;
   }
   store_vec<int8_t, N>(out, i, total, vec_ok, o);
@@ -170,47 +120,19 @@ int launch_rule(int rule, const void* g, void* out, const void* seeds, const voi
   }
 }
 
-template <int R>
-struct RuleSym {
-  Row row;
-  __device__ __forceinline__ int8_t operator()(float x, uint32_t counter) const {
-    return ternarize<R>(x, row, counter);
-  }
-};
-
-template <typename T, int R>
-__global__ void __launch_bounds__(kThreads)
-ternary_pack2bit_kernel(const T* __restrict__ g, uint8_t* __restrict__ out,
-                        const long long* __restrict__ seed, const float* __restrict__ param,
-                        long long n, long long rows, uint32_t counter_base, bool vec_ok) {
-  const RuleSym<R> sym{load_row<R>(seed, param, 0, 0)};
-  pack_thread<T>(g, out, n, rows, counter_base, vec_ok, sym);
-}
-
-template <typename T, int R>
-int launch_pack(const void* g, void* out, const void* seed, const void* param, long long n,
-                long long rows, unsigned int counter_base, cudaStream_t stream) {
-  if (!aligned(out, 4)) return static_cast<int>(cudaErrorMisalignedAddress);
-  const bool vec_ok = aligned(g, sizeof(T) * 4);
-  ternary_pack2bit_kernel<T, R><<<pack_grid(rows), kThreads, 0, stream>>>(
-      static_cast<const T*>(g), static_cast<uint8_t*>(out),
-      static_cast<const long long*>(seed), static_cast<const float*>(param), n, rows,
-      counter_base, vec_ok);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T>
 int launch_pack_rule(int rule, const void* g, void* out, const void* seed, const void* param,
                      long long n, long long rows, unsigned int counter_base, cudaStream_t s) {
   switch (rule) {
     case SPARSIGN:
-      return launch_pack<T, SPARSIGN>(g, out, seed, param, n, rows, counter_base, s);
+      return launch_encode<T, SparsignRule>(g, out, seed, param, n, rows, counter_base, s);
     case SIGN:
-      return launch_pack<T, SIGN>(g, out, seed, param, n, rows, counter_base, s);
+      return launch_encode<T, SignRule>(g, out, seed, param, n, rows, counter_base, s);
     case NOISY_SIGN:
-      return launch_pack<T, NOISY_SIGN>(g, out, seed, param, n, rows, counter_base, s);
+      return launch_encode<T, NoisySignRule>(g, out, seed, param, n, rows, counter_base, s);
     case STOCHASTIC_TERNARY:
-      return launch_pack<T, STOCHASTIC_TERNARY>(g, out, seed, param, n, rows, counter_base, s);
+      return launch_encode<T, StochasticTernaryRule>(g, out, seed, param, n, rows,
+                                                      counter_base, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -51,3 +51,44 @@ def test_plain_versions_barred_covers_the_trainer_path():
         with pytest.raises(RuntimeError, match="plain version"):
             engine.compress_leaf(g, CompressionConfig(), 1, wire=wire)
     assert engine.compress_leaf(g, CompressionConfig(), 1, wire=wire).values.shape == (32, 128)
+
+
+def _chip_smoke():
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    return chip_smoke
+
+
+def test_sass_loops_counts_each_loop_body():
+    """The SASS census behind PERF.md's instructions a coordinate: a loop is
+    the span from a backward branch's target to the branch."""
+    listing = """
+        Function : _Z6kernelPf
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   SHF.R.U32.HI R2, RZ, 0x10, R3 ;
+        /*0020*/                   LOP3.LUT R2, R2, R3, R4, 0x96, !PT ;
+        /*0030*/               @P0 IMAD R2, R2, 0x3, RZ ;
+        /*0040*/              @!P1 BRA 0x10 ;
+        /*0050*/                   EXIT ;
+        /*0060*/                   BRA 0x60 ;
+"""
+    census = _chip_smoke().sass_loops(listing)
+    assert census["_Z6kernelPf"]["instructions"] == 7
+    loops = census["_Z6kernelPf"]["loops"]
+    assert [loop["instructions"] for loop in loops] == [4]
+    assert loops[0]["by_opcode"] == {"SHF": 1, "LOP3": 1, "IMAD": 1, "BRA": 1}
+
+
+def test_pack2_owner_tells_the_two_encoders_apart():
+    """Both fused 2-bit encoders launch pack2_encode.cuh's encode_kernel; a
+    trace attributes the sparsign rule to sparsign_pack2bit and the others
+    to ternary_pack2bit."""
+    owner = _chip_smoke().pack2_owner
+    assert owner("void repro::encode_kernel<__nv_bfloat16, repro::SparsignRule>(const T1 *)") \
+        == "sparsign_pack2bit"
+    assert owner("void repro::encode_kernel<float, repro::NoisySignRule>(const T1 *)") \
+        == "ternary_pack2bit"
+    assert owner("void (anonymous namespace)::ternary_kernel<float, 4, 1>(const T1 *)") is None

@@ -134,6 +134,29 @@ def test_wire_kernels_match_plain_versions_on_card(cuda_device):
             np.testing.assert_array_equal(
                 tbits(ternary_pack2bit_op(g, 0.5, 3, 2**32 - 9, rule=rule)),
                 tbits(ternary_pack2bit_ref(g, 0.5, 3, 2**32 - 9, rule=rule)))
+    # the shared encoder's edges (csrc/pack2_encode.cuh, tiles of 16 rows):
+    # sizes about a row and a tile, a gradient one element off 16-byte
+    # alignment, a counter base that wraps inside a thread's span, params
+    # -1, 0, NaN, inf and 2^24, subnormal gradients; sparsign_pack2bit equal
+    # to ternary_pack2bit's sparsign rule
+    tile = 16 * 512
+    for n, dtype, off, scale in ((1, torch.bfloat16, 0, 1.0), (511, torch.float32, 0, 1.0),
+                                 (512, torch.bfloat16, 0, 1.0), (513, torch.bfloat16, 1, 1.0),
+                                 (tile - 1, torch.bfloat16, 0, 1.0),
+                                 (tile, torch.float32, 0, 1.0),
+                                 (tile + 1, torch.bfloat16, 1, 1.0),
+                                 (2 * tile + 3, torch.bfloat16, 0, 2.0**-130),
+                                 (2 * tile + 3, torch.float32, 0, 2.0**-130)):
+        g = (torch.from_numpy(grad_like(n + off, 6)) * scale).to(cuda_device, dtype)[off:]
+        for p in (-1.0, 0.0, float("nan"), float("inf"), 2.0**24, 0.5, 2.0**-20, 2.0**126):
+            for rule in RULES:
+                k = ternary_pack2bit_op(g, p, 7, 2**32 - 7, rule=rule)
+                np.testing.assert_array_equal(
+                    tbits(k), tbits(ternary_pack2bit_ref(g, p, 7, 2**32 - 7, rule=rule)),
+                    err_msg=f"{rule} n={n} {dtype} offset {off} scale {scale} param {p}")
+                if rule == "sparsign":
+                    np.testing.assert_array_equal(tbits(sparsign_pack2bit_op(g, p, 7, 2**32 - 7)),
+                                                  tbits(k))
     for m in (1, 3):
         p = torch.randint(0, 256, (m, 64, 128), device=cuda_device, dtype=torch.uint8)
         w = torch.tensor([0.0, 0.3, 1.5][:m], device=cuda_device)
