@@ -4,13 +4,15 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --golomb-split [CSRC ...]   # the Golomb kernels alone
     python3 chip_smoke.py --pack2-split [CSRC ...]    # the fused 2-bit encoders alone
+    python3 chip_smoke.py --pack8-split [CSRC ...]    # the qsgd8 encoder alone
+    python3 chip_smoke.py --sass LISTING.sass.gz      # a saved listing's loops, no card
 
-The split forms time the Golomb wire's four kernels, or the two fused 2-bit
-encoders in every rule, at w_down and split each call's device time by
-launch, for the kernel sources of each CSRC directory given (default: the
-checkout's), A B B A for two, with each tree's ptxas report and SASS census
-(listings under chiprun_out/sass/). Phases of the first, in order; any
-failure exits non-zero before the last line:
+The split forms time the Golomb wire's four kernels, the two fused 2-bit
+encoders in every rule, or qsgd8_pack8 in bf16 and float32, at w_down and
+split each call's device time by launch, for the kernel sources of each CSRC
+directory given (default: the checkout's), A B B A for two, with each tree's
+ptxas report and SASS census (listings under chiprun_out/sass/). Phases of
+the first, in order; any failure exits non-zero before the last line:
   1. card, versions and TF32 flags (both set False); build the CUDA kernels
      from src/repro_torch/csrc and print the build time and ptxas report;
   2. hold each kernel against its plain PyTorch version on the card, bit for
@@ -18,6 +20,7 @@ failure exits non-zero before the last line:
      +-0/NaN/+-inf inputs (ternary: each of its four rules, per-row params;
      weighted_vote_update: scalar and per-coordinate W); time kernel, plain
      version and, where one exists, the one PyTorch call with CUDA events;
+     and the timer's floor: an empty kernel and a copy of 6.54 MB;
   3. the federated slice: run_fl on cnn_cifar at full width (d = 545,002) in
      the Table 2 protocol (M = 20, 20% participation, batch 32) and at
      FLConfig's defaults (M = 100, full participation, batch 128), each with
@@ -76,7 +79,10 @@ failure exits non-zero before the last line:
      (pack2bit, unpack2bit, qsgd8_pack8, unpack8_sum) against their plain
      versions on the card, bit for bit: w_down's size, odd sizes, arbitrary
      int8 bytes, f32 and bf16 gradients with +-0/NaN/+-inf at counter base
-     2^32 - 5000, M = 1, 4 and 20 with zero scales; timed against bounds;
+     2^32 - 5000, M = 1, 4 and 20 with zero scales; qsgd8_pack8 on every bf16
+     bit pattern at 350 scales and every float32 bit pattern at five, sizes
+     about a row and a tile, off 16-byte alignment, a counter base wrapping
+     inside a tile; timed against bounds;
   9. serving qwen1.5-4b at full width: repro_torch.launch.serve's loop (batch
      4, a 128-token prompt replayed through decode, 64 new tokens, a
      synthetic 2-bit weight-update round every 16 tokens: 4 rounds through
@@ -144,7 +150,8 @@ SOURCE.update({"ternary_pack2bit": "src/repro_torch/csrc/ternary.cu",
                "qsgd8_pack8": "src/repro_torch/csrc/pack8.cu",
                "unpack8_sum": "src/repro_torch/csrc/pack8.cu"})
 WIRE_KERNELS = ("sparsign_pack2bit", "ternary_pack2bit", "unpack2bit_sum", "unpack2bit_wsum")
-PACK2_ENCODERS = WIRE_KERNELS[:2]
+# the fused encoders, which share csrc/encode_tiles.cuh's walker
+ENCODERS = WIRE_KERNELS[:2] + ("qsgd8_pack8",)
 GOLOMB_KERNELS = ("sparsign_golomb", "golomb_pack", "ungolomb_sum", "ungolomb_wsum")
 PACK8_KERNELS = ("pack2bit", "unpack2bit", "qsgd8_pack8", "unpack8_sum")
 GOLOMB_P = 0.05              # the plan fraction of the golomb runs (target_sparsity 0.05)
@@ -153,6 +160,7 @@ PACK2_PARAMS = {"sparsign": 1.0, "sign": 0.0, "noisy_sign": 0.5, "stochastic_ter
 PACK2_TILE = 16 * 512        # coordinates of a tile of csrc/pack2_encode.cuh (kEncTileCoords)
 EDGE_PARAMS = (-1.0, 0.0, float("nan"), float("inf"), 2.0**24, 0.5)
 SUBNORMAL_PARAMS = (2.0**-20, 1e-30, 2.0**20, 2.0**126)
+ALL_ONES_MANTISSA = 2.0 - 2.0**-23   # float32 0x3FFFFFFF: qsgd8's largest hoisted scale
 TRAINER_SEQ_LEN = 4096       # train_4k's sequence, one a worker
 SERVE_ARGS = ["--arch", "qwen1.5-4b", "--full", "--batch", "4", "--prompt-len", "128",
               "--tokens", "64", "--online-updates", "16", "--seed", "0"]
@@ -388,13 +396,16 @@ def golomb_owner(kernel: str):
     return None
 
 
-def pack2_owner(kernel: str):
-    """Which fused 2-bit encoder launched a CUDA kernel, by its name: both
-    run csrc/pack2_encode.cuh's encode_kernel, told apart by the rule (a
-    sparsign message goes through sparsign_pack2bit on every path here);
-    None for any other kernel."""
+def encoder_owner(kernel: str):
+    """Which fused encoder launched a CUDA kernel, by its name: all three run
+    csrc/encode_tiles.cuh's encode_kernel, told apart by the encoder type
+    (qsgd8_pack8's Qsgd8Encoder) and the 2-bit encoder's rule (a sparsign
+    message goes through sparsign_pack2bit on every path here); None for any
+    other kernel."""
     if "encode_kernel<" not in kernel:
         return None
+    if "Qsgd8Encoder" in kernel:
+        return "qsgd8_pack8"
     return "sparsign_pack2bit" if "SparsignRule" in kernel else "ternary_pack2bit"
 
 
@@ -425,11 +436,11 @@ def profile_call(torch, fn) -> dict:
     # a kernel's own name, not a longer one that ends in it (vote_update in
     # weighted_vote_update, pack2bit in sparsign_pack2bit and unpack2bit)
     per = {n: sum(t for k, t in kern.items() if re.search(rf"(?<!\w){n}_kernel\b", k))
-           for n in REPLACES if n not in GOLOMB_KERNELS + PACK2_ENCODERS}
+           for n in REPLACES if n not in GOLOMB_KERNELS + ENCODERS}
     for src in ("golomb_encode", "golomb_decode"):
         per[src] = sum(t for k, t in kern.items() if golomb_owner(k) == src)
-    for src in PACK2_ENCODERS:
-        per[src] = sum(t for k, t in kern.items() if pack2_owner(k) == src)
+    for src in ENCODERS:
+        per[src] = sum(t for k, t in kern.items() if encoder_owner(k) == src)
     ours = sum(per.values())
     top = dict(sorted(kern.items(), key=lambda kv: -kv[1])[:5])
     return {"call_ms": call_ms, "kernel_ms": total, "busy_ms": busy_us / 1e3,
@@ -621,6 +632,17 @@ def phase_kernels(torch, timer, report):
                        n * (2 * w.element_size() + 4) + wtot.numel() * 4, n * 3)
     print_timings(timings)
     report["timings"] = timings
+    # the timer's floor: an empty kernel, and a copy that moves vote_update's
+    # bytes at the FL shape (6.54 MB: half read, half written), as Timer sees them
+    src = randn(D_CNN * 3 // 2)
+    dst = torch.empty_like(src)
+    floor = {"empty_kernel_ms": timer(lambda: torch.cuda._sleep(0))["ms"],
+             "copy_ms": timer(lambda: dst.copy_(src))["ms"],
+             "copy_bytes": D_CNN * 12, "copy_bound_ms": bound(D_CNN * 12, 0)[0]}
+    print(f"[timing] timer floor: empty kernel {floor['empty_kernel_ms']:.4f} ms; a copy "
+          f"moving {D_CNN * 12 / 1e6:.2f} MB (vote_update's at the FL shape) "
+          f"{floor['copy_ms']:.4f} ms, bound {floor['copy_bound_ms']:.4f} ms")
+    report["timer_floor"] = floor
     main_shape = {"sparsign": f"sparsign 100x{D_CNN} f32",
                   "vote_update": f"vote_update {D_CNN} f32/int32",
                   "ef_server": f"ef_server {D_CNN} f32",
@@ -1311,6 +1333,8 @@ def phase_pack8_kernels(torch, timer, report):
               f"bitwise ok")
         del g
 
+    qsgd8_exhaustive(torch, gen, errs)
+
     # -- unpack8_sum: M messages of random levels; worker 0's scale is 0, so
     # its negative levels give -0.0 products, which the +0.0 seed absorbs
     for m, rows in ((1, canonical_rows(N_WDOWN)), (4, canonical_rows(N_WDOWN)),
@@ -1365,6 +1389,91 @@ def phase_pack8_kernels(torch, timer, report):
     main_shape = {"pack2bit": "pack2bit w_down", "unpack2bit": "unpack2bit w_down",
                   "qsgd8_pack8": "qsgd8_pack8 w_down bf16", "unpack8_sum": "unpack8_sum M=4 w_down"}
     return errs, {k: timings[v] for k, v in main_shape.items()}
+
+
+def qsgd8_scales(torch, trainer_scale: float) -> list:
+    """The decode scales of qsgd8_pack8's exhaustive bf16 check: NaN, +-inf;
+    +-0, -1, subnormals and 1e-30 (clamped to 1e-20); 1e-20, 1.0 and 2.0 (the
+    hoisted division's limit) with their neighbours; FLT_MAX; a mantissa of
+    all ones; every other power of two from 2^-70 to 2^126 with its
+    neighbours; the trainer's; and 32 drawn log-uniformly."""
+    f32 = torch.float32
+
+    def around(x):
+        t = torch.tensor([x], dtype=f32)
+        return [float(torch.nextafter(t, torch.tensor([-math.inf]))),
+                float(t), float(torch.nextafter(t, torch.tensor([math.inf])))]
+
+    out = [math.nan, math.inf, -math.inf, 0.0, -0.0, -1.0, 1e-45, 1e-40, 1e-30,
+           ALL_ONES_MANTISSA, 3.4028234663852886e38, trainer_scale]
+    for x in (1e-20, 1.0, 2.0):
+        out += around(x)
+    for k in range(-70, 127, 2):
+        out += around(2.0**k)
+    gen = torch.Generator().manual_seed(18)
+    out += (10.0 ** (torch.rand(32, generator=gen, dtype=torch.float64) * 40 - 30)).tolist()
+    return out
+
+
+def qsgd8_exhaustive(torch, gen, errs) -> None:
+    """qsgd8_pack8 against its plain version on the card, bit for bit, where
+    csrc/pack8.cu's level arithmetic has its edges: every bf16 bit pattern at
+    each of qsgd8_scales; every float32 bit pattern in 2^28-value chunks whose
+    counter bases run on, at the trainer's scale, 1e-20, 1.0, a mantissa of
+    all ones (the hoisted division) and 3.0 (__fdiv_rn); sizes about a tile
+    (8,192 coordinates) and a canonical row; a gradient one element off
+    16-byte alignment; a counter base that wraps inside a tile."""
+    from repro_torch.core.compressors import qsgd8_scale
+    from repro_torch.kernels.common import canonical_rows
+    from repro_torch.kernels.pack8.ops import qsgd8_pack8_op
+    from repro_torch.kernels.pack8.ref import qsgd8_pack8_ref
+
+    dev = "cuda"
+    t0 = time.perf_counter()
+
+    def case(label, g, scale, seed, cb=0):
+        k = qsgd8_pack8_op(g, scale, seed, cb)
+        r = chunked_plain(qsgd8_pack8_ref, g, scale, seed, cb).reshape(-1, 512)
+        torch.cuda.synchronize()
+        check(k.shape == (canonical_rows(g.numel()), 512) and same_bits(k, r),
+              f"qsgd8_pack8 {label} scale={scale!r} cb={cb} differs from its plain version in "
+              f"{int((k != r).sum()) if k.shape == r.shape else 'shape'} bytes")
+        errs["qsgd8_pack8"] = max(errs["qsgd8_pack8"], max_abs_err(k, r))
+
+    trainer = (torch.randn(N_WDOWN // 64, generator=gen, device=dev) * 1e-3).to(torch.bfloat16)
+    trainer_scale = float(qsgd8_scale(trainer))
+    del trainer
+    every_bf16 = torch.arange(-2**15, 2**15, dtype=torch.int16, device=dev).view(torch.bfloat16)
+    scales = qsgd8_scales(torch, trainer_scale)
+    for i, scale in enumerate(scales):
+        case("every bf16", every_bf16, scale, 0x9E3779B9 ^ i, (7919 * i) & 0xFFFFFFFF)
+    print(f"[pack8] qsgd8_pack8 every bf16 bit pattern at {len(scales)} scales: bitwise ok")
+
+    chunk = 1 << 28
+    for scale in (trainer_scale, 1e-20, 1.0, ALL_ONES_MANTISSA, 3.0):
+        for c in range(0, 1 << 32, chunk):
+            lo = c - (1 << 32) * (c >= 1 << 31)   # the bit patterns as int32 values
+            every_f32 = torch.arange(lo, lo + chunk, dtype=torch.int64, device=dev).to(
+                torch.int32).view(torch.float32)
+            case("every f32", every_f32, scale, 12345, c)
+            del every_f32
+    print(f"[pack8] qsgd8_pack8 every float32 bit pattern (chunks of 2^28, counters running "
+          f"on) at scales {trainer_scale:.6g}, 1e-20, 1, {ALL_ONES_MANTISSA!r}, 3: "
+          f"bitwise ok")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in (1, 511, 512, 513, 8191, 8192, 8193, 3 * 8192 + 17):
+            g = (torch.randn(n + 1, generator=gen, device=dev) * 0.5)
+            g[1:9] = torch.tensor([0.0, -0.0, math.nan, math.inf, -math.inf, 1e-40, -1e30,
+                                   -0.0], device=dev)[:n]
+            g = g.to(dtype)
+            for scale in (trainer_scale, 0.01, 3.0):
+                case(f"n={n} {dtype}", g[1:].clone(), scale, 77, 5)
+                case(f"n={n} {dtype} off 16-byte alignment", g[1:], scale, 77, 5)
+            case(f"n={n} {dtype} counter wrapping", g[1:].clone(), 0.01, 78, 2**32 - 7)
+    print(f"[pack8] qsgd8_pack8 sizes 1, 511-513, 8191-8193, 24593, off 16-byte alignment, "
+          f"counter base 2^32 - 7 (f32, bf16): bitwise ok; exhaustive checks "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def phase_golomb_two_pass(torch, report, totals):
@@ -1978,24 +2087,45 @@ def sass_census(lib: pathlib.Path, dump: pathlib.Path) -> dict:
 
 def sass_loops(listing: str) -> dict:
     """{kernel: {"instructions": n, "loops": [{"instructions": n, "by_opcode":
-    {...}}, ...]}} from a cuobjdump -sass listing: each loop is the span from
-    a backward branch's target to the branch, so a kernel's instructions a
-    coordinate are its main loop's over the coordinates one pass covers.
+    {...}, "straight": n, "straight_by_opcode": {...}}, ...]}} from a
+    cuobjdump -sass listing: each loop is the span from a backward branch's
+    target to the branch, so a kernel's instructions a coordinate are its
+    main loop's over the coordinates one pass covers. "straight" counts the
+    path through the loop that falls through every predicated branch and
+    takes every unconditional forward one: where a loop holds two bodies
+    behind a branch on a uniform flag (qsgd8_pack8's hoisted division and its
+    __fdiv_rn path), the first body's instructions.
     ``python3 chip_smoke.py --sass LISTING[.gz]`` prints it for a saved listing."""
     census, fn, ins = {}, None, []
+
+    def by_opcode(ops):
+        return dict(sorted(((o, ops.count(o)) for o in set(ops)), key=lambda kv: -kv[1]))
+
+    def straight(head, tail):
+        at = {a: k for k, (a, *_) in enumerate(ins)}
+        k, ops = at[head], []
+        while k < len(ins) and len(ops) <= len(ins):
+            addr, op, arg, cond = ins[k]
+            ops.append(op)
+            target = re.search(r"0x([0-9a-f]+)", arg) if op == "BRA" and not cond else None
+            if addr == tail:
+                break
+            k = at.get(int(target.group(1), 16), k + 1) if (
+                target and int(target.group(1), 16) > addr) else k + 1
+        return ops
 
     def close():
         if fn is None:
             return
         loops = []
-        for addr, op, arg in ins:
+        for addr, op, arg, _ in ins:
             target = re.search(r"0x([0-9a-f]+)", arg) if op == "BRA" else None
             if target and int(target.group(1), 16) < addr:
-                body = [o for a, o, _ in ins if int(target.group(1), 16) <= a <= addr]
-                loops.append({"instructions": len(body),
-                              "by_opcode": dict(sorted(
-                                  ((o, body.count(o)) for o in set(body)),
-                                  key=lambda kv: -kv[1]))})
+                head = int(target.group(1), 16)
+                body = [o for a, o, _, _ in ins if head <= a <= addr]
+                path = straight(head, addr)
+                loops.append({"instructions": len(body), "by_opcode": by_opcode(body),
+                              "straight": len(path), "straight_by_opcode": by_opcode(path)})
         census[fn] = {"instructions": len(ins), "loops": loops}
 
     for line in listing.splitlines():
@@ -2004,10 +2134,10 @@ def sass_loops(listing: str) -> dict:
             close()
             fn, ins = m.group(1), []
             continue
-        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)\S*\s*([^;]*);",
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)\S*\s*([^;]*);",
                      line)
         if m and fn:
-            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+            ins.append((int(m.group(1), 16), m.group(3), m.group(4), bool(m.group(2))))
     close()
     return census
 
@@ -2076,6 +2206,29 @@ def pack2_split(torch, trees: list) -> dict:
     return split_trees(torch, trees, ("sparsign_pack2bit", "ternary"), make_calls, "pack2")
 
 
+def pack8_split(torch, trees: list) -> dict:
+    """``--pack8-split [CSRC ...]``: qsgd8_pack8 at w_down in bf16 and
+    float32 at a trainer-like scale (the hoisted division), and in bf16 at
+    scale 3 (__fdiv_rn per coordinate), through ``split_trees``."""
+    from repro_torch.core.compressors import qsgd8_scale
+    from repro_torch.kernels.pack8.kernel import qsgd8_pack8_cuda
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(8)
+    g32 = torch.randn(N_WDOWN, generator=gen, device=dev) * 1e-3
+    g16 = g32.to(torch.bfloat16)
+    s16, s32 = qsgd8_scale(g16).reshape(1), qsgd8_scale(g32).reshape(1)
+    three = torch.full((1,), 3.0, device=dev)
+    seed = torch.full((1,), 12345, dtype=torch.int64, device=dev)
+
+    def make_calls():
+        return {"qsgd8_pack8 w_down bf16": lambda: qsgd8_pack8_cuda(g16, s16, seed),
+                "qsgd8_pack8 w_down f32": lambda: qsgd8_pack8_cuda(g32, s32, seed),
+                "qsgd8_pack8 w_down bf16 scale 3": lambda: qsgd8_pack8_cuda(g16, three, seed)}
+
+    return split_trees(torch, trees, ("pack8",), make_calls, "pack8")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if "--sass" in sys.argv:   # a saved listing (--pack2-split's): no card
@@ -2086,6 +2239,8 @@ def main() -> int:
             print(f"{fn}: {c['instructions']} instructions")
             for loop in c["loops"]:
                 print(f"  loop of {loop['instructions']}: {loop['by_opcode']}")
+                if loop["straight"] != loop["instructions"]:
+                    print(f"    straight path {loop['straight']}: {loop['straight_by_opcode']}")
         return 0
     import torch
 
@@ -2093,7 +2248,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port runs on the card only", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    for flag, split in (("--golomb-split", golomb_split), ("--pack2-split", pack2_split)):
+    for flag, split in (("--golomb-split", golomb_split), ("--pack2-split", pack2_split),
+                        ("--pack8-split", pack8_split)):
         if flag in sys.argv:
             trees = sys.argv[sys.argv.index(flag) + 1:] or [
                 str(ROOT / "src" / "repro_torch" / "csrc")]

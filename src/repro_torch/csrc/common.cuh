@@ -50,13 +50,26 @@ __device__ __forceinline__ uint32_t fold_hash(uint32_t seed_hash) {
   return seed_hash ^ (seed_hash >> 16);
 }
 
-__device__ __forceinline__ float uniform01_folded(uint32_t folded, uint32_t a) {
+// mix32 after its first xor-shift, on the folded form, but for the last
+// xor-shift: the hash is x ^ (x >> 16) of what this returns.
+__device__ __forceinline__ uint32_t hash_folded(uint32_t folded, uint32_t a) {
   uint32_t x = a ^ (a >> 16) ^ folded;
   x *= RNG_C1;
   x ^= x >> 13;
-  x *= RNG_C2;
-  x = (x ^ (x >> 16)) & 0xFFFFFF00u;
-  return __fmul_rn(__uint2float_rn(x), 1.0f / 4294967296.0f);
+  return x * RNG_C2;
+}
+
+__device__ __forceinline__ float uniform01_folded(uint32_t folded, uint32_t a) {
+  const uint32_t x = hash_folded(folded, a);
+  return __fmul_rn(__uint2float_rn((x ^ (x >> 16)) & 0xFFFFFF00u), 1.0f / 4294967296.0f);
+}
+
+// 2^24 - 1 - k, for uniform01_folded(folded, a) = k * 2^-24: the hash's top
+// 24 bits, complemented (the complement is taken before the shift, in the
+// last xor's three-input op).
+__device__ __forceinline__ uint32_t uniform_complement(uint32_t folded, uint32_t a) {
+  const uint32_t x = hash_folded(folded, a);
+  return ~(x ^ (x >> 16)) >> 8;
 }
 
 // jnp.sign: +1 / -1 for nonzero, and x itself for +-0.0 and NaN
@@ -117,6 +130,20 @@ __device__ __forceinline__ void store_vec(T* p, long long i, long long n, bool v
 }
 
 constexpr int kThreads = 256;
+constexpr int kLanes = 512;        // coordinates of a canonical row
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+// byte i: 0xFF if the sign bit of 32-bit word i is set, else 0 (prmt's
+// selector nibble 8 | b replicates the sign of byte b)
+__device__ __forceinline__ uint32_t sign_bytes(uint32_t w0, uint32_t w1, uint32_t w2,
+                                               uint32_t w3) {
+  return prmt(prmt(w0, w1, 0x00FBu), prmt(w2, w3, 0xFB00u), 0x7610u);
+}
 
 inline unsigned int grid_for(long long n, int per_thread) {
   long long threads = (n + per_thread - 1) / per_thread;

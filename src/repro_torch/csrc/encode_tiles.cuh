@@ -1,0 +1,114 @@
+// The tile walker of the fused wire encoders, one frame for both wires:
+// pack2_encode.cuh's 2-bit encoders (sparsign_pack2bit.cu, ternary.cu) and
+// pack8.cu's qsgd8 encoder each supply an encoder type Enc, and this header
+// walks the message's tiles for it.
+//
+// The frame: a persistent grid (the blocks that fit on the card at once, the
+// count cached per instantiation), each block walking the tiles of the
+// canonical (rows, 512) view in a stride of the grid. While a thread encodes
+// one tile, its 16-byte loads of its next tile are in flight, in registers.
+// Only the tiles past the last whole tile of data (the one that holds
+// coordinate n - 1, and the canonical pad) load element by element and test
+// pos < n; when g is not 16-byte aligned every tile does. On the H100 the
+// register prefetch was as fast as a ring of shared-memory stages filled by a
+// producer warp with cp.async.bulk, and faster for the rules with the most
+// arithmetic (PERF.md, the 2-bit encoders' findings).
+//
+// What an encoder Enc provides:
+//   In                       the gradient's element type
+//   State                    its per-message constants: trivially copyable,
+//                            with static State make(uint32_t seed, float param),
+//                            built once a block by thread 0 from device memory
+//   Chunk                    a thread's coordinates of one tile, in registers
+//   Lane, lane()             the thread's place in a tile; lane().off is the
+//                            offset of its first coordinate
+//   kTileRows, kTileCoords   a tile's canonical rows and coordinates
+//   kMinBlocks, kOutAlign    blocks an SM (__launch_bounds__), and the output
+//                            alignment its stores need
+//   load_full(c, g, i)       the thread's coordinates of the whole tile whose
+//                            thread offset is i, 16-byte loads
+//   load_edge(c, g, tile, lane, n)
+//                            the same element by element, values past n as 0
+//   store<kMasked>(state, c, out, tile, lane, n, counter_base)
+//                            encode and write the chunk's wire bytes
+#pragma once
+
+#include "common.cuh"
+
+namespace repro {
+
+// The tiles past the last whole tile of data. (Written as a loop in
+// encode_kernel's body on the kernel's own offset, the same code took 71
+// registers for noisy_sign where this takes 60, and noisy_sign ran 6 % and
+// stochastic_ternary 2.5 % slower on the H100: PERF.md.)
+template <class Enc>
+__device__ __forceinline__ void encode_edge_tiles(const typename Enc::State& state,
+                                                  const typename Enc::In* __restrict__ g,
+                                                  uint8_t* __restrict__ out, long long t,
+                                                  long long tiles, long long n,
+                                                  uint32_t counter_base) {
+  const typename Enc::Lane lane = Enc::lane();
+  for (; t < tiles; t += gridDim.x) {
+    typename Enc::Chunk c;
+    Enc::load_edge(c, g, t, lane, n);
+    Enc::template store<true>(state, c, out, t, lane, n, counter_base);
+  }
+}
+
+// Register prefetch: tile t + gridDim.x's loads are issued before tile t is
+// encoded. full_tiles: the tiles wholly inside the data (0 when g is not
+// 16-byte aligned), tiles: rows / Enc::kTileRows.
+template <class Enc>
+__global__ void __launch_bounds__(kThreads, Enc::kMinBlocks)
+encode_kernel(const typename Enc::In* __restrict__ g, uint8_t* __restrict__ out,
+              const long long* __restrict__ seed, const float* __restrict__ param, long long n,
+              long long tiles, long long full_tiles, uint32_t counter_base) {
+  __shared__ typename Enc::State shared_state;
+  if (threadIdx.x == 0)
+    shared_state = Enc::State::make(static_cast<uint32_t>(seed[0]), param[0]);
+  __syncthreads();
+  const typename Enc::State state = shared_state;
+  const typename Enc::Lane lane = Enc::lane();
+  long long t = blockIdx.x;
+  typename Enc::Chunk next;
+  if (t < full_tiles) Enc::load_full(next, g, t * Enc::kTileCoords + lane.off);
+  for (; t < full_tiles; t += gridDim.x) {
+    const typename Enc::Chunk cur = next;
+    if (t + gridDim.x < full_tiles)
+      Enc::load_full(next, g, (t + gridDim.x) * Enc::kTileCoords + lane.off);
+    Enc::template store<false>(state, cur, out, t, lane, n, counter_base);
+  }
+  encode_edge_tiles<Enc>(state, g, out, t, tiles, n, counter_base);
+}
+
+// Launch the encoder of one message on the current stream. g: n contiguous
+// values; out: the wire of rows canonical rows, rows = canonical_rows(n), a
+// multiple of 32; seed: int64[1] holding a uint32 value; param: float32[1].
+// static: each library that includes this header (sparsign_pack2bit.cu,
+// ternary.cu, pack8.cu) keeps its own cached grid size, where an inline
+// function's static would be one GNU_UNIQUE object shared by every library
+// loaded in the process (a library once launched with another's cache so).
+template <class Enc>
+static int launch_encode(const void* g, void* out, const void* seed, const void* param,
+                         long long n, long long rows, unsigned int counter_base,
+                         cudaStream_t stream) {
+  if (!aligned(out, Enc::kOutAlign)) return static_cast<int>(cudaErrorMisalignedAddress);
+  static int grid_cap = 0;  // blocks that fit on the card at once, per instantiation
+  if (grid_cap == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, encode_kernel<Enc>, kThreads, 0);
+    grid_cap = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const long long tiles = rows / Enc::kTileRows;
+  const long long full_tiles = aligned(g, 16) ? n / Enc::kTileCoords : 0;
+  const unsigned int grid = static_cast<unsigned int>(tiles < grid_cap ? tiles : grid_cap);
+  encode_kernel<Enc><<<grid, kThreads, 0, stream>>>(
+      static_cast<const typename Enc::In*>(g), static_cast<uint8_t*>(out),
+      static_cast<const long long*>(seed), static_cast<const float*>(param), n, tiles,
+      full_tiles, counter_base);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace repro

@@ -31,10 +31,11 @@
 // Layout: a thread owns kEncSpan = 8 bytes of one packed row, i.e. 8
 // consecutive coordinates of each of the row's four column blocks, read as
 // one 16-byte vector each in bf16; a 256-thread block covers a tile of 16
-// rows. The grid is persistent (3 blocks an SM), each block walking the tiles
-// in a stride; while a thread encodes one tile its loads of the next tile are
-// in flight, in registers. On the H100 this register prefetch was as fast as
-// a ring of four shared-memory stages filled by a producer warp with
+// rows. The tiles are walked by encode_tiles.cuh's frame, which pack8.cu's
+// qsgd8 encoder shares: a persistent grid (3 blocks an SM here), each block
+// walking the tiles in a stride, a thread's loads of its next tile in flight
+// while it encodes one. On the H100 this register prefetch was as fast as a
+// ring of four shared-memory stages filled by a producer warp with
 // cp.async.bulk (0.5353 against 0.5366 ms for sparsign at w_down bf16,
 // faster in the drawing rules), and 16 bytes a thread (201 registers) or 2
 // blocks an SM were slower (PERF.md, PR 17).
@@ -45,6 +46,7 @@
 
 #include <type_traits>
 
+#include "encode_tiles.cuh"
 #include "pack2bit.cuh"
 
 namespace repro {
@@ -135,19 +137,6 @@ constexpr int kEncMinBlocks = 3;    // blocks an SM, so at most 85 registers a t
 constexpr int kEncThreadsPerRow = kRowBytes / kEncSpan;
 constexpr int kEncTileRows = kThreads / kEncThreadsPerRow;
 constexpr long long kEncTileCoords = static_cast<long long>(kEncTileRows) * kLanes;
-
-__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
-  uint32_t d;
-  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
-  return d;
-}
-
-// byte i: 0xFF if the sign bit of 32-bit word i is set, else 0 (prmt's
-// selector nibble 8 | b replicates the sign of byte b)
-__device__ __forceinline__ uint32_t sign_bytes(uint32_t w0, uint32_t w1, uint32_t w2,
-                                               uint32_t w3) {
-  return prmt(prmt(w0, w1, 0x00FBu), prmt(w2, w3, 0xFB00u), 0x7610u);
-}
 
 // bits 2k, 2k + 1 of byte i from byte i of m[k]: (m0 & 0x03..) | (m1 & 0x0C..) | ...
 __device__ __forceinline__ uint32_t spread_pairs(uint32_t m0, uint32_t m1, uint32_t m2,
@@ -272,75 +261,41 @@ __device__ __forceinline__ void encode_store(const Rule& rule, const Chunk<T>& c
       encode<T, Rule, kMasked>(rule, c, a0, i, n);
 }
 
-// The tiles past the last whole tile of data: the one that holds coordinate
-// n - 1, and the canonical pad. (Written as a loop in encode_kernel's body
-// on the kernel's own offset, the same code took 71 registers for noisy_sign
-// where this takes 60, and noisy_sign ran 6 % and stochastic_ternary 2.5 %
-// slower on the H100: PERF.md, PR 17.)
+// The 2-bit encoder of rule Rule for encode_tiles.cuh's walker: a thread owns
+// kEncSpan bytes (slot) of one packed row (sub) of a tile.
 template <typename T, class Rule>
-__device__ __forceinline__ void encode_edge_tiles(const Rule& rule, const T* __restrict__ g,
-                                                  uint8_t* __restrict__ out, long long t,
-                                                  long long tiles, long long n,
-                                                  uint32_t counter_base) {
-  const int slot = threadIdx.x % kEncThreadsPerRow, sub = threadIdx.x / kEncThreadsPerRow;
-  for (; t < tiles; t += gridDim.x) {
-    Chunk<T> c;
-    load_masked(c, g, (t * kEncTileRows + sub) * kLanes + slot * kEncSpan, n);
-    encode_store<T, Rule, true>(rule, c, out, t, sub, slot, n, counter_base);
-  }
-}
+struct Pack2Encoder {
+  using In = T;
+  using State = Rule;
+  using Chunk = repro::Chunk<T>;
+  struct Lane {
+    int slot, sub;
+    long long off;
+  };
+  static constexpr int kMinBlocks = kEncMinBlocks;
+  static constexpr int kTileRows = kEncTileRows;
+  static constexpr long long kTileCoords = kEncTileCoords;
+  static constexpr int kOutAlign = kEncSpan;
 
-// Register prefetch: tile t + gridDim.x's loads are issued before tile t is
-// encoded. full_tiles: the tiles wholly inside the data (0 when g is not
-// 16-byte aligned), tiles: rows / kEncTileRows.
-template <typename T, class Rule>
-__global__ void __launch_bounds__(kThreads, kEncMinBlocks)
-encode_kernel(const T* __restrict__ g, uint8_t* __restrict__ out,
-              const long long* __restrict__ seed, const float* __restrict__ param, long long n,
-              long long tiles, long long full_tiles, uint32_t counter_base) {
-  __shared__ Rule shared_rule;
-  if (threadIdx.x == 0) shared_rule = Rule::make(static_cast<uint32_t>(seed[0]), param[0]);
-  __syncthreads();
-  const Rule rule = shared_rule;
-  const int slot = threadIdx.x % kEncThreadsPerRow, sub = threadIdx.x / kEncThreadsPerRow;
-  const long long off = static_cast<long long>(sub) * kLanes + slot * kEncSpan;
-  long long t = blockIdx.x;
-  Chunk<T> next;
-  if (t < full_tiles) load_full(next, g, t * kEncTileCoords + off);
-  for (; t < full_tiles; t += gridDim.x) {
-    const Chunk<T> cur = next;
-    if (t + gridDim.x < full_tiles) load_full(next, g, (t + gridDim.x) * kEncTileCoords + off);
-    encode_store<T, Rule, false>(rule, cur, out, t, sub, slot, n, counter_base);
+  static __device__ __forceinline__ Lane lane() {
+    const int slot = threadIdx.x % kEncThreadsPerRow, sub = threadIdx.x / kEncThreadsPerRow;
+    return {slot, sub, static_cast<long long>(sub) * kLanes + slot * kEncSpan};
   }
-  encode_edge_tiles<T, Rule>(rule, g, out, t, tiles, n, counter_base);
-}
-
-// Launch the encoder of one message on the current stream. g: n contiguous
-// values; out: rows * 128 bytes, rows = canonical_rows(n), a multiple of 32;
-// seed: int64[1] holding a uint32 value; param: float32[1]. static: each
-// library that includes this header (sparsign_pack2bit.cu, ternary.cu) keeps
-// its own cached grid size, where an inline function's static would be one
-// object shared by every library loaded in the process.
-template <typename T, class Rule>
-static int launch_encode(const void* g, void* out, const void* seed, const void* param,
-                         long long n, long long rows, unsigned int counter_base,
-                         cudaStream_t stream) {
-  if (!aligned(out, kEncSpan)) return static_cast<int>(cudaErrorMisalignedAddress);
-  static int grid_cap = 0;  // blocks that fit on the card at once, per instantiation
-  if (grid_cap == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, encode_kernel<T, Rule>, kThreads, 0);
-    grid_cap = sms * (per_sm > 0 ? per_sm : 1);
+  static __device__ __forceinline__ void load_full(Chunk& c, const T* __restrict__ g,
+                                                   long long i) {
+    repro::load_full(c, g, i);
   }
-  const long long tiles = rows / kEncTileRows;
-  const long long full_tiles = aligned(g, 16) ? n / kEncTileCoords : 0;
-  const unsigned int grid = static_cast<unsigned int>(tiles < grid_cap ? tiles : grid_cap);
-  encode_kernel<T, Rule><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(g), static_cast<uint8_t*>(out), static_cast<const long long*>(seed),
-      static_cast<const float*>(param), n, tiles, full_tiles, counter_base);
-  return static_cast<int>(cudaGetLastError());
-}
+  static __device__ __forceinline__ void load_edge(Chunk& c, const T* __restrict__ g,
+                                                   long long t, const Lane& l, long long n) {
+    load_masked(c, g, (t * kEncTileRows + l.sub) * kLanes + l.slot * kEncSpan, n);
+  }
+  template <bool kMasked>
+  static __device__ __forceinline__ void store(const Rule& rule, const Chunk& c,
+                                               uint8_t* __restrict__ out, long long t,
+                                               const Lane& l, long long n,
+                                               uint32_t counter_base) {
+    encode_store<T, Rule, kMasked>(rule, c, out, t, l.sub, l.slot, n, counter_base);
+  }
+};
 
 }  // namespace repro

@@ -18,7 +18,6 @@
 
 namespace repro {
 
-constexpr int kLanes = 512;        // coordinates of a canonical row
 constexpr int kRowBytes = 128;     // packed bytes of a row
 constexpr int kThreadsPerRow = kRowBytes / 4;
 

@@ -3,85 +3,259 @@
 // Replaces: src/repro/kernels/pack8/kernel.py:91 (qsgd8_pack8_2d) and
 // src/repro/kernels/pack8/kernel.py:111 (unpack8_sum_2d), Pallas TPU.
 //
-//   qsgd8_pack8: r     = |g[c]| / max(param, 1e-20)           (correctly rounded)
+//   qsgd8_pack8: r     = |g[c]| / pm, pm = max(param, 1e-20)  (correctly rounded)
 //                level = min(floor(r) + [u(seed, counter_base + c) < r - floor(r)], 127)
 //                out   = int8(sign(g[c]) * level)  over the canonical (rows, 512)
 //                        view, rows = canonical_rows(n); coordinates past n are 0
 //   unpack8_sum: out[c] = (((0 + l_0[c] s_0) + l_1[c] s_1) + ...) + l_{M-1}[c] s_{M-1}
 //
-// with u the counter-hash uniform of repro.core.prng, regenerated in
+// with u = k 2^-24 the counter-hash uniform of repro.core.prng, regenerated in
 // registers; max and min propagate NaN as jnp's do, and a NaN level (a NaN
 // gradient or scale) quantizes to 0, as XLA's float -> int8 convert gives it.
-// The division is __fdiv_rn (never an approximate divide); the decode's
-// products and sums are __fmul_rn and __fadd_rn, each rounded on its own, so
-// no multiply-add contraction moves the sum off the decoded-psum wire, which
-// materializes (rounds) every product before its worker-order sum. The sum
-// starts at +0.0, as the plain version and the TPU kernel's accumulator do.
+// The decode's products and sums are __fmul_rn and __fadd_rn, each rounded on
+// its own, so no multiply-add contraction moves the sum off the decoded-psum
+// wire, which materializes (rounds) every product before its worker-order
+// sum. The sum starts at +0.0, as the plain version and the TPU kernel's
+// accumulator do.
 //
 // Bound on an H100 (3.35 TB/s): bytes. qsgd8_pack8 reads the gradient once
 // and writes a byte: 3 B/coord in bf16, 5 in f32; its 27 operations a
-// coordinate (chip_smoke.py's QSGD8_OPS_PER_COORD: the uniform's 13, the
-// division, floor, compare, clip, sign) take under half that time at the
-// float32 rate. unpack8_sum reads one byte per worker and writes 4:
-// (M + 4) B/coord; 3 operations per worker (convert, multiply, add).
+// coordinate (chip_smoke.py's QSGD8_OPS_PER_COORD) take under half that time
+// at the float32 rate, but at the issue rate measured for the fused 2-bit
+// encoders (23.6 us at w_down per SASS instruction a coordinate, PERF.md)
+// the bf16 byte bound leaves about 27 instructions a coordinate. unpack8_sum
+// reads one byte per worker and writes 4: (M + 4) B/coord; 3 operations per
+// worker.
 //
-// Design: flat elementwise passes, 16 coordinates a thread. qsgd8_pack8
-// loads them as four 4-wide vectors (16 B in f32, 8 B in bf16) and stores 16
-// int8 levels as one 16-byte vector. unpack8_sum streams the M messages in
-// worker order, one 16-byte load of each, with 16 float accumulators in
-// registers, and stores four 16-byte vectors: no scratch that grows with M.
-// Offsets are 64-bit: M x rows x 512 passes 2^31 at the trainer's shapes.
-#include "common.cuh"
+// qsgd8_pack8's design: encode_tiles.cuh's frame (the 2-bit encoders'), a
+// thread owning two runs of 16 consecutive coordinates of a 8192-coordinate
+// tile, 16-byte loads, each run's levels stored as one 16-byte vector; 3
+// blocks an SM in bf16 (80 registers), 2 in float32 (127). On the H100 at
+// w_down (PERF.md) this took bf16 from 1.497 to 0.736-0.753 ms, 86 %
+// of the byte bound, at 23.5 SASS instructions a coordinate, so neither the
+// issue rate (about 0.55 ms) nor the bytes alone bound it; 4 blocks an SM,
+// runs of 8 with 8-byte stores, streaming (.cs) loads and stores, and one
+// fma correction instead of two were each as fast or slower. The level is
+// computed so (tests/test_torch_pack8_encode.py holds each step on the CPU,
+// chip_smoke.py the kernel on the card, bit for bit):
+//  1. In integers. k < ceil(f 2^24) <=> u < f, and r 2^24 is exact, so with
+//     C = ceil(r 2^24) = floor(r) 2^24 + ceil(frac 2^24), the sum
+//     min(C, 127 2^24) + 2^24 - 1 - k carries into bit 24 exactly when
+//     u < frac: its top byte is the level, for every r >= 0, r >= 127 and inf
+//     giving 127. C is one cvt.rpi.u32, which saturates and takes NaN to 0,
+//     so NaN needs no test; 2^24 - 1 - k is the hash's top 24 bits
+//     complemented (common.cuh uniform_complement); byte permutes collect
+//     four top bytes into a word.
+//  2. The sign, four bytes at once: a negative byte is (0x80 - L) ^ 0x80, a
+//     positive one 0x7F - (L ^ 0x7F) = L. No byte borrows, and L = 0 stays 0
+//     (-0.0, and NaN of either sign).
+//  3. The division, for 1e-20 <= pm < 2 (tested once a message; a larger,
+//     inf or NaN pm takes __fdiv_rn per coordinate, then r 2^24). With
+//     d = pm 2^-24 (exact, >= 2^-91), y = RN(1/d) (__frcp_rn, once a block)
+//     and a = min(|g|, 128 pm) (min.NaN keeps NaN; 128 pm is exact, and
+//     a / pm >= 128 gives 127 either way), three fmas after a multiply give
+//     Q = RN(a / d) = 2^24 RN(a / pm):
+//         q0 = RN(a y), q1 = RN(q0 + RN(a - q0 d) y), Q = RN(q1 + (a - q1 d) y).
+//     Why, with z = a / d <= 2^31, U = ulp(z), B < 2^24 d's significand as an
+//     integer, so that d |y - 1/d| <= B 2^-48 < 2^-24:
+//     - z >= 2^-11. q0 is within 1.5 U, so q1 is within U/2 + 3 U 2^-24 (the
+//       first remainder rounds at most once), hence within 1 U, and a - q1 d
+//       is exact (Markstein's lemma; z >= 2^-11 and d >= 2^-91 keep it on or
+//       above the subnormal grid). z = A 2^i / (B 2^j) with 24-bit A is never
+//       a midpoint: it differs from the nearest one by m >= U / (2 B). Then
+//       |z - q1| <= U/2 + m, and q1 + (a - q1 d) y = z + (z - q1) d (y - 1/d)
+//       is within (U/2 + m) B 2^-48 < m of z, as B (B + 1) < 2^48: on z's side
+//       of every midpoint, so Q = RN(z) (Markstein's theorem). RN(a / pm) is
+//       normal there, where scaling by 2^24 commutes with rounding.
+//     - z < 2^-11. Then C = 1 exactly when a > 0 (pm < 2 keeps a / pm above
+//       2^-150 for a >= 2^-149). y > 2^23 keeps q0 normal, and each step moves
+//       the value by less than 2^-22 of itself (a rounded remainder is off by
+//       at most its own size), so 0 < Q < 1 for a > 0, and Q = 0 for a = 0.
+//     This spends a multiply, four fmas and a min a coordinate where __fdiv_rn
+//     spent a reciprocal on the special-function unit, five fmas, a range
+//     check and a branch.
+//
+// unpack8_sum's design: a flat elementwise pass, 16 coordinates a thread; it
+// streams the M messages in worker order, one 16-byte load of each, with 16
+// float accumulators in registers, and stores four 16-byte vectors: no
+// scratch that grows with M. Offsets are 64-bit: M x rows x 512 passes 2^31
+// at the trainer's shapes.
+#include <type_traits>
+
+#include "encode_tiles.cuh"
 
 namespace {
 
 using namespace repro;
 
-constexpr int kPer = 16;            // coordinates a thread
-constexpr float kLevels = 127.0f;   // QSGD8_LEVELS
+constexpr int kPer = 16;                   // unpack8_sum: coordinates a thread
+constexpr uint32_t kTop = 127u << 24;      // the clip at QSGD8_LEVELS = 127, times 2^24
+constexpr float kTwo24 = 16777216.0f;
 
-// jnp.maximum / jnp.minimum: a NaN operand gives NaN (fmaxf and fminf would
-// return the other operand)
+// jnp.maximum: a NaN operand gives NaN (fmaxf would return the other operand)
 __device__ __forceinline__ float nan_max(float a, float b) { return isnan(a) ? a : fmaxf(a, b); }
-__device__ __forceinline__ float nan_min(float a, float b) { return isnan(a) ? a : fminf(a, b); }
 
-__device__ __forceinline__ int8_t qsgd8_level(float x, float param, uint32_t seed_hash,
-                                              uint32_t counter) {
-  const float r = __fdiv_rn(fabsf(x), nan_max(param, 1e-20f));
-  const float l = floorf(r);
-  const float u = uniform01(seed_hash, counter);
-  const float up = (u < __fsub_rn(r, l)) ? 1.0f : 0.0f;
-  const float level = nan_min(__fadd_rn(l, up), kLevels);
-  const float s = __fmul_rn(jnp_sign(x), level);
-  if (isnan(s)) return 0;
-  return static_cast<int8_t>(static_cast<int>(s));
+// min that keeps a NaN operand (PTX min.NaN)
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
+// A message's constants, built once a block.
+struct Qsgd8State {
+  uint32_t folded;   // fold_hash of the stream's seed hash
+  float pm;          // max(param, 1e-20), NaN kept
+  float d, y, cap;   // the hoisted division's pm 2^-24, RN(1 / d) and 128 pm
+  bool hoisted;      // 1e-20 <= pm < 2
+  static __device__ Qsgd8State make(uint32_t seed, float param) {
+    const float pm = nan_max(param, 1e-20f);
+    const float d = __fmul_rn(pm, 1.0f / kTwo24);
+    return {fold_hash(mix32(seed + RNG_GOLDEN)), pm, d, __frcp_rn(d), __fmul_rn(pm, 128.0f),
+            pm < 2.0f};
+  }
+};
+
+// min(ceil(2^24 r), 127 2^24) for r = |x| / pm (header, steps 1 and 3)
+template <bool kHoisted>
+__device__ __forceinline__ uint32_t scaled_ceil(const Qsgd8State& s, float x) {
+  float q;
+  if constexpr (kHoisted) {
+    const float a = min_nan(fabsf(x), s.cap);
+    const float q0 = __fmul_rn(a, s.y);
+    const float q1 = __fmaf_rn(__fmaf_rn(-q0, s.d, a), s.y, q0);
+    q = __fmaf_rn(__fmaf_rn(-q1, s.d, a), s.y, q1);
+  } else {
+    q = __fmul_rn(__fdiv_rn(fabsf(x), s.pm), kTwo24);
+  }
+  return min(__float2uint_ru(q), kTop);
+}
+
+// byte i: level byte i of lv (0..127), negated where byte i of neg is 0xFF
+__device__ __forceinline__ uint32_t signed_levels(uint32_t lv, uint32_t neg) {
+  return ((0x7F7F7F7Fu ^ neg) - (lv ^ (~neg & 0x7F7F7F7Fu))) ^ (neg & 0x80808080u);
+}
+
+// The qsgd8 encoder for encode_tiles.cuh's walker: thread x of a tile owns
+// the runs of kRun coordinates at x kRun and kRunStride + x kRun.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-qsgd8_pack8_kernel(const T* __restrict__ g, int8_t* __restrict__ out,
-                   const long long* __restrict__ seed, const float* __restrict__ param,
-                   long long n, long long total, uint32_t counter_base, bool vec_ok) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long i0 = t * kPer;
-  if (i0 >= total) return;
-  const uint32_t seed_hash = mix32(static_cast<uint32_t>(seed[0]) + RNG_GOLDEN);
-  const float prm = param[0];
-  Vec<int8_t, kPer> o;
+struct Qsgd8Encoder {
+  using In = T;
+  using State = Qsgd8State;
+  static constexpr int kRun = 16;                       // one 16-byte store of levels
+  static constexpr int kRuns = 2;
+  static constexpr int kRunStride = kThreads * kRun;    // a block's run: 4096 coordinates
+  static constexpr long long kTileCoords = static_cast<long long>(kRunStride) * kRuns;
+  static constexpr int kTileRows = static_cast<int>(kTileCoords / kLanes);
+  static constexpr int kOutAlign = kRun;
+  static constexpr int kMinBlocks = sizeof(T) == 2 ? 3 : 2;   // 85 or 128 registers
+  static constexpr int kWords = kRun * static_cast<int>(sizeof(T)) / 4;
+  struct Chunk {
+    uint32_t w[kRuns][kWords];
+  };
+  struct Lane {
+    long long off;
+  };
+
+  static __device__ __forceinline__ Lane lane() {
+    return {static_cast<long long>(threadIdx.x) * kRun};
+  }
+
+  static __device__ __forceinline__ void load_full(Chunk& c, const T* __restrict__ g,
+                                                   long long i) {
+    constexpr int kPerVec = 16 / static_cast<int>(sizeof(T));
 #pragma unroll
-  for (int k = 0; k < kPer / 4; ++k) {
-    const long long i = i0 + 4 * k;
-    const Vec<T, 4> gv = load_vec<T, 4>(g, i, n, vec_ok);
+    for (int j = 0; j < kRuns; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const long long pos = i + e;
-      o.v[4 * k + e] = pos < n ? qsgd8_level(to_f32<T>(gv.v[e]), prm, seed_hash,
-                                             counter_base + static_cast<uint32_t>(pos))
-                               : int8_t(0);
+      for (int v = 0; v < kWords / 4; ++v) {
+        const uint4 q =
+            __ldg(reinterpret_cast<const uint4*>(g + i + j * kRunStride + v * kPerVec));
+        c.w[j][4 * v] = q.x;
+        c.w[j][4 * v + 1] = q.y;
+        c.w[j][4 * v + 2] = q.z;
+        c.w[j][4 * v + 3] = q.w;
+      }
+  }
+
+  // element by element, values at or past n read as 0 (any alignment); a
+  // zero encodes as level 0, so the pad needs no test of its own
+  static __device__ __forceinline__ void load_edge(Chunk& c, const T* __restrict__ g,
+                                                   long long t, const Lane& l, long long n) {
+    using Raw = std::conditional_t<sizeof(T) == 2, uint16_t, uint32_t>;
+    const Raw* p = reinterpret_cast<const Raw*>(g);
+    const long long i = t * kTileCoords + l.off;
+#pragma unroll
+    for (int j = 0; j < kRuns; ++j)
+#pragma unroll
+      for (int e = 0; e < kRun; ++e) {
+        const long long pos = i + j * kRunStride + e;
+        const uint32_t v = pos < n ? static_cast<uint32_t>(p[pos]) : 0u;
+        if constexpr (sizeof(T) == 2) {
+          if (e & 1) c.w[j][e >> 1] |= v << 16; else c.w[j][e >> 1] = v;
+        } else {
+          c.w[j][e] = v;
+        }
+      }
+  }
+
+  static __device__ __forceinline__ float value(const Chunk& c, int j, int e) {
+    if constexpr (sizeof(T) == 2) {  // bf16 -> f32 is the 16 bits moved up
+      const uint32_t v = c.w[j][e >> 1];
+      return __uint_as_float((e & 1) ? (v & 0xFFFF0000u) : (v << 16));
+    } else {
+      return __uint_as_float(c.w[j][e]);
     }
   }
-  *reinterpret_cast<Vec<int8_t, kPer>*>(out + i0) = o;
-}
+
+  // byte i: 0xFF if coordinate 4 q + i of run j has its sign bit set, else 0
+  static __device__ __forceinline__ uint32_t neg_bytes(const Chunk& c, int j, int q) {
+    if constexpr (sizeof(T) == 2) {
+      return prmt(c.w[j][2 * q], c.w[j][2 * q + 1], 0xFDB9u);
+    } else {
+      return sign_bytes(c.w[j][4 * q], c.w[j][4 * q + 1], c.w[j][4 * q + 2], c.w[j][4 * q + 3]);
+    }
+  }
+
+  // i: the flat index of the thread's first coordinate; a0: its counter
+  // times RNG_GOLDEN
+  template <bool kHoisted>
+  static __device__ __forceinline__ void encode(const State& s, const Chunk& c,
+                                                uint8_t* __restrict__ out, long long i,
+                                                uint32_t a0) {
+#pragma unroll
+    for (int j = 0; j < kRuns; ++j) {
+      Vec<uint32_t, kRun / 4> o;
+#pragma unroll
+      for (int q = 0; q < kRun / 4; ++q) {
+        uint32_t top[4];   // level in the top byte (header, step 1)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int e = 4 * q + b;
+          const uint32_t a = a0 + static_cast<uint32_t>(j * kRunStride + e) * RNG_GOLDEN;
+          top[b] = scaled_ceil<kHoisted>(s, value(c, j, e)) + uniform_complement(s.folded, a);
+        }
+        const uint32_t lv = prmt(prmt(top[0], top[1], 0x0073u), prmt(top[2], top[3], 0x0073u),
+                                 0x5410u);
+        o.v[q] = signed_levels(lv, neg_bytes(c, j, q));
+      }
+      *reinterpret_cast<Vec<uint32_t, kRun / 4>*>(out + i + j * kRunStride) = o;
+    }
+  }
+
+  // kMasked is not needed: load_edge's zeros encode as 0
+  template <bool kMasked>
+  static __device__ __forceinline__ void store(const State& s, const Chunk& c,
+                                               uint8_t* __restrict__ out, long long t,
+                                               const Lane& l, long long, uint32_t counter_base) {
+    const long long i = t * kTileCoords + l.off;
+    const uint32_t a0 = (counter_base + static_cast<uint32_t>(i)) * RNG_GOLDEN;
+    if (s.hoisted) {
+      encode<true>(s, c, out, i, a0);
+    } else {
+      encode<false>(s, c, out, i, a0);
+    }
+  }
+};
 
 __global__ void __launch_bounds__(kThreads)
 unpack8_sum_kernel(const int8_t* __restrict__ levels, const float* __restrict__ scales,
@@ -109,19 +283,6 @@ unpack8_sum_kernel(const int8_t* __restrict__ levels, const float* __restrict__ 
   }
 }
 
-template <typename T>
-int launch_pack(const void* g, void* out, const void* seed, const void* param, long long n,
-                long long rows, unsigned int counter_base, cudaStream_t stream) {
-  if (!aligned(out, 16)) return static_cast<int>(cudaErrorMisalignedAddress);
-  const long long total = rows * 512;
-  const bool vec_ok = aligned(g, sizeof(T) * 4);
-  qsgd8_pack8_kernel<T><<<grid_for(total, kPer), kThreads, 0, stream>>>(
-      static_cast<const T*>(g), static_cast<int8_t*>(out),
-      static_cast<const long long*>(seed), static_cast<const float*>(param), n, total,
-      counter_base, vec_ok);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. g: n contiguous values; out: int8[rows, 512],
@@ -132,9 +293,11 @@ extern "C" int qsgd8_pack8_launch(const void* g, void* out, const void* seed,
                                   unsigned int counter_base, int dtype, void* stream) {
   if (rows <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_pack<float>(g, out, seed, param, n, rows, counter_base, s);
+  if (dtype == 0)
+    return launch_encode<Qsgd8Encoder<float>>(g, out, seed, param, n, rows, counter_base, s);
   if (dtype == 1)
-    return launch_pack<__nv_bfloat16>(g, out, seed, param, n, rows, counter_base, s);
+    return launch_encode<Qsgd8Encoder<__nv_bfloat16>>(g, out, seed, param, n, rows,
+                                                      counter_base, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

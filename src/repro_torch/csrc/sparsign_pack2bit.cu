@@ -33,9 +33,10 @@ extern "C" int sparsign_pack2bit_launch(const void* g, void* out, const void* se
   if (rows <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_encode<float, SparsignRule>(g, out, seed, budget, n, rows, counter_base, s);
+    return launch_encode<Pack2Encoder<float, SparsignRule>>(g, out, seed, budget, n, rows,
+                                                            counter_base, s);
   if (dtype == 1)
-    return launch_encode<__nv_bfloat16, SparsignRule>(g, out, seed, budget, n, rows,
-                                                      counter_base, s);
+    return launch_encode<Pack2Encoder<__nv_bfloat16, SparsignRule>>(g, out, seed, budget, n,
+                                                                    rows, counter_base, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

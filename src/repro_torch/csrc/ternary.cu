@@ -125,14 +125,17 @@ int launch_pack_rule(int rule, const void* g, void* out, const void* seed, const
                      long long n, long long rows, unsigned int counter_base, cudaStream_t s) {
   switch (rule) {
     case SPARSIGN:
-      return launch_encode<T, SparsignRule>(g, out, seed, param, n, rows, counter_base, s);
+      return launch_encode<Pack2Encoder<T, SparsignRule>>(g, out, seed, param, n, rows,
+                                                          counter_base, s);
     case SIGN:
-      return launch_encode<T, SignRule>(g, out, seed, param, n, rows, counter_base, s);
-    case NOISY_SIGN:
-      return launch_encode<T, NoisySignRule>(g, out, seed, param, n, rows, counter_base, s);
-    case STOCHASTIC_TERNARY:
-      return launch_encode<T, StochasticTernaryRule>(g, out, seed, param, n, rows,
+      return launch_encode<Pack2Encoder<T, SignRule>>(g, out, seed, param, n, rows,
                                                       counter_base, s);
+    case NOISY_SIGN:
+      return launch_encode<Pack2Encoder<T, NoisySignRule>>(g, out, seed, param, n, rows,
+                                                           counter_base, s);
+    case STOCHASTIC_TERNARY:
+      return launch_encode<Pack2Encoder<T, StochasticTernaryRule>>(g, out, seed, param, n, rows,
+                                                                   counter_base, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

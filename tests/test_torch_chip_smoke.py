@@ -82,13 +82,49 @@ def test_sass_loops_counts_each_loop_body():
     assert loops[0]["by_opcode"] == {"SHF": 1, "LOP3": 1, "IMAD": 1, "BRA": 1}
 
 
+def test_sass_loops_straight_path_skips_the_other_body():
+    """A loop that holds two bodies behind a branch on a uniform flag: the
+    straight path falls through the predicated branch into the first body,
+    jumps over the second with the unconditional branch, and ends at the
+    backward branch."""
+    listing = """
+        Function : _Z6kernelPf
+        /*0000*/                   MOV R1, R2 ;
+        /*0010*/                   IADD3 R2, R2, 0x1, RZ ;
+        /*0020*/              @!P0 BRA 0x60 ;
+        /*0030*/                   FFMA R3, R3, R4, R5 ;
+        /*0040*/                   FFMA R3, R3, R4, R5 ;
+        /*0050*/                   BRA 0x90 ;
+        /*0060*/                   MUFU.RCP R6, R4 ;
+        /*0070*/                   FCHK P1, R3, R4 ;
+        /*0080*/                   FFMA R3, R6, R3, RZ ;
+        /*0090*/                   STG.E [R8], R3 ;
+        /*00a0*/               @P2 BRA 0x10 ;
+        /*00b0*/                   EXIT ;
+"""
+    loop = _chip_smoke().sass_loops(listing)["_Z6kernelPf"]["loops"][0]
+    assert loop["instructions"] == 10
+    assert loop["straight"] == 7
+    assert loop["straight_by_opcode"] == {"FFMA": 2, "BRA": 3, "IADD3": 1, "STG": 1}
+
+
 def test_pack2_owner_tells_the_two_encoders_apart():
-    """Both fused 2-bit encoders launch pack2_encode.cuh's encode_kernel; a
+    """Both fused 2-bit encoders launch encode_tiles.cuh's encode_kernel; a
     trace attributes the sparsign rule to sparsign_pack2bit and the others
     to ternary_pack2bit."""
-    owner = _chip_smoke().pack2_owner
-    assert owner("void repro::encode_kernel<__nv_bfloat16, repro::SparsignRule>(const T1 *)") \
-        == "sparsign_pack2bit"
-    assert owner("void repro::encode_kernel<float, repro::NoisySignRule>(const T1 *)") \
-        == "ternary_pack2bit"
+    owner = _chip_smoke().encoder_owner
+    assert owner("void repro::encode_kernel<repro::Pack2Encoder<__nv_bfloat16, "
+                 "repro::SparsignRule>>(const T1::In *)") == "sparsign_pack2bit"
+    assert owner("void repro::encode_kernel<repro::Pack2Encoder<float, "
+                 "repro::NoisySignRule>>(const T1::In *)") == "ternary_pack2bit"
     assert owner("void (anonymous namespace)::ternary_kernel<float, 4, 1>(const T1 *)") is None
+
+
+@pytest.mark.parametrize("dtype", ["float", "__nv_bfloat16"])
+def test_encoder_owner_tells_qsgd8_from_the_2bit_encoders(dtype):
+    """qsgd8_pack8 launches the same walker with its own encoder type: its
+    time is its own, not ternary_pack2bit's; unpack8_sum keeps its name."""
+    owner = _chip_smoke().encoder_owner
+    assert owner(f"void repro::encode_kernel<(anonymous namespace)::Qsgd8Encoder<{dtype}>>"
+                 f"(const T1::In *)") == "qsgd8_pack8"
+    assert owner("void (anonymous namespace)::unpack8_sum_kernel(const signed char *)") is None

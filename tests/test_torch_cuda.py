@@ -313,7 +313,8 @@ def test_golomb_trainer_step_on_card_matches_plain_versions(cuda_device, elastic
 def test_pack_unpack_and_pack8_kernels_match_plain_versions_on_card(cuda_device):
     """pack2bit and unpack2bit (ternary and arbitrary int8 bytes, odd sizes),
     qsgd8_pack8 (f32 and bf16, +-0/NaN/+-inf, a counter base near 2^32, a
-    zero and a NaN scale) and unpack8_sum (M = 1, 4, 20; zero scales with negative
+    zero and a NaN scale; every bf16 bit pattern at five scales, sizes about
+    a tile, off 16-byte alignment) and unpack8_sum (M = 1, 4, 20; zero scales with negative
     levels) against their plain versions on the card, bit for bit."""
     rng = np.random.RandomState(9)
     for n in (1, 4099, 70001):
@@ -330,6 +331,20 @@ def test_pack_unpack_and_pack8_kernels_match_plain_versions_on_card(cuda_device)
                 np.testing.assert_array_equal(
                     tbits(qsgd8_pack8_op(g, scale, 0xFFFFFFFF, 2**32 - 9)),
                     tbits(qsgd8_pack8_ref(g, scale, 0xFFFFFFFF, 2**32 - 9)))
+    # qsgd8_pack8's edges (csrc/pack8.cu): every bf16 bit pattern on the
+    # hoisted division (scales 1e-20, 0.01, 2 - 2^-23) and on __fdiv_rn (3, NaN);
+    # sizes about a tile, a gradient off 16-byte alignment, a counter wrapping
+    every_bf16 = torch.arange(-2**15, 2**15, dtype=torch.int16,
+                              device=cuda_device).view(torch.bfloat16)
+    for scale in (1e-20, 0.01, 2.0 - 2.0**-23, 3.0, float("nan")):
+        np.testing.assert_array_equal(tbits(qsgd8_pack8_op(every_bf16, scale, 7, 2**32 - 7)),
+                                      tbits(qsgd8_pack8_ref(every_bf16, scale, 7, 2**32 - 7)))
+    for n in (511, 8193):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.from_numpy(grad_like(n + 1, n)).to(cuda_device, dtype)
+            for x in (g[1:].clone(), g[1:]):
+                np.testing.assert_array_equal(tbits(qsgd8_pack8_op(x, 0.01, 5, 2**32 - 7)),
+                                              tbits(qsgd8_pack8_ref(x, 0.01, 5, 2**32 - 7)))
     for m in (1, 4, 20):
         lv = torch.randint(-127, 128, (m, 96, 512), device=cuda_device, dtype=torch.int8)
         sc = torch.rand(m, device=cuda_device) * 0.1
