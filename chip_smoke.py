@@ -57,24 +57,37 @@ the first, in order; any failure exits non-zero before the last line:
      fractional weights, and embedding-shaped messages with saturated rows;
      timed against their bounds; then engine.compress_leaf's two-pass chain
      (sparsign, golomb_pack), counted;
-  7. the data-parallel LM trainer: qwen1.5-4b at full width through
+  7. the ring gather (phase_ring), at w_down with M = 4 real encoder
+     messages (sparsign_pack2bit, sparsign_golomb at p = 0.05, qsgd8_pack8):
+     per leaf at 256 and 8,192 rows a chunk against the monolithic gather,
+     pack2 and golomb bit for bit, plain and weighted (1.5, 0.5, 2, 1), pack8
+     bit for bit against the plain version's sum in the ring's order (0, 3,
+     2, 1) and within pack8_ring_bound of the monolithic sum (the count of
+     coordinates that differ printed); one bucket of the first block's 12
+     leaves against the per-leaf exchanges on each wire, monolithic and
+     ringed; launches counted (chunks x M decodes), exchanges timed on the
+     host clock, each chunk's M = 1 decode and its add timed alone; then
+     the data-parallel LM trainer: qwen1.5-4b at full width through
      repro_torch.launch.train's build path, M = 4 workers on the card, one
      sequence of 4096 tokens each (train_4k's length; the global batch cut
-     from 256 to 4), 2 steps each of sparsign/majority vote on the
+     from 256 to 4), 2 steps a run: sparsign/majority vote on the
      allgather_packed, psum and hier (2 x 2) wires (parameters bitwise equal
-     across the three), of sparsign/scaled_sign_ef, of sign, noisy_sign and
-     TernGrad on allgather_packed and of the elastic vote (weights, dropout
-     0.25); 3 steps each of sparsign_golomb with a target_sparsity budget of
-     0.05 on the golomb wire, plain and elastic, and of sparsign with the
-     same budget on the 2-bit wire (parameters bitwise equal to the golomb
-     run's, which drops no nonzero); per step loss, nnz, dropped, wire
-     bytes (== the uplink ledger), host seconds and peak memory; launch
-     counts checked with every plain version barred from running; one step
-     each of the packed and the golomb run traced with torch.profiler; the
-     target_sparsity bisection timed on its own; then qsgd8 with the mean
-     server, 3 steps each on the pack8 wire (allgather_packed), on the
-     decoded psum (parameters bitwise equal to the pack8 run's) and on the
-     elastic pack8 wire;
+     across the three), sparsign/scaled_sign_ef, sign, noisy_sign and
+     TernGrad on allgather_packed, the elastic vote (weights, dropout 0.25);
+     sparsign_golomb with a target_sparsity budget of 0.05 on the golomb
+     wire, plain and elastic, and bucketed on the ring at 8,192 rows, and
+     sparsign with the same budget bucketed on the ring of the 2-bit wire
+     (both bitwise equal to the golomb run's parameters, no nonzero
+     dropped); qsgd8 with the mean server on the pack8 wire, on the decoded
+     psum (bitwise equal), on the pack8 ring at 8,192 rows (its difference in
+     ulps and its losses printed beside the pack8 run's) and on the elastic
+     pack8 wire; per step loss, nnz, dropped, wire bytes (== the uplink or
+     bucket-plan ledger), gathered-payload bytes (== the wire's model), host
+     seconds and peak memory (a ring run's beside its monolithic twin's);
+     launch counts checked with every plain version barred from running (a
+     ring run's derived from its plan and chunks); one step each of the
+     packed and the golomb run traced with torch.profiler; the
+     target_sparsity bisection timed on its own;
   8. the stand-alone pack and unpack kernels and the pack8 wire's kernels
      (pack2bit, unpack2bit, qsgd8_pack8, unpack8_sum) against their plain
      versions on the card, bit for bit: w_down's size, odd sizes, arbitrary
@@ -1520,6 +1533,258 @@ def phase_golomb_two_pass(torch, report, totals):
         del SPECS[name]
 
 
+
+RING_ROWS = (256, 8192)      # JAX's default chunk, and the trainer's ring runs'
+RING_WEIGHTS = (1.5, 0.5, 2.0, 1.0)   # dyadic: every order of sums is exact
+RING_ORDER = (0, 3, 2, 1)    # one process of 4 workers: worker 0, then 3, 2, 1
+RING_BUDGET = 0.06           # sparsign at about 4.8 % density on N(0, 1) gradients
+DECODERS = {"pack2": ("unpack2bit_sum", "unpack2bit_wsum"),
+            "golomb": ("ungolomb_sum", "ungolomb_wsum"), "pack8": ("unpack8_sum", None)}
+
+
+def pack8_ring_bound(torch, scales) -> float:
+    """The most two orders of the same M rounded products s_m * l_m (|l_m| <=
+    127) can differ by: each sum of M terms is within gamma_{M-1} * sum |t|
+    of the exact sum (Higham, Accuracy and Stability, 4.2), so two orders
+    differ by at most 2 (M - 1) u / (1 - (M - 1) u) * 127 * sum |s_m|, u =
+    2^-24."""
+    m = scales.numel()
+    u = 2.0 ** -24
+    gamma = (m - 1) * u / (1 - (m - 1) * u)
+    return 2 * gamma * 127 * float(scales.abs().to(torch.float64).sum())
+
+
+def phase_ring(torch, timer, report, dev="cuda", n=N_WDOWN, layer_shapes=None):
+    """The ring gather at w_down (N_WDOWN coordinates, bf16) with M = 4 real
+    encoder messages (sparsign_pack2bit, sparsign_golomb at p = 0.05,
+    qsgd8_pack8), each worker's from its own gradient: per leaf at 256 and
+    8,192 rows against the monolithic gather (pack2 and golomb bit for bit,
+    plain and with dyadic weights; pack8 bit for bit against the plain
+    version's sum in the ring's order and within ``pack8_ring_bound`` of the
+    monolithic sum); one bucket of the first block's leaves against the
+    per-leaf exchanges on each wire, monolithic and ringed; launches counted
+    (chunks x M decodes), exchanges timed (host clock to a sync, the ring's
+    launches bound by the host), and the per-hop work timed alone: one
+    chunk's M = 1 decode and its add into the accumulator. ``dev``, ``n``
+    and ``layer_shapes`` let the phase rehearse on the CPU at a small size."""
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import engine
+    from repro_torch.core.algorithm import CompressionConfig
+    from repro_torch.core.budgets import BudgetConfig
+    from repro_torch.core.compressors import tree_leaves
+    from repro_torch.dist import bucketing, collectives
+    from repro_torch.kernels.golomb.ops import ungolomb_sum_op, ungolomb_wsum_op
+    from repro_torch.kernels.pack2bit.ops import unpack2bit_sum_op, unpack2bit_wsum_op
+    from repro_torch.kernels.pack8.ops import unpack8_sum_op
+    from repro_torch.kernels.pack8.ref import unpack8_sum_ref
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import Model
+
+    t_phase = time.perf_counter()
+    m = 4
+    group = make_host_mesh(m)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    budget = BudgetConfig(value=RING_BUDGET)
+    comps = {"pack2": CompressionConfig(compressor="sparsign", budget=budget),
+             "golomb": CompressionConfig(compressor="sparsign_golomb", budget=budget),
+             "pack8": CompressionConfig(compressor="qsgd8", server="mean")}
+    weights = torch.tensor(RING_WEIGHTS, dtype=torch.float32, device=dev)
+    out = {"n": n, "per_leaf": [], "per_hop": [], "bucket": []}
+
+    def wire(fmt, ring=None, elastic=False):
+        part = collectives.ParticipationSpec(weights=RING_WEIGHTS) if elastic else None
+        return collectives.make_vote_wire(
+            "allgather_packed", group, wire_format=fmt, ring_chunk_rows=ring,
+            golomb_p=GOLOMB_P if fmt == "golomb" else None, participation=part)
+
+    def encode(shapes, seed):
+        """{fmt: ([per shape: [M messages]], [per shape: (M,) scales])}, each
+        worker's gradient N(0, 1) in bf16, drawn once for the three wires."""
+        msgs = {f: [[None] * m for _ in shapes] for f in comps}
+        scales = {f: [[None] * m for _ in shapes] for f in comps}
+        for k, shape in enumerate(shapes):
+            for j in range(m):
+                g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                for f, comp in comps.items():
+                    c = engine.compress_leaf(g, comp, seed + 97 * k + j, wire=wire(f))
+                    msgs[f][k][j], scales[f][k][j] = c.values, c.scale.reshape(())
+                del g
+        return msgs, {f: [torch.stack(s) for s in v] for f, v in scales.items()}
+
+    def exchange(wr, values, size, sc, elastic):
+        if elastic:
+            return wr.exchange_weighted(values, size, (size,), weight=weights, scale=sc)[0]
+        return wr.exchange(values, size, (size,), scale=sc)
+
+    def counted(fn, decoder, want, label):
+        kernels.reset_launch_counts()
+        res = fn()
+        sync(torch)
+        got = kernels.launch_counts()[decoder]
+        check(got == want, f"ring {label}: {decoder} launched {got} times, expected {want}")
+        return res
+
+    def time_host(fn, reps=2):
+        """Host ms of calls ending in a sync: the ring's launches are host-bound."""
+        ts = []
+        for _ in range(reps):
+            sync(torch)
+            t0 = time.perf_counter()
+            fn()
+            sync(torch)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    # -- per leaf at w_down
+    msgs, scales = encode([(n,)], 1)
+    for fmt in ("pack2", "golomb", "pack8"):
+        values, sc = msgs[fmt][0], scales[fmt][0]
+        wsc = sc if fmt == "pack8" else None
+        for elastic in ((False, True) if fmt != "pack8" else (False,)):
+            decoder = DECODERS[fmt][int(elastic)]
+            stack = torch.stack(values)
+            mono = exchange(wire(fmt, None, elastic), stack, n, wsc, elastic)
+            mono_ms = time_host(lambda: exchange(wire(fmt, None, elastic), stack, n, wsc,
+                                                 elastic))
+            del stack
+            if fmt == "pack8":   # the plain version's sums in the ring's order
+                want = None
+                for k in RING_ORDER:
+                    d = unpack8_sum_ref(values[k][None], sc[k:k + 1]).reshape(-1)[:n]
+                    want = d if want is None else want + d
+                    del d
+                pbound = pack8_ring_bound(torch, sc)
+            for rows in RING_ROWS:
+                wr = wire(fmt, rows, elastic)
+                chunks = wr.ring_chunks(n)
+                got = counted(lambda: exchange(wr, values, n, wsc, elastic), decoder,
+                              chunks * m, f"{fmt} n={n} rows={rows}")
+                line = {"wire": fmt, "elastic": elastic, "rows": rows, "chunks": chunks,
+                        "launches": chunks * m, "mono_ms": mono_ms}
+                if fmt == "pack8":
+                    check(same_bits(got, want), f"pack8 ring rows={rows} differs from the "
+                                                f"plain sum in the ring's order")
+                    diff = (got.to(torch.float64) - mono.to(torch.float64)).abs()
+                    line.update(differ=int((bits(got) != bits(mono)).sum()),
+                                max_abs_diff=float(diff.max()), bound=pbound)
+                    check(line["max_abs_diff"] <= pbound,
+                          f"pack8 ring rows={rows}: {line['max_abs_diff']} from the monolithic "
+                          f"sum, beyond the bound {pbound}")
+                    del diff
+                else:
+                    check(same_bits(got, mono), f"{fmt} ring rows={rows} elastic={elastic} "
+                                                f"differs from the monolithic gather")
+                del got
+                # one timed call at 256 rows (the phase's time), two at 8,192
+                line["ring_ms"] = time_host(lambda: exchange(wr, values, n, wsc, elastic),
+                                            reps=1 if rows == RING_ROWS[0] else 2)
+                out["per_leaf"].append(line)
+                extra = (f"; {line['differ']} of {n} coordinates differ from the monolithic "
+                         f"sum, at most {line['max_abs_diff']:.3e} (bound {pbound:.3e})"
+                         if fmt == "pack8" else ", bitwise the monolithic gather")
+                print(f"[ring] {fmt}{' weighted' if elastic else ''} w_down rows={rows}: "
+                      f"{chunks} chunks, {chunks * m} {decoder} launches, ring "
+                      f"{line['ring_ms']:.1f} ms, monolithic {mono_ms:.1f} ms (host to a "
+                      f"sync){extra}")
+            del mono
+        # the per-hop work alone (device time): one chunk's M = 1 decode, then
+        # its add into the accumulator
+        for rows in ((None,) if fmt == "golomb" else RING_ROWS):
+            # a golomb leaf rides the ring as one chunk: its whole message
+            nr = values[0].shape[0] if rows is None else min(rows, values[0].shape[0])
+            size = n if rows is None else nr * 512
+            one = values[0][:nr]
+            calls = {"pack2": [("unpack2bit_sum", lambda: unpack2bit_sum_op(one[None], size,
+                                                                            (size,))),
+                               ("unpack2bit_wsum", lambda: unpack2bit_wsum_op(
+                                   one[None], weights[:1], size, (size,)))],
+                     "golomb": [("ungolomb_sum", lambda: ungolomb_sum_op(
+                                    one[None], size, (size,), p=GOLOMB_P)),
+                                ("ungolomb_wsum", lambda: ungolomb_wsum_op(
+                                    one[None], weights[:1], size, (size,), p=GOLOMB_P))],
+                     "pack8": [("unpack8_sum", lambda: unpack8_sum_op(one[None], sc[:1], size,
+                                                                      (size,)))]}[fmt]
+            # the ring's add reads two tensors, the accumulator and the decode
+            acc = {dt: (torch.zeros(size, dtype=getattr(torch, dt), device=dev),
+                        torch.ones(size, dtype=getattr(torch, dt), device=dev))
+                   for dt in ("int32", "float32")}
+            adds = {dt: (lambda a=a, d=d: a + d) for dt, (a, d) in acc.items()}
+            for name, fn in calls:
+                add = "int32" if name in ("unpack2bit_sum", "ungolomb_sum") else "float32"
+                t_dec, t_add = timer(fn), timer(adds[add])
+                # bounds: the message read and the sums written; two reads and a write
+                b_dec = bound(one.numel() * one.element_size() + 4 * size, 0)[0]
+                b_add = bound(3 * 4 * size, 0)[0]
+                out["per_hop"].append({"kernel": name, "rows": rows, "coords": size,
+                                       "decode_ms": t_dec["ms"], "decode_bound_ms": b_dec,
+                                       "add_ms": t_add["ms"], "add_bound_ms": b_add,
+                                       "add_dtype": add})
+                what = "a whole message" if rows is None else f"a chunk of {rows} rows"
+                print(f"[ring] per hop, {name} M = 1 on {size} coordinates ({fmt}, {what}): "
+                      f"decode {t_dec['ms']:.4f} ms (bound {b_dec:.4f}), {add} add into the "
+                      f"accumulator {t_add['ms']:.4f} ms (bound {b_add:.4f})")
+            del acc, adds
+    del msgs, scales
+
+    # -- one bucket of the first block's leaves, each wire, against the
+    # per-leaf exchanges (monolithic, and ringed at 256 rows)
+    if layer_shapes is None:
+        blocks = Model(get_config("qwen1.5-4b", smoke=False)).param_shapes()["blocks"]
+        layer_shapes = [tuple(s.shape[1:]) for s in tree_leaves(blocks)]
+    msgs, scales = encode(layer_shapes, 7)
+    rows = RING_ROWS[0]
+    for fmt in ("pack2", "golomb", "pack8"):
+        mono_w, ring_w = wire(fmt, None), wire(fmt, rows)
+        plan = bucketing.build_bucket_plan(
+            layer_shapes, fmt, rows_fn=mono_w.payload_rows if fmt == "golomb" else None)
+        (b,) = plan.buckets
+        payload = torch.stack([bucketing.assemble_bucket(
+            [bucketing.as_rows(msgs[fmt][s.index][j], fmt, s.rows) for s in b.slots], b, fmt)
+            for j in range(m)])
+        sc = (torch.stack([scales[fmt][s.index] for s in b.slots], dim=1)
+              if fmt == "pack8" else None)
+        if fmt == "pack2":
+            launches = ring_w.bucket_ring_chunks(b) * m
+        elif fmt == "golomb":
+            launches = len(b.slots) * m
+        else:
+            launches = m * sum(len(collectives._chunk_segments(b.slots, r0, nr))
+                               for r0, nr in collectives._ring_chunk_spans(b.rows, rows))
+        decoder = DECODERS[fmt][0]
+        got_mono = counted(lambda: mono_w.exchange_bucket(payload, b, scale=sc), decoder,
+                           1 if fmt == "pack2" else len(b.slots), f"{fmt} bucket monolithic")
+        got_ring = counted(lambda: ring_w.exchange_bucket(payload, b, scale=sc), decoder,
+                           launches, f"{fmt} bucket rows={rows}")
+        ms = {"mono_ms": time_host(lambda: mono_w.exchange_bucket(payload, b, scale=sc)),
+              "ring_ms": time_host(lambda: ring_w.exchange_bucket(payload, b, scale=sc))}
+        for s, a, r in zip(b.slots, got_mono, got_ring):
+            k = s.index
+            wsc = scales[fmt][k] if fmt == "pack8" else None
+            leaf_mono = mono_w.exchange(torch.stack(msgs[fmt][k]), s.size, s.shape, scale=wsc)
+            leaf_ring = ring_w.exchange(msgs[fmt][k], s.size, s.shape, scale=wsc)
+            check(same_bits(a, leaf_mono), f"{fmt} bucket slot {k} differs from the per-leaf "
+                                           f"monolithic exchange")
+            check(same_bits(r, leaf_ring), f"{fmt} bucket ring slot {k} differs from the "
+                                           f"per-leaf ring")
+        out["bucket"].append({"wire": fmt, "slots": len(b.slots), "rows": b.rows,
+                              "coords": sum(s.size for s in b.slots), "ring_rows": rows,
+                              "launches": launches, **ms})
+        print(f"[ring] {fmt} bucket of the first block's {len(b.slots)} leaves ({b.rows} rows): "
+              f"monolithic and ringed ({rows} rows, {launches} {decoder} launches) bitwise the "
+              f"per-leaf exchanges; {ms['mono_ms']:.1f} ms and {ms['ring_ms']:.1f} ms")
+        del payload, got_mono, got_ring
+    del msgs, scales
+    out["seconds"] = time.perf_counter() - t_phase
+    report["ring"] = out
+    print(f"[ring] phase {out['seconds']:.1f} s")
+
+
+def sync(torch):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
 @contextlib.contextmanager
 def plain_versions_barred():
     """Every plain version of a kernel on the trainer's and the server's
@@ -1593,15 +1858,49 @@ def time_bisection(torch, model, workers: int) -> float:
     return total * workers
 
 
+def ulps_apart(torch, a, b) -> tuple:
+    """(coordinates that differ, the largest difference in ulps) of two
+    bf16 or float32 tensors: each bit pattern mapped to its place on the
+    number line."""
+    wide = a.dtype == torch.float32
+    mag = 0x7FFFFFFF if wide else 0x7FFF
+
+    def order(t):
+        v = t.view(torch.int32 if wide else torch.int16).to(torch.int64)
+        return torch.where(v < 0, -(v & mag), v)
+
+    d = (order(a) - order(b)).abs()
+    return int((d != 0).sum()), int(d.max()) if d.numel() else 0
+
+
+def ring_run_launches(step, model, m: int, leaves: int) -> dict:
+    """Launches a step of a bucketed or ring run implies, from its plan and
+    wire: the encoder once a worker and leaf; the decode-sum at M = 1 once a
+    worker and ring chunk (a golomb bucket: once a worker and slot, each
+    slot its own stream); the vote server once a leaf."""
+    from repro_torch.core.compressors import tree_leaves
+
+    wire, plan = step.wire, step.plan
+    if wire.native_format == "pack8":
+        chunks = sum(wire.ring_chunks(math.prod(sd.shape))
+                     for sd in tree_leaves(model.param_shapes()))
+        return dict(qsgd8_pack8=leaves * m, unpack8_sum=chunks * m)
+    if wire.native_format == "golomb":
+        return dict(sparsign_golomb=leaves * m, ungolomb_sum=plan.n_slots * m,
+                    vote_update=plan.n_slots)
+    return dict(sparsign_pack2bit=leaves * m, vote_update=plan.n_slots,
+                unpack2bit_sum=m * sum(wire.bucket_ring_chunks(b) for b in plan.buckets))
+
+
 def phase_trainer(torch, report, totals):
     """qwen1.5-4b at full width through repro_torch.launch.train, M = 4
-    workers on the card, 2 or 3 steps a run."""
+    workers on the card, 2 steps a run."""
     import numpy as np
 
     from repro_torch import kernels
     from repro_torch.core import engine
     from repro_torch.core.compressors import tree_leaves
-    from repro_torch.dist import collectives
+    from repro_torch.dist import bucketing, collectives
     from repro_torch.launch import train as launch
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train import loop
@@ -1614,10 +1913,14 @@ def phase_trainer(torch, report, totals):
     elastic = ["--worker-weights", "1.5,0.5,2,1", "--dropout", "0.25"]
     majority = ["--server", "majority_vote"]
     packed = ["--vote-impl", "allgather_packed"]
+    ring = ["--ring", "--ring-chunk-rows", str(RING_ROWS[1])]
     voted = dict(unpack2bit_sum=leaves, vote_update=leaves)
     golomb_voted = dict(sparsign_golomb=leaves * m, ungolomb_sum=leaves, vote_update=leaves)
     qsgd8 = ["--compressor", "qsgd8", "--server", "mean"]
-    runs = [  # label, flags, worker group (None: --host-data), launches a step, steps
+    golomb = "sparsign_golomb/majority_vote allgather_packed"
+    pack8 = "qsgd8/mean allgather_packed (pack8)"
+    runs = [  # label, flags, worker group (None: --host-data), launches a step (None:
+              # ring_run_launches), steps
         ("sparsign/majority_vote psum", sparsign + majority + ["--vote-impl", "psum"], None,
          dict(sparsign=leaves * m, vote_update=leaves), 2),
         ("sparsign/majority_vote hier 2x2", sparsign + majority + ["--vote-impl", "hier"],
@@ -1637,32 +1940,41 @@ def phase_trainer(torch, report, totals):
         ("elastic sparsign/majority_vote allgather_packed", sparsign + majority + packed
          + elastic, None, dict(sparsign_pack2bit=leaves * m, unpack2bit_wsum=leaves,
                                weighted_vote_update=leaves), 2),
-        ("sparsign_golomb/majority_vote allgather_packed",
-         ["--compressor", "sparsign_golomb"] + target + majority + packed, None,
-         golomb_voted, 3),
-        ("elastic sparsign_golomb/majority_vote allgather_packed",
+        (golomb, ["--compressor", "sparsign_golomb"] + target + majority + packed, None,
+         golomb_voted, 2),
+        ("elastic " + golomb,
          ["--compressor", "sparsign_golomb"] + target + majority + packed + elastic, None,
          dict(sparsign_golomb=leaves * m, ungolomb_wsum=leaves, weighted_vote_update=leaves),
-         3),
-        ("sparsign target_sparsity/majority_vote allgather_packed",
-         ["--compressor", "sparsign"] + target + majority + packed, None,
-         dict(sparsign_pack2bit=leaves * m, **voted), 3),
-        ("qsgd8/mean allgather_packed (pack8)", qsgd8 + packed, None,
-         dict(qsgd8_pack8=leaves * m, unpack8_sum=leaves), 3),
+         2),
+        ("sparsign target_sparsity/majority_vote allgather_packed bucketed ring",
+         ["--compressor", "sparsign"] + target + majority + packed + ["--bucketed"] + ring,
+         None, None, 2),
+        (golomb + " bucketed ring",
+         ["--compressor", "sparsign_golomb"] + target + majority + packed + ["--bucketed"]
+         + ring, None, None, 2),
+        (pack8, qsgd8 + packed, None, dict(qsgd8_pack8=leaves * m, unpack8_sum=leaves), 2),
         ("qsgd8/mean psum (decoded)", qsgd8 + ["--vote-impl", "psum"], None,
-         dict(qsgd8_pack8=leaves * m), 3),
-        ("elastic qsgd8/mean allgather_packed (pack8)", qsgd8 + packed + elastic, None,
-         dict(qsgd8_pack8=leaves * m, unpack8_sum=leaves), 3),
+         dict(qsgd8_pack8=leaves * m), 2),
+        (pack8 + " ring", qsgd8 + packed + ring, None, None, 2),
+        ("elastic " + pack8, qsgd8 + packed + elastic, None,
+         dict(qsgd8_pack8=leaves * m, unpack8_sum=leaves), 2),
     ]
-    # a reference run's parameters, held on the host (the card's peaks
-    # exclude them), and the runs that must equal them bit for bit: the
-    # three vote wires; the golomb wire and the 2-bit wire (the same votes
-    # on two encodings, while no golomb message drops a nonzero); the pack8
-    # wire and the decoded psum (the same float sums in worker order)
-    references = {runs[0][0]: {runs[1][0], runs[2][0]}, runs[8][0]: {runs[10][0]},
-                  runs[11][0]: {runs[12][0]}}
+    # the runs held against a reference run's parameters (held on the host,
+    # so the card's peaks exclude them): bit for bit, the three vote wires;
+    # the golomb wire and the 2-bit wire, per leaf and bucketed on the ring
+    # (the same votes on two encodings, while no golomb message drops a
+    # nonzero); the pack8 wire and the decoded psum (the same float sums in
+    # worker order). The pack8 ring sums in ring order: its difference is
+    # printed in bf16 ulps (its sums are held bit for bit in the ring phase)
+    compare = {runs[1][0]: (runs[0][0], "bits"), runs[2][0]: (runs[0][0], "bits"),
+               runs[10][0]: (golomb, "bits"), runs[11][0]: (golomb, "bits"),
+               runs[13][0]: (pack8, "bits"), runs[14][0]: (pack8, "ulps")}
+    # each ring run's peak memory beside its monolithic twins': the same
+    # wire's, and the golomb run (the same budget, whose bisection sets it)
+    mono_of = {runs[10][0]: (runs[2][0], golomb), runs[11][0]: (golomb,),
+               runs[14][0]: (pack8,)}
     traced_runs = {runs[2][0]: "trainer_profile", runs[8][0]: "trainer_profile_golomb"}
-    reference, ref_label, compared = None, None, set()
+    held, peaks_of, losses_of = {}, {}, {}
     for label, flags, mesh, per_step, steps in runs:
         args = launch.parser().parse_args(base + flags + ["--steps", str(steps)])
         group = make_mesh(*mesh) if mesh is not None else None
@@ -1673,6 +1985,8 @@ def phase_trainer(torch, report, totals):
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         batch_fn = launch.batch_fn_for(cfg, args)
+        if per_step is None:
+            per_step = ring_run_launches(step, model, m, leaves)
         peaks = []   # GB at each log point, just after the step's sync
         kernels.reset_launch_counts()
         with plain_versions_barred():
@@ -1680,22 +1994,36 @@ def phase_trainer(torch, report, totals):
                 step, state, batch_fn, loop.LoopConfig(total_steps=steps, log_every=1),
                 log=lambda line: peaks.append(torch.cuda.max_memory_allocated() / 1e9))
         torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
         counts = kernels.launch_counts()
         want = expected(**{k: v * steps for k, v in per_step.items()})
         check(counts == want, f"trainer {label}: launches {counts}, expected {want}")
         for k in totals:
             totals[k] += counts[k]
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        peaks_of[label] = peak_gb
+        losses_of[label] = [h["loss"] for h in history]
         share = engine.needs_shared_linf(comp)
-        ledger = float(np.float32(sum(
-            collectives.uplink_ledger(step.mode, step.wire, math.prod(sd.shape), share_linf=share)
-            for sd in tree_leaves(model.param_shapes()))))
+        sizes = [math.prod(sd.shape) for sd in tree_leaves(model.param_shapes())]
+        if step.plan is not None:
+            ledger = float(np.float32(sum(bucketing.plan_ledger(step.mode, step.wire, step.plan,
+                                                                share_linf=share))))
+            hbm = bucketing.plan_gather_hbm_bytes(step.mode, step.wire, step.plan)
+        else:
+            ledger = float(np.float32(sum(collectives.uplink_ledger(
+                step.mode, step.wire, n, share_linf=share) for n in sizes)))
+            hbm = (0.0 if step.mode == "decoded"
+                   else max(step.wire.gather_hbm_bytes(n) for n in sizes))
+        hbm = float(np.float32(hbm))
         walls = [h["wall_s"] for h in history]
         step_s = [b - a for a, b in zip([0.0] + walls[:-1], walls)]
         for h, s_, pk in zip(history, step_s, peaks):
             check(math.isfinite(h["loss"]), f"trainer {label}: non-finite loss {h['loss']}")
             check(h["wire_bytes_per_device"] == ledger,
                   f"trainer {label}: wire bytes {h['wire_bytes_per_device']} != ledger {ledger}")
+            check(h["gather_hbm_bytes"] == hbm,
+                  f"trainer {label}: gather_hbm_bytes {h['gather_hbm_bytes']} != the model's "
+                  f"{hbm}")
             dropped = ""
             if "nnz_dropped" in h:
                 check(h["nnz_dropped"] == 0, f"trainer {label}: {h['nnz_dropped']} nonzeros "
@@ -1703,34 +2031,54 @@ def phase_trainer(torch, report, totals):
                 dropped = f" dropped {h['nnz_dropped']:g}"
             print(f"[trainer] {label} step {h['step']}: loss {h['loss']:.6f} nnz_frac "
                   f"{h['nnz_frac']:.6g}{dropped} wire_bytes_per_device "
-                  f"{h['wire_bytes_per_device']:.10g} participated {h['participated']:g} host "
+                  f"{h['wire_bytes_per_device']:.10g} gather_hbm_bytes "
+                  f"{h['gather_hbm_bytes']:.10g} participated {h['participated']:g} host "
                   f"{s_:.3f} s peak {pk:.2f} GB")
         line = {"run": label, "layers": cfg.n_layers, "workers": m,
                 "tokens_per_worker": TRAINER_SEQ_LEN, "build_s": build_s, "step_s": step_s,
-                "peak_gb": peak_gb, "loss": [h["loss"] for h in history],
+                "run_s": run_s, "peak_gb": peak_gb, "loss": losses_of[label],
                 "nnz_frac": [h["nnz_frac"] for h in history],
                 "nnz_dropped": [h.get("nnz_dropped") for h in history],
                 "participated": [h["participated"] for h in history], "peak_gb_by_step": peaks,
-                "wire_bytes_per_device": ledger, "launches": counts}
+                "wire_bytes_per_device": ledger, "gather_hbm_bytes": hbm, "launches": counts}
+        if step.plan is not None:
+            line["buckets"] = [{"slots": len(b.slots), "rows": b.rows}
+                               for b in step.plan.buckets]
+        mono = ""
+        if label in mono_of:
+            line["monolithic_peak_gb"] = {t: peaks_of[t] for t in mono_of[label]}
+            mono = " (monolithic: " + "; ".join(f"the {t} run {peaks_of[t]:.2f} GB"
+                                               for t in mono_of[label]) + ")"
         report.setdefault("trainer", []).append(line)
         print(f"[trainer] {label}: {cfg.n_layers} layers, build {build_s:.2f} s, steps "
-              f"{[round(x, 3) for x in step_s]} s, peak {peak_gb:.2f} GB, launches "
-              f"{ {k: v for k, v in counts.items() if v} }")
+              f"{[round(x, 3) for x in step_s]} s, run {run_s:.1f} s, peak {peak_gb:.2f} GB"
+              f"{mono}, launches { {k: v for k, v in counts.items() if v} }")
         params = tree_leaves(state.params)
         check(all(bool(torch.isfinite(p).all()) for p in params),
               f"trainer {label}: non-finite parameters")
-        if label in references:
-            reference, ref_label = [p.to("cpu", copy=True) for p in params], label
-            compared = set(references[label])
-        elif label in compared:
+        if any(ref == label for ref, _ in compare.values()):
+            held[label] = [p.to("cpu", copy=True) for p in params]
+        if label in compare:
+            ref_label, how = compare[label]
+            reference = held[ref_label]
             # leaf by leaf, after this run's peak was read
-            same = all(torch.equal(bits(a), bits(b.to(a.device)))
-                       for a, b in zip(params, reference))
-            check(same, f"trainer {label}: parameters differ from the {ref_label} run")
-            print(f"[trainer] {label}: parameters bitwise equal to the {ref_label} run")
-            compared.discard(label)
-            if not compared:
-                reference = None
+            if how == "bits":
+                same = all(torch.equal(bits(a), bits(b.to(a.device)))
+                           for a, b in zip(params, reference))
+                check(same, f"trainer {label}: parameters differ from the {ref_label} run")
+                print(f"[trainer] {label}: parameters bitwise equal to the {ref_label} run")
+            else:
+                stats = [ulps_apart(torch, a, b.to(a.device)) for a, b in zip(params, reference)]
+                differ = sum(d for d, _ in stats)
+                ulps = max(u for _, u in stats)
+                dtype = str(params[0].dtype)[6:]
+                line.update(differ_from=ref_label, differ=differ, max_ulps=ulps, ulp_dtype=dtype)
+                print(f"[trainer] {label}: {differ} of {sum(sizes)} parameters differ from the "
+                      f"{ref_label} run, at most {ulps} {dtype} ulps; losses {losses_of[label]} "
+                      f"against {losses_of[ref_label]}")
+            if not any(r == ref_label for other, (r, _) in compare.items()
+                       if other not in losses_of):
+                del held[ref_label]
         if label in traced_runs:
             # where a step's device time goes: one more step of this run,
             # traced after its counted steps (these launches are not counted)
@@ -1744,7 +2092,7 @@ def phase_trainer(torch, report, totals):
                   f"{split['call_ms']:.1f} ms, device busy {split['busy_share']:.1%}, port "
                   f"kernels {split['port_kernel_share']:.3%} of device time ({shares}); "
                   f"top: {top}")
-        if label == runs[8][0]:
+        if label == golomb:
             bisect_ms = time_bisection(torch, model, m)
             report["bisection_ms_per_step"] = bisect_ms
             print(f"[trainer] target_sparsity bisection: {bisect_ms:.1f} ms of device time a "
@@ -1752,6 +2100,7 @@ def phase_trainer(torch, report, totals):
                   f"{bisect_ms / 1e3 / statistics.median(step_s):.2%} of the median step")
         del params, step, state, model
         torch.cuda.empty_cache()
+    check(not held, f"reference runs never compared: {sorted(held)}")
 
 
 def decode_vs_forward(torch, model, params, toks, pos, s: int) -> tuple:
@@ -2294,6 +2643,10 @@ def main() -> int:
     totals = phase_fl(torch, report)
     phase_baselines(torch, report, totals)
     phase_golomb_two_pass(torch, report, totals)
+    timer = Timer(torch)
+    phase_ring(torch, timer, report)
+    del timer
+    torch.cuda.empty_cache()
     phase_trainer(torch, report, totals)
     phase_serve(torch, report, totals)
     check(all(totals[k] > 0 for k in totals), f"a kernel never launched on the path: {totals}")

@@ -28,7 +28,9 @@ kernel on the card.
 
 Around them, the helpers that keep compressor and server names out of the
 trainer: wire-mode negotiation (``wire_mode``, ``wire_payload_format``,
-``resolve_golomb_p``) and the per-leaf quorum (``broadcast_quorum``).
+``resolve_golomb_p``, ``resolve_ring_chunk_rows``), the per-leaf quorum
+(``broadcast_quorum``), and ``compress_leaf_rows``, a message laid out as its
+bucket slot.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ import torch
 
 from repro_torch.core.budgets import BudgetConfig, resolve_budget
 from repro_torch.core.compressors import CompressedGrad, chunked_values, get_spec
-from repro_torch.kernels.common import device_tensor, jnp_sign, to_2d
+from repro_torch.kernels.common import SUBLANE_PAD, device_tensor, jnp_sign, to_2d
 from repro_torch.kernels.ef_server.ops import ef_server_op
 from repro_torch.kernels.ef_server.ref import ef_server_ref
 from repro_torch.kernels.golomb.ops import golomb_pack_op
@@ -143,6 +145,28 @@ def resolve_golomb_p(cfg: "CompressionConfig", golomb_p: Optional[float] = None)
     if not 0.0 < p < 1.0:
         raise ValueError(f"golomb plan fraction must be in (0,1), got {p}")
     return p
+
+
+def resolve_ring_chunk_rows(ring_chunk_rows: Optional[int],
+                            vote_impl: Optional[str]) -> Optional[int]:
+    """The ring knob, checked when the step is built: None stays monolithic;
+    anything else needs the gather impl and a positive multiple of the
+    sublane tile. The psum and hier impls reduce without a gathered tensor,
+    so a ring request there is refused, not dropped."""
+    if ring_chunk_rows is None:
+        return None
+    if vote_impl != "allgather_packed":
+        raise ValueError(
+            f"ring_chunk_rows={ring_chunk_rows!r} needs vote_impl='allgather_packed' (the "
+            f"ring chunks a gathered payload; vote_impl={vote_impl!r} has none): drop the "
+            f"ring knob or switch the vote wire")
+    r = int(ring_chunk_rows)
+    if r <= 0 or r % SUBLANE_PAD != 0:
+        raise ValueError(
+            f"ring_chunk_rows must be a positive multiple of the sublane tile "
+            f"({SUBLANE_PAD}), got {ring_chunk_rows!r}; collectives.DEFAULT_RING_CHUNK_ROWS "
+            f"is the default")
+    return r
 
 
 def broadcast_quorum(quorum, like_tree):
@@ -308,6 +332,28 @@ def compress_leaf(
             view, _ = to_2d(vals.reshape(-1))
             vals = pack2bit_ref(view)
     return CompressedGrad(values=vals, scale=msg_scale)
+
+
+def compress_leaf_rows(
+    g: torch.Tensor,
+    cfg: "CompressionConfig",
+    seed,
+    counter_base=0,
+    *,
+    rows: int,
+    shared_linf=None,
+    backend: Optional[str] = None,
+    wire=None,
+) -> CompressedGrad:
+    """``compress_leaf`` laid out as a bucket slot: the wire-native message
+    as exactly ``rows`` payload rows (``bucketing.as_rows``). The compression
+    is the per-leaf one byte for byte; packed views only drop their sublane
+    padding rows and leaf-shaped votes pad into rows."""
+    from repro_torch.dist import bucketing  # the dist layer imports this module
+    msg = compress_leaf(g, cfg, seed, counter_base, shared_linf=shared_linf,
+                        backend=backend, wire=wire)
+    return CompressedGrad(values=bucketing.as_rows(msg.values, wire.native_format, rows),
+                          scale=msg.scale)
 
 
 def server_apply(

@@ -41,8 +41,24 @@ add levels quantized against different norms.
 
 Each wire knows its native message format, how to mask, count and exchange
 messages in it, and its per-device byte ledger (``wire_bytes``), computed
-from the real buffer sizes. The ring-pipelined gather is not ported yet;
-``make_vote_wire`` says so.
+from the real buffer sizes. ``exchange_bucket`` exchanges one bucket of many
+leaves' messages at once (``dist.bucketing``), each slot equal to the
+per-leaf exchange.
+
+Ring-pipelined gather (``ring_chunk_rows``, the gather wires only): instead
+of holding all M messages, the payload is cut into row chunks and each chunk
+goes round the worker ring, every arriving message decoded at M = 1 by the
+same decode-sum kernel and added to an accumulator, so the gathered payload
+held at once is about two chunks instead of M messages; the bytes on the
+fabric are the same (``gather_hbm_bytes`` is the residency ledger). In one
+process a hop is a step to the next local worker's message; across
+processes it sends the process's chunk stack to rank + 1 and receives rank
+- 1's (``ring_permute``, the port's only point-to-point call). The sum runs
+in JAX's ring order for the first worker w0 = rank * local: w0, w0 - 1,
+..., w0 - M + 1 (mod M). Integer sums (pack2, golomb) equal the monolithic
+gather's in any order; pack8's float sums and the weighted sums of weights
+that are not dyadic round in that order, so they can differ from the
+monolithic sum in the last bit, and across processes, as JAX's devices do.
 """
 
 from __future__ import annotations
@@ -54,7 +70,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.kernels.common import LANES, PACKED_WIDTH, canonical_rows, from_2d
+from repro_torch.kernels.common import LANES, PACKED_WIDTH, SUBLANE_PAD, canonical_rows, from_2d
 from repro_torch.kernels.golomb.ops import ungolomb_sum_op, ungolomb_wsum_op
 from repro_torch.kernels.golomb.ref import (ROW_BYTES, golomb_nbytes, golomb_rows,
                                             ungolomb_sum_ref, ungolomb_wsum_ref)
@@ -280,6 +296,19 @@ def worker_shared_linf(gs: Sequence[torch.Tensor], group: WorkerGroup,
     return group.all_reduce(torch.amax(local), op=dist.ReduceOp.MAX)
 
 
+def worker_shared_linf_many(sources: Sequence[Sequence[torch.Tensor]], group: WorkerGroup,
+                            mask=None) -> torch.Tensor:
+    """The vectorized ``worker_shared_linf`` of the bucketed path: ONE (L,)
+    max for L leaves. ``sources[j]`` holds local worker j's L leaves; entry
+    i equals ``worker_shared_linf([s[i] for s in sources], ...)`` bit for bit
+    (a max is exact)."""
+    local = torch.stack([torch.stack([torch.amax(torch.abs(g.to(torch.float32))) for g in src])
+                         for src in sources])
+    if mask is not None:
+        local = torch.where(mask[:, None], local, torch.zeros((), device=local.device))
+    return group.all_reduce(torch.amax(local, dim=0), op=dist.ReduceOp.MAX)
+
+
 def decoded_message(values: torch.Tensor, scale, mask, *, is_ternary: bool):
     """One worker's ``decoded``-mode message: decoded locally (values *
     scale), zeroed for a non-participant. Returns (float32 message, masked
@@ -306,6 +335,14 @@ def decoded_exchange(values: torch.Tensor, scale, mask, group: WorkerGroup, *,
     return ordered_sum(group.gather(dec)), torch.stack([n for _, n in pairs])
 
 
+def decoded_exchange_bucket(payload: torch.Tensor, group: WorkerGroup) -> torch.Tensor:
+    """The bucketed ``decoded`` mode: ONE float32 sum, in worker order, of a
+    (local, rows, 512) stack of decoded, masked messages (``decoded_message``
+    per leaf, laid out by ``dist.bucketing``). The sum is element-wise, so
+    each leaf's slice equals the per-leaf ``decoded_exchange`` bit for bit."""
+    return ordered_sum(group.gather(payload))
+
+
 def decoded_wire_bytes(n_coords: int, n_workers: int) -> float:
     """Per-device bytes of the decoded float32 psum: one ring all-reduce of
     4 B/coord."""
@@ -323,19 +360,168 @@ def uplink_ledger(mode: str, wire: "VoteWire", n_coords: int, *,
     mode (``engine.wire_mode``): the mode's payload (the wire's own
     ``wire_bytes``, or the decoded float32 psum), the pack8 wire's per-worker
     decode scales (``scalar_bytes``, widened by the weight under elastic
-    participation), the elastic weight side channel of the ternary gather
-    wires, and one float32 all-reduce when the compressor shares a
-    magnitude. The JAX ledger's definition, with its ring chunk count 1 (the
-    ring gather is not ported)."""
+    participation) and the elastic weight side channel of the ternary gather
+    wires, both once a ring chunk (the ring ships them with every chunk), and
+    one float32 all-reduce when the compressor shares a magnitude. The JAX
+    ledger's definition, its terms added in its order."""
     if mode == "decoded":
         total = decoded_wire_bytes(n_coords, wire.n_workers)
     else:
-        total = wire.wire_bytes(n_coords) + wire.weight_bytes()
+        total = wire.wire_bytes(n_coords)
     if mode == "pack8":
-        total += wire.scalar_bytes()
+        total += wire.scalar_bytes() * wire.ring_chunks(n_coords)
+    if mode != "decoded":
+        total += wire.weight_bytes() * wire.ring_chunks(n_coords)
     if share_linf:
         total += allreduce_scalar_bytes(wire.n_workers)
     return total
+
+
+def uplink_ledger_bucket(mode: str, wire: "VoteWire", n_coords: int, n_slots: int, *,
+                         rows: Optional[int] = None,
+                         ring_chunks: int = 1) -> Tuple[float, float]:
+    """Per-device uplink bytes of ONE bucket exchange carrying ``n_slots``
+    leaves in ``n_coords`` padded coordinates, split as JAX's census splits
+    them: (payload bytes, scalar bytes). The payload is the wire's bucket
+    model (``bucket_payload_bytes``: the fixed-rate wires at the padded
+    coordinate count, golomb by its capacity ``rows``). pack8 gathers one
+    float32 scale a slot (one more entry, the raw weight, under elastic
+    participation) as one vector: payload from two entries on, else scalar
+    traffic. The ternary gather wires' elastic weight is one scalar. Both
+    side channels ride every ring chunk. The shared L-inf term is the plan's
+    (``bucketing.plan_ledger``)."""
+    if mode == "decoded":
+        payload = decoded_wire_bytes(n_coords, wire.n_workers)
+    else:
+        payload = wire.bucket_payload_bytes(n_coords, rows=rows)
+    scalar = 0.0
+    if mode == "pack8":
+        n_side = n_slots + (1 if wire.participation is not None else 0)
+        scales = float((wire.n_workers - 1) * 4 * n_side) * int(ring_chunks)
+        if n_side >= 2:
+            payload += scales
+        else:
+            scalar += scales
+    elif mode != "decoded":
+        scalar += wire.weight_bytes() * int(ring_chunks)
+    return payload, scalar
+
+
+# ---------------------------------------------------------------------------
+# Ring-pipelined gather: chunks round the ring, each decoded as it arrives
+# ---------------------------------------------------------------------------
+
+#: ring chunk rows when ring mode is asked for without a size, JAX's default:
+#: a 32 KiB pack2 or 128 KiB pack8 chunk
+DEFAULT_RING_CHUNK_ROWS = 256
+
+
+def ring_perm(m: int) -> list:
+    """The M-cycle i -> i + 1 (mod M): after one hop every worker holds its
+    predecessor's buffer, so M - 1 hops visit every peer."""
+    return [(i, (i + 1) % m) for i in range(m)]
+
+
+def ring_permute(x: torch.Tensor, group: WorkerGroup) -> torch.Tensor:
+    """One hop of the ring over the processes: this process's (local, ...)
+    stack goes to rank + 1 and rank - 1's comes back (``batch_isend_irecv``,
+    the port's only point-to-point call). With one process it is the
+    identity: ``_ring_accumulate`` steps through the local workers."""
+    if group.group is None or group.world == 1:
+        return x
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    nxt = dist.get_global_rank(group.group, (group.rank + 1) % group.world)
+    prv = dist.get_global_rank(group.group, (group.rank - 1) % group.world)
+    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, x, nxt, group=group.group),
+                                   dist.P2POp(dist.irecv, out, prv, group=group.group)])
+    for req in reqs:
+        req.wait()
+    return out
+
+
+def _ring_chunk_spans(total_rows: int, chunk_rows: Optional[int]) -> tuple:
+    """(row_start, rows) framing of a payload: greedy ``chunk_rows`` spans and
+    a short tail; None is one chunk of the whole payload."""
+    if chunk_rows is None or total_rows <= chunk_rows:
+        return ((0, total_rows),)
+    spans = []
+    r = 0
+    while r < total_rows:
+        spans.append((r, min(int(chunk_rows), total_rows - r)))
+        r += spans[-1][1]
+    return tuple(spans)
+
+
+def _slot_groups(slots, chunk_rows: Optional[int]) -> tuple:
+    """Golomb framing: greedy groups of consecutive whole slots whose rows
+    fit in ``chunk_rows`` (a coded stream is not row-addressable); a slot
+    larger than a chunk rides alone."""
+    slots = tuple(slots)
+    if chunk_rows is None:
+        return (slots,)
+    groups, cur, cur_rows = [], [], 0
+    for s in slots:
+        if cur and cur_rows + s.rows > chunk_rows:
+            groups.append(tuple(cur))
+            cur, cur_rows = [], 0
+        cur.append(s)
+        cur_rows += s.rows
+    if cur:
+        groups.append(tuple(cur))
+    return tuple(groups)
+
+
+def _chunk_segments(slots, r0: int, nr: int) -> tuple:
+    """The slot row ranges a [r0, r0 + nr) chunk carries, in row order:
+    (slot position, slot, segment row start, segment rows). pack8 slots are
+    sublane-aligned, so each segment is a whole number of kernel tiles."""
+    segs = []
+    for i, s in enumerate(slots):
+        a = max(r0, s.row_start)
+        b = min(r0 + nr, s.row_start + s.rows)
+        if b > a:
+            segs.append((i, s, a, b - a))
+    return tuple(segs)
+
+
+def _row_chunks(values, r0: int, nr: int) -> list:
+    """Rows [r0, r0 + nr) of each local worker's message (a (local, rows,
+    width) stack or a sequence of (rows, width) messages): views, no copy."""
+    return [values[j][r0:r0 + nr] for j in range(len(values))]
+
+
+def _tree_add(a, b):
+    if isinstance(a, tuple):
+        return tuple(x + y for x, y in zip(a, b))
+    return a + b
+
+
+def _ring_accumulate(chunks, side: tuple, decode_fn, group: WorkerGroup):
+    """One chunk's ring exchange with a decode-sum as each message arrives.
+
+    ``chunks[j]`` is local worker j's chunk and ``side`` holds (local, ...)
+    side channels riding with it (decode scales, weights).
+    ``decode_fn(chunk, *side_rows)`` decodes one message (M = 1) to a tensor
+    or a tuple of them, added into the accumulator. JAX's device w adds its
+    own message first, then those of w - 1, w - 2, ... (mod M); the port
+    keeps one replica a process and adds in the order of its first worker
+    w0 = rank * local: w0, then each earlier process's workers from its last
+    (one hop each), then this process's workers from its last down to w0 +
+    1. In one process: 0, M - 1, ..., 1. The (M, ...) stack never exists."""
+    def decode(bufs, sides, j):
+        return decode_fn(bufs[j], *(s[j] for s in sides))
+
+    acc = decode(chunks, side, 0)
+    bufs, sides = chunks, side
+    for _ in range(group.world - 1):
+        bufs = ring_permute(bufs if torch.is_tensor(bufs) else torch.stack(list(bufs)), group)
+        sides = tuple(ring_permute(s, group) for s in sides)
+        for j in range(group.local - 1, -1, -1):
+            acc = _tree_add(acc, decode(bufs, sides, j))
+    for j in range(group.local - 1, 0, -1):
+        acc = _tree_add(acc, decode(chunks, side, j))
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -350,10 +536,12 @@ class VoteWire:
     """One vote-exchange wire: message format + collective + byte ledger,
     built once per step by ``make_vote_wire``. ``exchange`` takes the
     (local, ...) stack of this process's workers' wire-native messages and
-    returns the vote total every worker sees. With a ``participation`` spec
-    the elastic family (``exchange_weighted``) is live: it returns
-    ``(sum_m w_m * votes_m, W)`` with W the realized participation, per
-    coordinate on the psum wires and one scalar on the gather wire."""
+    returns the vote total every worker sees; ``exchange_bucket`` does the
+    same for one bucket (``dist.bucketing``) and returns per-leaf sums. With
+    a ``participation`` spec the elastic family (``exchange_weighted``,
+    ``exchange_bucket_weighted``) is live: it returns ``(sum_m w_m *
+    votes_m, W)`` with W the realized participation, per coordinate on the
+    psum wires and one scalar on the gather wires."""
 
     group: WorkerGroup
     n_workers: int
@@ -379,10 +567,21 @@ class VoteWire:
         if scale is not None:
             raise ValueError(f"the {self.name!r} vote wire {_NO_SCALE}")
 
+    def _int_sum(self, values: torch.Tensor) -> torch.Tensor:
+        return vote_psum(values, self.group, self.n_workers)
+
     def exchange(self, values: torch.Tensor, size: int, shape, *, scale=None) -> torch.Tensor:
         """(local, *shape) int8 votes -> the vote sum in ``_sum_dtype(M)``."""
         self._check_scale(scale)
-        return vote_psum(values, self.group, self.n_workers)
+        return self._int_sum(values)
+
+    def exchange_bucket(self, payload: torch.Tensor, bucket, *, scale=None) -> list:
+        """One bucket: (local, rows, 512) int8 votes -> per-leaf vote sums in
+        the leaves' shapes, aligned with ``bucket.slots``. The sum is
+        element-wise, so each slot equals the per-leaf ``exchange``."""
+        self._check_scale(scale)
+        from repro_torch.dist import bucketing  # bucketing imports this module
+        return bucketing.split_bucket(self._int_sum(payload), bucket)
 
     def _require_participation(self):
         if self.participation is None:
@@ -396,6 +595,9 @@ class VoteWire:
         w = weight.to(torch.float32).reshape((-1,) + (1,) * (values.dim() - 1))
         return self.group.gather(values.to(torch.float32) * w)
 
+    def _f32_sum(self, x: torch.Tensor) -> torch.Tensor:
+        return ordered_sum(x)
+
     def exchange_weighted(self, values: torch.Tensor, size: int, shape, *, weight,
                           scale=None):
         """Elastic exchange: ``(sum_m w_m * votes_m, per-coordinate W)``.
@@ -404,9 +606,20 @@ class VoteWire:
         message is already zeroed). Both sums run in worker order."""
         self._require_participation()
         self._check_scale(scale)
-        wv = ordered_sum(self._weighted(values, weight))
-        wtot = ordered_sum(self.group.gather(weight.to(torch.float32)))
+        wv = self._f32_sum(self._weighted(values, weight))
+        wtot = self._f32_sum(self.group.gather(weight.to(torch.float32)))
         return wv, wtot.expand(tuple(shape))
+
+    def exchange_bucket_weighted(self, payload: torch.Tensor, bucket, *, weight, scale=None):
+        """Bucketed elastic exchange: (per-leaf weighted sums, per-leaf
+        per-coordinate W), both aligned with ``bucket.slots``."""
+        self._require_participation()
+        self._check_scale(scale)
+        from repro_torch.dist import bucketing  # bucketing imports this module
+        wv = self._f32_sum(self._weighted(payload, weight))
+        wtot = self._f32_sum(self.group.gather(weight.to(torch.float32)))
+        return (bucketing.split_bucket(wv, bucket),
+                [wtot.expand(s.shape) for s in bucket.slots])
 
     def wire_bytes(self, n_coords: int) -> float:
         """Per-device wire bytes to exchange one n-coordinate leaf (ring
@@ -426,14 +639,34 @@ class VoteWire:
         return 2.0 * (m - 1) / m * 4.0
 
     def weight_bytes(self) -> float:
-        """Elastic weight side channel beside one payload exchange: 0 on the
-        psum wires, whose participation payload is in ``wire_bytes``, and on
-        the pack8 wire, whose weight widens ``scalar_bytes``."""
+        """Elastic weight side channel beside one payload exchange (or ring
+        chunk): 0 on the psum wires, whose participation payload is in
+        ``wire_bytes``, and on the pack8 wire, whose weight widens
+        ``scalar_bytes``."""
         return 0.0
 
+    def bucket_payload_bytes(self, n_coords: int, rows: Optional[int] = None) -> float:
+        """Payload ledger of ONE bucket: the fixed-rate wires at the padded
+        coordinate count; golomb bills its capacity rows."""
+        return self.wire_bytes(n_coords)
+
+    def ring_chunks(self, n_coords: int) -> int:
+        """Ring chunks (payload exchanges) for one n-coordinate leaf: 1 unless
+        a gather wire rings it in chunks."""
+        return 1
+
+    def bucket_ring_chunks(self, bucket) -> int:
+        """Ring chunks for ONE bucket exchange."""
+        return 1
+
     def gather_hbm_bytes(self, n_coords: int) -> float:
-        """Peak device memory of the gathered payload for one leaf: 0 for the
-        psum wires, which never materialize a gathered tensor."""
+        """Peak device memory of the gathered payload for one leaf: M messages
+        for a monolithic gather, two chunks for the ring, 0 for the psum
+        wires, which never hold a gathered tensor."""
+        return 0.0
+
+    def bucket_gather_hbm_bytes(self, bucket) -> float:
+        """Peak gathered-payload memory for ONE bucket exchange."""
         return 0.0
 
 
@@ -447,8 +680,7 @@ class HierVoteWire(VoteWire):
 
     name = "hier"
 
-    def exchange(self, values, size, shape, *, scale=None):
-        self._check_scale(scale)
+    def _int_sum(self, values):
         inner_dt = _sum_dtype(self.inner_size)
         outer_dt = _sum_dtype(self.inner_size * self.outer_size)
         local = values.shape[0]
@@ -463,19 +695,12 @@ class HierVoteWire(VoteWire):
             part = torch.sum(values.to(outer_dt), dim=0, dtype=outer_dt)
         return self.group.all_reduce(part)
 
-    def _hier_f32_sum(self, x: torch.Tensor) -> torch.Tensor:
+    def _f32_sum(self, x: torch.Tensor) -> torch.Tensor:
         """(M, ...) float32 -> the inner sums in worker order, then the outer
         sum over them in order: the two-level association of the hier wire."""
         grouped = x.reshape((self.outer_size, self.inner_size) + tuple(x.shape[1:]))
         return ordered_sum(torch.stack([ordered_sum(grouped[o])
                                         for o in range(self.outer_size)]))
-
-    def exchange_weighted(self, values, size, shape, *, weight, scale=None):
-        self._require_participation()
-        self._check_scale(scale)
-        wv = self._hier_f32_sum(self._weighted(values, weight))
-        wtot = self._hier_f32_sum(self.group.gather(weight.to(torch.float32)))
-        return wv, wtot.expand(tuple(shape))
 
     def wire_bytes(self, n_coords):
         ni, no = self.inner_size, self.outer_size
@@ -494,11 +719,14 @@ class HierVoteWire(VoteWire):
 class PackedVoteWire(VoteWire):
     """All-gather of the 2-bit packed wire + the fused decode-sum kernel. The
     message IS the packed canonical view, written in one pass by the fused
-    compress kernels on the card. ``backend="torch"`` decodes with the plain
-    versions (the kernels' comparison on the card); the default follows the
-    tensor's device."""
+    compress kernels on the card. With ``ring_chunk_rows`` the gather is the
+    chunked ring (module docstring): int32 sums, equal to the monolithic
+    gather's. ``backend="torch"`` decodes with the plain versions (the
+    kernels' comparison on the card); the default follows the tensor's
+    device."""
 
     backend: Optional[str] = None
+    ring_chunk_rows: Optional[int] = None
 
     name = "allgather_packed"
     native_format = "pack2"
@@ -510,32 +738,96 @@ class PackedVoteWire(VoteWire):
         cnt = (nz & 1) + ((nz >> 2) & 1) + ((nz >> 4) & 1) + ((nz >> 6) & 1)
         return torch.sum(cnt, dtype=torch.int64).to(torch.float32)
 
-    def _plain(self) -> bool:
-        return self.backend == "torch"
-
-    def exchange(self, values, size, shape, *, scale=None):
+    def _check_scale(self, scale):
         if scale is not None:
             raise ValueError("the 2-bit packed vote wire exchanges raw ternary votes; a "
                              "decode scale inside the exchange is a pack8-wire concept")
-        gathered = self.group.gather(values)
-        if self._plain():
-            total = from_2d(unpack2bit_sum_ref(gathered), size, shape)
-        else:
-            total = unpack2bit_sum_op(gathered, size, shape)
+
+    def _sum(self, gathered, size, shape):
+        if self.backend == "torch":
+            return from_2d(unpack2bit_sum_ref(gathered), size, shape)
+        return unpack2bit_sum_op(gathered, size, shape)
+
+    def _wsum(self, gathered, weights, size, shape):
+        if self.backend == "torch":
+            return from_2d(unpack2bit_wsum_ref(gathered, weights), size, shape)
+        return unpack2bit_wsum_op(gathered, weights, size, shape)
+
+    def _ring_sum(self, values) -> torch.Tensor:
+        """Ring (rows, 128) packed messages in row chunks: each chunk's int32
+        sum is written, in ``_sum_dtype(M)``, into one flat output of rows x
+        512 sums (the values JAX's int32 concatenation holds, a quarter of
+        its memory at M = 4). Each chunk is a self-contained pack2 stream."""
+        rows = values[0].shape[0]
+        out = torch.empty(rows * LANES, dtype=_sum_dtype(self.n_workers),
+                          device=values[0].device)
+        for r0, nr in _ring_chunk_spans(rows, self.ring_chunk_rows):
+            n = nr * LANES
+            acc = _ring_accumulate(_row_chunks(values, r0, nr), (),
+                                   lambda b: self._sum(b[None], n, (n,)), self.group)
+            out[r0 * LANES:r0 * LANES + n].copy_(acc)
+        return out
+
+    def _ring_wsum(self, values, weight):
+        """The weighted ring: the (1,) effective weight rides every chunk
+        (the ledger's ``weight_bytes x ring_chunks``), each message decoded
+        by the weighted decode-sum at M = 1; the weights add up round the
+        same ring into W. Returns (flat float32 sums, W)."""
+        rows = values[0].shape[0]
+        out = torch.empty(rows * LANES, dtype=torch.float32, device=values[0].device)
+        side = (weight.to(torch.float32).reshape(-1, 1),)
+        wtot = None
+        for r0, nr in _ring_chunk_spans(rows, self.ring_chunk_rows):
+            n = nr * LANES
+            acc, wt = _ring_accumulate(
+                _row_chunks(values, r0, nr), side,
+                lambda b, w: (self._wsum(b[None], w, n, (n,)), w[0]), self.group)
+            out[r0 * LANES:r0 * LANES + n].copy_(acc)
+            wtot = wt if wtot is None else wtot
+        return out, wtot
+
+    def exchange(self, values, size, shape, *, scale=None):
+        """(local, rows, 128) packed messages (or, on the ring, a sequence of
+        them) -> the vote sum of ``shape`` in ``_sum_dtype(M)``."""
+        self._check_scale(scale)
+        if self.ring_chunk_rows is not None:
+            return self._ring_sum(values)[:size].reshape(shape)
+        total = self._sum(self.group.gather(values), size, shape)
         return total.to(_sum_dtype(self.n_workers))
+
+    def exchange_bucket(self, payload, bucket, *, scale=None):
+        """ONE gather of the whole packed bucket and one decode-sum over it
+        (or the ring over it, chunked on any sublane-aligned row), then the
+        split. pack2 packs each row on its own, so the bucket is itself a
+        pack2 stream and its decode equals the per-leaf decodes."""
+        self._check_scale(scale)
+        from repro_torch.dist import bucketing  # bucketing imports this module
+        if self.ring_chunk_rows is not None:
+            return bucketing.split_bucket(self._ring_sum(payload), bucket)
+        n = bucket.n_coords
+        total = self._sum(self.group.gather(payload), n, (n,))
+        return bucketing.split_bucket(total.to(_sum_dtype(self.n_workers)), bucket)
 
     def exchange_weighted(self, values, size, shape, *, weight, scale=None):
         self._require_participation()
-        if scale is not None:
-            raise ValueError("the 2-bit packed vote wire exchanges raw ternary votes; a "
-                             "decode scale inside the exchange is a pack8-wire concept")
-        gathered = self.group.gather(values)
+        self._check_scale(scale)
+        if self.ring_chunk_rows is not None:
+            flat, wtot = self._ring_wsum(values, weight)
+            return flat[:size].reshape(shape), wtot
         wvec = self.group.gather(weight.to(torch.float32).reshape(-1))
-        if self._plain():
-            wv = from_2d(unpack2bit_wsum_ref(gathered, wvec), size, shape)
-        else:
-            wv = unpack2bit_wsum_op(gathered, wvec, size, shape)
-        return wv, ordered_sum(wvec)
+        return self._wsum(self.group.gather(values), wvec, size, shape), ordered_sum(wvec)
+
+    def exchange_bucket_weighted(self, payload, bucket, *, weight, scale=None):
+        self._require_participation()
+        self._check_scale(scale)
+        from repro_torch.dist import bucketing  # bucketing imports this module
+        if self.ring_chunk_rows is not None:
+            flat, wtot = self._ring_wsum(payload, weight)
+            return bucketing.split_bucket(flat, bucket), wtot
+        n = bucket.n_coords
+        wvec = self.group.gather(weight.to(torch.float32).reshape(-1))
+        total = self._wsum(self.group.gather(payload), wvec, n, (n,))
+        return bucketing.split_bucket(total, bucket), ordered_sum(wvec)
 
     def weight_bytes(self):
         # the (1,) float32 effective weight gathered from M - 1 peers
@@ -544,11 +836,27 @@ class PackedVoteWire(VoteWire):
         return float((self.n_workers - 1) * 4.0)
 
     def wire_bytes(self, n_coords):
-        # all-gather: each device sends its padded packed payload to M - 1 peers
+        # all-gather: each device sends its padded packed payload to M - 1
+        # peers; the ring moves the same bytes
         return float((self.n_workers - 1) * packed_nbytes(n_coords))
 
+    def ring_chunks(self, n_coords):
+        return len(_ring_chunk_spans(canonical_rows(n_coords), self.ring_chunk_rows))
+
+    def bucket_ring_chunks(self, bucket):
+        return len(_ring_chunk_spans(bucket.rows, self.ring_chunk_rows))
+
+    def _gather_hbm(self, rows: int) -> float:
+        if self.ring_chunk_rows is None:
+            return float(self.n_workers * rows * PACKED_WIDTH)
+        max_nr = max(nr for _, nr in _ring_chunk_spans(rows, self.ring_chunk_rows))
+        return float(2 * max_nr * PACKED_WIDTH)
+
     def gather_hbm_bytes(self, n_coords):
-        return float(self.n_workers * canonical_rows(n_coords) * PACKED_WIDTH)
+        return self._gather_hbm(canonical_rows(n_coords))
+
+    def bucket_gather_hbm_bytes(self, bucket):
+        return self._gather_hbm(bucket.rows)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -562,11 +870,15 @@ class GolombWire(VoteWire):
     so a gathered buffer is self-describing. The static capacity keeps the
     exchange a fixed-shape all-gather, and the ledger (padding included) the
     bytes the gather moves. A message denser than the plan is truncated at
-    capacity with the dropped count in its header. ``backend="torch"``
-    decodes with the plain versions; the default follows the tensor."""
+    capacity with the dropped count in its header. With ``ring_chunk_rows``
+    the gather is the ring, chunked on stream boundaries (a coded stream is
+    not row-addressable): a leaf's message is one chunk, a bucket rings
+    groups of whole slots (``_slot_groups``). ``backend="torch"`` decodes
+    with the plain versions; the default follows the tensor."""
 
     backend: Optional[str] = None
     p: float = 0.05
+    ring_chunk_rows: Optional[int] = None
 
     name = "allgather_golomb"
     native_format = "golomb"
@@ -586,24 +898,87 @@ class GolombWire(VoteWire):
         count a caller can report when the realized nnz outruns the plan."""
         return self._header_count(values, 4)
 
-    def _no_scale(self, scale):
+    def _check_scale(self, scale):
         if scale is not None:
             raise ValueError("the golomb vote wire exchanges entropy-coded ternary votes; a "
                              "decode scale inside the exchange is a pack8-wire concept")
 
+    def _sum(self, gathered, size, shape):
+        return _golomb_decode_sum(gathered, size, shape, p=self.p, backend=self.backend)
+
+    def _wsum(self, gathered, weights, size, shape):
+        return _golomb_decode_wsum(gathered, weights, size, shape, p=self.p,
+                                   backend=self.backend)
+
     def exchange(self, values, size, shape, *, scale=None):
-        self._no_scale(scale)
-        gathered = self.group.gather(values)
-        total = _golomb_decode_sum(gathered, size, shape, p=self.p, backend=self.backend)
-        return total.to(_sum_dtype(self.n_workers))
+        self._check_scale(scale)
+        sd = _sum_dtype(self.n_workers)
+        if self.ring_chunk_rows is not None:
+            # one leaf, one self-describing capacity stream, one chunk
+            return _ring_accumulate(values, (), lambda b: self._sum(b[None], size, shape),
+                                    self.group).to(sd)
+        return self._sum(self.group.gather(values), size, shape).to(sd)
+
+    def _ring_bucket(self, payload, bucket, weight=None):
+        """Ring a bucket in whole-slot groups: a group's rows are one chunk,
+        decoded slot by slot (each slot carries its own header); with a
+        weight, the (1,) weight rides every group and adds up into W."""
+        out = [None] * len(bucket.slots)
+        pos = {s: i for i, s in enumerate(bucket.slots)}
+        side = () if weight is None else (weight.to(torch.float32).reshape(-1, 1),)
+        sd = _sum_dtype(self.n_workers)
+        wtot = None
+        for g in _slot_groups(bucket.slots, self.ring_chunk_rows):
+            r0 = g[0].row_start
+
+            def decode(b, *w, _g=g, _r0=r0):
+                segs = [b[s.row_start - _r0:s.row_start - _r0 + s.rows][None] for s in _g]
+                if not w:
+                    return tuple(self._sum(x, s.size, s.shape) for x, s in zip(segs, _g))
+                return tuple(self._wsum(x, w[0], s.size, s.shape)
+                             for x, s in zip(segs, _g)) + (w[0][0],)
+
+            part = _ring_accumulate(_row_chunks(payload, r0, sum(s.rows for s in g)), side,
+                                    decode, self.group)
+            if weight is not None:
+                wtot = part[-1] if wtot is None else wtot
+                part = part[:-1]
+            for s, arr in zip(g, part):
+                out[pos[s]] = arr if weight is not None else arr.to(sd)
+        return out if weight is None else (out, wtot)
+
+    def exchange_bucket(self, payload, bucket, *, scale=None):
+        """ONE gather of the whole coded bucket, then a decode-sum per slot
+        on its gathered rows: each slot is a whole stream with its own
+        header, decoded as the per-leaf message."""
+        self._check_scale(scale)
+        if self.ring_chunk_rows is not None:
+            return self._ring_bucket(payload, bucket)
+        gathered = self.group.gather(payload)
+        sd = _sum_dtype(self.n_workers)
+        return [self._sum(gathered[:, s.row_start:s.row_start + s.rows], s.size,
+                          s.shape).to(sd) for s in bucket.slots]
 
     def exchange_weighted(self, values, size, shape, *, weight, scale=None):
         self._require_participation()
-        self._no_scale(scale)
-        gathered = self.group.gather(values)
+        self._check_scale(scale)
+        if self.ring_chunk_rows is not None:
+            # one stream, one chunk; the (1,) weight rides with it
+            return _ring_accumulate(values, (weight.to(torch.float32).reshape(-1, 1),),
+                                    lambda b, w: (self._wsum(b[None], w, size, shape), w[0]),
+                                    self.group)
         wvec = self.group.gather(weight.to(torch.float32).reshape(-1))
-        wv = _golomb_decode_wsum(gathered, wvec, size, shape, p=self.p, backend=self.backend)
-        return wv, ordered_sum(wvec)
+        return self._wsum(self.group.gather(values), wvec, size, shape), ordered_sum(wvec)
+
+    def exchange_bucket_weighted(self, payload, bucket, *, weight, scale=None):
+        self._require_participation()
+        self._check_scale(scale)
+        if self.ring_chunk_rows is not None:
+            return self._ring_bucket(payload, bucket, weight)
+        gathered = self.group.gather(payload)
+        wvec = self.group.gather(weight.to(torch.float32).reshape(-1))
+        return ([self._wsum(gathered[:, s.row_start:s.row_start + s.rows], wvec, s.size,
+                            s.shape) for s in bucket.slots], ordered_sum(wvec))
 
     def weight_bytes(self):
         # the (1,) float32 effective weight gathered from M - 1 peers
@@ -615,12 +990,33 @@ class GolombWire(VoteWire):
         # all-gather of the capacity-padded coded payload to M - 1 peers
         return float((self.n_workers - 1) * golomb_payload_nbytes(n_coords, self.p))
 
+    def bucket_payload_bytes(self, n_coords, rows=None):
+        # bucket rows are capacity rows, not coordinate rows: bill exactly the
+        # (rows, 128) uint8 buffer the gather ships
+        assert rows is not None, "the golomb bucket ledger needs the bucket's payload rows"
+        return float((self.n_workers - 1) * rows * ROW_BYTES)
+
     def payload_rows(self, n_coords: int) -> int:
-        """Capacity rows of one n-coordinate message at the wire's plan fraction."""
+        """Capacity rows of one n-coordinate message at the wire's plan
+        fraction: the bucket plan's ``rows_fn`` for this wire."""
         return golomb_rows(n_coords, self.p)
 
+    def bucket_ring_chunks(self, bucket):
+        return len(_slot_groups(bucket.slots, self.ring_chunk_rows))
+
     def gather_hbm_bytes(self, n_coords):
-        return float(self.n_workers * golomb_rows(n_coords, self.p) * ROW_BYTES)
+        rows = golomb_rows(n_coords, self.p)
+        if self.ring_chunk_rows is None:
+            return float(self.n_workers * rows * ROW_BYTES)
+        # a leaf's stream is one chunk whatever its size: two whole streams
+        return float(2 * rows * ROW_BYTES)
+
+    def bucket_gather_hbm_bytes(self, bucket):
+        if self.ring_chunk_rows is None:
+            return float(self.n_workers * bucket.rows * ROW_BYTES)
+        max_rows = max(sum(s.rows for s in g)
+                       for g in _slot_groups(bucket.slots, self.ring_chunk_rows))
+        return float(2 * max_rows * ROW_BYTES)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -631,10 +1027,14 @@ class Pack8Wire(VoteWire):
     the signed levels, written in one pass by the fused ``qsgd8_pack8``
     kernel on the card; each worker's float32 decode scale rides the gather
     beside it, and the exchange returns the float32 decoded sum the mean
-    server consumes. ``backend="torch"`` decodes with the plain version; the
-    default follows the tensor."""
+    server consumes. With ``ring_chunk_rows`` the ring carries the payload in
+    sublane-tile chunks with the scales as a side channel on every chunk;
+    its float sums then run in ring order (module docstring), as JAX's do.
+    ``backend="torch"`` decodes with the plain version, the ring included;
+    the default follows the tensor."""
 
     backend: Optional[str] = None
+    ring_chunk_rows: Optional[int] = None
 
     name = "allgather_packed8"
     native_format = "pack8"
@@ -647,17 +1047,41 @@ class Pack8Wire(VoteWire):
         return unpack8_sum_op(gathered, scales, size, shape)
 
     @staticmethod
-    def _need_scale(scale):
+    def _need_scale(scale, what="each worker's decode scale (CompressedGrad.scale)"):
         if scale is None:
-            raise ValueError("the pack8 wire dequantizes during the exchange and needs each "
-                             "worker's decode scale (CompressedGrad.scale)")
-        return torch.as_tensor(scale, dtype=torch.float32).reshape(-1)
+            raise ValueError(f"the pack8 wire dequantizes during the exchange and needs {what}")
+        return torch.as_tensor(scale, dtype=torch.float32)
+
+    def _ring(self, values, side, size, shape, weighted: bool):
+        """Ring one leaf: ``side`` (local, 1) scales, or (local, 2) ``[scale *
+        w, w]``, rides every chunk; each message decoded at M = 1 with its
+        own scale; under a weight the raw weights add up into W."""
+        rows = values[0].shape[0]
+        out = torch.empty(rows * LANES, dtype=torch.float32, device=values[0].device)
+        wtot = None
+        for r0, nr in _ring_chunk_spans(rows, self.ring_chunk_rows):
+            n = nr * LANES
+
+            def decode(b, s, _n=n):
+                val = self._decode_sum(b[None], s[0:1], _n, (_n,))
+                return (val, s[1]) if weighted else val
+
+            acc = _ring_accumulate(_row_chunks(values, r0, nr), (side,), decode, self.group)
+            if weighted:
+                acc, wt = acc
+                wtot = wt if wtot is None else wtot
+            out[r0 * LANES:r0 * LANES + n].copy_(acc)
+        total = out[:size].reshape(shape)
+        return (total, wtot) if weighted else total
 
     def exchange(self, values, size, shape, *, scale=None):
-        """(local, rows, 512) int8 levels + (local,) float32 decode scales ->
-        the float32 decoded sum ``sum_m scale_m * levels_m`` of ``shape``, in
-        worker (gather) order."""
-        sc = self._need_scale(scale).to(values.device)
+        """(local, rows, 512) int8 levels (or, on the ring, a sequence of
+        them) + (local,) float32 decode scales -> the float32 decoded sum
+        ``sum_m scale_m * levels_m`` of ``shape``, in worker (gather) order,
+        or in ring order on the ring."""
+        sc = self._need_scale(scale).reshape(-1).to(values[0].device)
+        if self.ring_chunk_rows is not None:
+            return self._ring(values, sc.reshape(-1, 1), size, shape, weighted=False)
         return self._decode_sum(self.group.gather(values), self.group.gather(sc), size, shape)
 
     def exchange_weighted(self, values, size, shape, *, weight, scale=None):
@@ -665,17 +1089,85 @@ class Pack8Wire(VoteWire):
         scale (a dropped worker's scale * 0 zeroes its contribution; the
         kernel is unchanged) and ships raw beside it, in the (local, 2) side
         channel ``[scale * w, w]``. Returns ``(sum_m scale_m w_m levels_m,
-        W)`` with W the realized participation, summed in worker order."""
+        W)`` with W the realized participation."""
         self._require_participation()
-        sc = self._need_scale(scale).to(values.device)
+        sc = self._need_scale(scale).reshape(-1).to(values[0].device)
         w = weight.to(torch.float32).reshape(-1)
-        sides = self.group.gather(torch.stack([sc * w, w], dim=1))
+        side = torch.stack([sc * w, w], dim=1)
+        if self.ring_chunk_rows is not None:
+            return self._ring(values, side, size, shape, weighted=True)
+        sides = self.group.gather(side)
         wv = self._decode_sum(self.group.gather(values), sides[:, 0].contiguous(), size, shape)
         return wv, ordered_sum(sides[:, 1])
 
+    def _ring_bucket(self, payload, side, bucket, weighted: bool):
+        """Ring one bucket in sublane-tile chunks with the whole (local,
+        n_slots [+ 1]) side vector on every chunk; each chunk/slot segment
+        decodes with that slot's scale, and its sum lands at its rows of the
+        slot's output."""
+        dev = payload.device
+        outs = [torch.empty(s.rows * LANES, dtype=torch.float32, device=dev)
+                for s in bucket.slots]
+        wtot = None
+        for r0, nr in _ring_chunk_spans(bucket.rows, self.ring_chunk_rows):
+            segs = _chunk_segments(bucket.slots, r0, nr)
+
+            def decode(b, sc, _segs=segs, _r0=r0):
+                res = tuple(self._decode_sum(b[a - _r0:a - _r0 + k][None], sc[i:i + 1],
+                                             k * LANES, (k * LANES,))
+                            for i, _s, a, k in _segs)
+                return res + (sc[-1],) if weighted else res
+
+            part = _ring_accumulate(_row_chunks(payload, r0, nr), (side,), decode, self.group)
+            if weighted:
+                wtot = part[-1] if wtot is None else wtot
+                part = part[:-1]
+            for (i, s, a, k), arr in zip(segs, part):
+                o = (a - s.row_start) * LANES
+                outs[i][o:o + k * LANES].copy_(arr)
+        result = [o[:s.size].reshape(s.shape) for s, o in zip(bucket.slots, outs)]
+        return (result, wtot) if weighted else result
+
+    def _per_slot(self, payload, scales, bucket):
+        gathered = self.group.gather(payload)
+        return [self._decode_sum(gathered[:, s.row_start:s.row_start + s.rows],
+                                 scales[:, i].contiguous(), s.size, s.shape)
+                for i, s in enumerate(bucket.slots)]
+
+    def exchange_bucket(self, payload, bucket, *, scale=None):
+        """ONE payload gather and ONE (n_slots,) scale-vector gather for the
+        whole bucket; slots are sublane-aligned, so each slot's gathered rows
+        are its per-leaf canonical view, decoded with that slot's scales in
+        worker order: the per-leaf wire bit for bit. ``scale`` is the
+        (local, n_slots) float32 decode scales."""
+        sc = self._need_scale(scale, "the bucket's per-slot decode scales (one float32 a "
+                                     "leaf)").to(payload.device)
+        sc = sc.reshape(payload.shape[0], -1)
+        assert sc.shape[1] == len(bucket.slots), (tuple(sc.shape), len(bucket.slots))
+        if self.ring_chunk_rows is not None:
+            return self._ring_bucket(payload, sc, bucket, weighted=False)
+        return self._per_slot(payload, self.group.gather(sc), bucket)
+
+    def exchange_bucket_weighted(self, payload, bucket, *, weight, scale=None):
+        """Bucketed elastic exchange: the per-slot scales premultiplied by the
+        effective weight and widened by one raw-weight entry, ONE (n_slots +
+        1,) side vector a worker."""
+        self._require_participation()
+        sc = self._need_scale(scale, "the bucket's per-slot decode scales (one float32 a "
+                                     "leaf)").to(payload.device)
+        sc = sc.reshape(payload.shape[0], -1)
+        assert sc.shape[1] == len(bucket.slots), (tuple(sc.shape), len(bucket.slots))
+        w = weight.to(torch.float32).reshape(-1, 1)
+        side = torch.cat([sc * w, w], dim=1)
+        if self.ring_chunk_rows is not None:
+            return self._ring_bucket(payload, side, bucket, weighted=True)
+        sides = self.group.gather(side)
+        return self._per_slot(payload, sides, bucket), ordered_sum(sides[:, -1])
+
     def scalar_bytes(self):
-        # each worker's decode scale rides the gather to M - 1 peers; under
-        # elastic participation the slot widens to 8 B (scale * w, w)
+        # each worker's decode scale rides the gather to M - 1 peers (once a
+        # ring chunk, uplink_ledger's factor); under elastic participation the
+        # slot widens to 8 B (scale * w, w)
         per = 8.0 if self.participation is not None else 4.0
         return float((self.n_workers - 1) * per)
 
@@ -683,8 +1175,23 @@ class Pack8Wire(VoteWire):
         # all-gather of the padded int8 payload to M - 1 peers
         return float((self.n_workers - 1) * packed8_nbytes(n_coords))
 
+    def ring_chunks(self, n_coords):
+        return len(_ring_chunk_spans(canonical_rows(n_coords), self.ring_chunk_rows))
+
+    def bucket_ring_chunks(self, bucket):
+        return len(_ring_chunk_spans(bucket.rows, self.ring_chunk_rows))
+
+    def _gather_hbm(self, rows: int) -> float:
+        if self.ring_chunk_rows is None:
+            return float(self.n_workers * rows * LANES)
+        max_nr = max(nr for _, nr in _ring_chunk_spans(rows, self.ring_chunk_rows))
+        return float(2 * max_nr * LANES)
+
     def gather_hbm_bytes(self, n_coords):
-        return float(self.n_workers * packed8_nbytes(n_coords))
+        return self._gather_hbm(canonical_rows(n_coords))
+
+    def bucket_gather_hbm_bytes(self, bucket):
+        return self._gather_hbm(bucket.rows)
 
 
 def make_vote_wire(impl: str, group: WorkerGroup, *, backend: Optional[str] = None,
@@ -695,9 +1202,9 @@ def make_vote_wire(impl: str, group: WorkerGroup, *, backend: Optional[str] = No
     with the JAX builder's validation (same cases, same errors).
     ``wire_format="golomb"`` (``allgather_packed`` only) builds the golomb
     wire at plan fraction ``golomb_p``, ``wire_format="pack8"``
-    (``allgather_packed`` only) the 8-bit level wire. The ring gather is not
-    ported yet and raises ``NotImplementedError`` once the arguments are
-    valid."""
+    (``allgather_packed`` only) the 8-bit level wire. ``ring_chunk_rows``
+    (the gather wires only; a positive multiple of 32, e.g.
+    ``DEFAULT_RING_CHUNK_ROWS``) makes the gather the chunked ring."""
     if participation is not None and not isinstance(participation, ParticipationSpec):
         raise TypeError(f"participation must be a ParticipationSpec, got "
                         f"{type(participation).__name__}")
@@ -731,27 +1238,26 @@ def make_vote_wire(impl: str, group: WorkerGroup, *, backend: Optional[str] = No
                 f"ring_chunk_rows is a gather-wire concept; vote_impl={impl!r} never "
                 f"materializes a gathered tensor")
         r = int(ring_chunk_rows)
-        if r <= 0 or r % 32 != 0:
+        if r <= 0 or r % SUBLANE_PAD != 0:
             raise ValueError(f"ring_chunk_rows must be a positive multiple of the sublane "
-                             f"tile (32), got {ring_chunk_rows!r}")
+                             f"tile ({SUBLANE_PAD}), got {ring_chunk_rows!r}")
+        ring_chunk_rows = r
     sizes = tuple(group.sizes)
     if any(s < 1 for s in sizes):
         raise ValueError(f"vote wire needs >= 1 worker: axes {axes!r} have sizes {sizes!r}")
     n = group.n_workers
     if participation is not None:
         participation.weights_array(n)   # the weights must cover the fleet
-    if ring_chunk_rows is not None:
-        raise NotImplementedError("the ring-pipelined gather is not ported yet (ROADMAP.md)")
     if wire_format == "pack8":
         return Pack8Wire(group=group, n_workers=n, backend=backend,
-                         participation=participation)
+                         ring_chunk_rows=ring_chunk_rows, participation=participation)
     if wire_format == "golomb":
         return GolombWire(group=group, n_workers=n, backend=backend, p=float(golomb_p),
-                          participation=participation)
+                          ring_chunk_rows=ring_chunk_rows, participation=participation)
     if impl == "hier":
         return HierVoteWire(group=group, n_workers=n, inner_size=sizes[1],
                             outer_size=sizes[0], participation=participation)
     if impl == "allgather_packed":
         return PackedVoteWire(group=group, n_workers=n, backend=backend,
-                              participation=participation)
+                              ring_chunk_rows=ring_chunk_rows, participation=participation)
     return VoteWire(group=group, n_workers=n, participation=participation)

@@ -2,9 +2,12 @@
 
 The flags keep ``repro.launch.train``'s names and meanings (``--host-data``
 is the worker count M); it runs the ``simple`` trainer on the card (or, with
-``--device cpu``, the plain versions on the CPU). What is not ported yet
-raises: the production meshes, the streamed trainer, the bucketed uplink, the
-ring gather, checkpoints and failure injection.
+``--device cpu``, the plain versions on the CPU), with the bucketed uplink
+(``--bucketed``, one bucket for the whole tree) and the ring gather
+(``--ring``, ``--ring-chunk-rows`` rows a chunk, default
+``collectives.DEFAULT_RING_CHUNK_ROWS``) on request. What is not ported yet
+raises: the production meshes, the streamed trainer, checkpoints and failure
+injection.
 """
 
 from __future__ import annotations
@@ -54,7 +57,8 @@ def build_everything(args, group=None):
     mode = args.mode or trainer_mode(args.arch)
     if mode != "simple":
         raise NotImplementedError(f"the {mode!r} trainer is not ported yet (ROADMAP.md)")
-    ring_rows = ((args.ring_chunk_rows or 256) if args.ring else None)
+    ring_rows = ((args.ring_chunk_rows or collectives.DEFAULT_RING_CHUNK_ROWS)
+                 if args.ring else None)
     step = build_train_step(model, TrainStepConfig(
         compression=comp, lr=LrSchedule(base=args.lr, warmup=args.warmup),
         local_lr=args.local_lr, vote_impl=args.vote_impl,

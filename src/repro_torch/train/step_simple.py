@@ -24,8 +24,17 @@ Algorithm 2 with tau > 1 local steps):
 The workers run one after another, each holding one set of gradients, and
 their messages are kept until the exchange; a compressor that shares the
 workers' L-inf norm (TernGrad, ``linf_share``) keeps every worker's
-gradients until the shared max is known. The bucketed uplink and the ring
-gather are not ported yet and raise.
+gradients until the shared max is known.
+
+``bucketed=True`` is JAX's bucketed uplink: a ``bucketing.BucketPlan`` built
+with the step lays the leaves' messages out in buckets (one for the whole
+tree unless ``bucket_bytes`` caps them), each worker writes each message
+straight into its slot of a (local, rows, width) bucket buffer, and ONE
+exchange a bucket replaces the per-leaf ones; the shared L-inf max is one
+vector for all leaves. Each slot is the per-leaf message byte for byte, so
+the parameters equal the per-leaf step's. ``ring_chunk_rows`` makes a gather
+wire the chunked ring (``collectives``); per leaf, the ring steps through the
+workers' messages without stacking them.
 
 On the golomb wire the step's nnz reads the messages' headers (the shipped
 nonzeros), and ``nnz_dropped`` counts the nonzeros all workers' messages
@@ -44,7 +53,7 @@ import torch
 from repro_torch.core import engine, prng
 from repro_torch.core.algorithm import CompressionConfig, worker_stream_seed
 from repro_torch.core.compressors import tree_leaves, tree_unflatten
-from repro_torch.dist import collectives
+from repro_torch.dist import bucketing, collectives
 from repro_torch.dist.collectives import ParticipationSpec, WorkerGroup
 from repro_torch.train import sampling
 from repro_torch.train.state import LrSchedule, TrainState
@@ -60,8 +69,10 @@ class TrainStepConfig:
     vote_impl: str = "psum"        # psum | hier | allgather_packed
     quorum: Any = 1                # int, or a tree prefix of the params with per-leaf ints
     backend: Optional[str] = None  # None: the kernels for CUDA tensors, plain for CPU
-    bucketed: bool = False         # not ported yet
-    ring_chunk_rows: Optional[int] = None   # not ported yet
+    bucketed: bool = False         # one exchange a wire bucket instead of one a leaf
+    bucket_bytes: Optional[int] = None      # payload cap a bucket (None: one bucket)
+    ring_chunk_rows: Optional[int] = None   # ring gather: payload rows a chunk (gather
+                                            # wires only; None: monolithic gather)
     participation: Optional[ParticipationSpec] = None
     golomb_p: Optional[float] = None   # plan-time nnz fraction sizing the golomb
                                        # wire's capacity (None: the target of a
@@ -128,8 +139,6 @@ def build_train_step(model, step_cfg: TrainStepConfig, group: WorkerGroup) -> Ca
     leaf, so one copy of each is alive instead of two; the input state must
     not be read again."""
     comp = step_cfg.compression
-    if step_cfg.bucketed:
-        raise NotImplementedError("the bucketed uplink is not ported yet (ROADMAP.md)")
     mode = engine.wire_mode(comp, vote_impl=step_cfg.vote_impl)
     wire_fmt = engine.wire_payload_format(comp, mode, vote_impl=step_cfg.vote_impl)
     part = step_cfg.participation
@@ -139,7 +148,8 @@ def build_train_step(model, step_cfg: TrainStepConfig, group: WorkerGroup) -> Ca
         step_cfg.vote_impl, group, backend=step_cfg.backend, wire_format=wire_fmt,
         golomb_p=(engine.resolve_golomb_p(comp, step_cfg.golomb_p)
                   if wire_fmt == "golomb" else None),
-        ring_chunk_rows=step_cfg.ring_chunk_rows,
+        ring_chunk_rows=engine.resolve_ring_chunk_rows(step_cfg.ring_chunk_rows,
+                                                       step_cfg.vote_impl),
         participation=part)
     count_dropped = wire.native_format == "golomb"
     share_linf = engine.needs_shared_linf(comp)
@@ -156,6 +166,17 @@ def build_train_step(model, step_cfg: TrainStepConfig, group: WorkerGroup) -> Ca
             f"quorum={step_cfg.quorum!r} is a vote-server deadband, but compressor "
             f"{comp.compressor!r} with server {comp.server!r} rides the {mode!r} wire where "
             f"it would be ignored; use a vote server ({engine.VOTE_SERVERS}) or quorum=1")
+    plan = None
+    if step_cfg.bucketed:
+        fmt = bucketing.wire_bucket_format(mode, wire)
+        # golomb slots are capacity rows, a function of (n, p) the wire owns
+        plan = bucketing.build_bucket_plan(
+            tree_leaves(model.param_shapes()), fmt, bucket_bytes=step_cfg.bucket_bytes,
+            rows_fn=(wire.payload_rows if fmt == "golomb" else None))
+        # leaf i's (bucket, slot): the plan is in leaf order
+        slot_of = {s.index: (bi, s) for bi, b in enumerate(plan.buckets) for s in b.slots}
+    # the per-leaf ring takes the workers' messages as they are, unstacked
+    ring = mode != "decoded" and getattr(wire, "ring_chunk_rows", None) is not None
     n_workers = group.n_workers
     batch_axis = 1 if comp.local_steps > 1 else 0
     backend = step_cfg.backend
@@ -178,11 +199,15 @@ def build_train_step(model, step_cfg: TrainStepConfig, group: WorkerGroup) -> Ca
         zero = torch.zeros((), dtype=torch.float32, device=dev)
 
         # -- the workers: local gradients, then wire-native messages --------
-        # (decoded mode keeps each worker's values and decode scale: the
-        # exchange decodes them and counts their nnz)
+        # (per leaf, decoded mode keeps each worker's values and decode scale:
+        # the exchange decodes them and counts their nnz; bucketed, each
+        # message goes straight into its slot of the bucket buffers)
         n_leaves = len(p_leaves)
         msgs = [[] for _ in range(n_leaves)]
         scales = [[] for _ in range(n_leaves)]
+        bufs = ([torch.zeros((group.local, b.rows, bucketing.ROW_WIDTH[plan.fmt]),
+                             dtype=bucketing.ROW_DTYPE[plan.fmt], device=dev)
+                 for b in plan.buckets] if plan is not None else None)
         nnz = [zero] * group.local
         dropped = [zero] * group.local
         losses, sources, seeds = [], [], []
@@ -191,20 +216,39 @@ def build_train_step(model, step_cfg: TrainStepConfig, group: WorkerGroup) -> Ca
             for i, g in enumerate(src):
                 seed_i = prng.fold_seed_int(seeds[j], i)
                 sh = shared[i] if shared is not None else None
+                slot = slot_of[i] if plan is not None else None
                 if mode == "decoded":
                     msg = engine.compress_leaf(g, comp, seed_i, backend=backend,
                                                shared_linf=sh)
-                    msgs[i].append(msg.values)
-                    scales[i].append(msg.scale * w_eff[j] if part is not None else msg.scale)
+                    # elastic: the weight premultiplies the decode scale
+                    sc = msg.scale * w_eff[j] if part is not None else msg.scale
+                    if slot is None:
+                        msgs[i].append(msg.values)
+                        scales[i].append(sc)
+                        continue
+                    values, k = collectives.decoded_message(msg.values, sc, mask[j],
+                                                            is_ternary=comp.is_ternary)
+                    nnz[j] = nnz[j] + k
+                    values = bucketing.as_rows(values, plan.fmt, slot[1].rows)
                 else:
-                    msg = engine.compress_leaf(g, comp, seed_i, backend=backend, wire=wire,
-                                               shared_linf=sh)
+                    if slot is None:
+                        msg = engine.compress_leaf(g, comp, seed_i, backend=backend, wire=wire,
+                                                   shared_linf=sh)
+                    else:
+                        msg = engine.compress_leaf_rows(g, comp, seed_i, rows=slot[1].rows,
+                                                        backend=backend, wire=wire,
+                                                        shared_linf=sh)
                     values = wire.mask_message(msg.values, mask[j])
-                    msgs[i].append(values)
                     scales[i].append(msg.scale)
                     nnz[j] = nnz[j] + wire.message_nnz(values)
                     if count_dropped:
                         dropped[j] = dropped[j] + wire.message_dropped(values)
+                    if slot is None:
+                        msgs[i].append(values)
+                        continue
+                bi, s = slot
+                bufs[bi][j, s.row_start:s.row_start + s.rows] = values
+                del values   # the slot holds it now
 
         for j in range(group.local):
             w = group.rank * group.local + j
@@ -220,66 +264,98 @@ def build_train_step(model, step_cfg: TrainStepConfig, group: WorkerGroup) -> Ca
             del src
         if share_linf:
             # TernGrad's magnitude sharing / linf_share budgets: one max over
-            # the sampled workers per leaf before compressing
-            shared = [collectives.worker_shared_linf([s[i] for s in sources], group, mask=mask)
-                      for i in range(n_leaves)]
+            # the sampled workers per leaf (bucketed: one vector for all
+            # leaves) before compressing
+            if plan is not None:
+                shared = collectives.worker_shared_linf_many(sources, group, mask=mask)
+            else:
+                shared = [collectives.worker_shared_linf([s[i] for s in sources], group,
+                                                         mask=mask)
+                          for i in range(n_leaves)]
             for j in range(group.local):
                 compress_worker(j, sources[j], shared)
                 sources[j] = None
 
-        # -- the exchange and the server, leaf by leaf ----------------------
+        # -- the exchange and the server -----------------------------------
         n_sel = collectives.scalar_psum(mask.to(torch.float32), group)
-        new_leaves, ef_leaves = [], []
         ef_flat = (tree_leaves(state.ef_residual) if state.ef_residual is not None
                    else [None] * n_leaves)
-        wire_bytes, gather_hbm, total = 0.0, 0.0, 0
-        for i, (p, ef) in enumerate(zip(p_leaves, ef_flat)):
-            n, shape = p.numel(), tuple(p.shape)
-            wire_bytes += collectives.uplink_ledger(mode, wire, n, share_linf=share_linf)
-            if mode != "decoded":
-                gather_hbm = max(gather_hbm, wire.gather_hbm_bytes(n))
-            stack = torch.stack(msgs[i])
-            msgs[i] = None
-            if mode == "decoded":
-                vote_sum, k = collectives.decoded_exchange(stack, torch.stack(scales[i]), mask,
-                                                           group, is_ternary=comp.is_ternary)
-                nnz = [a + b for a, b in zip(nnz, k)]
-                n_or_w = (collectives.scalar_psum(w_eff, group) if part is not None
-                          else n_sel)
-                new_p, new_ef = engine.server_apply(p, vote_sum, comp, lr=lr, ef=ef,
-                                                    n_sel=n_or_w, server="mean",
+        new_leaves, ef_leaves = list(p_leaves), list(ef_flat)
+        if mode == "decoded":   # the mean's divisor: W (one protocol scalar) or n_sel
+            n_dec = collectives.scalar_psum(w_eff, group) if part is not None else n_sel
+
+        def apply(i, agg, n_or_w):
+            """C(.) and SGD on leaf i from its exchanged sum, written in place."""
+            p, ef = p_leaves[i], ef_flat[i]
+            if mode != "votes":
+                # pack8 and decoded sums arrive dequantized; scaled_votes
+                # carries ONE shared scale
+                mean_scale = scales[i][-1] if mode == "scaled_votes" else None
+                new_p, new_ef = engine.server_apply(p, agg, comp, lr=lr, ef=ef, n_sel=n_or_w,
+                                                    server="mean", scale=mean_scale,
+                                                    backend=backend)
+            elif part is not None:
+                new_p, new_ef = engine.server_apply(p, agg, comp, lr=lr, ef=ef,
+                                                    part_total=n_or_w, q_frac=q_fracs[i],
                                                     backend=backend)
             else:
-                # pack8 gathers every worker's decode scale and returns the
-                # dequantized sum; scaled_votes carries ONE shared scale
-                wire_scale = torch.stack(scales[i]) if mode == "pack8" else None
-                mean_scale = scales[i][-1] if mode == "scaled_votes" else None
-                if part is not None:
-                    agg, n_or_w = wire.exchange_weighted(stack, n, shape, weight=w_eff,
-                                                         scale=wire_scale)
-                else:
-                    agg, n_or_w = wire.exchange(stack, n, shape, scale=wire_scale), n_sel
-                if mode != "votes":
-                    new_p, new_ef = engine.server_apply(p, agg, comp, lr=lr, ef=ef,
-                                                        n_sel=n_or_w, server="mean",
-                                                        scale=mean_scale, backend=backend)
-                elif part is not None:
-                    new_p, new_ef = engine.server_apply(p, agg, comp, lr=lr, ef=ef,
-                                                        part_total=n_or_w, q_frac=q_fracs[i],
-                                                        backend=backend)
-                else:
-                    new_p, new_ef = engine.server_apply(p, agg, comp, lr=lr, ef=ef,
-                                                        n_sel=n_sel, quorum=quorum_leaves[i],
-                                                        backend=backend)
-            del stack
+                new_p, new_ef = engine.server_apply(p, agg, comp, lr=lr, ef=ef, n_sel=n_sel,
+                                                    quorum=quorum_leaves[i], backend=backend)
             p.copy_(new_p)
-            new_p = p
             if ef is not None and new_ef is not ef:
                 ef.copy_(new_ef)
-                new_ef = ef
-            total += n
-            new_leaves.append(new_p)
-            ef_leaves.append(new_ef)
+
+        total = sum(p.numel() for p in p_leaves)
+        if plan is not None:
+            for bi, b in enumerate(plan.buckets):
+                buf, bufs[bi] = bufs[bi], None
+                bscale = None
+                if mode == "pack8":   # (local, n_slots): each worker's slot scales
+                    bscale = torch.stack([torch.stack([scales[s.index][j] for s in b.slots])
+                                          for j in range(group.local)])
+                if mode == "decoded":
+                    parts = bucketing.split_bucket(
+                        collectives.decoded_exchange_bucket(buf, group), b)
+                    wtots = n_dec
+                elif part is not None:
+                    # W is per slot (per coordinate) on the psum wires, one
+                    # scalar on the gather wires
+                    parts, wtots = wire.exchange_bucket_weighted(buf, b, weight=w_eff,
+                                                                 scale=bscale)
+                else:
+                    parts, wtots = wire.exchange_bucket(buf, b, scale=bscale), n_sel
+                del buf
+                for k, (s, agg) in enumerate(zip(b.slots, parts)):
+                    apply(s.index, agg, wtots[k] if isinstance(wtots, list) else wtots)
+                del parts
+            pay, scal = bucketing.plan_ledger(mode, wire, plan, share_linf=share_linf)
+            wire_bytes = pay + scal
+            gather_hbm = bucketing.plan_gather_hbm_bytes(mode, wire, plan)
+        else:
+            wire_bytes, gather_hbm = 0.0, 0.0
+            for i, p in enumerate(p_leaves):
+                n, shape = p.numel(), tuple(p.shape)
+                wire_bytes += collectives.uplink_ledger(mode, wire, n, share_linf=share_linf)
+                if mode != "decoded":
+                    gather_hbm = max(gather_hbm, wire.gather_hbm_bytes(n))
+                stack = msgs[i] if ring else torch.stack(msgs[i])
+                msgs[i] = None
+                if mode == "decoded":
+                    agg, k = collectives.decoded_exchange(stack, torch.stack(scales[i]), mask,
+                                                          group, is_ternary=comp.is_ternary)
+                    nnz = [a + b for a, b in zip(nnz, k)]
+                    n_or_w = n_dec
+                else:
+                    # pack8 gathers every worker's decode scale
+                    wire_scale = torch.stack(scales[i]) if mode == "pack8" else None
+                    if part is not None:
+                        agg, n_or_w = wire.exchange_weighted(stack, n, shape, weight=w_eff,
+                                                             scale=wire_scale)
+                    else:
+                        agg, n_or_w = wire.exchange(stack, n, shape, scale=wire_scale), n_sel
+                del stack
+                apply(i, agg, n_or_w)
+                del agg
 
         f32 = np.float32
         loss_mean = collectives.scalar_psum(torch.stack(losses), group) / f32(n_workers)
@@ -300,4 +376,5 @@ def build_train_step(model, step_cfg: TrainStepConfig, group: WorkerGroup) -> Ca
 
     step.wire = wire
     step.mode = mode
+    step.plan = plan
     return step

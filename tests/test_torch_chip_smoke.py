@@ -128,3 +128,67 @@ def test_encoder_owner_tells_qsgd8_from_the_2bit_encoders(dtype):
     assert owner(f"void repro::encode_kernel<(anonymous namespace)::Qsgd8Encoder<{dtype}>>"
                  f"(const T1::In *)") == "qsgd8_pack8"
     assert owner("void (anonymous namespace)::unpack8_sum_kernel(const signed char *)") is None
+
+
+def test_plain_versions_barred_covers_the_ring():
+    """The ring decodes through the barred names too: a ring exchange of
+    CPU messages inside the block reaches a plain version and raises, so a
+    counted ring run on the card shows the kernels ran."""
+    import torch
+
+    from repro_torch.dist.collectives import make_vote_wire
+    from repro_torch.launch.mesh import make_mesh
+
+    group = make_mesh((2,), ("data",))
+    msgs = torch.zeros((2, 64, 128), dtype=torch.uint8)
+    for fmt in ("pack2", "pack8"):
+        wire = make_vote_wire("allgather_packed", group, wire_format=fmt, ring_chunk_rows=32)
+        values = msgs if fmt == "pack2" else torch.zeros((2, 64, 512), dtype=torch.int8)
+        scale = None if fmt == "pack2" else torch.ones(2)
+        with _chip_smoke().plain_versions_barred():
+            with pytest.raises(RuntimeError, match="plain version"):
+                wire.exchange(values, 64 * 512, (64 * 512,), scale=scale)
+        assert wire.exchange(values, 64 * 512, (64 * 512,), scale=scale).shape == (64 * 512,)
+
+
+def test_phase_ring_rehearses_on_the_cpu(monkeypatch):
+    """The ring phase's checks at a small size on the CPU with the plain
+    versions: ring against monolithic on each wire, pack8 against the sum
+    in the ring's order and within its bound, the bucket against the
+    per-leaf exchanges. Only the launch counts cannot hold without a card."""
+    import torch
+
+    cs = _chip_smoke()
+    check = cs.check
+
+    def no_launch_counts(cond, msg):
+        if "launched" not in msg:
+            check(cond, msg)
+
+    monkeypatch.setattr(cs, "check", no_launch_counts)
+    report = {}
+    cs.phase_ring(torch, lambda fn, **kw: (fn(), {"ms": 0.0})[1], report, dev="cpu",
+                  n=70003, layer_shapes=[(2560,), (64, 511), (300, 257)])
+    ring = report["ring"]
+    assert {(r["wire"], r["elastic"], r["rows"]) for r in ring["per_leaf"]} == {
+        (w, e, rows) for w in ("pack2", "golomb", "pack8") for e in (False, True)
+        for rows in cs.RING_ROWS if not (w == "pack8" and e)}
+    pack8 = [r for r in ring["per_leaf"] if r["wire"] == "pack8"]
+    assert all(r["max_abs_diff"] <= r["bound"] for r in pack8)
+    assert [b["wire"] for b in ring["bucket"]] == ["pack2", "golomb", "pack8"]
+
+
+def test_ulps_apart_counts_steps_on_the_number_line():
+    import torch
+
+    ulps = _chip_smoke().ulps_apart
+    for dtype in (torch.bfloat16, torch.float32):
+        a = torch.tensor([1.0, -1.0, 0.0, -0.0, 2.0], dtype=dtype)
+        up = torch.nextafter(a.to(torch.float32), torch.tensor(9.0)).to(dtype)
+        if dtype == torch.bfloat16:   # one bf16 step: the next bit pattern
+            up = (a.view(torch.int16) + torch.where(a < 0, -1, 1).to(torch.int16)
+                  ).view(torch.bfloat16)
+        assert ulps(torch, a, a) == (0, 0)
+        assert ulps(torch, a, up)[1] == 1
+        assert ulps(torch, torch.tensor([0.0], dtype=dtype),
+                    torch.tensor([-0.0], dtype=dtype)) == (0, 0)

@@ -295,9 +295,9 @@ def test_make_vote_wire_golomb_validation_matches_jax():
     wire = tcoll.make_vote_wire("allgather_packed", flat, wire_format="golomb", golomb_p=0.05,
                                 backend="torch")
     assert isinstance(wire, tcoll.GolombWire) and wire.p == 0.05 and wire.backend == "torch"
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcoll.make_vote_wire("allgather_packed", flat, wire_format="golomb", golomb_p=0.05,
-                             ring_chunk_rows=64)
+    ring = tcoll.make_vote_wire("allgather_packed", flat, wire_format="golomb", golomb_p=0.05,
+                                ring_chunk_rows=64)
+    assert isinstance(ring, tcoll.GolombWire) and ring.ring_chunk_rows == 64
 
 
 @pytest.mark.parametrize("name", list(SPECS))

@@ -350,13 +350,14 @@ def test_trainer_refuses_what_is_not_ported():
     tm = Model(get_config("qwen1.5-4b", smoke=True))
     comp = CompressionConfig()
     group = make_host_mesh(2)
-    with pytest.raises(NotImplementedError, match="bucketed"):
-        build_train_step(tm, TrainStepConfig(compression=comp, lr=LrSchedule(),
-                                             bucketed=True), group)
-    with pytest.raises(NotImplementedError, match="ring"):
-        build_train_step(tm, TrainStepConfig(compression=comp, lr=LrSchedule(),
-                                             vote_impl="allgather_packed",
-                                             ring_chunk_rows=64), group)
+    # the bucketed uplink and the ring gather are ported: the steps build
+    step = build_train_step(tm, TrainStepConfig(compression=comp, lr=LrSchedule(),
+                                                bucketed=True), group)
+    assert step.plan is not None and step.plan.fmt == "int8"
+    step = build_train_step(tm, TrainStepConfig(compression=comp, lr=LrSchedule(),
+                                                vote_impl="allgather_packed",
+                                                ring_chunk_rows=64), group)
+    assert step.plan is None and step.wire.ring_chunk_rows == 64
     with pytest.raises(ValueError, match="two worker axes"):
         build_train_step(tm, TrainStepConfig(compression=comp, lr=LrSchedule(),
                                              vote_impl="hier"), group)

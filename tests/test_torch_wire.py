@@ -321,10 +321,10 @@ def test_make_vote_wire_validation_matches_jax():
         assert jerr is not None, label
         with pytest.raises(jerr):
             tcoll.make_vote_wire(*args, hier if on_hier else flat, **tkw)
-    # valid arguments for what is not ported yet: a loud refusal; the golomb
-    # and pack8 wires are ported
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcoll.make_vote_wire("allgather_packed", flat, ring_chunk_rows=64)
+    # valid arguments build the wire: the ring, the golomb and the pack8
+    # wires are ported
+    ring = tcoll.make_vote_wire("allgather_packed", flat, ring_chunk_rows=64)
+    assert isinstance(ring, tcoll.PackedVoteWire) and ring.ring_chunk_rows == 64
     wire = tcoll.make_vote_wire("allgather_packed", flat, wire_format="golomb", golomb_p=0.05)
     assert isinstance(wire, tcoll.GolombWire) and wire.p == 0.05
     assert isinstance(tcoll.make_vote_wire("allgather_packed", flat, wire_format="pack8"),
