@@ -5,10 +5,13 @@
     python3 chip_smoke.py --golomb-split [CSRC ...]   # the Golomb kernels alone
     python3 chip_smoke.py --pack2-split [CSRC ...]    # the fused 2-bit encoders alone
     python3 chip_smoke.py --pack8-split [CSRC ...]    # the qsgd8 encoder alone
+    python3 chip_smoke.py --decode-split [CSRC ...]   # the 2-bit and pack8 decode-sums alone
     python3 chip_smoke.py --sass LISTING.sass.gz      # a saved listing's loops, no card
 
 The split forms time the Golomb wire's four kernels, the two fused 2-bit
-encoders in every rule, or qsgd8_pack8 in bf16 and float32, at w_down and
+encoders in every rule, qsgd8_pack8 in bf16 and float32, or the 2-bit and
+pack8 decode-sums' monolithic forms (unpack2bit_sum, unpack2bit_wsum and
+unpack8_sum at M = 1 and 4), at w_down and
 split each call's device time by launch, for the kernel sources of each CSRC
 directory given (default: the checkout's), A B B A for two, with each tree's
 ptxas report and SASS census (listings under chiprun_out/sass/). Phases of
@@ -43,7 +46,11 @@ the first, in order; any failure exits non-zero before the last line:
      tile, a gradient off 16-byte alignment, a counter base wrapping inside a
      thread's span, params -1/0/NaN/inf/2^24, subnormal gradients under tiny
      and huge budgets, sparsign_pack2bit == ternary_pack2bit's sparsign rule);
-     timed against their bounds, and the server kernels (vote_update,
+     the decode-sums also into int8 and int16 outputs, M = 1 accumulating
+     into a nonzero output of each dtype at 8,192 rows and at w_down, and
+     -0.0 products (a chain of four M = 1 decodes gives +0.0, adding into
+     -0.0 keeps it); timed against their bounds (also M = 4 into int8 and
+     the M = 1 hop at w_down), and the server kernels (vote_update,
      weighted_vote_update, ef_server) at w_down's shape;
   6. the Golomb/Rice wire's kernels (sparsign_golomb, golomb_pack,
      ungolomb_sum, ungolomb_wsum) against their plain versions on the card,
@@ -65,8 +72,11 @@ the first, in order; any failure exits non-zero before the last line:
      2, 1) and within pack8_ring_bound of the monolithic sum (the count of
      coordinates that differ printed); one bucket of the first block's 12
      leaves against the per-leaf exchanges on each wire, monolithic and
-     ringed; launches counted (chunks x M decodes), exchanges timed on the
-     host clock, each chunk's M = 1 decode and its add timed alone; then
+     ringed; launches counted (chunks x M decodes; at 8,192 rows one
+     exchange traced: on the 2-bit and pack8 wires nothing but the decodes
+     and, weighted, W's M - 1 adds), exchanges timed on the host clock, each
+     chunk's M = 1 decode and its add timed alone (the parent's hop) beside
+     the fused hop that adds the decode into the accumulator in place; then
      the data-parallel LM trainer: qwen1.5-4b at full width through
      repro_torch.launch.train's build path, M = 4 workers on the card, one
      sequence of 4096 tokens each (train_4k's length; the global batch cut
@@ -92,7 +102,10 @@ the first, in order; any failure exits non-zero before the last line:
      (pack2bit, unpack2bit, qsgd8_pack8, unpack8_sum) against their plain
      versions on the card, bit for bit: w_down's size, odd sizes, arbitrary
      int8 bytes, f32 and bf16 gradients with +-0/NaN/+-inf at counter base
-     2^32 - 5000, M = 1, 4 and 20 with zero scales; qsgd8_pack8 on every bf16
+     2^32 - 5000, M = 1, 4 and 20 with zero scales, M = 1 accumulating into a
+     nonzero output at 8,192 rows and at w_down, -0.0 products as in phase
+     5, and the accumulate form timed beside acc.add_(levels, alpha=s)
+     (its differing values counted); qsgd8_pack8 on every bf16
      bit pattern at 350 scales and every float32 bit pattern at five, sizes
      about a row and a tile, off 16-byte alignment, a counter base wrapping
      inside a tile; timed against bounds;
@@ -462,6 +475,43 @@ def profile_call(torch, fn) -> dict:
             "port_kernel_ms": ours, "port_kernel_share": ours / total,
             "kernel_share": {n: t / total for n, t in per.items() if t > 0},
             "top_kernels": {k: t / total for k, t in top.items()}}
+
+
+def bitwise_case(torch, errs, kind, label, kernel_fn, plain_fn):
+    """``kernel_fn()`` against ``plain_fn()`` bit for bit, its error kept in
+    ``errs[kind]``; returns the kernel's output."""
+    k, r = kernel_fn(), plain_fn()
+    torch.cuda.synchronize()
+    check(same_bits(k, r), f"{kind} {label} differs from its plain version in "
+                           f"{int((bits(k) != bits(r)).sum())} values")
+    errs[kind] = max(errs[kind], max_abs_err(k, r))
+    return k
+
+
+def negative_zero_case(torch, errs, kind, kernel_fn, plain_fn, neg):
+    """-0.0 products: ``neg``, four messages of negative votes or levels, at
+    zero weights or scales. A ring's chain of four M = 1 decodes, the first
+    writing, gives +0.0; one decode added into -0.0 keeps -0.0; each bit for
+    bit its plain version's."""
+    zero, shape = torch.zeros(4, device=neg.device), (neg.shape[1], 512)
+
+    def chain(fn):
+        out = torch.full(shape, float("nan"), device=neg.device)
+        for i in range(4):
+            fn(neg[i:i + 1], zero[i:i + 1], out=out, accumulate=i > 0)
+        return out
+
+    def into_negative_zero(fn):
+        return fn(neg[:1], zero[:1], out=torch.full(shape, -0.0, device=neg.device),
+                  accumulate=True)
+
+    k = bitwise_case(torch, errs, kind, "a chain of -0.0 products", lambda: chain(kernel_fn),
+                     lambda: chain(plain_fn))
+    check(not bool(torch.signbit(k).any()), f"{kind}'s chain of -0.0 products gave -0.0")
+    k = bitwise_case(torch, errs, kind, "-0.0 products into -0.0",
+                     lambda: into_negative_zero(kernel_fn), lambda: into_negative_zero(plain_fn))
+    check(bool(torch.signbit(k).all()), f"{kind} lost a -0.0 accumulator")
+    print(f"[kernels] {kind} -0.0 products: a chain gives +0.0, into -0.0 keeps -0.0, bitwise ok")
 
 
 # ---------------------------------------------------------------------------
@@ -994,27 +1044,50 @@ def phase_wire_kernels(torch, timer, report):
               f"{'sweep' if sweep else 'default'}: every rule bitwise ok, sparsign_pack2bit "
               f"== ternary_pack2bit(sparsign)")
 
-    # -- the decode-sums: M messages of random bytes (code 3 included)
+    # -- the decode-sums: M messages of random bytes (code 3 included), into a
+    # new int32 sum and into an int8 and an int16 output
     for m, rows in ((1, canonical_rows(N_WDOWN)), (4, canonical_rows(N_WDOWN)),
                     (20, canonical_rows(N_WDOWN)), (3, canonical_rows(12345))):
         p = torch.randint(0, 256, (m, rows, 128), generator=gen, device=dev, dtype=torch.uint8)
         w = torch.rand(m, generator=gen, device=dev) * 2
         w[::2] = torch.tensor([0.0, 1.0, 0.3, 1.7, 0.5] * 4, device=dev)[:w[::2].numel()]
-        k, r = unpack2bit_sum_cuda(p), unpack2bit_sum_ref(p)
-        torch.cuda.synchronize()
-        check(same_bits(k, r), f"unpack2bit_sum M={m} rows={rows} differs from its plain version")
-        errs["unpack2bit_sum"] = max(errs["unpack2bit_sum"], max_abs_err(k, r))
-        del k, r
+        for dt in (torch.int32, torch.int16, torch.int8):
+            def out():
+                return torch.empty((rows, 512), dtype=dt, device=dev)
+            bitwise_case(torch, errs, "unpack2bit_sum", f"M={m} rows={rows} {dt}",
+                         lambda: unpack2bit_sum_cuda(p, out=None if dt == torch.int32 else out()),
+                         lambda: unpack2bit_sum_ref(p, out=out()))
         for wt in (w, torch.zeros(m, device=dev)):
-            k, r = unpack2bit_wsum_cuda(p, wt), unpack2bit_wsum_ref(p, wt)
-            torch.cuda.synchronize()
-            check(same_bits(k, r), f"unpack2bit_wsum M={m} rows={rows} differs from its plain "
-                                   f"version in {int((bits(k) != bits(r)).sum())} values")
-            errs["unpack2bit_wsum"] = max(errs["unpack2bit_wsum"], max_abs_err(k, r))
-            del k, r
-        print(f"[wire] unpack2bit_sum and unpack2bit_wsum (zero and fractional weights) M={m} "
-              f"rows={rows}: bitwise ok")
+            bitwise_case(torch, errs, "unpack2bit_wsum", f"M={m} rows={rows}",
+                         lambda: unpack2bit_wsum_cuda(p, wt), lambda: unpack2bit_wsum_ref(p, wt))
+        print(f"[wire] unpack2bit_sum (int32, int16, int8) and unpack2bit_wsum (zero and "
+              f"fractional weights) M={m} rows={rows}: bitwise ok")
         del p
+
+    # -- the ring's hop: M = 1 added into a nonzero accumulator (each output
+    # dtype; floats with +-0.0 among them), at 8,192 rows and at w_down
+    for rows in (RING_ROWS[1], canonical_rows(N_WDOWN)):
+        p = torch.randint(0, 256, (1, rows, 128), generator=gen, device=dev, dtype=torch.uint8)
+        for dt in (torch.int8, torch.int16, torch.int32):
+            a0 = torch.randint(-100, 101, (rows, 512), generator=gen, device=dev).to(dt)
+            bitwise_case(torch, errs, "unpack2bit_sum", f"M=1 rows={rows} {dt} accumulating",
+                         lambda: unpack2bit_sum_cuda(p, out=a0.clone(), accumulate=True),
+                         lambda: unpack2bit_sum_ref(p, out=a0.clone(), accumulate=True))
+            del a0
+        a0 = torch.randn(rows * 512, generator=gen, device=dev)
+        a0[::7], a0[1::7] = -0.0, 0.0
+        for wt in (torch.full((1,), 0.3, device=dev), torch.zeros(1, device=dev)):
+            bitwise_case(torch, errs, "unpack2bit_wsum",
+                         f"M=1 rows={rows} weight {float(wt):g} accumulating",
+                         lambda: unpack2bit_wsum_cuda(p, wt, out=a0.clone(), accumulate=True),
+                         lambda: unpack2bit_wsum_ref(p, wt, out=a0.clone(), accumulate=True))
+        print(f"[wire] unpack2bit_sum (int8, int16, int32) and unpack2bit_wsum M=1 rows={rows} "
+              f"accumulating into a nonzero output: bitwise ok")
+        del p, a0
+
+    # -- -0.0 products: zero weights on -1 votes
+    negative_zero_case(torch, errs, "unpack2bit_wsum", unpack2bit_wsum_cuda, unpack2bit_wsum_ref,
+                       torch.full((4, RING_ROWS[1], 128), 0xAA, dtype=torch.uint8, device=dev))
 
     # -- timing at the path's shapes: w_down in bf16, M = 4 (and 1, 20)
     timings = {}
@@ -1047,6 +1120,24 @@ def phase_wire_kernels(torch, timer, report):
         timings[f"unpack2bit_wsum M={m} w_down"] = measure(
             timer, lambda: unpack2bit_wsum_cuda(p, w), lambda: unpack2bit_wsum_ref(p, w),
             nbytes + m * 4, ops, plain_reps=3)
+        if m == 4:   # the monolithic wire's output: _sum_dtype(4), int8
+            o8 = torch.empty((rows, 512), dtype=torch.int8, device=dev)
+            timings["unpack2bit_sum M=4 w_down int8"] = measure(
+                timer, lambda: unpack2bit_sum_cuda(p, out=o8),
+                lambda: unpack2bit_sum_ref(p, out=o8), m * rows * 128 + rows * 512, ops,
+                plain_reps=3)
+        if m == 1:   # the ring's hop at w_down: add into the accumulator
+            a8 = torch.zeros((rows, 512), dtype=torch.int8, device=dev)
+            af = torch.zeros((rows, 512), device=dev)
+            timings["unpack2bit_sum M=1 w_down int8 accumulating"] = measure(
+                timer, lambda: unpack2bit_sum_cuda(p, out=a8, accumulate=True),
+                lambda: unpack2bit_sum_ref(p, out=a8, accumulate=True),
+                rows * 128 + 2 * rows * 512, ops, plain_reps=3)
+            timings["unpack2bit_wsum M=1 w_down accumulating"] = measure(
+                timer, lambda: unpack2bit_wsum_cuda(p, w, out=af, accumulate=True),
+                lambda: unpack2bit_wsum_ref(p, w, out=af, accumulate=True),
+                rows * 128 + 2 * rows * 512 * 4 + 4, ops, plain_reps=3)
+            del a8, af
         del p
     # the server kernels at the trainer's shape: each leaf of w_down's size,
     # f32 parameters, int8 vote sums (f32 weighted sums, scalar W)
@@ -1366,6 +1457,26 @@ def phase_pack8_kernels(torch, timer, report):
         del k, r, lv
         print(f"[pack8] unpack8_sum M={m} rows={rows} (a zero scale): bitwise ok")
 
+    # -- the ring's hop: M = 1 added into a nonzero accumulator (+-0.0 among
+    # it), zero and fractional scales, at 8,192 rows and at w_down
+    for rows in (RING_ROWS[1], canonical_rows(N_WDOWN)):
+        lv = torch.randint(-127, 128, (1, rows, 512), generator=gen, device=dev,
+                           dtype=torch.int8)
+        a0 = torch.randn(rows * 512, generator=gen, device=dev)
+        a0[::7], a0[1::7] = -0.0, 0.0
+        for s1 in (torch.full((1,), 3e-3, device=dev), torch.zeros(1, device=dev)):
+            bitwise_case(torch, errs, "unpack8_sum", f"M=1 rows={rows} scale {float(s1):g} "
+                         f"accumulating",
+                         lambda: unpack8_sum_cuda(lv, s1, out=a0.clone(), accumulate=True),
+                         lambda: unpack8_sum_ref(lv, s1, out=a0.clone(), accumulate=True))
+        print(f"[pack8] unpack8_sum M=1 rows={rows} accumulating into a nonzero output: "
+              f"bitwise ok")
+        del lv, a0
+
+    # -- -0.0 products: a zero scale on negative levels
+    negative_zero_case(torch, errs, "unpack8_sum", unpack8_sum_cuda, unpack8_sum_ref,
+                       torch.full((4, RING_ROWS[1], 512), -5, dtype=torch.int8, device=dev))
+
     # -- timing at the path's shapes: w_down, the trainer's bf16 gradient,
     # M = 4 (and 1, 20)
     timings = {}
@@ -1396,6 +1507,23 @@ def phase_pack8_kernels(torch, timer, report):
             timer, lambda: unpack8_sum_cuda(lv, sc), lambda: unpack8_sum_ref(lv, sc),
             m * rows * 512 + rows * 512 * 4 + m * 4, m * rows * 512 * UNPACK8_OPS_PER_LEVEL,
             plain_reps=3)
+        if m == 1:   # the ring's hop at w_down; the library call: one add_ with alpha
+            acc = torch.zeros((rows, 512), device=dev)
+            lib_acc, s1 = acc.clone(), float(sc[0])
+            timings["unpack8_sum M=1 w_down accumulating"] = measure(
+                timer, lambda: unpack8_sum_cuda(lv, sc, out=acc, accumulate=True),
+                lambda: unpack8_sum_ref(lv, sc, out=acc, accumulate=True),
+                rows * 512 + 2 * rows * 512 * 4 + 4, rows * 512 * UNPACK8_OPS_PER_LEVEL,
+                plain_reps=3, library=lambda: lib_acc.add_(lv[0], alpha=s1))
+            a0 = torch.randn((rows, 512), generator=gen, device=dev)
+            lib = a0.clone().add_(lv[0], alpha=s1)
+            k = unpack8_sum_cuda(lv, sc, out=a0.clone(), accumulate=True)
+            torch.cuda.synchronize()
+            differ = int((bits(lib) != bits(k)).sum())
+            timings["unpack8_sum M=1 w_down accumulating"]["library_differs"] = differ
+            print(f"[pack8] library acc.add_(levels, alpha=s) vs unpack8_sum accumulating at "
+                  f"w_down: {differ} of {rows * 512} values differ")
+            del acc, lib_acc, a0, lib, k
         del lv
     print_timings(timings)
     report["pack8_timings"] = timings
@@ -1662,6 +1790,16 @@ def phase_ring(torch, timer, report, dev="cuda", n=N_WDOWN, layer_shapes=None):
                               chunks * m, f"{fmt} n={n} rows={rows}")
                 line = {"wire": fmt, "elastic": elastic, "rows": rows, "chunks": chunks,
                         "launches": chunks * m, "mono_ms": mono_ms}
+                if rows == RING_ROWS[1] and dev == "cuda":
+                    # every device activity of one exchange: on the fused
+                    # wires the decodes, and W's M - 1 adds once an exchange
+                    split = launch_split(torch, lambda: exchange(wr, values, n, wsc, elastic))
+                    others = sum(c for name, c, _ in split if f"{decoder}_kernel" not in name)
+                    line.update(activities=split, other_activities=others)
+                    if fmt != "golomb":
+                        check(others <= (m - 1 if elastic else 0),
+                              f"{fmt} ring rows={rows} elastic={elastic}: {others} device "
+                              f"activities besides the decodes: {split}")
                 if fmt == "pack8":
                     check(same_bits(got, want), f"pack8 ring rows={rows} differs from the "
                                                 f"plain sum in the ring's order")
@@ -1688,43 +1826,59 @@ def phase_ring(torch, timer, report, dev="cuda", n=N_WDOWN, layer_shapes=None):
                       f"{line['ring_ms']:.1f} ms, monolithic {mono_ms:.1f} ms (host to a "
                       f"sync){extra}")
             del mono
-        # the per-hop work alone (device time): one chunk's M = 1 decode, then
-        # its add into the accumulator
+        # the per-hop work alone (device time): one chunk's M = 1 decode and
+        # its add into the accumulator, the parent's hop; and the fused hop,
+        # the decode added into the accumulator in place (2-bit and pack8)
         for rows in ((None,) if fmt == "golomb" else RING_ROWS):
             # a golomb leaf rides the ring as one chunk: its whole message
             nr = values[0].shape[0] if rows is None else min(rows, values[0].shape[0])
             size = n if rows is None else nr * 512
             one = values[0][:nr]
-            calls = {"pack2": [("unpack2bit_sum", lambda: unpack2bit_sum_op(one[None], size,
-                                                                            (size,))),
-                               ("unpack2bit_wsum", lambda: unpack2bit_wsum_op(
-                                   one[None], weights[:1], size, (size,)))],
-                     "golomb": [("ungolomb_sum", lambda: ungolomb_sum_op(
+            # the ring's accumulators: _sum_dtype(4) = int8 for the 2-bit sum
+            acc = {dt: torch.zeros(size, dtype=getattr(torch, dt), device=dev)
+                   for dt in ("int8", "int32", "float32")}
+            calls = {"pack2": [("unpack2bit_sum", "int32", "int8", lambda **k: unpack2bit_sum_op(
+                                   one[None], size, (size,), **k)),
+                               ("unpack2bit_wsum", "float32", "float32",
+                                lambda **k: unpack2bit_wsum_op(one[None], weights[:1], size,
+                                                               (size,), **k))],
+                     "golomb": [("ungolomb_sum", "int32", None, lambda: ungolomb_sum_op(
                                     one[None], size, (size,), p=GOLOMB_P)),
-                                ("ungolomb_wsum", lambda: ungolomb_wsum_op(
+                                ("ungolomb_wsum", "float32", None, lambda: ungolomb_wsum_op(
                                     one[None], weights[:1], size, (size,), p=GOLOMB_P))],
-                     "pack8": [("unpack8_sum", lambda: unpack8_sum_op(one[None], sc[:1], size,
-                                                                      (size,)))]}[fmt]
-            # the ring's add reads two tensors, the accumulator and the decode
-            acc = {dt: (torch.zeros(size, dtype=getattr(torch, dt), device=dev),
-                        torch.ones(size, dtype=getattr(torch, dt), device=dev))
+                     "pack8": [("unpack8_sum", "float32", "float32", lambda **k: unpack8_sum_op(
+                                   one[None], sc[:1], size, (size,), **k))]}[fmt]
+            # the parent's add reads two tensors, the accumulator and the decode
+            dec = {dt: torch.ones(size, dtype=getattr(torch, dt), device=dev)
                    for dt in ("int32", "float32")}
-            adds = {dt: (lambda a=a, d=d: a + d) for dt, (a, d) in acc.items()}
-            for name, fn in calls:
-                add = "int32" if name in ("unpack2bit_sum", "ungolomb_sum") else "float32"
-                t_dec, t_add = timer(fn), timer(adds[add])
-                # bounds: the message read and the sums written; two reads and a write
-                b_dec = bound(one.numel() * one.element_size() + 4 * size, 0)[0]
+            for name, add, into, fn in calls:
+                t_dec = timer(fn)
+                t_add = timer(lambda a=acc[add], d=dec[add]: a + d)
+                # bounds: the message read and the sums written; two reads and a
+                # write; the fused hop reads the message and the accumulator
+                # and writes the accumulator
+                msg = one.numel() * one.element_size()
+                b_dec = bound(msg + 4 * size, 0)[0]
                 b_add = bound(3 * 4 * size, 0)[0]
-                out["per_hop"].append({"kernel": name, "rows": rows, "coords": size,
-                                       "decode_ms": t_dec["ms"], "decode_bound_ms": b_dec,
-                                       "add_ms": t_add["ms"], "add_bound_ms": b_add,
-                                       "add_dtype": add})
+                line = {"kernel": name, "rows": rows, "coords": size, "decode_ms": t_dec["ms"],
+                        "decode_bound_ms": b_dec, "add_ms": t_add["ms"], "add_bound_ms": b_add,
+                        "add_dtype": add}
                 what = "a whole message" if rows is None else f"a chunk of {rows} rows"
+                fused = ""
+                if into:
+                    a = acc[into]
+                    t_hop = timer(lambda: fn(out=a, accumulate=True))
+                    b_hop = bound(msg + 2 * size * a.element_size(), 0)[0]
+                    parent = t_dec["ms"] + t_add["ms"]
+                    line.update(hop_ms=t_hop["ms"], hop_bound_ms=b_hop, hop_dtype=into,
+                                hop_of_parent=t_hop["ms"] / parent if parent else None)
+                    fused = (f"; fused hop into {into} {t_hop['ms']:.4f} ms (bound "
+                             f"{b_hop:.4f}), {line['hop_of_parent'] or 0:.1%} of decode + add")
+                out["per_hop"].append(line)
                 print(f"[ring] per hop, {name} M = 1 on {size} coordinates ({fmt}, {what}): "
                       f"decode {t_dec['ms']:.4f} ms (bound {b_dec:.4f}), {add} add into the "
-                      f"accumulator {t_add['ms']:.4f} ms (bound {b_add:.4f})")
-            del acc, adds
+                      f"accumulator {t_add['ms']:.4f} ms (bound {b_add:.4f}){fused}")
+            del acc, dec
     del msgs, scales
 
     # -- one bucket of the first block's leaves, each wire, against the
@@ -2578,6 +2732,71 @@ def pack8_split(torch, trees: list) -> dict:
     return split_trees(torch, trees, ("pack8",), make_calls, "pack8")
 
 
+def decode_split(torch, trees: list) -> dict:
+    """``--decode-split [CSRC ...]``: the decode-sums' monolithic forms (a new
+    int32 or float32 sum, the only forms every tree has) at w_down, each at
+    M = 1 and 4, through ``split_trees``. Each tree's libraries are called
+    through their own C interface: ``*_into_launch`` with accumulate 0 where
+    the tree has it, else the earlier ``*_launch``."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.common import canonical_rows
+
+    dev, rows = "cuda", canonical_rows(N_WDOWN)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p4 = torch.randint(0, 256, (4, rows, 128), generator=gen, device=dev, dtype=torch.uint8)
+    w4 = torch.rand(4, generator=gen, device=dev) * 2
+    lv = torch.randint(-127, 128, (4, rows, 512), generator=gen, device=dev, dtype=torch.int8)
+    sc = torch.rand(4, generator=gen, device=dev) * 0.01
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+    # (library, entry point, argument types) by kernel, for each C interface;
+    # the interface with out= and accumulate= also takes the 2-bit sum's
+    # output element size
+    into = {"unpack2bit_sum": ("unpack2bit", "unpack2bit_sum_into_launch",
+                               [vp, vp, i32, i64, i32, i32, vp]),
+            "unpack2bit_wsum": ("unpack2bit", "unpack2bit_wsum_into_launch",
+                                [vp, vp, vp, i32, i64, i32, vp]),
+            "unpack8_sum": ("pack8", "unpack8_sum_into_launch", [vp, vp, vp, i32, i64, i32, vp])}
+    earlier = {"unpack2bit_sum": ("unpack2bit", "unpack2bit_sum_launch", [vp, vp, i32, i64, vp]),
+               "unpack2bit_wsum": ("unpack2bit", "unpack2bit_wsum_launch",
+                                   [vp, vp, vp, i32, i64, vp]),
+               "unpack8_sum": ("pack8", "unpack8_sum_launch", [vp, vp, vp, i32, i64, vp])}
+
+    def make_calls():
+        libs = {name: ctypes.CDLL(str(build._lib_path(name))) for name in ("unpack2bit", "pack8")}
+        new = hasattr(libs["unpack2bit"], "unpack2bit_sum_into_launch")
+        fns = {}
+        for kind, (lib, sym, argtypes) in (into if new else earlier).items():
+            fns[kind] = getattr(libs[lib], sym)
+            fns[kind].argtypes, fns[kind].restype = argtypes, ctypes.c_int
+
+        def run(kind, ptrs, m, dtype):
+            out = torch.empty((rows, 512), dtype=dtype, device=dev)
+            args = [*ptrs, out.data_ptr(), m, rows]
+            if new:   # int32 out, not accumulating
+                args += [4, 0] if kind == "unpack2bit_sum" else [0]
+            err = fns[kind](*args, torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"{kind} failed to launch: cudaError {err}")
+            return out
+
+        return {"unpack2bit_sum M=1 w_down":
+                lambda: run("unpack2bit_sum", [p4.data_ptr()], 1, torch.int32),
+                "unpack2bit_sum M=4 w_down":
+                lambda: run("unpack2bit_sum", [p4.data_ptr()], 4, torch.int32),
+                "unpack2bit_wsum M=1 w_down":
+                lambda: run("unpack2bit_wsum", [p4.data_ptr(), w4.data_ptr()], 1, torch.float32),
+                "unpack2bit_wsum M=4 w_down":
+                lambda: run("unpack2bit_wsum", [p4.data_ptr(), w4.data_ptr()], 4, torch.float32),
+                "unpack8_sum M=1 w_down":
+                lambda: run("unpack8_sum", [lv[:1].data_ptr(), sc.data_ptr()], 1, torch.float32),
+                "unpack8_sum M=4 w_down":
+                lambda: run("unpack8_sum", [lv.data_ptr(), sc.data_ptr()], 4, torch.float32)}
+
+    return split_trees(torch, trees, ("unpack2bit", "pack8"), make_calls, "decode")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if "--sass" in sys.argv:   # a saved listing (--pack2-split's): no card
@@ -2598,7 +2817,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     for flag, split in (("--golomb-split", golomb_split), ("--pack2-split", pack2_split),
-                        ("--pack8-split", pack8_split)):
+                        ("--pack8-split", pack8_split), ("--decode-split", decode_split)):
         if flag in sys.argv:
             trees = sys.argv[sys.argv.index(flag) + 1:] or [
                 str(ROOT / "src" / "repro_torch" / "csrc")]

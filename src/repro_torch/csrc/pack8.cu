@@ -7,7 +7,8 @@
 //                level = min(floor(r) + [u(seed, counter_base + c) < r - floor(r)], 127)
 //                out   = int8(sign(g[c]) * level)  over the canonical (rows, 512)
 //                        view, rows = canonical_rows(n); coordinates past n are 0
-//   unpack8_sum: out[c] = (((0 + l_0[c] s_0) + l_1[c] s_1) + ...) + l_{M-1}[c] s_{M-1}
+//   unpack8_sum: out[c] = (((a + l_0[c] s_0) + l_1[c] s_1) + ...) + l_{M-1}[c] s_{M-1}
+//                a = 0 (+0.0), or with accumulate a = out[c] (the ring's hop)
 //
 // with u = k 2^-24 the counter-hash uniform of repro.core.prng, regenerated in
 // registers; max and min propagate NaN as jnp's do, and a NaN level (a NaN
@@ -16,7 +17,7 @@
 // its own, so no multiply-add contraction moves the sum off the decoded-psum
 // wire, which materializes (rounds) every product before its worker-order
 // sum. The sum starts at +0.0, as the plain version and the TPU kernel's
-// accumulator do.
+// accumulator do, or, accumulating, at the output's value.
 //
 // Bound on an H100 (3.35 TB/s): bytes. qsgd8_pack8 reads the gradient once
 // and writes a byte: 3 B/coord in bf16, 5 in f32; its 27 operations a
@@ -24,8 +25,8 @@
 // at the float32 rate, but at the issue rate measured for the fused 2-bit
 // encoders (23.6 us at w_down per SASS instruction a coordinate, PERF.md)
 // the bf16 byte bound leaves about 27 instructions a coordinate. unpack8_sum
-// reads one byte per worker and writes 4: (M + 4) B/coord; 3 operations per
-// worker.
+// reads one byte per worker and writes 4 (and reads them, accumulating):
+// (M + 4) or (M + 8) B/coord; 3 operations per worker.
 //
 // qsgd8_pack8's design: encode_tiles.cuh's frame (the 2-bit encoders'), a
 // thread owning two runs of 16 consecutive coordinates of a 8192-coordinate
@@ -75,20 +76,35 @@
 //     spent a reciprocal on the special-function unit, five fmas, a range
 //     check and a branch.
 //
-// unpack8_sum's design: a flat elementwise pass, 16 coordinates a thread; it
-// streams the M messages in worker order, one 16-byte load of each, with 16
-// float accumulators in registers, and stores four 16-byte vectors: no
-// scratch that grows with M. Offsets are 64-bit: M x rows x 512 passes 2^31
-// at the trainer's shapes.
+// unpack8_sum's design: pack2bit.cuh's warp-a-row layout. Lane l of the warp
+// that owns a canonical row holds its coordinates 4l + e + 128k (e, k in
+// 0..3): per worker it loads four 4-byte words of levels (a warp load reads
+// 128 contiguous bytes), and it stores four 16-byte vectors of sums (a warp
+// store writes 512 contiguous bytes). The words of kDecodeBatch workers are
+// loaded before their adds (all M of them up to M = 8), with the
+// accumulator's four vectors when accumulating; 16 float sums in registers,
+// no scratch that grows with M. Offsets are 64-bit: M x rows x 512 passes
+// 2^31 at the trainer's shapes. On the H100 at w_down (PERF.md,
+// --decode-split A B B A against the parent): M = 1 2.1031 -> 1.2062 ms
+// (87.6 % of the 1.0564 ms byte bound), M = 4 2.0262 -> 1.8727 (90.3 % of
+// 1.6902). The parent's
+// thread owned 16 consecutive coordinates and stored them as four 16-byte
+// vectors 64 bytes apart, so each warp store instruction half-filled 64
+// sectors over 2 KB; at M = 1 the stores are 80 % of the bytes, which is why
+// M = 1 ran slower than M = 4 there (and why M = 4, half stores, gains
+// least). Tried and not kept: M = 1 and 4 as compile-time constants (1.2208,
+// 1.9002 ms), one worker's words at a time (1.2154, 1.9040), streaming (.cs)
+// stores (1.2155, 1.9007).
 #include <type_traits>
 
 #include "encode_tiles.cuh"
+#include "pack2bit.cuh"   // the decode-sums' warp-a-row layout
 
 namespace {
 
 using namespace repro;
 
-constexpr int kPer = 16;                   // unpack8_sum: coordinates a thread
+constexpr int kDecodeBatch = 8;            // unpack8_sum: workers in flight a thread
 constexpr uint32_t kTop = 127u << 24;      // the clip at QSGD8_LEVELS = 127, times 2^24
 constexpr float kTwo24 = 16777216.0f;
 
@@ -257,30 +273,60 @@ struct Qsgd8Encoder {
   }
 };
 
+// one worker's 16 levels into the accumulators: byte e of lv[k] is the level
+// of coordinate jq + e + 128 k
+__device__ __forceinline__ void add_levels(float (&acc)[4][4], const uint32_t (&lv)[4],
+                                           float s) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float l = static_cast<float>(static_cast<int8_t>(lv[k] >> (8 * e)));
+      acc[k][e] = __fadd_rn(acc[k][e], __fmul_rn(l, s));
+    }
+}
+
+template <int kB>
+__device__ __forceinline__ void load_levels(uint32_t (&lv)[kB][4], float (&s)[kB],
+                                            const int8_t* __restrict__ p,
+                                            const float* __restrict__ scales, long long stride,
+                                            int i0, int m) {
+#pragma unroll
+  for (int b = 0; b < kB; ++b) {
+    const int i = i0 + b;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      lv[b][k] = i < m ? __ldg(reinterpret_cast<const uint32_t*>(p + i * stride + k * kBlockCols))
+                       : 0u;
+    s[b] = i < m ? __ldg(scales + i) : 0.0f;
+  }
+}
+
+template <bool kAccumulate>
 __global__ void __launch_bounds__(kThreads)
 unpack8_sum_kernel(const int8_t* __restrict__ levels, const float* __restrict__ scales,
-                   float* __restrict__ out, int m, long long total) {
+                   float* __restrict__ out, int m, long long rows) {
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long i0 = t * kPer;
-  if (i0 >= total) return;
-  float acc[kPer];
+  if (t >= rows * kThreadsPerRow) return;
+  const long long r = t / kThreadsPerRow;
+  const int jq = static_cast<int>(t % kThreadsPerRow) * 4;
+  const long long stride = rows * kLanes;
+  const int8_t* p = levels + r * kLanes + jq;
+  float* o = out + r * kLanes + jq;
+  uint32_t lv[kDecodeBatch][4];
+  float s[kDecodeBatch];
+  load_levels<kDecodeBatch>(lv, s, p, scales, stride, 0, m);
+  float acc[4][4];
+  row_acc_init<kAccumulate>(acc, o);
+  for (int i0 = 0;;) {
 #pragma unroll
-  for (int e = 0; e < kPer; ++e) acc[e] = 0.0f;
-  for (int w = 0; w < m; ++w) {
-    const Vec<int8_t, kPer> lv =
-        *reinterpret_cast<const Vec<int8_t, kPer>*>(levels + w * total + i0);
-    const float s = __ldg(scales + w);
-#pragma unroll
-    for (int e = 0; e < kPer; ++e)
-      acc[e] = __fadd_rn(acc[e], __fmul_rn(static_cast<float>(lv.v[e]), s));
+    for (int b = 0; b < kDecodeBatch; ++b)
+      if (i0 + b < m) add_levels(acc, lv[b], s[b]);
+    i0 += kDecodeBatch;
+    if (i0 >= m) break;
+    load_levels<kDecodeBatch>(lv, s, p, scales, stride, i0, m);
   }
-#pragma unroll
-  for (int k = 0; k < kPer / 4; ++k) {
-    Vec<float, 4> v;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) v.v[e] = acc[4 * k + e];
-    *reinterpret_cast<Vec<float, 4>*>(out + i0 + 4 * k) = v;
-  }
+  row_acc_store(acc, o);
 }
 
 }  // namespace
@@ -301,15 +347,20 @@ extern "C" int qsgd8_pack8_launch(const void* g, void* out, const void* seed,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// levels: int8[m, rows, 512]; scales: float32[m]; out: float32[rows, 512].
-extern "C" int unpack8_sum_launch(const void* levels, const void* scales, void* out, int m,
-                                  long long rows, void* stream) {
+// levels: int8[m, rows, 512]; scales: float32[m]; out: float32[rows, 512];
+// accumulate: add into out instead of writing it.
+extern "C" int unpack8_sum_into_launch(const void* levels, const void* scales, void* out, int m,
+                                       long long rows, int accumulate, void* stream) {
   if (rows <= 0) return 0;
-  if (!aligned(levels, 16) || !aligned(out, 16))
+  if (!aligned(levels, 4) || !aligned(out, 16))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const long long total = rows * 512;
-  unpack8_sum_kernel<<<grid_for(total, kPer), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(levels), static_cast<const float*>(scales),
-      static_cast<float*>(out), m, total);
+  const auto* lv = static_cast<const int8_t*>(levels);
+  const auto* sc = static_cast<const float*>(scales);
+  auto* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (accumulate)
+    unpack8_sum_kernel<true><<<pack_grid(rows), kThreads, 0, st>>>(lv, sc, o, m, rows);
+  else
+    unpack8_sum_kernel<false><<<pack_grid(rows), kThreads, 0, st>>>(lv, sc, o, m, rows);
   return static_cast<int>(cudaGetLastError());
 }

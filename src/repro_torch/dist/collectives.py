@@ -48,12 +48,14 @@ per-leaf exchange.
 Ring-pipelined gather (``ring_chunk_rows``, the gather wires only): instead
 of holding all M messages, the payload is cut into row chunks and each chunk
 goes round the worker ring, every arriving message decoded at M = 1 by the
-same decode-sum kernel and added to an accumulator, so the gathered payload
-held at once is about two chunks instead of M messages; the bytes on the
-fabric are the same (``gather_hbm_bytes`` is the residency ledger). In one
-process a hop is a step to the next local worker's message; across
-processes it sends the process's chunk stack to rank + 1 and receives rank
-- 1's (``ring_permute``, the port's only point-to-point call). The sum runs
+same decode-sum kernel (on the 2-bit and pack8 wires added in place into the
+chunk's slice of the output, one launch a hop; on golomb decoded, then
+added), so the gathered payload held at once is about two chunks instead of
+M messages; the bytes on the fabric are the same (``gather_hbm_bytes`` is
+the residency ledger). In one process a hop is a step to the next local
+worker's message; across processes it sends the process's chunk stack to
+rank + 1 and receives rank - 1's (``ring_permute``, the port's only
+point-to-point call). The sum runs
 in JAX's ring order for the first worker w0 = rank * local: w0, w0 - 1,
 ..., w0 - M + 1 (mod M). Integer sums (pack2, golomb) equal the monolithic
 gather's in any order; pack8's float sums and the weighted sums of weights
@@ -426,7 +428,7 @@ def ring_permute(x: torch.Tensor, group: WorkerGroup) -> torch.Tensor:
     """One hop of the ring over the processes: this process's (local, ...)
     stack goes to rank + 1 and rank - 1's comes back (``batch_isend_irecv``,
     the port's only point-to-point call). With one process it is the
-    identity: ``_ring_accumulate`` steps through the local workers."""
+    identity: ``_ring_order`` steps through the local workers."""
     if group.group is None or group.world == 1:
         return x
     x = x.contiguous()
@@ -491,6 +493,32 @@ def _row_chunks(values, r0: int, nr: int) -> list:
     return [values[j][r0:r0 + nr] for j in range(len(values))]
 
 
+def _ring_order(chunks, side: tuple, group: WorkerGroup):
+    """One chunk's ring exchange: yields each message of the chunk, with its
+    side rows, in the order its sum adds them.
+
+    ``chunks[j]`` is local worker j's chunk and ``side`` holds (local, ...)
+    side channels riding with it (decode scales, weights); each item is
+    ``(message, side_rows)``. JAX's device w adds its own message first, then
+    those of w - 1, w - 2, ... (mod M); the port keeps one replica a process
+    and adds in the order of its first worker w0 = rank * local: w0, then
+    each earlier process's workers from its last (one hop each), then this
+    process's workers from its last down to w0 + 1. In one process: 0, M - 1,
+    ..., 1. The (M, ...) stack never exists."""
+    def at(bufs, sides, j):
+        return bufs[j], tuple(s[j] for s in sides)
+
+    yield at(chunks, side, 0)
+    bufs, sides = chunks, side
+    for _ in range(group.world - 1):
+        bufs = ring_permute(bufs if torch.is_tensor(bufs) else torch.stack(list(bufs)), group)
+        sides = tuple(ring_permute(s, group) for s in sides)
+        for j in range(group.local - 1, -1, -1):
+            yield at(bufs, sides, j)
+    for j in range(group.local - 1, 0, -1):
+        yield at(chunks, side, j)
+
+
 def _tree_add(a, b):
     if isinstance(a, tuple):
         return tuple(x + y for x, y in zip(a, b))
@@ -498,29 +526,45 @@ def _tree_add(a, b):
 
 
 def _ring_accumulate(chunks, side: tuple, decode_fn, group: WorkerGroup):
-    """One chunk's ring exchange with a decode-sum as each message arrives.
+    """The golomb wire's hop: ``decode_fn(chunk, *side_rows)`` decodes one
+    message (M = 1) to a tensor or a tuple of them, added into the
+    accumulator in ``_ring_order``."""
+    acc = None
+    for buf, rows in _ring_order(chunks, side, group):
+        d = decode_fn(buf, *rows)
+        acc = d if acc is None else _tree_add(acc, d)
+    return acc
 
-    ``chunks[j]`` is local worker j's chunk and ``side`` holds (local, ...)
-    side channels riding with it (decode scales, weights).
-    ``decode_fn(chunk, *side_rows)`` decodes one message (M = 1) to a tensor
-    or a tuple of them, added into the accumulator. JAX's device w adds its
-    own message first, then those of w - 1, w - 2, ... (mod M); the port
-    keeps one replica a process and adds in the order of its first worker
-    w0 = rank * local: w0, then each earlier process's workers from its last
-    (one hop each), then this process's workers from its last down to w0 +
-    1. In one process: 0, M - 1, ..., 1. The (M, ...) stack never exists."""
-    def decode(bufs, sides, j):
-        return decode_fn(bufs[j], *(s[j] for s in sides))
 
-    acc = decode(chunks, side, 0)
-    bufs, sides = chunks, side
-    for _ in range(group.world - 1):
-        bufs = ring_permute(bufs if torch.is_tensor(bufs) else torch.stack(list(bufs)), group)
-        sides = tuple(ring_permute(s, group) for s in sides)
-        for j in range(group.local - 1, -1, -1):
-            acc = _tree_add(acc, decode(bufs, sides, j))
-    for j in range(group.local - 1, 0, -1):
-        acc = _tree_add(acc, decode(chunks, side, j))
+def _ring_decode_into(chunks, side: tuple, decode_into, group: WorkerGroup) -> list:
+    """The 2-bit and pack8 wires' hop, one launch: ``decode_into(chunk,
+    *side_rows, accumulate=)`` decodes one message (M = 1) into the chunk's
+    output slice, the first message writing it (``accumulate=False``) and
+    every later one, local or arriving, adding into it in ``_ring_order``.
+    No temporary, no add and no copy. Returns the side rows in that order
+    (``_ring_total`` sums their weights once an exchange).
+
+    The sums are those of decoding each message from +0.0 and adding it to
+    the accumulator, bit for bit. The two differ only where a product is
+    -0.0 (a zero weight times a -1 vote, a zero scale times a negative
+    level) and the accumulator is -0.0: a decode from +0.0 turns the product
+    into +0.0, the fused add keeps it. The accumulator is never -0.0: its
+    first value is a sum seeded with +0.0, and in round-to-nearest x + y is
+    -0.0 only when x and y both are. The integer sums are exact in any
+    order."""
+    order = []
+    for i, (buf, rows) in enumerate(_ring_order(chunks, side, group)):
+        decode_into(buf, *rows, accumulate=i > 0)
+        order.append(rows)
+    return order
+
+
+def _ring_total(order: list) -> torch.Tensor:
+    """W: the last entry of each message's side row (its raw weight), added
+    in ring order, as every chunk's sum adds its products."""
+    acc = None
+    for (row,) in order:
+        acc = row[-1] if acc is None else acc + row[-1]
     return acc
 
 
@@ -720,7 +764,7 @@ class PackedVoteWire(VoteWire):
     """All-gather of the 2-bit packed wire + the fused decode-sum kernel. The
     message IS the packed canonical view, written in one pass by the fused
     compress kernels on the card. With ``ring_chunk_rows`` the gather is the
-    chunked ring (module docstring): int32 sums, equal to the monolithic
+    chunked ring (module docstring), its sums equal to the monolithic
     gather's. ``backend="torch"`` decodes with the plain versions (the
     kernels' comparison on the card); the default follows the tensor's
     device."""
@@ -743,48 +787,61 @@ class PackedVoteWire(VoteWire):
             raise ValueError("the 2-bit packed vote wire exchanges raw ternary votes; a "
                              "decode scale inside the exchange is a pack8-wire concept")
 
-    def _sum(self, gathered, size, shape):
+    def _sum(self, gathered, size, shape, **into):
+        """The decode-sum; ``into``: the kernel's ``out=`` and ``accumulate=``."""
         if self.backend == "torch":
-            return from_2d(unpack2bit_sum_ref(gathered), size, shape)
-        return unpack2bit_sum_op(gathered, size, shape)
+            return from_2d(unpack2bit_sum_ref(gathered, **into), size, shape)
+        return unpack2bit_sum_op(gathered, size, shape, **into)
 
-    def _wsum(self, gathered, weights, size, shape):
+    def _wsum(self, gathered, weights, size, shape, **into):
         if self.backend == "torch":
-            return from_2d(unpack2bit_wsum_ref(gathered, weights), size, shape)
-        return unpack2bit_wsum_op(gathered, weights, size, shape)
+            return from_2d(unpack2bit_wsum_ref(gathered, weights, **into), size, shape)
+        return unpack2bit_wsum_op(gathered, weights, size, shape, **into)
 
     def _ring_sum(self, values) -> torch.Tensor:
-        """Ring (rows, 128) packed messages in row chunks: each chunk's int32
-        sum is written, in ``_sum_dtype(M)``, into one flat output of rows x
-        512 sums (the values JAX's int32 concatenation holds, a quarter of
-        its memory at M = 4). Each chunk is a self-contained pack2 stream."""
+        """Ring (rows, 128) packed messages in row chunks: each message is
+        decoded straight into its chunk of one flat output of rows x 512 sums
+        in ``_sum_dtype(M)`` (the values JAX's int32 concatenation holds, a
+        quarter of its memory at M = 4). Each chunk is a self-contained pack2
+        stream."""
         rows = values[0].shape[0]
         out = torch.empty(rows * LANES, dtype=_sum_dtype(self.n_workers),
                           device=values[0].device)
         for r0, nr in _ring_chunk_spans(rows, self.ring_chunk_rows):
-            n = nr * LANES
-            acc = _ring_accumulate(_row_chunks(values, r0, nr), (),
-                                   lambda b: self._sum(b[None], n, (n,)), self.group)
-            out[r0 * LANES:r0 * LANES + n].copy_(acc)
+            o = out[r0 * LANES:(r0 + nr) * LANES]
+            _ring_decode_into(_row_chunks(values, r0, nr), (),
+                              lambda b, accumulate, _o=o: self._sum(
+                                  b[None], _o.numel(), _o.shape, out=_o, accumulate=accumulate),
+                              self.group)
         return out
 
     def _ring_wsum(self, values, weight):
         """The weighted ring: the (1,) effective weight rides every chunk
         (the ledger's ``weight_bytes x ring_chunks``), each message decoded
-        by the weighted decode-sum at M = 1; the weights add up round the
-        same ring into W. Returns (flat float32 sums, W)."""
+        by the weighted decode-sum at M = 1 into its chunk of the output;
+        the weights add up once, in the same ring order, into W. Returns
+        (flat float32 sums, W)."""
         rows = values[0].shape[0]
         out = torch.empty(rows * LANES, dtype=torch.float32, device=values[0].device)
         side = (weight.to(torch.float32).reshape(-1, 1),)
-        wtot = None
+        order = None
         for r0, nr in _ring_chunk_spans(rows, self.ring_chunk_rows):
-            n = nr * LANES
-            acc, wt = _ring_accumulate(
-                _row_chunks(values, r0, nr), side,
-                lambda b, w: (self._wsum(b[None], w, n, (n,)), w[0]), self.group)
-            out[r0 * LANES:r0 * LANES + n].copy_(acc)
-            wtot = wt if wtot is None else wtot
-        return out, wtot
+            o = out[r0 * LANES:(r0 + nr) * LANES]
+            got = _ring_decode_into(_row_chunks(values, r0, nr), side,
+                                    lambda b, w, accumulate, _o=o: self._wsum(
+                                        b[None], w, _o.numel(), _o.shape, out=_o,
+                                        accumulate=accumulate),
+                                    self.group)
+            order = got if order is None else order
+        return out, _ring_total(order)
+
+    def _gather_sum(self, payload, size, shape):
+        """The monolithic gather and ONE decode-sum over it, written straight
+        in ``_sum_dtype(M)``."""
+        gathered = self.group.gather(payload)
+        out = torch.empty(gathered.shape[1] * LANES, dtype=_sum_dtype(self.n_workers),
+                          device=gathered.device)
+        return self._sum(gathered, size, shape, out=out)
 
     def exchange(self, values, size, shape, *, scale=None):
         """(local, rows, 128) packed messages (or, on the ring, a sequence of
@@ -792,8 +849,7 @@ class PackedVoteWire(VoteWire):
         self._check_scale(scale)
         if self.ring_chunk_rows is not None:
             return self._ring_sum(values)[:size].reshape(shape)
-        total = self._sum(self.group.gather(values), size, shape)
-        return total.to(_sum_dtype(self.n_workers))
+        return self._gather_sum(values, size, shape)
 
     def exchange_bucket(self, payload, bucket, *, scale=None):
         """ONE gather of the whole packed bucket and one decode-sum over it
@@ -805,8 +861,7 @@ class PackedVoteWire(VoteWire):
         if self.ring_chunk_rows is not None:
             return bucketing.split_bucket(self._ring_sum(payload), bucket)
         n = bucket.n_coords
-        total = self._sum(self.group.gather(payload), n, (n,))
-        return bucketing.split_bucket(total.to(_sum_dtype(self.n_workers)), bucket)
+        return bucketing.split_bucket(self._gather_sum(payload, n, (n,)), bucket)
 
     def exchange_weighted(self, values, size, shape, *, weight, scale=None):
         self._require_participation()
@@ -1041,10 +1096,11 @@ class Pack8Wire(VoteWire):
 
     # message_nnz is the base count of nonzero levels (not their magnitudes)
 
-    def _decode_sum(self, gathered, scales, size, shape):
+    def _decode_sum(self, gathered, scales, size, shape, **into):
+        """The decode-sum; ``into``: the kernel's ``out=`` and ``accumulate=``."""
         if self.backend == "torch":
-            return from_2d(unpack8_sum_ref(gathered, scales), size, shape)
-        return unpack8_sum_op(gathered, scales, size, shape)
+            return from_2d(unpack8_sum_ref(gathered, scales, **into), size, shape)
+        return unpack8_sum_op(gathered, scales, size, shape, **into)
 
     @staticmethod
     def _need_scale(scale, what="each worker's decode scale (CompressedGrad.scale)"):
@@ -1055,24 +1111,21 @@ class Pack8Wire(VoteWire):
     def _ring(self, values, side, size, shape, weighted: bool):
         """Ring one leaf: ``side`` (local, 1) scales, or (local, 2) ``[scale *
         w, w]``, rides every chunk; each message decoded at M = 1 with its
-        own scale; under a weight the raw weights add up into W."""
+        own scale into its chunk of the output; under a weight the raw
+        weights add up once, in ring order, into W."""
         rows = values[0].shape[0]
         out = torch.empty(rows * LANES, dtype=torch.float32, device=values[0].device)
-        wtot = None
+        order = None
         for r0, nr in _ring_chunk_spans(rows, self.ring_chunk_rows):
-            n = nr * LANES
-
-            def decode(b, s, _n=n):
-                val = self._decode_sum(b[None], s[0:1], _n, (_n,))
-                return (val, s[1]) if weighted else val
-
-            acc = _ring_accumulate(_row_chunks(values, r0, nr), (side,), decode, self.group)
-            if weighted:
-                acc, wt = acc
-                wtot = wt if wtot is None else wtot
-            out[r0 * LANES:r0 * LANES + n].copy_(acc)
+            o = out[r0 * LANES:(r0 + nr) * LANES]
+            got = _ring_decode_into(_row_chunks(values, r0, nr), (side,),
+                                    lambda b, s, accumulate, _o=o: self._decode_sum(
+                                        b[None], s[0:1], _o.numel(), _o.shape, out=_o,
+                                        accumulate=accumulate),
+                                    self.group)
+            order = got if order is None else order
         total = out[:size].reshape(shape)
-        return (total, wtot) if weighted else total
+        return (total, _ring_total(order)) if weighted else total
 
     def exchange(self, values, size, shape, *, scale=None):
         """(local, rows, 512) int8 levels (or, on the ring, a sequence of
@@ -1103,30 +1156,25 @@ class Pack8Wire(VoteWire):
     def _ring_bucket(self, payload, side, bucket, weighted: bool):
         """Ring one bucket in sublane-tile chunks with the whole (local,
         n_slots [+ 1]) side vector on every chunk; each chunk/slot segment
-        decodes with that slot's scale, and its sum lands at its rows of the
-        slot's output."""
+        decodes with that slot's scale into its rows of the slot's output."""
         dev = payload.device
         outs = [torch.empty(s.rows * LANES, dtype=torch.float32, device=dev)
                 for s in bucket.slots]
-        wtot = None
+        order = None
         for r0, nr in _ring_chunk_spans(bucket.rows, self.ring_chunk_rows):
             segs = _chunk_segments(bucket.slots, r0, nr)
 
-            def decode(b, sc, _segs=segs, _r0=r0):
-                res = tuple(self._decode_sum(b[a - _r0:a - _r0 + k][None], sc[i:i + 1],
-                                             k * LANES, (k * LANES,))
-                            for i, _s, a, k in _segs)
-                return res + (sc[-1],) if weighted else res
+            def decode(b, sc, accumulate, _segs=segs, _r0=r0):
+                for i, s, a, k in _segs:
+                    o = (a - s.row_start) * LANES
+                    self._decode_sum(b[a - _r0:a - _r0 + k][None], sc[i:i + 1], k * LANES,
+                                     (k * LANES,), out=outs[i][o:o + k * LANES],
+                                     accumulate=accumulate)
 
-            part = _ring_accumulate(_row_chunks(payload, r0, nr), (side,), decode, self.group)
-            if weighted:
-                wtot = part[-1] if wtot is None else wtot
-                part = part[:-1]
-            for (i, s, a, k), arr in zip(segs, part):
-                o = (a - s.row_start) * LANES
-                outs[i][o:o + k * LANES].copy_(arr)
+            got = _ring_decode_into(_row_chunks(payload, r0, nr), (side,), decode, self.group)
+            order = got if order is None else order
         result = [o[:s.size].reshape(s.shape) for s, o in zip(bucket.slots, outs)]
-        return (result, wtot) if weighted else result
+        return (result, _ring_total(order)) if weighted else result
 
     def _per_slot(self, payload, scales, bucket):
         gathered = self.group.gather(payload)

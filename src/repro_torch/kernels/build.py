@@ -39,8 +39,8 @@ SIGNATURES = {
     "weighted_vote_update": {"weighted_vote_update_launch":
                              [_p, _p, _p, _p, _ll, _c.c_float, _c.c_float, _i, _i, _p]},
     "sparsign_pack2bit": {"sparsign_pack2bit_launch": [_p, _p, _p, _p, _ll, _ll, _u32, _i, _p]},
-    "unpack2bit": {"unpack2bit_sum_launch": [_p, _p, _i, _ll, _p],
-                   "unpack2bit_wsum_launch": [_p, _p, _p, _i, _ll, _p]},
+    "unpack2bit": {"unpack2bit_sum_into_launch": [_p, _p, _i, _ll, _i, _i, _p],
+                   "unpack2bit_wsum_into_launch": [_p, _p, _p, _i, _ll, _i, _p]},
     "golomb_encode": {"golomb_encode_launch": [_p, _p, _p, _p, _p, _ll, _ll, _u32, _i, _i, _p],
                       "golomb_encode_scratch_bytes": [_ll]},
     "golomb_decode": {"ungolomb_launch": [_p, _p, _p, _p, _p, _i, _ll, _ll, _i, _p],
@@ -48,7 +48,7 @@ SIGNATURES = {
     "pack2bit": {"pack2bit_launch": [_p, _p, _ll, _ll, _p],
                  "unpack2bit_launch": [_p, _p, _ll, _p]},
     "pack8": {"qsgd8_pack8_launch": [_p, _p, _p, _p, _ll, _ll, _u32, _i, _p],
-              "unpack8_sum_launch": [_p, _p, _p, _i, _ll, _p]},
+              "unpack8_sum_into_launch": [_p, _p, _p, _i, _ll, _i, _p]},
 }
 #: entry points that return something other than a CUDA error code
 RESTYPES = {"golomb_encode_scratch_bytes": _ll, "ungolomb_scratch_bytes": _ll}

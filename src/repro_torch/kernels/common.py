@@ -10,6 +10,8 @@ without the pad pass. The 2-bit packed wire keeps the view: a message is the
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 LANES = 512            # lane width of the canonical view (4 * 128)
@@ -51,6 +53,26 @@ def to_2d(flat: torch.Tensor, lanes: int = LANES, row_pad: int = SUBLANE_PAD):
 def from_2d(view: torch.Tensor, n: int, shape, dtype=None) -> torch.Tensor:
     out = view.reshape(-1)[:n].reshape(shape)
     return out.to(dtype) if dtype is not None else out
+
+
+def decode_sum_out(out, shape, default: torch.dtype, dtypes, accumulate: bool,
+                   device) -> torch.Tensor:
+    """The ``shape`` output view of a decode-sum (the sums' (rows, lanes)):
+    ``out`` (a contiguous tensor of as many elements of one of ``dtypes``, on
+    ``device``) viewed so, or a new uninitialized ``default`` tensor when it
+    is None, which ``accumulate`` cannot add into."""
+    shape = tuple(shape)
+    if out is None:
+        if accumulate:
+            raise ValueError("accumulate=True adds into out: pass the output to add into")
+        return torch.empty(shape, dtype=default, device=device)
+    if out.dtype not in dtypes:
+        raise TypeError(f"out must have dtype in {dtypes}, got {out.dtype}")
+    if (out.numel() != math.prod(shape) or not out.is_contiguous()
+            or out.device != torch.device(device)):
+        raise ValueError(f"out must be a contiguous tensor of {shape} elements on {device}, "
+                         f"got shape {tuple(out.shape)} on {out.device}")
+    return out.view(shape)
 
 
 def block_rows_for(rows: int, want: int = DEFAULT_BLOCK_ROWS) -> int:

@@ -9,7 +9,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import LANES, PACKED_WIDTH, check_cuda_tensor, packed_shape
+from repro_torch.kernels.common import (LANES, PACKED_WIDTH, check_cuda_tensor, decode_sum_out,
+                                        packed_shape)
+from repro_torch.kernels.pack2bit.ref import SUM_DTYPES
 
 
 def pack2bit_cuda(t: torch.Tensor) -> torch.Tensor:
@@ -60,40 +62,48 @@ def _check_gathered(gathered: torch.Tensor) -> None:
         raise ValueError("gathered must be 4-byte aligned")
 
 
-def unpack2bit_sum_cuda(gathered: torch.Tensor) -> torch.Tensor:
-    """(M, rows, 128) uint8 gathered packed messages -> (rows, 512) int32
-    vote sum on the card, one launch. Allocates the output, launches on the
-    current stream and does not synchronise."""
+def unpack2bit_sum_cuda(gathered: torch.Tensor, *, out=None,
+                        accumulate: bool = False) -> torch.Tensor:
+    """(M, rows, 128) uint8 gathered packed messages -> (rows, 512) vote sum
+    on the card, one launch: a new int32 tensor, or written into ``out``
+    (rows x 512 int8, int16 or int32 on the card) or, with ``accumulate``,
+    added into it. Launches on the current stream and does not
+    synchronise."""
     _check_gathered(gathered)
     m, rows, _ = gathered.shape
-    out = torch.empty((rows, 4 * PACKED_WIDTH), dtype=torch.int32, device=gathered.device)
-    err = build.library("unpack2bit", "unpack2bit_sum_launch")(
-        gathered.data_ptr(), out.data_ptr(), m, rows,
+    total = decode_sum_out(out, (rows, LANES), torch.int32, SUM_DTYPES, accumulate,
+                           gathered.device)
+    err = build.library("unpack2bit", "unpack2bit_sum_into_launch")(
+        gathered.data_ptr(), total.data_ptr(), m, rows, total.element_size(), int(accumulate),
         torch.cuda.current_stream(gathered.device).cuda_stream)
     build.check_launch("unpack2bit_sum", err)
     unpack2bit_sum_cuda.launches += 1
-    return out
+    return total
 
 
 unpack2bit_sum_cuda.launches = 0
 
 
-def unpack2bit_wsum_cuda(gathered: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+def unpack2bit_wsum_cuda(gathered: torch.Tensor, weights: torch.Tensor, *, out=None,
+                         accumulate: bool = False) -> torch.Tensor:
     """(M, rows, 128) uint8 gathered packed messages + (M,) float32 CUDA
     weights -> (rows, 512) float32 ``sum_m w_m * votes_m`` on the card,
-    accumulated from +0.0 in worker order; one launch, no synchronisation."""
+    accumulated in worker order from +0.0, or from ``out``'s values with
+    ``accumulate``; a new tensor or ``out``; one launch, no
+    synchronisation."""
     _check_gathered(gathered)
     check_cuda_tensor("weights", weights, (torch.float32,))
     m, rows, _ = gathered.shape
     if weights.numel() != m:
         raise ValueError(f"{m} messages need {m} weights, got {weights.numel()}")
-    out = torch.empty((rows, 4 * PACKED_WIDTH), dtype=torch.float32, device=gathered.device)
-    err = build.library("unpack2bit", "unpack2bit_wsum_launch")(
-        gathered.data_ptr(), weights.data_ptr(), out.data_ptr(), m, rows,
+    total = decode_sum_out(out, (rows, LANES), torch.float32, (torch.float32,), accumulate,
+                           gathered.device)
+    err = build.library("unpack2bit", "unpack2bit_wsum_into_launch")(
+        gathered.data_ptr(), weights.data_ptr(), total.data_ptr(), m, rows, int(accumulate),
         torch.cuda.current_stream(gathered.device).cuda_stream)
     build.check_launch("unpack2bit_wsum", err)
     unpack2bit_wsum_cuda.launches += 1
-    return out
+    return total
 
 
 unpack2bit_wsum_cuda.launches = 0

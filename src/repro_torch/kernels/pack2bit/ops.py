@@ -32,20 +32,25 @@ def unpack2bit_op(packed: torch.Tensor, n: int, shape) -> torch.Tensor:
     return from_2d(t2d, n, shape)
 
 
-def unpack2bit_sum_op(gathered: torch.Tensor, n: int, shape) -> torch.Tensor:
-    """(M, rows, 128) gathered packed votes -> int32 vote sum in ``shape``."""
-    total = (unpack2bit_sum_cuda(gathered.contiguous()) if gathered.is_cuda
-             else unpack2bit_sum_ref(gathered))
+def unpack2bit_sum_op(gathered: torch.Tensor, n: int, shape, *, out=None,
+                      accumulate: bool = False) -> torch.Tensor:
+    """(M, rows, 128) gathered packed votes -> the vote sum in ``shape``:
+    int32, or written into ``out`` (rows x 512 int8, int16 or int32) in its
+    dtype, or with ``accumulate`` added into it."""
+    total = (unpack2bit_sum_cuda(gathered.contiguous(), out=out, accumulate=accumulate)
+             if gathered.is_cuda else
+             unpack2bit_sum_ref(gathered, out=out, accumulate=accumulate))
     return from_2d(total, n, shape)
 
 
-def unpack2bit_wsum_op(gathered: torch.Tensor, weights: torch.Tensor, n: int,
-                       shape) -> torch.Tensor:
+def unpack2bit_wsum_op(gathered: torch.Tensor, weights: torch.Tensor, n: int, shape, *,
+                       out=None, accumulate: bool = False) -> torch.Tensor:
     """(M, rows, 128) gathered packed votes + (M,) float32 weights -> float32
-    ``sum_m weights[m] * votes_m`` in ``shape``."""
+    ``sum_m weights[m] * votes_m`` in ``shape``; ``out`` and ``accumulate``
+    as ``unpack2bit_sum_op``'s (float32)."""
     if gathered.is_cuda:
-        total = unpack2bit_wsum_cuda(gathered.contiguous(),
-                                     weights.to(torch.float32).contiguous())
+        total = unpack2bit_wsum_cuda(gathered.contiguous(), weights.to(torch.float32).contiguous(),
+                                     out=out, accumulate=accumulate)
     else:
-        total = unpack2bit_wsum_ref(gathered, weights)
+        total = unpack2bit_wsum_ref(gathered, weights, out=out, accumulate=accumulate)
     return from_2d(total, n, shape)

@@ -11,7 +11,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import encode2bit
+from repro_torch.kernels.common import decode_sum_out, encode2bit
+
+#: output dtypes of the vote sum: the wire's ``_sum_dtype(M)`` and JAX's int32
+SUM_DTYPES = (torch.int8, torch.int16, torch.int32)
 
 
 def _decode(c: torch.Tensor) -> torch.Tensor:
@@ -32,24 +35,36 @@ def unpack2bit_ref(p2d: torch.Tensor) -> torch.Tensor:
     return torch.cat([_decode((p2d >> (2 * k)) & 3) for k in range(4)], dim=1)
 
 
-def unpack2bit_sum_ref(gathered: torch.Tensor) -> torch.Tensor:
+def unpack2bit_sum_ref(gathered: torch.Tensor, *, out=None,
+                       accumulate: bool = False) -> torch.Tensor:
     """(M, rows, L // 4) packed worker votes -> (rows, L) int32 vote sum.
     The oracle decodes every message and sums (one message at a time, so an
-    int8 copy of one message, not of all M, is alive at once)."""
+    int8 copy of one message, not of all M, is alive at once). With ``out``
+    (rows x L elements of a ``SUM_DTYPES`` dtype) the sum is written there in
+    that dtype's wrapping arithmetic, or, with ``accumulate``, added to what
+    it holds."""
     m, rows, q = gathered.shape
-    acc = torch.zeros((rows, 4 * q), dtype=torch.int32, device=gathered.device)
+    acc = decode_sum_out(out, (rows, 4 * q), torch.int32, SUM_DTYPES, accumulate,
+                         gathered.device)
+    if not accumulate:
+        acc.zero_()
     for i in range(m):
-        acc += unpack2bit_ref(gathered[i]).to(torch.int32)
+        acc += unpack2bit_ref(gathered[i]).to(acc.dtype)
     return acc
 
 
-def unpack2bit_wsum_ref(gathered: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+def unpack2bit_wsum_ref(gathered: torch.Tensor, weights: torch.Tensor, *, out=None,
+                        accumulate: bool = False) -> torch.Tensor:
     """(M, rows, L // 4) packed worker votes + (M,) float32 weights -> (rows,
-    L) float32 ``sum_m weights[m] * votes_m``, accumulated from +0.0 strictly
-    in worker order, each product and sum rounded on its own."""
+    L) float32 ``sum_m weights[m] * votes_m``, accumulated from +0.0 (or,
+    with ``accumulate``, from ``out``'s values) strictly in worker order,
+    each product and sum rounded on its own."""
     m, rows, q = gathered.shape
     w = weights.to(torch.float32)
-    acc = torch.zeros((rows, 4 * q), dtype=torch.float32, device=gathered.device)
+    acc = decode_sum_out(out, (rows, 4 * q), torch.float32, (torch.float32,), accumulate,
+                         gathered.device)
+    if not accumulate:
+        acc.zero_()
     for i in range(m):
-        acc = acc + unpack2bit_ref(gathered[i]).to(torch.float32) * w[i]
+        acc += unpack2bit_ref(gathered[i]).to(torch.float32) * w[i]
     return acc

@@ -8,7 +8,7 @@ import torch
 
 from repro_torch.core.prng import MASK32
 from repro_torch.kernels import build
-from repro_torch.kernels.common import LANES, canonical_rows, check_cuda_tensor
+from repro_torch.kernels.common import LANES, canonical_rows, check_cuda_tensor, decode_sum_out
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -41,10 +41,12 @@ def qsgd8_pack8_cuda(g: torch.Tensor, param: torch.Tensor, seed: torch.Tensor,
 qsgd8_pack8_cuda.launches = 0
 
 
-def unpack8_sum_cuda(gathered: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+def unpack8_sum_cuda(gathered: torch.Tensor, scales: torch.Tensor, *, out=None,
+                     accumulate: bool = False) -> torch.Tensor:
     """(M, rows, 512) int8 gathered levels + (M,) float32 CUDA scales ->
-    (rows, 512) float32 ``sum_m scales[m] * levels[m]`` on the card, from
-    +0.0 in worker order; one launch, no synchronisation."""
+    (rows, 512) float32 ``sum_m scales[m] * levels[m]`` on the card, in
+    worker order from +0.0, or from ``out``'s values with ``accumulate``; a
+    new tensor or ``out``; one launch, no synchronisation."""
     check_cuda_tensor("gathered", gathered, (torch.int8,))
     check_cuda_tensor("scales", scales, (torch.float32,))
     if gathered.dim() != 3 or gathered.shape[2] != LANES:
@@ -53,13 +55,14 @@ def unpack8_sum_cuda(gathered: torch.Tensor, scales: torch.Tensor) -> torch.Tens
     m, rows, _ = gathered.shape
     if scales.numel() != m:
         raise ValueError(f"{m} messages need {m} scales, got {scales.numel()}")
-    out = torch.empty((rows, LANES), dtype=torch.float32, device=gathered.device)
-    err = build.library("pack8", "unpack8_sum_launch")(
-        gathered.data_ptr(), scales.data_ptr(), out.data_ptr(), m, rows,
+    total = decode_sum_out(out, (rows, LANES), torch.float32, (torch.float32,), accumulate,
+                           gathered.device)
+    err = build.library("pack8", "unpack8_sum_into_launch")(
+        gathered.data_ptr(), scales.data_ptr(), total.data_ptr(), m, rows, int(accumulate),
         torch.cuda.current_stream(gathered.device).cuda_stream)
     build.check_launch("unpack8_sum", err)
     unpack8_sum_cuda.launches += 1
-    return out
+    return total
 
 
 unpack8_sum_cuda.launches = 0

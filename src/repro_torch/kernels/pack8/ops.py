@@ -36,12 +36,16 @@ def qsgd8_op(g: torch.Tensor, param, seed, counter_base=0) -> torch.Tensor:
     return from_2d(qsgd8_pack8_op(g, param, seed, counter_base), g.numel(), g.shape)
 
 
-def unpack8_sum_op(gathered: torch.Tensor, scales: torch.Tensor, n: int, shape) -> torch.Tensor:
+def unpack8_sum_op(gathered: torch.Tensor, scales: torch.Tensor, n: int, shape, *, out=None,
+                   accumulate: bool = False) -> torch.Tensor:
     """(M, rows, 512) gathered int8 levels + (M,) float32 scales -> float32
     ``sum_m scales[m] * levels[m]`` in ``shape``, in worker order: the decode
-    side of the pack8 all-gather wire."""
+    side of the pack8 all-gather wire. With ``out`` (rows x 512 float32) the
+    sum is written there, or with ``accumulate`` added into it: the ring's
+    hop."""
     if gathered.is_cuda:
-        total = unpack8_sum_cuda(gathered.contiguous(), scales.to(torch.float32).contiguous())
+        total = unpack8_sum_cuda(gathered.contiguous(), scales.to(torch.float32).contiguous(),
+                                 out=out, accumulate=accumulate)
     else:
-        total = unpack8_sum_ref(gathered, scales)
+        total = unpack8_sum_ref(gathered, scales, out=out, accumulate=accumulate)
     return from_2d(total, n, shape)

@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import prng
-from repro_torch.kernels.common import device_tensor, to_2d
+from repro_torch.kernels.common import decode_sum_out, device_tensor, to_2d
 from repro_torch.kernels.ternary.ref import as_rows
 
 #: level count of the 8-bit wire: 1 sign bit + 7 level bits = 2**7 - 1
@@ -58,12 +58,18 @@ def qsgd8_pack8_ref(g: torch.Tensor, param, seed, counter_base=0) -> torch.Tenso
     return view
 
 
-def unpack8_sum_ref(gathered: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+def unpack8_sum_ref(gathered: torch.Tensor, scales: torch.Tensor, *, out=None,
+                    accumulate: bool = False) -> torch.Tensor:
     """(M, rows, LANES) int8 worker levels + (M,) float32 scales -> (rows,
     LANES) float32 ``sum_m scales[m] * levels[m]``: a left-to-right loop in
-    worker order from +0.0, each product and sum rounded on its own."""
+    worker order from +0.0 (or, with ``accumulate``, from ``out``'s values;
+    ``out`` takes the sum in place), each product and sum rounded on its
+    own."""
     s = scales.to(torch.float32)
-    acc = torch.zeros(gathered.shape[1:], dtype=torch.float32, device=gathered.device)
+    acc = decode_sum_out(out, gathered.shape[1:], torch.float32, (torch.float32,), accumulate,
+                         gathered.device)
+    if not accumulate:
+        acc.zero_()
     for i in range(gathered.shape[0]):
-        acc = acc + gathered[i].to(torch.float32) * s[i]
+        acc += gathered[i].to(torch.float32) * s[i]
     return acc

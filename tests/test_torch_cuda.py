@@ -356,6 +356,32 @@ def test_pack_unpack_and_pack8_kernels_match_plain_versions_on_card(cuda_device)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 9])
+def test_decode_sums_write_and_accumulate_into_an_output_on_card(m, cuda_device):
+    """The decode-sums' in-place form, the ring's hop: into each output
+    dtype, fresh and added into a nonzero accumulator (+-0.0 among it), bit
+    for bit the plain versions', with zero weights and scales."""
+    rows, n = 64, 64 * 512
+    p = torch.randint(0, 256, (m, rows, 128), device=cuda_device, dtype=torch.uint8)
+    lv = torch.randint(-127, 128, (m, rows, 512), device=cuda_device, dtype=torch.int8)
+    w = torch.rand(m, device=cuda_device)
+    w[::2] = 0.0
+    for accumulate in (False, True):
+        for dtype in (torch.int8, torch.int16, torch.int32):
+            a0 = torch.randint(-50, 51, (n,), device=cuda_device).to(dtype)
+            got = unpack2bit_sum_op(p, n, (n,), out=a0.clone(), accumulate=accumulate)
+            want = unpack2bit_sum_ref(p, out=a0.clone(), accumulate=accumulate)
+            np.testing.assert_array_equal(tbits(got), tbits(want.reshape(-1)))
+        a0 = torch.randn(n, device=cuda_device)
+        a0[::5], a0[1::5] = -0.0, 0.0
+        for op, ref, data in ((unpack2bit_wsum_op, unpack2bit_wsum_ref, p),
+                              (unpack8_sum_op, unpack8_sum_ref, lv)):
+            got = op(data, w, n, (n,), out=a0.clone(), accumulate=accumulate)
+            want = ref(data, w, out=a0.clone(), accumulate=accumulate)
+            np.testing.assert_array_equal(tbits(got), tbits(want.reshape(-1)))
+
+
+@pytest.mark.cuda
 def test_two_pass_pack2_chain_on_card_matches_the_fused_kernel(cuda_device):
     """engine.compress_leaf on the 2-bit wire for a row without a fused
     kernel (a copy of ``sign`` with none): the ternary kernel, then the
