@@ -80,10 +80,14 @@ the first, in order; any failure exits non-zero before the last line:
      the data-parallel LM trainer: qwen1.5-4b at full width through
      repro_torch.launch.train's build path, M = 4 workers on the card, one
      sequence of 4096 tokens each (train_4k's length; the global batch cut
-     from 256 to 4), 2 steps a run: sparsign/majority vote on the
-     allgather_packed, psum and hier (2 x 2) wires (parameters bitwise equal
-     across the three), sparsign/scaled_sign_ef, sign, noisy_sign and
-     TernGrad on allgather_packed, the elastic vote (weights, dropout 0.25);
+     from 256 to 4), 2 steps a run (sign, noisy_sign, TernGrad and the
+     elastic 2-bit and pack8 runs 1):
+     sparsign/majority vote on the allgather_packed, psum and hier (2 x 2) wires
+     (parameters bitwise equal across the three; after the psum run its
+     state, 15.8 GB on disk, is saved with train.checkpoint, restored into
+     a fresh state and held bit for bit), sparsign/scaled_sign_ef, sign,
+     noisy_sign and TernGrad on allgather_packed, the elastic vote (weights,
+     dropout 0.25);
      sparsign_golomb with a target_sparsity budget of 0.05 on the golomb
      wire, plain and elastic, and bucketed on the ring at 8,192 rows, and
      sparsign with the same budget bucketed on the ring of the 2-bit wire
@@ -97,7 +101,19 @@ the first, in order; any failure exits non-zero before the last line:
      launch counts checked with every plain version barred from running (a
      ring run's derived from its plan and chunks); one step each of the
      packed and the golomb run traced with torch.profiler; the
-     target_sparsity bisection timed on its own;
+     target_sparsity bisection timed on its own; then qwen2.5-32b (GQA
+     40:8, QKV bias) and granite-34b (MQA 48:1) at their published widths
+     cut to 2 layers, M = 4, 4,096 tokens a worker, 2 steps on
+     allgather_packed; then
+     mamba2-370m at full width (M = 4, 4,096 tokens a worker, sparsign with
+     the scaled-sign EF server on allgather_packed): run A 4 steps straight,
+     run B checkpointing every 2 steps and dying as injected at step 3, the
+     restart (the launcher in a fresh process, `chip_smoke.py
+     --train-child`) whose step-4 checkpoint holds run A's parameters and
+     EF residual bit for bit, and the checkpoint resumed at
+     M = 2 to step 6 (step, save and restore seconds, GB on disk, wire bytes
+     against the ledger, peak memory; checkpoints in a temporary directory
+     removed after);
   8. the stand-alone pack and unpack kernels and the pack8 wire's kernels
      (pack2bit, unpack2bit, qsgd8_pack8, unpack8_sum) against their plain
      versions on the card, bit for bit: w_down's size, odd sizes, arbitrary
@@ -118,7 +134,10 @@ the first, in order; any failure exits non-zero before the last line:
      in bf16 and once more in float32 (15.8 GB of weights);
      one ingest round on each downlink wire (packed2bit, int8, packed8
      through qsgd8_pack8), each bitwise equal to backend="torch", the
-     packed2bit route equal to server_apply on the int8 decisions.
+     packed2bit route equal to server_apply on the int8 decisions; then
+     mamba2-370m the same way: the launcher's loop with its 4 update rounds
+     counted, a timed 4 x 2048 prefill, decode after a 128-token prefill
+     against the full forward in bf16 and in float32.
 It prints one JSON line of kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Results also go to
 chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device.
@@ -129,6 +148,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gzip
+import io
 import json
 import math
 import pathlib
@@ -2048,7 +2068,7 @@ def ring_run_launches(step, model, m: int, leaves: int) -> dict:
 
 def phase_trainer(torch, report, totals):
     """qwen1.5-4b at full width through repro_torch.launch.train, M = 4
-    workers on the card, 2 steps a run."""
+    workers on the card, 2 steps a run (5 runs 1 step)."""
     import numpy as np
 
     from repro_torch import kernels
@@ -2084,16 +2104,20 @@ def phase_trainer(torch, report, totals):
         ("sparsign/scaled_sign_ef allgather_packed", sparsign + ["--server", "scaled_sign_ef"]
          + packed, None, dict(sparsign_pack2bit=leaves * m, unpack2bit_sum=leaves,
                               ef_server=leaves), 2),
+        # one step each, as the two elastic runs on the 2-bit and pack8
+        # wires: their launches are per step, no run is held against them,
+        # and the run must make room for the mamba2-370m, checkpoint and zoo
+        # phases
         ("sign/majority_vote allgather_packed", ["--compressor", "sign"] + majority + packed,
-         None, dict(ternary_pack2bit=leaves * m, **voted), 2),
+         None, dict(ternary_pack2bit=leaves * m, **voted), 1),
         ("noisy_sign/majority_vote allgather_packed",
          ["--compressor", "noisy_sign", "--budget", "1e-4"] + majority + packed, None,
-         dict(ternary_pack2bit=leaves * m, **voted), 2),
+         dict(ternary_pack2bit=leaves * m, **voted), 1),
         ("terngrad/mean allgather_packed", ["--compressor", "terngrad", "--server", "mean"]
-         + packed, None, dict(ternary_pack2bit=leaves * m, unpack2bit_sum=leaves), 2),
+         + packed, None, dict(ternary_pack2bit=leaves * m, unpack2bit_sum=leaves), 1),
         ("elastic sparsign/majority_vote allgather_packed", sparsign + majority + packed
          + elastic, None, dict(sparsign_pack2bit=leaves * m, unpack2bit_wsum=leaves,
-                               weighted_vote_update=leaves), 2),
+                               weighted_vote_update=leaves), 1),
         (golomb, ["--compressor", "sparsign_golomb"] + target + majority + packed, None,
          golomb_voted, 2),
         ("elastic " + golomb,
@@ -2111,7 +2135,7 @@ def phase_trainer(torch, report, totals):
          dict(qsgd8_pack8=leaves * m), 2),
         (pack8 + " ring", qsgd8 + packed + ring, None, None, 2),
         ("elastic " + pack8, qsgd8 + packed + elastic, None,
-         dict(qsgd8_pack8=leaves * m, unpack8_sum=leaves), 2),
+         dict(qsgd8_pack8=leaves * m, unpack8_sum=leaves), 1),
     ]
     # the runs held against a reference run's parameters (held on the host,
     # so the card's peaks exclude them): bit for bit, the three vote wires;
@@ -2246,6 +2270,8 @@ def phase_trainer(torch, report, totals):
                   f"{split['call_ms']:.1f} ms, device busy {split['busy_share']:.1%}, port "
                   f"kernels {split['port_kernel_share']:.3%} of device time ({shares}); "
                   f"top: {top}")
+        if label == runs[0][0]:   # majority vote: no EF state
+            report["checkpoint_roundtrip"] = checkpoint_round_trip(torch, model, state)
         if label == golomb:
             bisect_ms = time_bisection(torch, model, m)
             report["bisection_ms_per_step"] = bisect_ms
@@ -2259,7 +2285,7 @@ def phase_trainer(torch, report, totals):
 
 def decode_vs_forward(torch, model, params, toks, pos, s: int) -> tuple:
     """Decode of token s after a prefill of s tokens whose cache is padded to
-    s + 1, against forward_hidden's last logits over the same s + 1 tokens:
+    s + 1 (a mamba block's conv ring and state copied whole), against forward_hidden's last logits over the same s + 1 tokens:
     max |difference| over max |logit|, the same for the logits of a forward
     one token longer (other GEMM shapes: the dtype's own noise), and the
     share of the batch whose argmax agrees."""
@@ -2269,8 +2295,8 @@ def decode_vs_forward(torch, model, params, toks, pos, s: int) -> tuple:
     _, caches = build_prefill(model)(params, {"inputs": toks[:, :s], "positions": pos[:, :s]})
     padded = model.init_cache(batch, s + 1, dev)
     for c, pc in zip(caches, padded):
-        for key in ("k", "v", "pos"):
-            pc[key][:, :s] = c[key]
+        for key in c:   # K, V, positions: the first s slots; conv and state: whole
+            pc[key][:, :c[key].shape[1]] = c[key]
     del caches
     dec, _ = build_decode_step(model)(params, padded, {
         "inputs": toks[:, s:s + 1],
@@ -2485,6 +2511,453 @@ def phase_serve(torch, report, totals):
     report["serve"] = out
     del params, p0
     torch.cuda.empty_cache()
+
+
+def checkpoint_round_trip(torch, model, state) -> dict:
+    """A full-width checkpoint of the trainer's state (qwen1.5-4b, majority
+    vote, so no EF residual): saved into a temporary directory, restored into
+    a fresh state of other values, held bit for bit; seconds and GB on disk
+    of each half. The directory is removed whatever happens."""
+    import tempfile
+
+    from repro_torch.core.compressors import tree_leaves
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.state import init_state
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        sync(torch)
+        t0 = time.perf_counter()
+        path = ckpt.save(tmp, state.step, state)
+        save_s = time.perf_counter() - t0
+        gb = dir_gb(path)
+        dev = tree_leaves(state.params)[0].device
+        fresh = init_state(model.init(1, dev), server="majority_vote", seed=state.seed + 1)
+        sync(torch)
+        t0 = time.perf_counter()
+        got, manifest = ckpt.restore(tmp, fresh)
+        sync(torch)
+        restore_s = time.perf_counter() - t0
+        del fresh
+        same = (got.step == state.step and got.seed == state.seed
+                and all(torch.equal(bits(a), bits(b))
+                        for a, b in zip(tree_leaves(got.params), tree_leaves(state.params))))
+        check(same, "checkpoint round trip: the restored state differs from the saved one")
+        n = sum(p.numel() for p in tree_leaves(state.params))
+        out = {"leaves": manifest["n_leaves"], "parameters": n, "gb_on_disk": gb,
+               "save_s": save_s, "restore_s": restore_s, "fingerprint": manifest["fingerprint"]}
+        print(f"[checkpoint] qwen1.5-4b full width ({n} parameters, {manifest['n_leaves']} "
+              f"leaves): save {save_s:.2f} s ({gb:.2f} GB on disk, bf16 widened to float32), "
+              f"restore into a fresh state {restore_s:.2f} s, bit for bit")
+        del got
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def dir_gb(path) -> float:
+    return sum(f.stat().st_size for f in pathlib.Path(path).iterdir()) / 1e9
+
+
+def loop_seconds(lines, what: str) -> list:
+    """The seconds the loop logged for each save ("saved") or restore
+    ("resumed") in ``lines``."""
+    return [float(line.rsplit("(", 1)[1].split(" s)")[0])
+            for line in lines if line.startswith(f"[loop] {what}")]
+
+
+@contextlib.contextmanager
+def stdout_lines(lines: list):
+    """What the block prints, appended to ``lines`` and printed after it."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            yield
+    finally:
+        lines.extend(buf.getvalue().splitlines())
+        print(buf.getvalue(), end="")
+
+
+def train_in_child(argv: list, timeout: float = 300.0) -> tuple:
+    """repro_torch.launch.train's main on ``argv`` in a fresh Python process
+    (``chip_smoke.py --train-child``): (its launch counts, its stdout lines).
+    Fails unless the child exits 0."""
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--train-child"]
+                          + list(argv), capture_output=True, text=True, timeout=timeout,
+                          cwd=ROOT)
+    lines = proc.stdout.splitlines()
+    print("\n".join(lines[:-1]))
+    check(proc.returncode == 0 and lines, f"the child trainer exited {proc.returncode}: "
+                                          f"{proc.stderr[-2000:]}")
+    return json.loads(lines[-1])["launches"], lines[:-1]
+
+
+def train_child(argv: list) -> int:
+    """``chip_smoke.py --train-child ARGS``: launch.train's main on ARGS with
+    the parent's matmul settings, every plain version barred unless ARGS
+    ask for the CPU; the launch counts as the last line's JSON."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import kernels
+    from repro_torch.launch import train as launch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    on_cpu = "--device" in argv and argv[argv.index("--device") + 1] == "cpu"
+    kernels.reset_launch_counts()
+    with contextlib.nullcontext() if on_cpu else plain_versions_barred():
+        launch.main(argv)
+    print(json.dumps({"launches": kernels.launch_counts()}))
+    return 0
+
+
+def mamba_train_args(m: int, dev: str = "cuda") -> list:
+    """The mamba2-370m trainer's flags at M = m workers: the global batch
+    stays 4 sequences of 4,096 tokens. On the CPU (a rehearsal) the smoke
+    config and 64 tokens."""
+    where = (["--full", "--seq-len", str(TRAINER_SEQ_LEN)] if dev == "cuda"
+             else ["--device", dev, "--seq-len", "64"])
+    return ["--arch", "mamba2-370m", "--host-data", str(m), "--batch", "4", "--seed", "0",
+            "--compressor", "sparsign", "--budget-kind", "l2_norm", "--budget", "0.1",
+            "--server", "scaled_sign_ef", "--vote-impl", "allgather_packed"] + where
+
+
+def reset_peak(torch) -> None:
+    sync(torch)
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+
+
+def phase_mamba_trainer(torch, report, totals, dev="cuda"):
+    """mamba2-370m at full width through repro_torch.launch.train, M = 4 on
+    the card, one 4,096-token sequence a worker, sparsign with the
+    scaled-sign EF server on allgather_packed (the EF residual rides in the
+    checkpoint). Run A: 4 steps straight. Run B: a checkpoint every 2 steps,
+    dying at step 3 by the injected RuntimeError. The restart: the launcher
+    in a fresh process with B's flags but --fail-at, whose step-4
+    checkpoint must hold A's parameters and EF residual bit for bit. Then
+    the checkpoint resumed at M = 2 for 2 more steps. Checkpoints live in a temporary directory removed at the
+    end. ``dev="cpu"`` rehearses it at the smoke size, where only the
+    launch counts cannot hold."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.core import engine
+    from repro_torch.core.compressors import tree_leaves
+    from repro_torch.dist import collectives
+    from repro_torch.launch import train as launch
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import loop
+
+    m, steps = 4, 4
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mamba_")
+    d = str(pathlib.Path(tmp) / "ckpt")
+    try:
+        # -- run A: 4 steps straight, counted with every plain version barred
+        args = launch.parser().parse_args(mamba_train_args(m, dev) + ["--steps", str(steps)])
+        reset_peak(torch)
+        cfg, model, group, step, state, comp = launch.build_everything(args)
+        leaves = len(tree_leaves(model.param_shapes()))
+        sizes = [math.prod(sd.shape) for sd in tree_leaves(model.param_shapes())]
+        ledger = float(np.float32(sum(collectives.uplink_ledger(
+            step.mode, step.wire, n, share_linf=engine.needs_shared_linf(comp))
+            for n in sizes)))
+        per_step = dict(sparsign_pack2bit=leaves * m, unpack2bit_sum=leaves, ef_server=leaves)
+        kernels.reset_launch_counts()
+        with plain_versions_barred():
+            state_a, history = loop.run(step, state, launch.batch_fn_for(cfg, args),
+                                        loop.LoopConfig(total_steps=steps, log_every=1))
+        sync(torch)
+        counts = kernels.launch_counts()
+        want = expected(**{k: v * steps for k, v in per_step.items()})
+        check(counts == want, f"mamba2 run A: launches {counts}, expected {want}")
+        for k in totals:
+            totals[k] += counts[k]
+        walls = [h["wall_s"] for h in history]
+        step_s = [b - a for a, b in zip([0.0] + walls[:-1], walls)]
+        for h in history:
+            check(math.isfinite(h["loss"]), f"mamba2 run A: non-finite loss {h['loss']}")
+            check(h["wire_bytes_per_device"] == ledger,
+                  f"mamba2 run A: wire bytes {h['wire_bytes_per_device']} != ledger {ledger}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n_params = sum(sizes)
+        out["run_a"] = {"steps": steps, "step_s": step_s, "loss": [h["loss"] for h in history],
+                        "nnz_frac": [h["nnz_frac"] for h in history],
+                        "wire_bytes_per_device": ledger, "peak_gb": peak, "launches": counts,
+                        "parameters": n_params, "leaves": leaves}
+        print(f"[mamba2] run A: {cfg.n_layers} layers, {n_params} parameters, M = {m}, "
+              f"{TRAINER_SEQ_LEN} tokens a worker: steps {[round(x, 3) for x in step_s]} s, "
+              f"losses {[round(h['loss'], 6) for h in history]}, wire bytes a device "
+              f"{ledger:.10g} (== the ledger), peak {peak:.2f} GB, launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        del step, state, model
+        torch.cuda.empty_cache()
+
+        # -- run B: a checkpoint every 2 steps, the injected failure at step 3
+        lines, died = [], None
+        argv_b = mamba_train_args(m, dev) + ["--steps", str(steps), "--ckpt-dir", d,
+                                        "--ckpt-every", "2"]
+        kernels.reset_launch_counts()
+        with plain_versions_barred(), stdout_lines(lines):
+            try:
+                launch.main(argv_b + ["--fail-at", "3"])
+            except RuntimeError as e:   # any other exception fails the phase
+                died = str(e)
+        check(died == "injected failure at step 3", f"mamba2 run B: died with {died!r}")
+        counts = kernels.launch_counts()
+        want = expected(**{k: v * 3 for k, v in per_step.items()})
+        check(counts == want, f"mamba2 run B: launches {counts}, expected {want}")
+        for k in totals:
+            totals[k] += counts[k]
+        check(ckpt.latest_steps(d) == [2], f"mamba2 run B: checkpoints {ckpt.latest_steps(d)}")
+        gb = dir_gb(pathlib.Path(d) / "step_00000002")
+        save_b = loop_seconds(lines, "saved")
+        print(f"[mamba2] run B died as injected ({died}); checkpoint step 2: {gb:.3f} GB on "
+              f"disk, saved in {save_b} s")
+        torch.cuda.empty_cache()
+
+        # -- the restart: a fresh process (as after a lost one, and as JAX's
+        # check_fault_tolerance.py restarts), B's flags without --fail-at;
+        # its step-4 checkpoint, restored here, must equal run A's state
+        t0 = time.perf_counter()
+        counts, lines = train_in_child(argv_b)
+        restart_s = time.perf_counter() - t0
+        want = expected(**{k: v * 2 for k, v in per_step.items()})
+        check(counts == want, f"mamba2 restart: launches {counts}, expected {want}")
+        for k in totals:
+            totals[k] += counts[k]
+        check(any(line.startswith("[loop] resumed from step 2") for line in lines),
+              f"mamba2 restart did not resume from step 2: {lines[:3]}")
+        check(ckpt.latest_steps(d) == [2, 4], f"mamba2 restart: checkpoints "
+                                              f"{ckpt.latest_steps(d)}")
+        state_r, _ = ckpt.restore(d, state_a, step=steps)
+        la = tree_leaves([state_a.params, state_a.ef_residual])
+        lb = tree_leaves([state_r.params, state_r.ef_residual])
+        check(len(la) == len(lb) == 2 * leaves and state_r.step == state_a.step == steps
+              and state_r.seed == state_a.seed,
+              f"mamba2 restart: {len(lb)} leaves at step {state_r.step}")
+        differ = sum(int((bits(a) != bits(b)).sum()) for a, b in zip(la, lb))
+        check(differ == 0, f"mamba2 restart: {differ} coordinates of the parameters and the EF "
+                           f"residual differ from run A")
+        del la, lb, state_a, state_r
+        restore_r, save_r = loop_seconds(lines, "resumed"), loop_seconds(lines, "saved")
+        print(f"[mamba2] restart ({restart_s:.1f} s, a fresh process): resumed at step 2 "
+              f"in {restore_r} s, saved in {save_r} s; its step-4 checkpoint's parameters and "
+              f"EF residual bit for bit equal to run A's ({2 * leaves} leaves)")
+        torch.cuda.empty_cache()
+
+        # -- the elastic restore: the step-4 checkpoint at M = 2, 2 more steps
+        lines = []
+        kernels.reset_launch_counts()
+        reset_peak(torch)
+        with plain_versions_barred(), stdout_lines(lines):
+            state_e, hist_e = launch.main(mamba_train_args(2, dev) + [
+                "--steps", "6", "--ckpt-dir", d, "--ckpt-every", "2"])
+        counts = kernels.launch_counts()
+        want = expected(sparsign_pack2bit=leaves * 2 * 2, unpack2bit_sum=leaves * 2,
+                        ef_server=leaves * 2)
+        check(counts == want, f"mamba2 elastic: launches {counts}, expected {want}")
+        for k in totals:
+            totals[k] += counts[k]
+        check(state_e.step == 6 and all(math.isfinite(h["loss"]) for h in hist_e)
+              and hist_e[-1]["participated"] == 2.0,
+              f"mamba2 elastic: step {state_e.step}, history {hist_e}")
+        restore_e = loop_seconds(lines, "resumed")
+        check(any(line.startswith("[loop] resumed from step 4") for line in lines),
+              "mamba2 elastic: did not resume from step 4")
+        out.update(run_b={"died": died, "ckpt_gb": gb, "save_s": save_b},
+                   restart={"run_s": restart_s, "restore_s": restore_r, "save_s": save_r,
+                            "differ": differ},
+                   elastic={"workers": 2, "step": state_e.step, "restore_s": restore_e,
+                            "save_s": loop_seconds(lines, "saved"),
+                            "loss": [h["loss"] for h in hist_e],
+                            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                            "launches": counts})
+        print(f"[mamba2] elastic: the step-4 checkpoint resumed at M = 2 in {restore_e} s, "
+              f"step {state_e.step}, loss {hist_e[-1]['loss']:.6f}, saves "
+              f"{out['elastic']['save_s']} s, peak {out['elastic']['peak_gb']:.2f} GB")
+        del state_e
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    report["mamba_trainer"] = out
+
+
+MAMBA_SERVE_ARGS = ["--arch", "mamba2-370m"] + SERVE_ARGS[2:]
+# decode after a prefill against forward_hidden's last logits, mamba2-370m
+# at full width with random weights: max |difference| over max |logit|.
+# Measured 0.0167 in bf16 and 7.98e-4 in float32 on "NVIDIA H100 80GB HBM3,
+# 700.00 W" (PERF.md); the bounds leave 6x and 5x. With every float32 cast
+# made float64, decode equals the chunked forward to 3e-13 at full width
+# (tests/test_torch_mamba.py holds 1e-12 at smoke size): the gap is rounding
+# through 48 layers.
+MAMBA_DECODE_REL_TOL = 0.1
+MAMBA_DECODE_F32_REL_TOL = 4e-3
+
+
+def phase_mamba_serve(torch, report, totals, dev="cuda"):
+    """Serving mamba2-370m at full width: the launcher's loop with its 2-bit
+    update rounds (counted, plain versions barred), a timed 4 x 2048
+    prefill, and decode after a prefill against the full forward in bf16
+    and once in float32. ``dev="cpu"`` rehearses it at the smoke size and a
+    4 x 160 prefill, where only the launch counts cannot hold."""
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.compressors import tree_leaves
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.model import Model
+    from repro_torch.serve.decode import build_prefill
+
+    on_card, out = dev == "cuda", {}
+    serve_args = (MAMBA_SERVE_ARGS if on_card
+                  else [a for a in MAMBA_SERVE_ARGS if a != "--full"] + ["--device", dev])
+    prefill_len = PREFILL_LEN if on_card else 160
+    cfg = get_config("mamba2-370m", smoke=not on_card)
+    leaves = len(tree_leaves(Model(cfg).param_shapes()))
+    reset_peak(torch)
+    kernels.reset_launch_counts()
+    with plain_versions_barred():
+        loop = launch_serve.main(serve_args)
+    sync(torch)
+    counts = kernels.launch_counts()
+    rounds = loop["updates"]
+    want = expected(pack2bit=leaves * rounds, unpack2bit=leaves * rounds,
+                    vote_update=leaves * rounds)
+    check(rounds == 4 and counts == want, f"mamba2 serve loop: {rounds} rounds, launches "
+                                          f"{counts}, expected {want}")
+    for k in totals:
+        totals[k] += counts[k]
+    out["loop"] = {**loop, "launches": counts,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[mamba2 serve] launch.serve {' '.join(serve_args)}: {loop['tokens']} tokens "
+          f"in {loop['seconds']:.2f} s, decode {loop['decode_ms_median']:.2f} ms a token "
+          f"(median of {loop['decode_steps']} steps), packed2bit ingest ms a round "
+          f"{[round(x, 2) for x in loop['ingest_ms']]}, peak {out['loop']['peak_gb']:.2f} GB, "
+          f"launches { {k: v for k, v in counts.items() if v} }")
+
+    for dtype, tol in (("bfloat16", MAMBA_DECODE_REL_TOL), ("float32", MAMBA_DECODE_F32_REL_TOL)):
+        model = Model(dataclasses.replace(cfg, dtype=dtype))
+        params = model.init(0, dev)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        toks = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, prefill_len), generator=gen,
+                             device=dev, dtype=torch.int32)
+        pos = torch.arange(prefill_len, device=dev, dtype=torch.int32).expand(PREFILL_BATCH, -1)
+        prefill = build_prefill(model)
+        batch = {"inputs": toks, "positions": pos}
+        logits, caches = prefill(params, batch)
+        del logits, caches
+        sync(torch)
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, batch)
+        sync(torch)
+        prefill_s = time.perf_counter() - t0
+        check(tuple(logits.shape) == (PREFILL_BATCH, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()), f"mamba2 prefill ({dtype}): logits not "
+                                                      f"finite or misshapen")
+        del logits, caches
+        s = 128
+        rel, floor, agree = decode_vs_forward(torch, model, params, toks, pos, s)
+        check(rel <= tol and agree >= 0.75,
+              f"mamba2 decode after a {s}-token prefill ({dtype}): {rel:.3g} of max |logit| "
+              f"from the full forward (tolerance {tol}), argmax agreeing for {agree:.0%}")
+        ntok = PREFILL_BATCH * prefill_len
+        out[dtype] = {"prefill_s": prefill_s, "prefill_tokens_per_s": ntok / prefill_s,
+                      "decode_vs_forward": {"prompt": s, "rel_err": rel, "floor": floor,
+                                            "argmax_agree": agree, "tol": tol}}
+        print(f"[mamba2 serve] {dtype}: prefill {PREFILL_BATCH} x {prefill_len} tokens "
+              f"{prefill_s * 1e3:.1f} ms ({ntok / prefill_s:.0f} tokens/s); decode after a "
+              f"{s}-token prefill vs forward_hidden: max |diff| {rel:.4g} of max |logit| "
+              f"(tolerance {tol}; a forward one token longer gives {floor:.4g}), argmax agrees "
+              f"for {agree:.0%}")
+        del params, model
+        torch.cuda.empty_cache()
+    report["mamba_serve"] = out
+
+
+ZOO_LAYERS = 2   # qwen2.5-32b and granite-34b: their published widths, 2 layers deep
+
+
+def phase_zoo(torch, report, totals, dev="cuda"):
+    """qwen2.5-32b (GQA 40:8 at head_dim 128, QKV bias, d_ff 27,648, vocab
+    152,064) and granite-34b (MQA 48:1, d_ff 24,576, vocab 49,152) at their
+    published widths, cut to ZOO_LAYERS layers (at full depth their weights,
+    65.5 and 94.5 GB, leave no room for training on one card), through
+    repro_torch.launch.train on the card: M = 4, one 4,096-token sequence a
+    worker, 2 steps of sparsign with majority vote on allgather_packed,
+    launches counted with every plain version barred, wire bytes held to
+    the ledger. ``dev="cpu"`` rehearses it at the smoke size, where only the
+    launch counts cannot hold."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.core.compressors import tree_leaves
+    from repro_torch.dist import collectives
+    from repro_torch.launch import train as launch
+    from repro_torch.train import loop
+
+    m, steps, out = 4, 2, {}
+    where = (["--full", "--seq-len", str(TRAINER_SEQ_LEN)] if dev == "cuda"
+             else ["--device", dev, "--seq-len", "64"])
+    get_config = launch.get_config
+    launch.get_config = lambda arch, smoke: dataclasses.replace(get_config(arch, smoke=smoke),
+                                                                n_layers=ZOO_LAYERS)
+    try:
+        for arch in ("qwen2.5-32b", "granite-34b"):
+            args = launch.parser().parse_args([
+                "--arch", arch, "--host-data", str(m), "--batch", str(m), "--steps",
+                str(steps), "--seed", "0", "--compressor", "sparsign", "--budget-kind",
+                "l2_norm", "--budget", "0.1", "--server", "majority_vote", "--vote-impl",
+                "allgather_packed"] + where)
+            reset_peak(torch)
+            cfg, model, group, step, state, comp = launch.build_everything(args)
+            sizes = [math.prod(sd.shape) for sd in tree_leaves(model.param_shapes())]
+            leaves = len(sizes)
+            ledger = float(np.float32(sum(collectives.uplink_ledger(step.mode, step.wire, n)
+                                          for n in sizes)))
+            kernels.reset_launch_counts()
+            with plain_versions_barred():
+                state, history = loop.run(step, state, launch.batch_fn_for(cfg, args),
+                                          loop.LoopConfig(total_steps=steps, log_every=1),
+                                          log=lambda line: None)
+            sync(torch)
+            counts = kernels.launch_counts()
+            want = expected(sparsign_pack2bit=leaves * m * steps, unpack2bit_sum=leaves * steps,
+                            vote_update=leaves * steps)
+            check(counts == want, f"{cfg.name}: launches {counts}, expected {want}")
+            for k in totals:
+                totals[k] += counts[k]
+            check(all(math.isfinite(h["loss"]) and h["wire_bytes_per_device"] == ledger
+                      for h in history), f"{cfg.name}: {history}")
+            check(all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params)),
+                  f"{cfg.name}: non-finite parameters")
+            walls = [h["wall_s"] for h in history]
+            step_s = [b - a for a, b in zip([0.0] + walls[:-1], walls)]
+            peak = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" else 0.0
+            out[arch] = {"layers": cfg.n_layers, "d_model": cfg.d_model, "heads": cfg.n_heads,
+                         "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+                         "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "parameters": sum(sizes),
+                         "leaves": leaves, "tokens_per_worker": args.seq_len,
+                         "step_s": step_s, "loss": [h["loss"] for h in history],
+                         "wire_bytes_per_device": ledger, "peak_gb": peak, "launches": counts}
+            print(f"[zoo] {cfg.name}, {cfg.n_layers} layers at d_model {cfg.d_model} "
+                  f"({cfg.n_heads}:{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+                  f"vocab {cfg.vocab_size}; {sum(sizes)} parameters in {leaves} leaves), "
+                  f"M = {m}, {args.seq_len} tokens a worker: steps "
+                  f"{[round(x, 3) for x in step_s]} s, losses "
+                  f"{[round(h['loss'], 6) for h in history]}, wire bytes {ledger:.10g} "
+                  f"(== the ledger), peak {peak:.2f} GB, launches "
+                  f"{ {k: v for k, v in counts.items() if v} }")
+            del step, state, model
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        launch.get_config = get_config
+    report["zoo"] = out
 
 
 def launch_split(torch, fn) -> list:
@@ -2799,6 +3272,8 @@ def decode_split(torch, trees: list) -> dict:
 
 def main() -> int:
     t_start = time.perf_counter()
+    if "--train-child" in sys.argv:   # a fresh process for the mamba2 restart
+        return train_child(sys.argv[sys.argv.index("--train-child") + 1:])
     if "--sass" in sys.argv:   # a saved listing (--pack2-split's): no card
         path = pathlib.Path(sys.argv[sys.argv.index("--sass") + 1])
         data = path.read_bytes()
@@ -2846,28 +3321,33 @@ def main() -> int:
 
     report = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build": {"wall_s": build_s, "per_source_s": built}}
+    phase_s = report["phase_s"] = {}   # host seconds of each phase, in order
+
+    def run_phase(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(torch, *args)
+        phase_s[fn.__name__] = time.perf_counter() - t0
+        return out
+
     timer = Timer(torch)
-    errs, main_times = phase_kernels(torch, timer, report)
-    wire_errs, wire_times = phase_wire_kernels(torch, timer, report)
-    errs.update(wire_errs)
-    main_times.update(wire_times)
-    golomb_errs, golomb_times = phase_golomb_kernels(torch, timer, report)
-    errs.update(golomb_errs)
-    main_times.update(golomb_times)
-    pack8_errs, pack8_times = phase_pack8_kernels(torch, timer, report)
-    errs.update(pack8_errs)
-    main_times.update(pack8_times)
+    errs, main_times = run_phase(phase_kernels, timer, report)
+    for fn in (phase_wire_kernels, phase_golomb_kernels, phase_pack8_kernels):
+        more_errs, more_times = run_phase(fn, timer, report)
+        errs.update(more_errs)
+        main_times.update(more_times)
     del timer
     torch.cuda.empty_cache()
-    totals = phase_fl(torch, report)
-    phase_baselines(torch, report, totals)
-    phase_golomb_two_pass(torch, report, totals)
+    totals = run_phase(phase_fl, report)
+    run_phase(phase_baselines, report, totals)
+    run_phase(phase_golomb_two_pass, report, totals)
     timer = Timer(torch)
-    phase_ring(torch, timer, report)
+    run_phase(phase_ring, timer, report)
     del timer
     torch.cuda.empty_cache()
-    phase_trainer(torch, report, totals)
-    phase_serve(torch, report, totals)
+    for fn in (phase_trainer, phase_zoo, phase_mamba_trainer, phase_serve,
+               phase_mamba_serve):
+        run_phase(fn, report, totals)
+    print("[done] phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
     check(all(totals[k] > 0 for k in totals), f"a kernel never launched on the path: {totals}")
 
     rows = []

@@ -4,8 +4,8 @@ A model is ``n_layers`` blocks arranged as ``n_repeats`` repetitions of a
 ``pattern`` (a tuple of LayerSpec); parameters of a pattern position are
 stacked over the repeats, as in the JAX package, so the parameter leaves
 (and the seeds the trainer derives from their order) are the same. Only the
-fields the ported model reads are kept; the MoE, Mamba and M-RoPE families
-are not ported yet.
+fields the ported model reads are kept; the MoE and M-RoPE families are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -46,6 +46,13 @@ class ModelConfig:
     rope_theta: float = 10000.0
     mrope: bool = False
     norm_eps: float = 1e-6
+    # --- Mamba/SSD ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 128
+    ssm_conv: int = 4
+    # --- execution ---
     dtype: str = "bfloat16"
     attn_chunk: int = 1024         # kv-chunk of the online-softmax attention
     loss_chunk: int = 512          # seq-chunk of the softmax-xent loop
@@ -68,3 +75,11 @@ class ModelConfig:
     @property
     def activation_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim

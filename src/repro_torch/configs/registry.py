@@ -1,12 +1,13 @@
 """Architecture registry of the port: ``--arch <id>`` resolution with the
-smoke variants and the trainer mode, for the architectures the port runs.
-The JAX registry's other entries raise and name the ported ones."""
+smoke variants and the trainer mode, for the architectures the port runs,
+in the JAX registry's order. The JAX registry's other entries raise and
+name the ported ones."""
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import qwen15_4b
+from repro_torch.configs import granite_34b, mamba2_370m, qwen15_4b, qwen25_32b
 from repro_torch.configs.base import ModelConfig
 
 
@@ -18,7 +19,10 @@ class ArchEntry:
 
 
 _ENTRIES = [
+    ArchEntry("qwen2.5-32b", qwen25_32b, "simple"),
+    ArchEntry("granite-34b", granite_34b, "simple"),
     ArchEntry("qwen1.5-4b", qwen15_4b, "simple"),
+    ArchEntry("mamba2-370m", mamba2_370m, "simple"),
 ]
 
 REGISTRY = {e.arch_id: e for e in _ENTRIES}

@@ -9,6 +9,7 @@ class-conditional Gaussians around per-class means on a random
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
 
@@ -42,6 +43,14 @@ def lm_batch(cfg: LMStreamConfig, step: int) -> dict:
     labels = seq[:, 1:].astype(np.int32)
     positions = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
     return {"inputs": inputs, "labels": labels, "positions": positions}
+
+
+def lm_stream(cfg: LMStreamConfig, start_step: int = 0) -> Iterator[dict]:
+    """The batches of steps ``start_step``, ``start_step + 1``, ..."""
+    step = start_step
+    while True:
+        yield lm_batch(cfg, step)
+        step += 1
 
 
 @dataclasses.dataclass(frozen=True)

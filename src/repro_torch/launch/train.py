@@ -5,9 +5,13 @@ is the worker count M); it runs the ``simple`` trainer on the card (or, with
 ``--device cpu``, the plain versions on the CPU), with the bucketed uplink
 (``--bucketed``, one bucket for the whole tree) and the ring gather
 (``--ring``, ``--ring-chunk-rows`` rows a chunk, default
-``collectives.DEFAULT_RING_CHUNK_ROWS``) on request. What is not ported yet
-raises: the production meshes, the streamed trainer, checkpoints and failure
-injection.
+``collectives.DEFAULT_RING_CHUNK_ROWS``) on request. ``--ckpt-dir`` saves a
+checkpoint every ``--ckpt-every`` steps and at the end, and resumes from
+the newest compatible one there; ``--fail-at K`` dies before step K
+(failure injection). A run resumed with another ``--host-data`` restores
+the same logical state and trains on: the state is not sharded, and
+majority-vote state has no per-worker terms. What is not ported yet raises:
+the production meshes and the streamed trainer.
 """
 
 from __future__ import annotations
@@ -125,6 +129,7 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    """Runs the loop; returns (state, history)."""
     args = parser().parse_args(argv)
     cfg, model, group, step, state, comp = build_everything(args)
     lcfg = loop_lib.LoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
@@ -135,6 +140,7 @@ def main(argv=None):
             json.dump(history, f, indent=1)
     print(f"done: {len(history)} log points, final loss "
           f"{history[-1]['loss'] if history else float('nan'):.4f}")
+    return state, history
 
 
 if __name__ == "__main__":

@@ -2,16 +2,19 @@
 pattern blocks over their repeats -> final norm -> chunked LM-head loss.
 
 Parameters are a tree of tensors with JAX's structure:
-``{"blocks": ({name: (n_repeats, ...)},), "embed", "final_norm", "lm_head"}``,
-the block leaves stacked over the repeats, so ``tree_leaves`` gives the JAX
+``{"blocks": ({name: (n_repeats, ...)},), "embed", "final_norm", "lm_head"}``
+(no ``lm_head`` with tied embeddings: the head is ``embed.T``, and the
+gradient reaches ``embed`` from both uses), the block leaves stacked over
+the repeats, so ``tree_leaves`` gives the JAX
 flatten order (dict keys sorted) and the trainer's per-leaf seeds match. Remat
 is ``torch.utils.checkpoint(use_reentrant=False)`` per block and per loss
 chunk (and per attention chunk inside a block).
 
 Serving: ``prefill`` and ``decode_step``. A decode cache is a list of
-per-layer dicts (``{"k", "v", "pos"}``), one per block in execution order
-(repeat-major), where JAX stacks the layers of a pattern position;
-``decode_step`` writes each new K/V into it in place.
+per-layer dicts (``{"k", "v", "pos"}`` for attention, ``{"conv", "state"}``
+for mamba), one per block in execution order (repeat-major), where JAX
+stacks the layers of a pattern position; ``decode_step`` writes into it in
+place.
 """
 
 from __future__ import annotations
@@ -41,9 +44,9 @@ class ShapeDtype:
 class Model:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
-        if cfg.input_kind != "tokens" or cfg.tail_pattern or cfg.tie_embeddings:
-            raise NotImplementedError(f"{cfg.name}: embedding inputs, tail blocks and tied "
-                                      f"heads are not ported yet")
+        if cfg.input_kind != "tokens" or cfg.tail_pattern:
+            raise NotImplementedError(f"{cfg.name}: embedding inputs and tail blocks are not "
+                                      f"ported yet")
 
     # ------------------------------------------------------------ parameters
 
@@ -54,9 +57,11 @@ class Model:
         blocks = tuple({k: ShapeDtype((r,) + shape, dtype)
                         for k, (shape, dtype) in blocks_lib.block_param_defs(cfg, s).items()}
                        for s in cfg.pattern)
-        return {"embed": ShapeDtype((cfg.vocab_size, cfg.d_model), dt), "blocks": blocks,
-                "final_norm": ShapeDtype((cfg.d_model,), dt),
-                "lm_head": ShapeDtype((cfg.d_model, cfg.vocab_size), dt)}
+        shapes = {"embed": ShapeDtype((cfg.vocab_size, cfg.d_model), dt), "blocks": blocks,
+                  "final_norm": ShapeDtype((cfg.d_model,), dt)}
+        if not cfg.tie_embeddings:
+            shapes["lm_head"] = ShapeDtype((cfg.d_model, cfg.vocab_size), dt)
+        return shapes
 
     def param_count(self) -> int:
         return sum(math.prod(s.shape) for s in tree_leaves(self.param_shapes()))
@@ -79,6 +84,8 @@ class Model:
         return tree_unflatten(shapes, [make(sd) for sd in tree_leaves(shapes)])
 
     def head_weight(self, params) -> torch.Tensor:
+        if self.cfg.tie_embeddings:
+            return params["embed"].T
         return params["lm_head"]
 
     def _layers(self, params):
@@ -111,7 +118,7 @@ class Model:
         """Chunked softmax cross-entropy over the sequence: never holds the
         [B, S, V] logits. Labels < 0 are ignored."""
         cfg = self.cfg
-        w = params["lm_head"]
+        w = self.head_weight(params)
         b, s, _ = h.shape
         c = min(cfg.loss_chunk, s)
         pad = (-s) % c
@@ -144,7 +151,8 @@ class Model:
                 for _ in range(cfg.n_repeats) for spec in cfg.pattern]
 
     def init_cache(self, batch_size: int, max_len: int, device=None) -> list:
-        """An empty decode cache: zero K/V, position slots -1 (empty)."""
+        """An empty decode cache: zero K/V, conv rings and SSD states,
+        position slots -1 (empty)."""
         device = torch.device(device) if device is not None else torch.device("cuda")
 
         def make(sd: ShapeDtype):

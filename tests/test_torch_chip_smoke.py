@@ -178,6 +178,97 @@ def test_phase_ring_rehearses_on_the_cpu(monkeypatch):
     assert [b["wire"] for b in ring["bucket"]] == ["pack2", "golomb", "pack8"]
 
 
+
+def _rehearse(cs, monkeypatch):
+    """chip_smoke.py on the CPU: the plain versions allowed, and the launch
+    counts' checks (which need a card) left out."""
+    import contextlib
+
+    check = cs.check
+
+    def checked(cond, msg):
+        if "launches" not in msg:
+            check(cond, msg)
+
+    monkeypatch.setattr(cs, "check", checked)
+    monkeypatch.setattr(cs, "plain_versions_barred", contextlib.nullcontext)
+
+
+def test_phase_mamba_trainer_rehearses_on_the_cpu(monkeypatch, capsys):
+    """The mamba2 phase's control flow at the smoke size on the CPU: run A,
+    run B dying as injected at step 3 with its step-2 checkpoint, the
+    restart in a fresh process whose step-4 checkpoint holds run A's
+    parameters and EF residual bit for bit, and the elastic resume at M = 2
+    to step 6. Only the launch counts cannot hold without a card."""
+    import torch
+
+    cs = _chip_smoke()
+    _rehearse(cs, monkeypatch)
+    report = {}
+    cs.phase_mamba_trainer(torch, report, {k: 0 for k in cs.REPLACES}, dev="cpu")
+    out = report["mamba_trainer"]
+    assert out["run_b"]["died"] == "injected failure at step 3"
+    assert out["restart"]["differ"] == 0 and len(out["restart"]["save_s"]) == 1
+    assert out["elastic"]["step"] == 6 and len(out["elastic"]["loss"]) == 1
+    assert out["run_a"]["leaves"] == 16
+    printed = capsys.readouterr().out
+    assert "[loop] resumed from step 2" in printed and "[loop] resumed from step 4" in printed
+    assert "a fresh process" in printed
+
+
+def test_phase_zoo_smoke_rehearses_on_the_cpu(monkeypatch):
+    """The zoo phase at the smoke size on the CPU: both configs cut to
+    ZOO_LAYERS layers through the launcher, and the launcher's own
+    get_config put back afterwards."""
+    import torch
+
+    from repro_torch.launch import train as launch
+
+    cs = _chip_smoke()
+    _rehearse(cs, monkeypatch)
+    get_config = launch.get_config
+    report = {}
+    cs.phase_zoo(torch, report, {k: 0 for k in cs.REPLACES}, dev="cpu")
+    assert {a: (r["leaves"], r["kv_heads"], r["layers"]) for a, r in report["zoo"].items()} == {
+        "qwen2.5-32b": (15, 2, cs.ZOO_LAYERS), "granite-34b": (12, 1, cs.ZOO_LAYERS)}
+    assert launch.get_config is get_config
+
+
+def test_phase_mamba_serve_rehearses_on_the_cpu(monkeypatch):
+    """The mamba2 serving phase at the smoke size on the CPU: the launcher's
+    loop with 4 update rounds, the prefill, and decode against the full
+    forward within the phase's bf16 and float32 tolerances."""
+    import torch
+
+    cs = _chip_smoke()
+    _rehearse(cs, monkeypatch)
+    report = {}
+    cs.phase_mamba_serve(torch, report, {k: 0 for k in cs.REPLACES}, dev="cpu")
+    out = report["mamba_serve"]
+    assert out["loop"]["updates"] == 4
+    assert out["float32"]["decode_vs_forward"]["rel_err"] <= cs.MAMBA_DECODE_F32_REL_TOL
+
+
+def test_checkpoint_round_trip_rehearses_on_the_cpu():
+    """The trainer phase's full-width round trip at the smoke size: saved,
+    restored into a fresh state of other values, bit for bit; its temporary
+    directory removed."""
+    import glob
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.train.state import init_state
+
+    model = Model(get_config("qwen1.5-4b", smoke=True))
+    state = init_state(model.init(0, "cpu"), server="majority_vote", seed=3)
+    before = set(glob.glob(tempfile.gettempdir() + "/chip_smoke_ckpt_*"))
+    out = _chip_smoke().checkpoint_round_trip(torch, model, state)
+    assert out["leaves"] == 17 and out["gb_on_disk"] > 0
+    assert set(glob.glob(tempfile.gettempdir() + "/chip_smoke_ckpt_*")) == before
+
 def test_ulps_apart_counts_steps_on_the_number_line():
     import torch
 

@@ -475,3 +475,37 @@ def test_update_ingest_on_card_matches_plain_versions(cuda_device):
     for key in got:
         for a, b in zip(got[key], want[key]):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_checkpoint_of_card_leaves_is_np_save_bytes(cuda_device, tmp_path, monkeypatch):
+    """A state on the card saves through the pinned staging buffer (cut to a
+    few KB here, so leaves cross several chunks) to the bytes np.save writes
+    for the host copies (bf16 widened), and restores onto the card bit for
+    bit."""
+    import os
+
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.state import TrainState
+
+    monkeypatch.setattr(ckpt, "STAGE_BYTES", 4096)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    state = TrainState(
+        params={"a": torch.randn(37, 129, generator=gen, device=cuda_device),
+                "b": (torch.randn(3001, generator=gen, device=cuda_device).to(torch.bfloat16),)},
+        ef_residual={"a": torch.randn(37, 129, generator=gen, device=cuda_device),
+                     "b": (torch.zeros(3001, device=cuda_device),)},
+        step=9, seed=2**32 - 1)
+    path = ckpt.save(str(tmp_path / "ck"), 9, state)
+    for i, (_, leaf) in enumerate(ckpt._flatten_with_path(state)):
+        host = (leaf.to(torch.float32).cpu().numpy() if isinstance(leaf, torch.Tensor)
+                else np.asarray(leaf))
+        np.save(tmp_path / "want.npy", host)
+        with open(os.path.join(path, f"leaf_{i:05d}.npy"), "rb") as f:
+            assert f.read() == (tmp_path / "want.npy").read_bytes(), i
+    got, _ = ckpt.restore(str(tmp_path / "ck"), state)
+    assert got.step == 9 and got.seed == 2**32 - 1
+    for a, b in zip(tree_leaves([got.params, got.ef_residual]),
+                    tree_leaves([state.params, state.ef_residual])):
+        assert a.device == b.device and a.dtype == b.dtype
+        np.testing.assert_array_equal(tbits(a), tbits(b))

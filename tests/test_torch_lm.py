@@ -1,7 +1,7 @@
-"""The port's LM stack against the JAX package, on the CPU: the qwen1.5-4b
-parameter leaves (shapes, dtypes and flatten order, which decide the
-trainer's per-leaf seeds), and the loss and its gradients from the same
-weights. The smoke config runs in float32; the loss is the same float32
+"""The port's LM stack against the JAX package, on the CPU: the parameter
+leaves of qwen1.5-4b, qwen2.5-32b (GQA with QKV bias) and granite-34b (MQA)
+(shapes, dtypes and flatten order, which decide the trainer's per-leaf
+seeds), and the loss and its gradients from the same weights. The smoke config runs in float32; the loss is the same float32
 computation in the same order (equal bit for bit here), the gradients agree
 to 5e-5 of each leaf's norm: autograd and ``jax.grad`` sum in other orders,
 and the measured gap is 1e-6 to 3e-5 on every leaf."""
@@ -24,26 +24,39 @@ from repro_torch.models.rope import apply_rope
 GRAD_RTOL = 5e-5   # of each leaf's norm: autograd and jax.grad sum in other orders
 
 
-def _jmodel(smoke=True):
-    return JModel(jget_config("qwen1.5-4b", smoke=smoke))
+def _jmodel(smoke=True, arch="qwen1.5-4b"):
+    return JModel(jget_config(arch, smoke=smoke))
 
 
-def _tmodel(smoke=True):
-    return Model(get_config("qwen1.5-4b", smoke=smoke))
+def _tmodel(smoke=True, arch="qwen1.5-4b"):
+    return Model(get_config(arch, smoke=smoke))
 
 
-@pytest.mark.parametrize("smoke", [True, False])
-def test_param_leaves_match_jax(smoke):
-    """Same leaves, shapes, dtypes and order: 15 leaves, the block leaves
-    stacked over the repeats; 3,950,369,280 parameters at full width."""
-    jleaves = jax.tree_util.tree_leaves(_jmodel(smoke).param_shapes())
-    tleaves = tree_leaves(_tmodel(smoke).param_shapes())
-    assert len(tleaves) == len(jleaves) == 15
+# the qwen1.5-4b cases keep their first ids
+LEAF_CASES = [pytest.param("qwen1.5-4b", True, 15, id="True"),
+              pytest.param("qwen1.5-4b", False, 15, id="False"),
+              pytest.param("qwen2.5-32b", True, 15, id="qwen2.5-32b-smoke"),
+              pytest.param("qwen2.5-32b", False, 15, id="qwen2.5-32b-full"),
+              pytest.param("granite-34b", True, 12, id="granite-34b-smoke"),
+              pytest.param("granite-34b", False, 12, id="granite-34b-full")]
+FULL_PARAMS = {"qwen1.5-4b": 3_950_369_280}
+
+
+@pytest.mark.parametrize("arch,smoke,n_leaves", LEAF_CASES)
+def test_param_leaves_match_jax(arch, smoke, n_leaves):
+    """Same leaves, shapes, dtypes and order: 15 leaves (12 for granite-34b,
+    which has no QKV bias), the block leaves stacked over the repeats; at
+    full width JAX's parameter count (3,950,369,280 for qwen1.5-4b)."""
+    jleaves = jax.tree_util.tree_leaves(_jmodel(smoke, arch).param_shapes())
+    tleaves = tree_leaves(_tmodel(smoke, arch).param_shapes())
+    assert len(tleaves) == len(jleaves) == n_leaves
     for j, t in zip(jleaves, tleaves):
         assert tuple(t.shape) == tuple(j.shape)
         assert str(t.dtype).split(".")[-1] == str(j.dtype)
     if not smoke:
-        assert _tmodel(False).param_count() == 3_950_369_280
+        count = _tmodel(False, arch).param_count()
+        assert count == sum(int(np.prod(j.shape)) for j in jleaves)
+        assert count == FULL_PARAMS.get(arch, count)
 
 
 def test_init_follows_the_jax_rule():
@@ -101,6 +114,30 @@ def test_rope_matches_jax():
 
 
 def test_registry_names_the_ported_architectures():
-    assert ARCH_IDS == ["qwen1.5-4b"]
+    """The ported entries in the JAX registry's order, each with its trainer
+    mode; an unported architecture raises and names the ported ones."""
+    from repro.configs.registry import ARCH_IDS as J_ARCH_IDS
+    from repro.configs.registry import trainer_mode as j_trainer_mode
+    from repro_torch.configs.registry import trainer_mode
+
+    assert ARCH_IDS == ["qwen2.5-32b", "granite-34b", "qwen1.5-4b", "mamba2-370m"]
+    assert ARCH_IDS == [a for a in J_ARCH_IDS if a in ARCH_IDS]
+    for arch in ARCH_IDS:
+        assert trainer_mode(arch) == j_trainer_mode(arch) == "simple"
+        for smoke in (True, False):
+            assert get_config(arch, smoke) == _port_of(jget_config(arch, smoke))
     with pytest.raises(KeyError, match="qwen1.5-4b"):
-        get_config("mamba2-370m")
+        get_config("llama4-scout-17b-a16e")
+
+
+def _port_of(jcfg):
+    """JAX's config with the fields the port keeps, in the port's types."""
+    import dataclasses
+
+    from repro_torch.configs.base import LayerSpec, ModelConfig
+
+    kept = {f.name for f in dataclasses.fields(ModelConfig)}
+    fields = {k: v for k, v in dataclasses.asdict(jcfg).items() if k in kept}
+    for k in ("pattern", "tail_pattern"):
+        fields[k] = tuple(LayerSpec(**spec) for spec in fields[k])
+    return ModelConfig(**fields)
