@@ -81,7 +81,9 @@ the first, in order; any failure exits non-zero before the last line:
      repro_torch.launch.train's build path, M = 4 workers on the card, one
      sequence of 4096 tokens each (train_4k's length; the global batch cut
      from 256 to 4), 2 steps a run (sign, noisy_sign, TernGrad and the
-     elastic 2-bit and pack8 runs 1):
+     elastic 2-bit and pack8 runs 1; the elastic, bucketed and ring runs
+     and the golomb and pack8 runs their rings are held against cut to
+     VARIANT_LAYERS = 4 layers):
      sparsign/majority vote on the allgather_packed, psum and hier (2 x 2) wires
      (parameters bitwise equal across the three; after the psum run its
      state, 15.8 GB on disk, is saved with train.checkpoint, restored into
@@ -101,10 +103,13 @@ the first, in order; any failure exits non-zero before the last line:
      launch counts checked with every plain version barred from running (a
      ring run's derived from its plan and chunks); one step each of the
      packed and the golomb run traced with torch.profiler; the
-     target_sparsity bisection timed on its own; then qwen2.5-32b (GQA
-     40:8, QKV bias) and granite-34b (MQA 48:1) at their published widths
-     cut to 2 layers, M = 4, 4,096 tokens a worker, 2 steps on
-     allgather_packed; then
+     target_sparsity bisection timed on its own; then the zoo at published
+     widths (phase_zoo): qwen2.5-32b (GQA 40:8, QKV bias), granite-34b (MQA
+     48:1) and qwen2-moe-a2.7b (60 routed experts padded to 64, top 4, 4
+     shared) cut to 2 layers, gemma3-27b (5:1 windowed:global, window
+     1,024, tail, tied embeddings) to 8, hubert-xlarge (frames, the GELU
+     MLP, bidirectional) at its 48, M = 4, 4,096 tokens or frames a worker,
+     2 steps on allgather_packed; then
      mamba2-370m at full width (M = 4, 4,096 tokens a worker, sparsign with
      the scaled-sign EF server on allgather_packed): run A 4 steps straight,
      run B checkpointing every 2 steps and dying as injected at step 3, the
@@ -137,7 +142,14 @@ the first, in order; any failure exits non-zero before the last line:
      packed2bit route equal to server_apply on the int8 decisions; then
      mamba2-370m the same way: the launcher's loop with its 4 update rounds
      counted, a timed 4 x 2048 prefill, decode after a 128-token prefill
-     against the full forward in bf16 and in float32.
+     against the full forward in bf16 and in float32; then the zoo served
+     at full width and depth, one model at a time (phase_zoo_serve):
+     qwen2.5-32b, qwen2-moe-a2.7b and gemma3-27b each through the
+     launcher's loop (batch 4, a 32-token prompt, 16 new tokens, no update
+     rounds), a timed 4 x 2048 prefill, and decode of token 2,048 after a
+     2,048-token prefill against the full forward in bf16 (gemma3-27b's
+     windowed layers from their 1,024-slot rings); hubert-xlarge's encoder
+     probe on 4 x 2,048 frames, finite.
 It prints one JSON line of kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Results also go to
 chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device.
@@ -2066,9 +2078,16 @@ def ring_run_launches(step, model, m: int, leaves: int) -> dict:
                 unpack2bit_sum=m * sum(wire.bucket_ring_chunks(b) for b in plan.buckets))
 
 
+# the depth of the trainer phase's variant runs (elastic, bucketed, ring)
+# and of the monolithic golomb and pack8 runs their rings are held against:
+# a tenth of qwen1.5-4b's 40 layers, at its full width
+VARIANT_LAYERS = 4
+
+
 def phase_trainer(torch, report, totals):
     """qwen1.5-4b at full width through repro_torch.launch.train, M = 4
-    workers on the card, 2 steps a run (5 runs 1 step)."""
+    workers on the card, 2 steps a run (5 runs 1 step); the variant runs
+    and their references VARIANT_LAYERS layers deep."""
     import numpy as np
 
     from repro_torch import kernels
@@ -2093,49 +2112,57 @@ def phase_trainer(torch, report, totals):
     qsgd8 = ["--compressor", "qsgd8", "--server", "mean"]
     golomb = "sparsign_golomb/majority_vote allgather_packed"
     pack8 = "qsgd8/mean allgather_packed (pack8)"
+    cut = f" ({VARIANT_LAYERS} layers)"
     runs = [  # label, flags, worker group (None: --host-data), launches a step (None:
-              # ring_run_launches), steps
+              # ring_run_launches), steps, layers (None: all 40)
         ("sparsign/majority_vote psum", sparsign + majority + ["--vote-impl", "psum"], None,
-         dict(sparsign=leaves * m, vote_update=leaves), 2),
+         dict(sparsign=leaves * m, vote_update=leaves), 2, None),
         ("sparsign/majority_vote hier 2x2", sparsign + majority + ["--vote-impl", "hier"],
-         ((2, 2), ("pod", "data")), dict(sparsign=leaves * m, vote_update=leaves), 2),
+         ((2, 2), ("pod", "data")), dict(sparsign=leaves * m, vote_update=leaves), 2, None),
         ("sparsign/majority_vote allgather_packed", sparsign + majority + packed, None,
-         dict(sparsign_pack2bit=leaves * m, **voted), 2),
+         dict(sparsign_pack2bit=leaves * m, **voted), 2, None),
         ("sparsign/scaled_sign_ef allgather_packed", sparsign + ["--server", "scaled_sign_ef"]
          + packed, None, dict(sparsign_pack2bit=leaves * m, unpack2bit_sum=leaves,
-                              ef_server=leaves), 2),
-        # one step each, as the two elastic runs on the 2-bit and pack8
-        # wires: their launches are per step, no run is held against them,
-        # and the run must make room for the mamba2-370m, checkpoint and zoo
-        # phases
+                              ef_server=leaves), 2, None),
+        # one step each, as the elastic runs: their launches are per step, no
+        # run is held against them, and the run must make room for the
+        # mamba2-370m, checkpoint and zoo phases
         ("sign/majority_vote allgather_packed", ["--compressor", "sign"] + majority + packed,
-         None, dict(ternary_pack2bit=leaves * m, **voted), 1),
+         None, dict(ternary_pack2bit=leaves * m, **voted), 1, None),
         ("noisy_sign/majority_vote allgather_packed",
          ["--compressor", "noisy_sign", "--budget", "1e-4"] + majority + packed, None,
-         dict(ternary_pack2bit=leaves * m, **voted), 1),
+         dict(ternary_pack2bit=leaves * m, **voted), 1, None),
         ("terngrad/mean allgather_packed", ["--compressor", "terngrad", "--server", "mean"]
-         + packed, None, dict(ternary_pack2bit=leaves * m, unpack2bit_sum=leaves), 1),
-        ("elastic sparsign/majority_vote allgather_packed", sparsign + majority + packed
-         + elastic, None, dict(sparsign_pack2bit=leaves * m, unpack2bit_wsum=leaves,
-                               weighted_vote_update=leaves), 1),
+         + packed, None, dict(ternary_pack2bit=leaves * m, unpack2bit_sum=leaves), 1, None),
         (golomb, ["--compressor", "sparsign_golomb"] + target + majority + packed, None,
-         golomb_voted, 2),
-        ("elastic " + golomb,
+         golomb_voted, 2, None),
+        (pack8, qsgd8 + packed, None, dict(qsgd8_pack8=leaves * m, unpack8_sum=leaves), 2,
+         None),
+        ("qsgd8/mean psum (decoded)", qsgd8 + ["--vote-impl", "psum"], None,
+         dict(qsgd8_pack8=leaves * m), 2, None),
+        # the variant runs, cut to VARIANT_LAYERS layers so the zoo's phases
+        # fit the time: elastic, bucketed and ring, and the monolithic runs
+        # the rings are held against at the same depth
+        ("elastic sparsign/majority_vote allgather_packed" + cut, sparsign + majority + packed
+         + elastic, None, dict(sparsign_pack2bit=leaves * m, unpack2bit_wsum=leaves,
+                               weighted_vote_update=leaves), 1, VARIANT_LAYERS),
+        ("elastic " + golomb + cut,
          ["--compressor", "sparsign_golomb"] + target + majority + packed + elastic, None,
          dict(sparsign_golomb=leaves * m, ungolomb_wsum=leaves, weighted_vote_update=leaves),
-         2),
-        ("sparsign target_sparsity/majority_vote allgather_packed bucketed ring",
+         2, VARIANT_LAYERS),
+        (golomb + cut, ["--compressor", "sparsign_golomb"] + target + majority + packed, None,
+         golomb_voted, 2, VARIANT_LAYERS),
+        ("sparsign target_sparsity/majority_vote allgather_packed bucketed ring" + cut,
          ["--compressor", "sparsign"] + target + majority + packed + ["--bucketed"] + ring,
-         None, None, 2),
-        (golomb + " bucketed ring",
+         None, None, 2, VARIANT_LAYERS),
+        (golomb + " bucketed ring" + cut,
          ["--compressor", "sparsign_golomb"] + target + majority + packed + ["--bucketed"]
-         + ring, None, None, 2),
-        (pack8, qsgd8 + packed, None, dict(qsgd8_pack8=leaves * m, unpack8_sum=leaves), 2),
-        ("qsgd8/mean psum (decoded)", qsgd8 + ["--vote-impl", "psum"], None,
-         dict(qsgd8_pack8=leaves * m), 2),
-        (pack8 + " ring", qsgd8 + packed + ring, None, None, 2),
-        ("elastic " + pack8, qsgd8 + packed + elastic, None,
-         dict(qsgd8_pack8=leaves * m, unpack8_sum=leaves), 1),
+         + ring, None, None, 2, VARIANT_LAYERS),
+        (pack8 + cut, qsgd8 + packed, None, dict(qsgd8_pack8=leaves * m, unpack8_sum=leaves),
+         2, VARIANT_LAYERS),
+        (pack8 + " ring" + cut, qsgd8 + packed + ring, None, None, 2, VARIANT_LAYERS),
+        ("elastic " + pack8 + cut, qsgd8 + packed + elastic, None,
+         dict(qsgd8_pack8=leaves * m, unpack8_sum=leaves), 1, VARIANT_LAYERS),
     ]
     # the runs held against a reference run's parameters (held on the host,
     # so the card's peaks exclude them): bit for bit, the three vote wires;
@@ -2144,22 +2171,37 @@ def phase_trainer(torch, report, totals):
     # nonzero); the pack8 wire and the decoded psum (the same float sums in
     # worker order). The pack8 ring sums in ring order: its difference is
     # printed in bf16 ulps (its sums are held bit for bit in the ring phase)
-    compare = {runs[1][0]: (runs[0][0], "bits"), runs[2][0]: (runs[0][0], "bits"),
-               runs[10][0]: (golomb, "bits"), runs[11][0]: (golomb, "bits"),
-               runs[13][0]: (pack8, "bits"), runs[14][0]: (pack8, "ulps")}
+    ring2 = "sparsign target_sparsity/majority_vote allgather_packed bucketed ring" + cut
+    compare = {"sparsign/majority_vote hier 2x2": ("sparsign/majority_vote psum", "bits"),
+               "sparsign/majority_vote allgather_packed": ("sparsign/majority_vote psum",
+                                                           "bits"),
+               ring2: (golomb + cut, "bits"),
+               golomb + " bucketed ring" + cut: (golomb + cut, "bits"),
+               "qsgd8/mean psum (decoded)": (pack8, "bits"),
+               pack8 + " ring" + cut: (pack8 + cut, "ulps")}
     # each ring run's peak memory beside its monolithic twins': the same
     # wire's, and the golomb run (the same budget, whose bisection sets it)
-    mono_of = {runs[10][0]: (runs[2][0], golomb), runs[11][0]: (golomb,),
-               runs[14][0]: (pack8,)}
-    traced_runs = {runs[2][0]: "trainer_profile", runs[8][0]: "trainer_profile_golomb"}
+    mono_of = {ring2: (golomb + cut,), golomb + " bucketed ring" + cut: (golomb + cut,),
+               pack8 + " ring" + cut: (pack8 + cut,)}
+    traced_runs = {"sparsign/majority_vote allgather_packed": "trainer_profile",
+                   golomb: "trainer_profile_golomb"}
+    check(set(compare) | {r for r, _ in compare.values()} | set(traced_runs)
+          <= {r[0] for r in runs}, "phase_trainer: a compared or traced run is not in the list")
     held, peaks_of, losses_of = {}, {}, {}
-    for label, flags, mesh, per_step, steps in runs:
+    get_config = launch.get_config
+    for label, flags, mesh, per_step, steps, layers in runs:
         args = launch.parser().parse_args(base + flags + ["--steps", str(steps)])
         group = make_mesh(*mesh) if mesh is not None else None
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        cfg, model, group, step, state, comp = launch.build_everything(args, group=group)
+        if layers is not None:
+            launch.get_config = lambda arch, smoke: dataclasses.replace(
+                get_config(arch, smoke=smoke), n_layers=layers)
+        try:
+            cfg, model, group, step, state, comp = launch.build_everything(args, group=group)
+        finally:
+            launch.get_config = get_config
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         batch_fn = launch.batch_fn_for(cfg, args)
@@ -2283,27 +2325,31 @@ def phase_trainer(torch, report, totals):
     check(not held, f"reference runs never compared: {sorted(held)}")
 
 
-def decode_vs_forward(torch, model, params, toks, pos, s: int) -> tuple:
+def decode_vs_forward(torch, model, params, toks, pos, s: int, floor: bool = True) -> tuple:
     """Decode of token s after a prefill of s tokens whose cache is padded to
-    s + 1 (a mamba block's conv ring and state copied whole), against forward_hidden's last logits over the same s + 1 tokens:
+    s + 1 (a mamba block's conv ring and state, and a windowed layer's ring,
+    copied whole), against forward_hidden's last logits over the same s + 1
+    tokens:
     max |difference| over max |logit|, the same for the logits of a forward
-    one token longer (other GEMM shapes: the dtype's own noise), and the
-    share of the batch whose argmax agrees."""
+    one token longer (other GEMM shapes: the dtype's own noise; None without
+    ``floor``), and the share of the batch whose argmax agrees."""
     from repro_torch.serve.decode import build_decode_step, build_prefill
 
     batch, dev = toks.shape[0], toks.device
     _, caches = build_prefill(model)(params, {"inputs": toks[:, :s], "positions": pos[:, :s]})
     padded = model.init_cache(batch, s + 1, dev)
     for c, pc in zip(caches, padded):
-        for key in c:   # K, V, positions: the first s slots; conv and state: whole
+        for key in c:   # K, V, positions: the first s slots; rings, conv, state: whole
             pc[key][:, :c[key].shape[1]] = c[key]
     del caches
     dec, _ = build_decode_step(model)(params, padded, {
         "inputs": toks[:, s:s + 1],
         "positions": torch.full((batch, 1), s, dtype=torch.int32, device=dev)})
     with torch.no_grad():
-        h = model.forward_hidden(params, {"inputs": toks[:, :s + 2], "positions": pos[:, :s + 2]})
-        longer = (h[:, s] @ model.head_weight(params)).to(torch.float32)
+        if floor:
+            h = model.forward_hidden(params, {"inputs": toks[:, :s + 2],
+                                              "positions": pos[:, :s + 2]})
+            longer = (h[:, s] @ model.head_weight(params)).to(torch.float32)
         h = model.forward_hidden(params, {"inputs": toks[:, :s + 1], "positions": pos[:, :s + 1]})
         ref = (h[:, -1] @ model.head_weight(params)).to(torch.float32)
     del h, padded
@@ -2312,7 +2358,7 @@ def decode_vs_forward(torch, model, params, toks, pos, s: int) -> tuple:
     def rel_to_ref(x):
         return float((x - ref).abs().max() / ref.abs().max())
 
-    return (rel_to_ref(dec), rel_to_ref(longer),
+    return (rel_to_ref(dec), rel_to_ref(longer) if floor else None,
             float((dec.argmax(-1) == ref.argmax(-1)).float().mean()))
 
 
@@ -2879,19 +2925,27 @@ def phase_mamba_serve(torch, report, totals, dev="cuda"):
     report["mamba_serve"] = out
 
 
-ZOO_LAYERS = 2   # qwen2.5-32b and granite-34b: their published widths, 2 layers deep
+# the zoo's training runs: each at its published widths, to this many layers
+# (at full depth qwen2.5-32b's, granite-34b's, qwen2-moe-a2.7b's and
+# gemma3-27b's weights, 65.5, 94.5, 30.3 and 56.6 GB, leave no room to train
+# M = 4 on one card; gemma3-27b's 8 are one 6-layer pattern and its 2-layer
+# tail, hubert-xlarge's 48 its full depth)
+ZOO_LAYERS = {"qwen2.5-32b": 2, "granite-34b": 2, "qwen2-moe-a2.7b": 2, "gemma3-27b": 8,
+              "hubert-xlarge": 48}
 
 
 def phase_zoo(torch, report, totals, dev="cuda"):
-    """qwen2.5-32b (GQA 40:8 at head_dim 128, QKV bias, d_ff 27,648, vocab
-    152,064) and granite-34b (MQA 48:1, d_ff 24,576, vocab 49,152) at their
-    published widths, cut to ZOO_LAYERS layers (at full depth their weights,
-    65.5 and 94.5 GB, leave no room for training on one card), through
-    repro_torch.launch.train on the card: M = 4, one 4,096-token sequence a
-    worker, 2 steps of sparsign with majority vote on allgather_packed,
-    launches counted with every plain version barred, wire bytes held to
-    the ledger. ``dev="cpu"`` rehearses it at the smoke size, where only the
-    launch counts cannot hold."""
+    """The simple-mode zoo through repro_torch.launch.train on the card, each
+    at its published widths cut to ZOO_LAYERS[arch] layers: qwen2.5-32b (GQA
+    40:8 at head_dim 128, QKV bias), granite-34b (MQA 48:1), qwen2-moe-a2.7b
+    (60 routed experts of 64 padded, top 4, 4 shared), gemma3-27b (5:1
+    windowed:global, window 1,024, the unstacked tail, tied embeddings) and
+    hubert-xlarge (frame inputs, bidirectional attention, the GELU MLP):
+    M = 4, one 4,096-token (or frame) sequence a worker, 2 steps of sparsign
+    with majority vote on allgather_packed, launches counted with every
+    plain version barred, wire bytes held to the ledger. ``dev="cpu"``
+    rehearses it at the smoke size, where only the launch counts cannot
+    hold."""
     import numpy as np
 
     from repro_torch import kernels
@@ -2904,10 +2958,14 @@ def phase_zoo(torch, report, totals, dev="cuda"):
     where = (["--full", "--seq-len", str(TRAINER_SEQ_LEN)] if dev == "cuda"
              else ["--device", dev, "--seq-len", "64"])
     get_config = launch.get_config
-    launch.get_config = lambda arch, smoke: dataclasses.replace(get_config(arch, smoke=smoke),
-                                                                n_layers=ZOO_LAYERS)
+
+    def cut(arch, smoke):
+        cfg = get_config(arch, smoke=smoke)
+        return dataclasses.replace(cfg, n_layers=min(cfg.n_layers, ZOO_LAYERS[arch]))
+
+    launch.get_config = cut
     try:
-        for arch in ("qwen2.5-32b", "granite-34b"):
+        for arch in ZOO_LAYERS:
             args = launch.parser().parse_args([
                 "--arch", arch, "--host-data", str(m), "--batch", str(m), "--steps",
                 str(steps), "--seed", "0", "--compressor", "sparsign", "--budget-kind",
@@ -2940,15 +2998,19 @@ def phase_zoo(torch, report, totals, dev="cuda"):
             peak = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" else 0.0
             out[arch] = {"layers": cfg.n_layers, "d_model": cfg.d_model, "heads": cfg.n_heads,
                          "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
-                         "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "parameters": sum(sizes),
+                         "d_ff": cfg.moe_d_ff if cfg.n_experts else cfg.d_ff,
+                         "vocab": cfg.vocab_size, "parameters": sum(sizes),
                          "leaves": leaves, "tokens_per_worker": args.seq_len,
                          "step_s": step_s, "loss": [h["loss"] for h in history],
                          "wire_bytes_per_device": ledger, "peak_gb": peak, "launches": counts}
             print(f"[zoo] {cfg.name}, {cfg.n_layers} layers at d_model {cfg.d_model} "
-                  f"({cfg.n_heads}:{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
-                  f"vocab {cfg.vocab_size}; {sum(sizes)} parameters in {leaves} leaves), "
-                  f"M = {m}, {args.seq_len} tokens a worker: steps "
-                  f"{[round(x, 3) for x in step_s]} s, losses "
+                  f"({cfg.n_heads}:{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+                  f"{out[arch]['d_ff']}"
+                  + (f" a routed expert, {cfg.n_experts} experts top {cfg.top_k}"
+                     if cfg.n_experts else "")
+                  + f", vocab {cfg.vocab_size}; {sum(sizes)} parameters in {leaves} leaves), "
+                  f"M = {m}, {args.seq_len} {'frames' if cfg.input_kind != 'tokens' else 'tokens'}"
+                  f" a worker: steps {[round(x, 3) for x in step_s]} s, losses "
                   f"{[round(h['loss'], 6) for h in history]}, wire bytes {ledger:.10g} "
                   f"(== the ledger), peak {peak:.2f} GB, launches "
                   f"{ {k: v for k, v in counts.items() if v} }")
@@ -2958,6 +3020,131 @@ def phase_zoo(torch, report, totals, dev="cuda"):
     finally:
         launch.get_config = get_config
     report["zoo"] = out
+
+
+# the zoo served at full width and depth: the launcher's loop with a shorter
+# prompt and generation than qwen1.5-4b's and no update rounds (the ingest's
+# int32 vote temporaries of qwen2-moe-a2.7b's and qwen2.5-32b's largest
+# leaves, 17.7 and 36 GB, would not fit beside their weights; the ingest is
+# the same code for every model and is held on qwen1.5-4b and mamba2-370m)
+ZOO_SERVE = ("qwen2.5-32b", "qwen2-moe-a2.7b", "gemma3-27b")
+ZOO_SERVE_ARGS = ["--full", "--batch", "4", "--prompt-len", "32", "--tokens", "16",
+                  "--seed", "0"]
+
+
+def phase_zoo_serve(torch, report, totals, dev="cuda"):
+    """Serving the zoo at full width and depth, one model on the card at a
+    time: for qwen2.5-32b, qwen2-moe-a2.7b and gemma3-27b the launcher's
+    loop (ZOO_SERVE_ARGS), a timed 4 x 2048 prefill, and decode of token
+    2,048 after a 2,048-token prefill against the full forward within
+    DECODE_REL_TOL (gemma3-27b's windowed layers decode from the 1,024-slot
+    rings the prefill left, past their window); then hubert-xlarge's encoder
+    probe (build_prefill: the full forward's loss, no caches) on 4 x 2048
+    frames, which must be finite. ``dev="cpu"`` rehearses it at the smoke
+    size with a 4 x 40 prefill and a 24-token decode check (past the smoke
+    window of 8)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.model import Model
+    from repro_torch.serve.decode import build_prefill
+
+    on_card, out = dev == "cuda", {}
+    prefill_len = PREFILL_LEN if on_card else 40
+    s = PREFILL_LEN if on_card else 24
+
+    def timed(fn):
+        """(fn(), its host seconds to a sync)."""
+        sync(torch)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(torch)
+        return res, time.perf_counter() - t0
+
+    for arch in ZOO_SERVE:
+        serve_args = (["--arch", arch] + ZOO_SERVE_ARGS if on_card else
+                      ["--arch", arch] + [a for a in ZOO_SERVE_ARGS if a != "--full"]
+                      + ["--device", dev])
+        reset_peak(torch)
+        loop = launch_serve.main(serve_args)
+        sync(torch)
+        loop_peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+        cfg = get_config(arch, smoke=not on_card)
+        model = Model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(0, dev)
+        sync(torch)
+        init_s = time.perf_counter() - t0
+        gen = torch.Generator(device=dev).manual_seed(5)
+        toks = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, max(prefill_len, s + 2)),
+                             generator=gen, device=dev, dtype=torch.int32)
+        pos = torch.arange(toks.shape[1], device=dev, dtype=torch.int32).expand(
+            PREFILL_BATCH, -1)
+        # decode against the forward first: its prefill, of the timed one's
+        # shape on the card, is the timed one's warm-up
+        rel, _, agree = decode_vs_forward(torch, model, params, toks, pos, s, floor=False)
+        check(rel <= DECODE_REL_TOL, f"{arch} decode after a {s}-token prefill: {rel:.3g} of "
+                                     f"max |logit| from the full forward (tolerance "
+                                     f"{DECODE_REL_TOL})")
+        prefill = build_prefill(model)
+        batch = {"inputs": toks[:, :prefill_len], "positions": pos[:, :prefill_len]}
+        reset_peak(torch)
+        (logits, caches), prefill_s = timed(lambda: prefill(params, batch))
+        check(tuple(logits.shape) == (PREFILL_BATCH, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()), f"{arch} prefill: logits not finite or "
+                                                      f"misshapen")
+        rings = sorted({c["k"].shape[1] for c in caches})
+        del logits, caches
+        prefill_peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+        windows = sorted({spec.window for spec in cfg.pattern + cfg.tail_pattern
+                          if spec.window is not None})
+        check(all(w < s for w in windows), f"{arch}: the decode check stops inside a window")
+        ntok = PREFILL_BATCH * prefill_len
+        out[arch] = {"loop": {**loop, "peak_gb": loop_peak}, "init_s": init_s,
+                     "prefill": {"batch": PREFILL_BATCH, "tokens": prefill_len,
+                                 "seconds": prefill_s, "tokens_per_s": ntok / prefill_s,
+                                 "peak_gb": prefill_peak, "cache_depths": rings},
+                     "decode_vs_forward": {"prompt": s, "rel_err": rel, "argmax_agree": agree,
+                                           "tol": DECODE_REL_TOL, "windows": windows}}
+        print(f"[zoo serve] {cfg.name} ({cfg.n_layers} layers, {model.param_count()} "
+              f"parameters, init {init_s:.1f} s): launch.serve {' '.join(serve_args)}: decode "
+              f"{loop['decode_ms_median']:.2f} ms a token (median of {loop['decode_steps']} "
+              f"steps), peak {loop_peak:.2f} GB; prefill {PREFILL_BATCH} x {prefill_len} tokens "
+              f"{prefill_s * 1e3:.1f} ms ({ntok / prefill_s:.0f} tokens/s, cache depths "
+              f"{rings}), peak {prefill_peak:.2f} GB; decode of token {s} after a {s}-token "
+              f"prefill vs forward_hidden: max |diff| {rel:.4g} of max |logit| (tolerance "
+              f"{DECODE_REL_TOL}), argmax agrees for {agree:.0%}"
+              + (f"; windows {windows} crossed" if windows else ""))
+        del params, model, prefill, batch, toks, pos
+        if on_card:
+            torch.cuda.empty_cache()
+
+    cfg = get_config("hubert-xlarge", smoke=not on_card)
+    model = Model(cfg)
+    params = model.init(0, dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    frames = torch.randn((PREFILL_BATCH, prefill_len, cfg.d_model), generator=gen,
+                         device=dev) * 0.3
+    labels = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, prefill_len), generator=gen,
+                           device=dev, dtype=torch.int32)
+    pos = torch.arange(prefill_len, device=dev, dtype=torch.int32).expand(PREFILL_BATCH, -1)
+    probe = build_prefill(model)
+    batch = {"inputs": frames, "labels": labels, "positions": pos}
+    probe(params, batch)   # warm-up
+    reset_peak(torch)
+    loss, probe_s = timed(lambda: probe(params, batch))
+    check(loss.shape == () and bool(torch.isfinite(loss)), f"hubert-xlarge probe: {loss}")
+    nfr = PREFILL_BATCH * prefill_len
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+    out["hubert-xlarge"] = {"probe": {"batch": PREFILL_BATCH, "frames": prefill_len,
+                                      "loss": float(loss), "seconds": probe_s,
+                                      "frames_per_s": nfr / probe_s, "peak_gb": peak}}
+    print(f"[zoo serve] {cfg.name} encoder probe ({cfg.n_layers} layers): "
+          f"{PREFILL_BATCH} x {prefill_len} frames, loss {float(loss):.6f} (finite), "
+          f"{probe_s * 1e3:.1f} ms ({nfr / probe_s:.0f} frames/s), peak {peak:.2f} GB")
+    del params, model
+    if on_card:
+        torch.cuda.empty_cache()
+    report["zoo_serve"] = out
 
 
 def launch_split(torch, fn) -> list:
@@ -3345,7 +3532,7 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
     for fn in (phase_trainer, phase_zoo, phase_mamba_trainer, phase_serve,
-               phase_mamba_serve):
+               phase_mamba_serve, phase_zoo_serve):
         run_phase(fn, report, totals)
     print("[done] phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
     check(all(totals[k] > 0 for k in totals), f"a kernel never launched on the path: {totals}")

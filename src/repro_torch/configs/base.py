@@ -3,9 +3,9 @@
 A model is ``n_layers`` blocks arranged as ``n_repeats`` repetitions of a
 ``pattern`` (a tuple of LayerSpec); parameters of a pattern position are
 stacked over the repeats, as in the JAX package, so the parameter leaves
-(and the seeds the trainer derives from their order) are the same. Only the
-fields the ported model reads are kept; the MoE and M-RoPE families are not
-ported yet.
+(and the seeds the trainer derives from their order) are the same; the
+``tail_pattern`` blocks after the repeats are not stacked. Only the fields
+the ported model reads are kept; M-RoPE is not ported yet.
 """
 
 from __future__ import annotations
@@ -40,12 +40,22 @@ class ModelConfig:
     d_head: Optional[int] = None   # default d_model // n_heads
     qkv_bias: bool = False
     causal: bool = True
-    input_kind: str = "tokens"
-    mlp_variant: str = "swiglu"
+    input_kind: str = "tokens"     # tokens | embeddings (frames [B, S, d_model])
+    mlp_variant: str = "swiglu"    # swiglu | gelu
     tie_embeddings: bool = False
     rope_theta: float = 10000.0
     mrope: bool = False
     norm_eps: float = 1e-6
+    # --- MoE ---
+    n_experts: int = 0
+    n_experts_padded: int = 0      # >= n_experts; the router never selects the padding
+    top_k: int = 0
+    moe_d_ff: int = 0
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_act: str = "softmax"    # softmax | sigmoid
+    renorm_topk: bool = False
+    moe_impl: str = "gather"       # gather | dense
     # --- Mamba/SSD ---
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -55,6 +65,7 @@ class ModelConfig:
     # --- execution ---
     dtype: str = "bfloat16"
     attn_chunk: int = 1024         # kv-chunk of the online-softmax attention
+    q_chunk: int = 512             # q-chunk of the windowed attention
     loss_chunk: int = 512          # seq-chunk of the softmax-xent loop
     decode_chunk: int = 8192       # kv-chunk of decode attention
     remat: bool = True

@@ -31,5 +31,5 @@ def smoke_config() -> ModelConfig:
         vocab_size=256,
         pattern=(LayerSpec(mixer="attn"),),
         dtype="float32",
-        attn_chunk=16, loss_chunk=16,
+        attn_chunk=16, q_chunk=8, loss_chunk=16,
     )

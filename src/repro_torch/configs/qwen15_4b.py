@@ -32,5 +32,5 @@ def smoke_config() -> ModelConfig:
         pattern=(LayerSpec(mixer="attn"),),
         qkv_bias=True,
         dtype="float32",
-        attn_chunk=16, loss_chunk=16,
+        attn_chunk=16, q_chunk=8, loss_chunk=16,
     )

@@ -74,11 +74,18 @@ def build_everything(args, group=None):
 
 
 def batch_fn_for(cfg, args):
+    """step -> the global batch, numpy arrays: ``lm_batch``'s tokens, or for
+    an embedding-input model frames of N(0, 0.3^2) in place of the tokens;
+    with ``--tau`` > 1 each entry is repeated over a leading tau axis."""
     stream = LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                             global_batch=args.batch, seed=args.seed)
 
     def fn(step_idx: int) -> dict:
         b = lm_batch(stream, step_idx)
+        if cfg.input_kind != "tokens":
+            # frame embeddings, JAX's launcher's draw: cast to float32, then scaled
+            rng = np.random.RandomState(step_idx)
+            b["inputs"] = rng.randn(args.batch, args.seq_len, cfg.d_model).astype(np.float32) * 0.3
         if args.tau > 1:
             b = {k: np.broadcast_to(v[None], (args.tau,) + v.shape).copy() for k, v in b.items()}
         return b

@@ -1,15 +1,17 @@
 """Block assembly, the port of ``repro.models.blocks``: (mixer -> residual) +
 (FFN -> residual), both pre-normed, for training and prefill
 (``block_forward``) and for one-token decode against a cache
-(``block_decode``). The global attention mixer and the Mamba2 mixer
-(``models.mamba2``) are ported, with the dense SwiGLU FFN or none (a
-mixer-only block, ``ffn=False``, has no ``ln2``); MoE FFNs, sliding windows
-(and their ring caches) and the GELU MLP raise.
+(``block_decode``). The mixers: attention, global or under a sliding window
+(causal: ``windowed_attention``; bidirectional: the windowed mask of
+``chunked_attention``), and Mamba2 (``models.mamba2``). The FFNs: dense
+SwiGLU, the GELU MLP with biases, the routed experts of ``models.moe``, or
+none (a mixer-only block, ``ffn=False``, has no ``ln2``). M-RoPE raises.
 
 ``block_param_defs`` is the one source of parameter shapes and dtypes; the
 model stacks them over the pattern repeats. ``block_cache_defs`` gives one
-block's decode cache: K, V and positions for attention, the conv ring and
-the float32 SSD state for mamba."""
+block's decode cache: K, V and positions for attention (a ring of
+min(window, max_len) slots under a window), the conv ring and the float32
+SSD state for mamba."""
 
 from __future__ import annotations
 
@@ -18,13 +20,17 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2
-from repro_torch.models.common import rms_norm, swiglu
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.common import gelu, rms_norm, swiglu
 from repro_torch.models.rope import apply_rope
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md: the MoE family, "
-                               f"windowed attention and the GELU MLP come later)")
+def moe_dims(cfg: ModelConfig) -> moe_lib.MoEDims:
+    return moe_lib.MoEDims(n_experts=cfg.n_experts,
+                           n_experts_padded=cfg.n_experts_padded or cfg.n_experts,
+                           top_k=cfg.top_k, d_model=cfg.d_model, d_ff=cfg.moe_d_ff,
+                           capacity_factor=cfg.capacity_factor, router_act=cfg.router_act,
+                           renorm_topk=cfg.renorm_topk)
 
 
 def mamba_dims(cfg: ModelConfig) -> mamba2.MambaDims:
@@ -33,20 +39,17 @@ def mamba_dims(cfg: ModelConfig) -> mamba2.MambaDims:
                             d_conv=cfg.ssm_conv, chunk=cfg.ssm_chunk)
 
 
-def _ssm_params(p: dict) -> dict:
-    return {k[len("ssm_"):]: v for k, v in p.items() if k.startswith("ssm_")}
+def _sub_params(p: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in p.items() if k.startswith(prefix)}
 
 
 def block_param_defs(cfg: ModelConfig, spec: LayerSpec) -> dict:
     """name -> (shape, dtype) of one block."""
     dt = cfg.activation_dtype
     d, hd = cfg.d_model, cfg.head_dim
-    if spec.ffn and spec.moe:
-        raise _not_ported("the MoE FFN")
-    if spec.ffn and cfg.mlp_variant != "swiglu":
-        raise _not_ported(f"the {cfg.mlp_variant!r} MLP")
     if cfg.mrope:
-        raise _not_ported("M-RoPE")
+        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md: qwen2-vl-72b waits "
+                                  "for the streamed trainer)")
     defs = {"ln1": ((d,), dt)}
     if spec.ffn:
         defs["ln2"] = ((d,), dt)
@@ -68,11 +71,23 @@ def block_param_defs(cfg: ModelConfig, spec: LayerSpec) -> dict:
                      for k, v in mamba2.mamba_param_defs(mamba_dims(cfg), dt).items()})
     else:
         raise ValueError(spec.mixer)
-    if spec.ffn:
+    if not spec.ffn:
+        return defs
+    if spec.moe:
+        shapes = moe_lib.moe_param_shapes(moe_dims(cfg), cfg.n_shared_experts, dt)
+        defs.update({f"moe_{k}": v for k, v in shapes.items()})
+    elif cfg.mlp_variant == "swiglu":
         defs.update({
             "w_gate": ((d, cfg.d_ff), dt),
             "w_up": ((d, cfg.d_ff), dt),
             "w_down": ((cfg.d_ff, d), dt),
+        })
+    else:   # the GELU MLP (hubert)
+        defs.update({
+            "w1": ((d, cfg.d_ff), dt),
+            "b1": ((cfg.d_ff,), dt),
+            "w2": ((cfg.d_ff, d), dt),
+            "b2": ((d,), dt),
         })
     return defs
 
@@ -93,11 +108,43 @@ def _rope_qk(cfg: ModelConfig, spec: LayerSpec, q, k, positions):
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta)
 
 
+def _ffn(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if spec.moe:
+        b, s, d = x.shape
+        y = moe_lib.moe_ffn(_sub_params(p, "moe_"), x.reshape(b * s, d), moe_dims(cfg),
+                            cfg.moe_impl)
+        return y.reshape(b, s, d)
+    if cfg.mlp_variant == "swiglu":
+        return swiglu(x @ p["w_gate"], x @ p["w_up"]) @ p["w_down"]
+    return gelu(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+
+
 def _ffn_residual(cfg: ModelConfig, spec: LayerSpec, p: dict, h: torch.Tensor) -> torch.Tensor:
     if not spec.ffn:
         return h
-    x = rms_norm(h, p["ln2"], cfg.norm_eps)
-    return h + swiglu(x @ p["w_gate"], x @ p["w_up"]) @ p["w_down"]
+    return h + _ffn(cfg, spec, p, rms_norm(h, p["ln2"], cfg.norm_eps))
+
+
+def _ring_cache(k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor, w: int) -> dict:
+    """The prefill's ring of ``w`` slots: each slot holds the K, V and
+    position of the last position p with p % w == the slot (JAX scatters
+    every position into slot p % w and the later write wins), -1 and zeros
+    where none. Each slot is written once, from a gather."""
+    b, s = positions.shape
+    slots = (positions % w).long()
+    last = torch.full((b, w), -1, dtype=torch.long, device=positions.device)
+    order = torch.arange(s, device=positions.device).expand(b, s)
+    last.scatter_reduce_(1, slots, order, reduce="amax")
+    has, src = last >= 0, last.clamp(min=0)
+
+    def take(x):   # [B, S, KV, D] -> [B, w, KV, D]
+        rows = torch.gather(x, 1, src[:, :, None, None].expand((b, w) + x.shape[2:]))
+        return torch.where(has[:, :, None, None], rows, torch.zeros((), dtype=x.dtype,
+                                                                    device=x.device))
+
+    pos = torch.where(has, positions.gather(1, src).to(torch.int32),
+                      torch.full((), -1, dtype=torch.int32, device=positions.device))
+    return {"k": take(k), "v": take(v), "pos": pos}
 
 
 def block_forward(cfg: ModelConfig, spec: LayerSpec, p: dict, h: torch.Tensor,
@@ -105,27 +152,35 @@ def block_forward(cfg: ModelConfig, spec: LayerSpec, p: dict, h: torch.Tensor,
     """Training and prefill forward of one block: h [B, S, D] -> [B, S, D],
     and with ``return_cache`` its decode cache: for attention the prompt's K
     and V after RoPE and their positions, as deep as the prompt (JAX's dense
-    branch); for mamba the conv tail and the final SSD state."""
+    branch), or, under a window shorter than the prompt, the ring of
+    ``_ring_cache``; for mamba the conv tail and the final SSD state."""
     if spec.mixer == "mamba":
         x = rms_norm(h, p["ln1"], cfg.norm_eps)
-        out = mamba2.mamba_forward(_ssm_params(p), x, mamba_dims(cfg), return_cache=return_cache)
+        out = mamba2.mamba_forward(_sub_params(p, "ssm_"), x, mamba_dims(cfg),
+                                   return_cache=return_cache)
         if return_cache:
             out, (conv, state) = out
         h = _ffn_residual(cfg, spec, p, h + out)
         return (h, {"conv": conv, "state": state}) if return_cache else h
-    if spec.window is not None:
-        raise _not_ported("windowed attention")
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(cfg, p, x)
     q, k = _rope_qk(cfg, spec, q, k, positions)
-    out = attn_lib.chunked_attention(q, k, v, positions_q=positions, positions_kv=positions,
-                                     causal=cfg.causal, chunk=cfg.attn_chunk,
-                                     remat=cfg.remat)
+    if spec.window is not None and cfg.causal:
+        out = attn_lib.windowed_attention(q, k, v, positions=positions, window=spec.window,
+                                          q_chunk=min(cfg.q_chunk, q.shape[1]),
+                                          remat=cfg.remat)
+    else:
+        out = attn_lib.chunked_attention(q, k, v, positions_q=positions,
+                                         positions_kv=positions, causal=cfg.causal,
+                                         window=spec.window, chunk=cfg.attn_chunk,
+                                         remat=cfg.remat)
     b, s = out.shape[:2]
     h = h + out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
     h = _ffn_residual(cfg, spec, p, h)
     if not return_cache:
         return h
+    if spec.window is not None and spec.window < s:
+        return h, _ring_cache(k, v, positions, spec.window)
     pos = positions.to(torch.int32).clone(memory_format=torch.contiguous_format)
     return h, {"k": k, "v": v, "pos": pos}
 
@@ -136,17 +191,16 @@ def block_decode(cfg: ModelConfig, spec: LayerSpec, p: dict, h: torch.Tensor, ca
     against ``cache`` -> (h', cache). The new K, V and position go into slot
     ``position % W`` of the cache in place (``index_copy_``, where JAX
     returns an updated copy of its donated cache), then the token attends to
-    every filled slot. A mamba block steps its recurrence and writes the
-    new conv ring and SSD state into ``cache`` in place."""
+    every filled slot (within the window, for a ring). A mamba block steps
+    its recurrence and writes the new conv ring and SSD state into ``cache``
+    in place."""
     if spec.mixer == "mamba":
         x = rms_norm(h, p["ln1"], cfg.norm_eps)
         out, (ring, state) = mamba2.mamba_decode_step(
-            _ssm_params(p), x, (cache["conv"], cache["state"]), mamba_dims(cfg))
+            _sub_params(p, "ssm_"), x, (cache["conv"], cache["state"]), mamba_dims(cfg))
         cache["conv"].copy_(ring)
         cache["state"].copy_(state)
         return _ffn_residual(cfg, spec, p, h + out), cache
-    if spec.window is not None:
-        raise _not_ported("windowed attention")
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(cfg, p, x)
     q, k = _rope_qk(cfg, spec, q, k, positions)
@@ -164,7 +218,8 @@ def block_decode(cfg: ModelConfig, spec: LayerSpec, p: dict, h: torch.Tensor, ca
 
 def block_cache_defs(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int) -> dict:
     """name -> (shape, dtype) of one block's decode cache; position slots are
-    int32 (-1 marks an empty slot). A mamba block's cache is the conv ring
+    int32 (-1 marks an empty slot); under a window, a ring of min(window,
+    max_len) slots. A mamba block's cache is the conv ring
     [B, K-1, d_inner + 2N] in the activation dtype and the SSD state
     [B, H, P, N] in float32, whatever ``max_len``."""
     dt = cfg.activation_dtype
@@ -172,8 +227,7 @@ def block_cache_defs(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int
         md = mamba_dims(cfg)
         return {"conv": ((batch, md.d_conv - 1, md.d_inner + 2 * md.d_state), dt),
                 "state": ((batch, md.n_heads, md.head_dim, md.d_state), torch.float32)}
-    if spec.window is not None:
-        raise _not_ported("the windowed ring cache")
-    return {"k": ((batch, max_len, cfg.n_kv_heads, cfg.head_dim), dt),
-            "v": ((batch, max_len, cfg.n_kv_heads, cfg.head_dim), dt),
-            "pos": ((batch, max_len), torch.int32)}
+    w = min(spec.window, max_len) if spec.window is not None else max_len
+    return {"k": ((batch, w, cfg.n_kv_heads, cfg.head_dim), dt),
+            "v": ((batch, w, cfg.n_kv_heads, cfg.head_dim), dt),
+            "pos": ((batch, w), torch.int32)}

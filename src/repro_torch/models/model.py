@@ -2,19 +2,21 @@
 pattern blocks over their repeats -> final norm -> chunked LM-head loss.
 
 Parameters are a tree of tensors with JAX's structure:
-``{"blocks": ({name: (n_repeats, ...)},), "embed", "final_norm", "lm_head"}``
-(no ``lm_head`` with tied embeddings: the head is ``embed.T``, and the
-gradient reaches ``embed`` from both uses), the block leaves stacked over
-the repeats, so ``tree_leaves`` gives the JAX
+``{"blocks": ({name: (n_repeats, ...)},), "embed", "final_norm", "lm_head",
+"tail": ({name: ...},)}`` (no ``lm_head`` with tied embeddings: the head is
+``embed.T``, and the gradient reaches ``embed`` from both uses; no ``embed``
+for embedding inputs, which are cast to the activation dtype; ``tail`` only
+with a ``tail_pattern``: its blocks run after the repeats, unstacked), the
+block leaves stacked over the repeats, so ``tree_leaves`` gives the JAX
 flatten order (dict keys sorted) and the trainer's per-leaf seeds match. Remat
 is ``torch.utils.checkpoint(use_reentrant=False)`` per block and per loss
 chunk (and per attention chunk inside a block).
 
 Serving: ``prefill`` and ``decode_step``. A decode cache is a list of
 per-layer dicts (``{"k", "v", "pos"}`` for attention, ``{"conv", "state"}``
-for mamba), one per block in execution order (repeat-major), where JAX
-stacks the layers of a pattern position; ``decode_step`` writes into it in
-place.
+for mamba), one per block in execution order (repeat-major, then the tail),
+where JAX stacks the layers of a pattern position; ``decode_step`` writes
+into it in place.
 """
 
 from __future__ import annotations
@@ -44,9 +46,6 @@ class ShapeDtype:
 class Model:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
-        if cfg.input_kind != "tokens" or cfg.tail_pattern:
-            raise NotImplementedError(f"{cfg.name}: embedding inputs and tail blocks are not "
-                                      f"ported yet")
 
     # ------------------------------------------------------------ parameters
 
@@ -57,10 +56,15 @@ class Model:
         blocks = tuple({k: ShapeDtype((r,) + shape, dtype)
                         for k, (shape, dtype) in blocks_lib.block_param_defs(cfg, s).items()}
                        for s in cfg.pattern)
-        shapes = {"embed": ShapeDtype((cfg.vocab_size, cfg.d_model), dt), "blocks": blocks,
-                  "final_norm": ShapeDtype((cfg.d_model,), dt)}
+        shapes = {"blocks": blocks, "final_norm": ShapeDtype((cfg.d_model,), dt)}
+        if cfg.input_kind == "tokens":
+            shapes["embed"] = ShapeDtype((cfg.vocab_size, cfg.d_model), dt)
         if not cfg.tie_embeddings:
             shapes["lm_head"] = ShapeDtype((cfg.d_model, cfg.vocab_size), dt)
+        if cfg.tail_pattern:
+            shapes["tail"] = tuple({k: ShapeDtype(shape, dtype) for k, (shape, dtype)
+                                    in blocks_lib.block_param_defs(cfg, s).items()}
+                                   for s in cfg.tail_pattern)
         return shapes
 
     def param_count(self) -> int:
@@ -70,8 +74,8 @@ class Model:
         """Random parameters from ``seed`` on ``device``: zeros for 1-D leaves
         (norms, biases) and leaves whose last dim is 1, else the truncated
         normal of ``dense_init`` (fan-in = the leading dim, as JAX's init
-        has it). One generator on the device draws the leaves in flatten
-        order."""
+        has it: the repeat count for a stacked leaf). One generator on the
+        device draws the leaves in flatten order."""
         device = torch.device(device) if device is not None else torch.device("cuda")
         gen = torch.Generator(device=device).manual_seed(int(seed))
 
@@ -89,18 +93,22 @@ class Model:
         return params["lm_head"]
 
     def _layers(self, params):
-        """(spec, block params) of every block in execution order. One unbind
-        per stacked leaf: the backward stacks the repeats' gradients once,
-        instead of one full-size gradient per repeat."""
+        """(spec, block params) of every block in execution order: the
+        repeats, then the tail. One unbind per stacked leaf: the backward
+        stacks the repeats' gradients once, instead of one full-size
+        gradient per repeat."""
         cfg = self.cfg
         per_repeat = [{k: v.unbind(0) for k, v in bp.items()} for bp in params["blocks"]]
-        return [(spec, {k: v[r] for k, v in bp.items()})
-                for r in range(cfg.n_repeats) for spec, bp in zip(cfg.pattern, per_repeat)]
+        return ([(spec, {k: v[r] for k, v in bp.items()})
+                 for r in range(cfg.n_repeats) for spec, bp in zip(cfg.pattern, per_repeat)]
+                + list(zip(cfg.tail_pattern, params.get("tail", ()))))
 
     # ---------------------------------------------------------------- stages
 
     def embed_stage(self, params, batch) -> torch.Tensor:
-        return F.embedding(batch["inputs"].long(), params["embed"])
+        if self.cfg.input_kind == "tokens":
+            return F.embedding(batch["inputs"].long(), params["embed"])
+        return batch["inputs"].to(self.cfg.activation_dtype)
 
     def forward_hidden(self, params, batch) -> torch.Tensor:
         cfg = self.cfg
@@ -146,9 +154,10 @@ class Model:
     def cache_shapes(self, batch_size: int, max_len: int) -> list:
         """One dict of ``ShapeDtype`` leaves per block, in execution order."""
         cfg = self.cfg
+        specs = [spec for _ in range(cfg.n_repeats) for spec in cfg.pattern]
         return [{k: ShapeDtype(shape, dtype) for k, (shape, dtype)
                  in blocks_lib.block_cache_defs(cfg, spec, batch_size, max_len).items()}
-                for _ in range(cfg.n_repeats) for spec in cfg.pattern]
+                for spec in specs + list(cfg.tail_pattern)]
 
     def init_cache(self, batch_size: int, max_len: int, device=None) -> list:
         """An empty decode cache: zero K/V, conv rings and SSD states,
@@ -165,7 +174,8 @@ class Model:
 
     def prefill(self, params, batch):
         """Forward that also emits the decode caches: (final hidden [B, S, D],
-        caches). Each block's cache is as deep as the prompt, as JAX's is."""
+        caches). Each block's cache is as deep as the prompt, as JAX's is, or
+        a ring of ``window`` slots under a shorter window."""
         h = self.embed_stage(params, batch)
         positions = batch["positions"]
         caches = []

@@ -49,11 +49,16 @@ def build_decode_step(model: Model):
 
 
 def build_prefill(model: Model):
-    """``(params, batch) -> (float32 last-position logits [B, V], caches)``.
-    JAX's encoder-only branch (a loss probe without caches) waits for an
-    encoder-only architecture in the port; such a model raises here."""
+    """``(params, batch) -> (float32 last-position logits [B, V], caches)``;
+    for an encoder-only model (``supports_decode=False``) ``(params, batch)
+    -> the float32 loss`` of the full forward against ``batch["labels"]``,
+    with no caches (JAX's per-frame probe)."""
     if not model.cfg.supports_decode:
-        raise ValueError(f"{model.cfg.name} is encoder-only: no prefill caches to decode from")
+        @torch.no_grad()
+        def probe(params, batch):
+            return model.head_loss(params, model.forward_hidden(params, batch), batch["labels"])
+
+        return probe
 
     @torch.no_grad()
     def step(params, batch):

@@ -217,9 +217,9 @@ def test_phase_mamba_trainer_rehearses_on_the_cpu(monkeypatch, capsys):
 
 
 def test_phase_zoo_smoke_rehearses_on_the_cpu(monkeypatch):
-    """The zoo phase at the smoke size on the CPU: both configs cut to
-    ZOO_LAYERS layers through the launcher, and the launcher's own
-    get_config put back afterwards."""
+    """The zoo phase at the smoke size on the CPU: every config cut to
+    its ZOO_LAYERS entry (at most its smoke depth) through the launcher,
+    and the launcher's own get_config put back afterwards."""
     import torch
 
     from repro_torch.launch import train as launch
@@ -230,8 +230,32 @@ def test_phase_zoo_smoke_rehearses_on_the_cpu(monkeypatch):
     report = {}
     cs.phase_zoo(torch, report, {k: 0 for k in cs.REPLACES}, dev="cpu")
     assert {a: (r["leaves"], r["kv_heads"], r["layers"]) for a, r in report["zoo"].items()} == {
-        "qwen2.5-32b": (15, 2, cs.ZOO_LAYERS), "granite-34b": (12, 1, cs.ZOO_LAYERS)}
+        "qwen2.5-32b": (15, 2, 2), "granite-34b": (12, 1, 2), "qwen2-moe-a2.7b": (19, 4, 2),
+        "gemma3-27b": (74, 2, 8), "hubert-xlarge": (12, 4, 2)}
+    assert cs.ZOO_LAYERS == {"qwen2.5-32b": 2, "granite-34b": 2, "qwen2-moe-a2.7b": 2,
+                             "gemma3-27b": 8, "hubert-xlarge": 48}
     assert launch.get_config is get_config
+
+
+def test_phase_zoo_serve_rehearses_on_the_cpu(monkeypatch):
+    """The zoo's serving phase at the smoke size on the CPU: the launcher's
+    loop, the prefill and decode against the full forward within
+    DECODE_REL_TOL for qwen2.5-32b, qwen2-moe-a2.7b and gemma3-27b (its
+    rings of 8 slots crossed), and hubert-xlarge's finite encoder probe."""
+    import torch
+
+    cs = _chip_smoke()
+    _rehearse(cs, monkeypatch)
+    report = {}
+    cs.phase_zoo_serve(torch, report, {k: 0 for k in cs.REPLACES}, dev="cpu")
+    out = report["zoo_serve"]
+    assert list(out) == list(cs.ZOO_SERVE) + ["hubert-xlarge"]
+    for arch in cs.ZOO_SERVE:
+        assert out[arch]["loop"]["decode_steps"] == 47 and out[arch]["loop"]["updates"] == 0
+        assert out[arch]["decode_vs_forward"]["rel_err"] <= cs.DECODE_REL_TOL
+    assert out["gemma3-27b"]["prefill"]["cache_depths"] == [8, 40]
+    assert out["gemma3-27b"]["decode_vs_forward"]["windows"] == [8]
+    assert out["hubert-xlarge"]["probe"]["frames"] == 40
 
 
 def test_phase_mamba_serve_rehearses_on_the_cpu(monkeypatch):

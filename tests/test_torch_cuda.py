@@ -12,7 +12,7 @@ import torch
 from repro_torch.configs.registry import get_config
 from repro_torch.core.algorithm import CompressionConfig
 from repro_torch.core.budgets import BudgetConfig
-from repro_torch.core.compressors import tree_leaves
+from repro_torch.core.compressors import tree_leaves, tree_unflatten
 from repro_torch.dist.collectives import ParticipationSpec
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.ef_server.ops import ef_server_op
@@ -509,3 +509,33 @@ def test_checkpoint_of_card_leaves_is_np_save_bytes(cuda_device, tmp_path, monke
                     tree_leaves([state.params, state.ef_residual])):
         assert a.device == b.device and a.dtype == b.dtype
         np.testing.assert_array_equal(tbits(a), tbits(b))
+
+
+@pytest.mark.cuda
+def test_moe_step_on_card_repeats_bit_for_bit(cuda_device):
+    """One qwen2-moe-a2.7b smoke step (M = 4, 2-bit wire, majority vote) run
+    twice from clones of one state gives the same bits: the MoE combine and
+    the gather's backward add each token's rows expert after expert with no
+    float atomics, so no run adds in another order."""
+    model = Model(get_config("qwen2-moe-a2.7b", smoke=True))
+    comp = CompressionConfig(compressor="sparsign", budget=BudgetConfig(value=1.0),
+                             server="majority_vote")
+    step = build_train_step(model, TrainStepConfig(
+        compression=comp, lr=LrSchedule(base=0.05), vote_impl="allgather_packed"),
+        make_mesh((4,), ("data",)))
+    rng = np.random.RandomState(4)
+    batch = {"inputs": rng.randint(0, 256, (4, 64)).astype(np.int32),
+             "labels": rng.randint(0, 256, (4, 64)).astype(np.int32),
+             "positions": np.broadcast_to(np.arange(64, dtype=np.int32), (4, 64)).copy()}
+    params0 = model.init(0, device=cuda_device)
+    out = []
+    for _ in range(2):
+        params = tree_unflatten(params0, [t.clone() for t in tree_leaves(params0)])
+        state = init_state(params, server=comp.server, seed=1)
+        reset_launch_counts()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        assert launch_counts()["sparsign_pack2bit"] == 19 * 4
+        out.append([tbits(t) for t in tree_leaves(state.params)] + [tbits(metrics["loss"])])
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a, b)

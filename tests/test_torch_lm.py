@@ -104,6 +104,46 @@ def test_loss_and_grads_match_jax(b, s):
         assert np.linalg.norm(t - j) <= GRAD_RTOL * np.linalg.norm(j) + 1e-12
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_init_below_the_threshold_draws_as_before(dtype):
+    """A leaf of at most SLICED_DRAW_COORDS coordinates is one float32 draw
+    scaled in place: the bits of the draw scaled into a second tensor, as
+    every model before the sliced draw was initialised."""
+    from repro_torch.models.common import dense_init
+
+    shape = (48, 3, 40)
+    t = torch.empty(shape, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
+                                generator=torch.Generator().manual_seed(11))
+    before = (t * 48 ** -0.5).to(dtype)
+    got = dense_init(torch.Generator().manual_seed(11), shape, dtype, "cpu")
+    as_int = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert got.dtype == dtype and torch.equal(got.view(as_int), before.view(as_int))
+
+
+def test_dense_init_draws_a_large_leaf_slice_by_slice(monkeypatch):
+    """Above the threshold (lowered here to 1,000 coordinates) the leaf is
+    drawn one slice of its leading axis after the other: each slice is the
+    generator's next draw, the std is fan_in ** -0.5 times the truncated
+    normal's 0.8796, nothing lies past 2 std, and the slices differ."""
+    from repro_torch.models import common
+
+    monkeypatch.setattr(common, "SLICED_DRAW_COORDS", 1000)
+    shape, fan_in = (6, 40, 50), 6
+    got = common.dense_init(torch.Generator().manual_seed(5), shape, torch.bfloat16, "cpu")
+    assert tuple(got.shape) == shape and got.dtype == torch.bfloat16
+    gen = torch.Generator().manual_seed(5)
+    for i in range(shape[0]):
+        t = torch.empty(shape[1:])
+        torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=gen)
+        assert torch.equal(got[i], (t * fan_in ** -0.5).to(torch.bfloat16))
+    std = fan_in ** -0.5
+    x = got.to(torch.float32)
+    assert abs(float(x.std()) / (0.8796 * std) - 1) < 0.03
+    assert float(x.abs().max()) <= 2 * std * (1 + 2 ** -8)
+    assert not torch.equal(got[0], got[1])
+
+
 def test_rope_matches_jax():
     rng = np.random.RandomState(0)
     x = rng.randn(2, 9, 3, 8).astype(np.float32)
@@ -120,18 +160,23 @@ def test_registry_names_the_ported_architectures():
     from repro.configs.registry import trainer_mode as j_trainer_mode
     from repro_torch.configs.registry import trainer_mode
 
-    assert ARCH_IDS == ["qwen2.5-32b", "granite-34b", "qwen1.5-4b", "mamba2-370m"]
+    assert ARCH_IDS == ["gemma3-27b", "qwen2.5-32b", "granite-34b", "qwen1.5-4b",
+                        "mamba2-370m", "hubert-xlarge", "qwen2-moe-a2.7b"]
     assert ARCH_IDS == [a for a in J_ARCH_IDS if a in ARCH_IDS]
     for arch in ARCH_IDS:
         assert trainer_mode(arch) == j_trainer_mode(arch) == "simple"
         for smoke in (True, False):
             assert get_config(arch, smoke) == _port_of(jget_config(arch, smoke))
-    with pytest.raises(KeyError, match="qwen1.5-4b"):
-        get_config("llama4-scout-17b-a16e")
+    for arch in ("qwen2-vl-72b", "jamba-1.5-large-398b", "llama4-scout-17b-a16e"):
+        assert j_trainer_mode(arch) == "streamed"
+        with pytest.raises(KeyError, match="qwen2-moe-a2.7b"):
+            get_config(arch)
 
 
 def _port_of(jcfg):
-    """JAX's config with the fields the port keeps, in the port's types."""
+    """JAX's config with the fields the port keeps (the MoE fields and
+    ``q_chunk`` among them since the MoE and windowed families), in the
+    port's types."""
     import dataclasses
 
     from repro_torch.configs.base import LayerSpec, ModelConfig
