@@ -149,7 +149,23 @@ the first, in order; any failure exits non-zero before the last line:
      rounds), a timed 4 x 2048 prefill, and decode of token 2,048 after a
      2,048-token prefill against the full forward in bf16 (gemma3-27b's
      windowed layers from their 1,024-slot rings); hubert-xlarge's encoder
-     probe on 4 x 2,048 frames, finite.
+     probe on 4 x 2,048 frames, finite;
+ 10. the streamed (FSDP) trainer (phase_streamed), M = 4 in one process,
+     4,096 tokens (frames) a worker: S1, llama4-scout-17b-a16e at its
+     published widths cut to STREAMED_LAYERS[0] = 8 of 48 layers (19.7 B
+     parameters), 2 steps of sparsign on allgather_packed per leaf through
+     the launcher, launches counted (M x (8 x 13 + 3) encodes a step), wire
+     bytes against the streamed ledger, its peak beside the simple
+     trainer's need (weights and one worker's gradient); S2, the same cut
+     to 2 layers: the streamed step per leaf (twice from one state: the
+     card repeats it), bucketed (double-buffered) and the simple step, one
+     step each, bit for bit, then scaled_sign_ef on psum 2 steps per leaf
+     against bucketed (chunked bit digests of parameters and residual) with
+     a finite residual; S3, qwen2-vl-72b (M-RoPE, frame inputs, QKV bias)
+     cut to 8 of 80 layers, 2 streamed steps on allgather_packed, then the
+     launcher's serving loop on the same config, a timed 4 x 2048 prefill
+     and decode against the full forward within DECODE_REL_TOL from the
+     trained weights.
 It prints one JSON line of kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Results also go to
 chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device.
@@ -2336,21 +2352,25 @@ def decode_vs_forward(torch, model, params, toks, pos, s: int, floor: bool = Tru
     from repro_torch.serve.decode import build_decode_step, build_prefill
 
     batch, dev = toks.shape[0], toks.device
-    _, caches = build_prefill(model)(params, {"inputs": toks[:, :s], "positions": pos[:, :s]})
+
+    def part(a, b):   # inputs (tokens or embeddings) a..b-1 with their positions
+        out = {"inputs": toks[:, a:b], "positions": pos[:, a:b]}
+        if model.cfg.mrope:   # the launcher's three equal position streams
+            out["positions3"] = out["positions"][..., None].expand(-1, -1, 3)
+        return out
+
+    _, caches = build_prefill(model)(params, part(0, s))
     padded = model.init_cache(batch, s + 1, dev)
     for c, pc in zip(caches, padded):
         for key in c:   # K, V, positions: the first s slots; rings, conv, state: whole
             pc[key][:, :c[key].shape[1]] = c[key]
     del caches
-    dec, _ = build_decode_step(model)(params, padded, {
-        "inputs": toks[:, s:s + 1],
-        "positions": torch.full((batch, 1), s, dtype=torch.int32, device=dev)})
+    dec, _ = build_decode_step(model)(params, padded, part(s, s + 1))
     with torch.no_grad():
         if floor:
-            h = model.forward_hidden(params, {"inputs": toks[:, :s + 2],
-                                              "positions": pos[:, :s + 2]})
+            h = model.forward_hidden(params, part(0, s + 2))
             longer = (h[:, s] @ model.head_weight(params)).to(torch.float32)
-        h = model.forward_hidden(params, {"inputs": toks[:, :s + 1], "positions": pos[:, :s + 1]})
+        h = model.forward_hidden(params, part(0, s + 1))
         ref = (h[:, -1] @ model.head_weight(params)).to(torch.float32)
     del h, padded
     dec = dec.to(torch.float32)
@@ -3147,6 +3167,363 @@ def phase_zoo_serve(torch, report, totals, dev="cuda"):
     report["zoo_serve"] = out
 
 
+# the streamed phase's depths: S1's 8 of llama4-scout's 48 layers (19.7 B
+# parameters, 39.4 GB in bf16: the simple trainer would hold one worker's
+# gradient beside them, 78.8 GB), S2's 2 (6.47 B: all three steps fit), and
+# S3's 8 of qwen2-vl-72b's 80 (8.27 B)
+STREAMED_LAYERS = (8, 2, 8)
+STREAMED_ARCHS = ("llama4-scout-17b-a16e", "qwen2-vl-72b")
+# S2's fixed sparsign budget B (a coordinate votes w.p. min(|g| B, 1)): at
+# B = 1e-3 the card read a density of 1.6e-7, so B = 300 aims at about 5 %
+S2_BUDGET = 300.0
+DIGEST_CHUNK = 1 << 26
+
+
+def bit_digest(torch, t) -> tuple:
+    """Two int64 sums of a tensor's bits, in chunks (no full-size int64
+    copy): the plain sum and the sum weighted by (index mod 65521) + 1. Equal
+    tensors give equal digests; a changed coordinate moves both."""
+    flat = t.reshape(-1)
+    view = flat.view(torch.int16 if flat.element_size() == 2 else torch.int32)
+    a = b = 0
+    for i in range(0, view.numel(), DIGEST_CHUNK):
+        v = view[i:i + DIGEST_CHUNK].to(torch.int64)
+        w = (torch.arange(i, i + v.numel(), device=v.device, dtype=torch.int64) % 65521) + 1
+        a += int(v.sum())
+        b += int((v * w).sum())
+    return a, b
+
+
+def phase_streamed(torch, report, totals, dev="cuda"):
+    """The streamed (FSDP) trainer on one card, M = 4 in one process,
+    TRAINER_SEQ_LEN tokens (frames) a worker, launches counted with every
+    plain version barred: S1 trains llama4-scout-17b-a16e at its published
+    widths cut to STREAMED_LAYERS[0] layers through the launcher's loop; S2
+    holds the streamed step (per leaf, repeated, bucketed) and the simple
+    step bit for bit at STREAMED_LAYERS[1] layers and the EF server per leaf
+    against bucketed; S3 trains qwen2-vl-72b cut to STREAMED_LAYERS[2]
+    layers and serves it. ``dev="cpu"`` rehearses it at the smoke sizes,
+    where only the launch counts cannot hold."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.core.algorithm import CompressionConfig
+    from repro_torch.core.budgets import BudgetConfig
+    from repro_torch.core.compressors import tree_leaves, tree_unflatten
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch
+    from repro_torch.models.model import Model
+    from repro_torch.serve.decode import build_prefill
+    from repro_torch.train import loop
+    from repro_torch.train.state import LrSchedule, init_state
+    from repro_torch.train.step_simple import TrainStepConfig, build_train_step
+    from repro_torch.train.step_streamed import (StreamedStepConfig, build_streamed_train_step,
+                                                 shard_state)
+
+    on_card, m, out = dev == "cuda", 4, {}
+    seq = TRAINER_SEQ_LEN if on_card else 64
+    where = (["--full", "--seq-len", str(seq)] if on_card else ["--device", dev, "--seq-len",
+                                                               str(seq)])
+    get_config = launch.get_config
+    serve_get_config = launch_serve.get_config
+    depth = {}
+
+    def cut(arch, smoke):
+        cfg = get_config(arch, smoke=smoke)
+        return dataclasses.replace(cfg, n_layers=min(cfg.n_layers, depth[arch]))
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+
+    def counted(fn):
+        """fn() with the launch counts zeroed before and read after, every
+        plain version barred; the counts go to the phase's totals."""
+        kernels.reset_launch_counts()
+        with plain_versions_barred():
+            res = fn()
+        sync(torch)
+        counts = kernels.launch_counts()
+        for k in totals:
+            totals[k] += counts[k]
+        return res, counts
+
+    def train_args(arch, steps):
+        return launch.parser().parse_args([
+            "--arch", arch, "--host-data", str(m), "--batch", str(m), "--steps", str(steps),
+            "--seed", "0", "--compressor", "sparsign", "--budget-kind", "l2_norm", "--budget",
+            "0.1", "--server", "majority_vote", "--vote-impl", "allgather_packed"] + where)
+
+    def run_loop(arch, steps, label):
+        """The launcher's build and loop: (cfg, model, step, state, history,
+        counts, peak)."""
+        args = train_args(arch, steps)
+        reset_peak(torch)
+        cfg, model, group, step, state, comp = launch.build_everything(args)
+        batch_fn, draw_s = launch.batch_fn_for(cfg, args), []
+
+        def timed_batch(i):   # the host's draw of the batch, inside the loop's wall
+            t0 = time.perf_counter()
+            b = batch_fn(i)
+            draw_s.append(time.perf_counter() - t0)
+            return b
+
+        (state, history), counts = counted(lambda: loop.run(
+            step, state, timed_batch,
+            loop.LoopConfig(total_steps=steps, log_every=1), log=lambda line: None))
+        peak = peak_gb()
+        walls = [h["wall_s"] for h in history]
+        step_s = [b - a for a, b in zip([0.0] + walls[:-1], walls)]
+        ledger = float(np.float32(step.ledger[0]))
+        check(all(math.isfinite(h["loss"]) and h["wire_bytes_per_device"] == ledger
+                  for h in history), f"{label}: {history}")
+        check(all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params)),
+              f"{label}: non-finite parameters")
+        n_blk = len(tree_leaves(model.param_shapes()["blocks"]))
+        per_step = cfg.n_repeats * n_blk + len(tree_leaves(model.param_shapes())) - n_blk
+        want = expected(sparsign_pack2bit=m * per_step * steps, unpack2bit_sum=per_step * steps,
+                        vote_update=per_step * steps)
+        check(counts == want, f"{label}: launches {counts}, expected {want}")
+        res = {"layers": cfg.n_layers, "parameters": model.param_count(),
+               "leaves": len(tree_leaves(model.param_shapes())), "exchanges_a_step": per_step,
+               "tokens_per_worker": seq, "step_s": step_s, "batch_draw_s": draw_s,
+               "loss": [h["loss"] for h in history],
+               "nnz_frac": [h["nnz_frac"] for h in history], "wire_bytes_per_device": ledger,
+               "peak_gb": peak, "launches": counts}
+        return cfg, model, step, state, res
+
+    try:
+        launch.get_config = cut
+        launch_serve.get_config = cut
+        # -- S1: llama4-scout, 8 layers at its published widths ------------
+        arch = STREAMED_ARCHS[0]
+        depth[arch] = STREAMED_LAYERS[0]
+        cfg, model, step, state, s1 = run_loop(arch, 2, "S1")
+        weights_gb = model.param_count() * 2 / 1e9
+        s1["simple_need_gb"] = 2 * weights_gb
+        print(f"[streamed S1] {cfg.name}, {cfg.n_layers} of 48 layers at d_model {cfg.d_model} "
+              f"({cfg.n_heads}:{cfg.n_kv_heads} heads, {cfg.n_experts} experts top "
+              f"{cfg.top_k} of d_ff {cfg.moe_d_ff} + {cfg.n_shared_experts} shared, vocab "
+              f"{cfg.vocab_size}; {s1['parameters']} parameters in {s1['leaves']} leaves), "
+              f"M = {m}, {seq} tokens a worker, per leaf: steps "
+              f"{[round(x, 3) for x in s1['step_s']]} s, losses "
+              f"{[round(x, 6) for x in s1['loss']]}, nnz_frac "
+              f"{[float(f'{x:.4g}') for x in s1['nnz_frac']]}, wire bytes "
+              f"{s1['wire_bytes_per_device']:.10g}"
+              f" (== the streamed ledger), peak {s1['peak_gb']:.2f} GB against the simple "
+              f"trainer's {s1['simple_need_gb']:.1f} GB of weights and one worker's gradient, "
+              f"launches { {k: v for k, v in s1['launches'].items() if v} }")
+        out["S1"] = s1
+        del step, state, model
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # -- S2: the same model at 2 layers, three steps bit for bit -------
+        depth[arch] = STREAMED_LAYERS[1]
+        cfg = cut(arch, smoke=not on_card)
+        model = Model(cfg)
+        group = launch.make_host_mesh(m)
+        args = train_args(arch, 1)
+        batch = launch.batch_fn_for(cfg, args)(0)
+        lr = LrSchedule(base=args.lr, warmup=args.warmup)
+        # a fixed budget: an L2-norm budget reads the whole leaf, which the
+        # streamed step takes a layer at a time and the simple step stacked
+        comp = CompressionConfig(compressor="sparsign", budget=BudgetConfig(
+            kind="fixed", value=S2_BUDGET), server="majority_vote")
+        t0 = time.perf_counter()
+        pristine = model.init(0, dev)
+        sync(torch)
+        init_s = time.perf_counter() - t0
+
+        def one_step(build, label, comp_=comp, steps=1, params=None):
+            """``steps`` steps from a clone of the pristine parameters (or
+            from ``params``): (state, numbers)."""
+            reset_peak(torch)
+            step = build(comp_)
+            if params is None:
+                params = tree_unflatten(pristine, [t.clone() for t in tree_leaves(pristine)])
+            state = init_state(params, server=comp_.server, seed=0)
+            del params
+            if hasattr(step, "layout"):
+                state = shard_state(state, step.layout)
+            times = []
+
+            def go():
+                nonlocal state
+                for r in range(steps):
+                    t1 = time.perf_counter()
+                    state, met = step(state, batch if r == 0 else
+                                      launch.batch_fn_for(cfg, args)(r))
+                    sync(torch)
+                    times.append(time.perf_counter() - t1)
+                return met
+
+            met, counts = counted(go)
+            return state, {"step_s": times, "loss": float(met["loss"]), "peak_gb": peak_gb(),
+                           "nnz_frac": float(met["nnz_frac"]),
+                           "launches": counts,
+                           "wire_bytes_per_device": float(met["wire_bytes_per_device"])}
+
+        def streamed(bucketed, impl="allgather_packed"):
+            return lambda c: build_streamed_train_step(model, StreamedStepConfig(
+                compression=c, lr=lr, vote_impl=impl, bucketed=bucketed), group)
+
+        def simple(c):
+            return build_train_step(model, TrainStepConfig(
+                compression=c, lr=lr, vote_impl="allgather_packed"), group)
+
+        ref, s2 = None, {"layers": cfg.n_layers, "parameters": model.param_count(),
+                         "init_s": init_s}
+        for label, build in (("per_leaf", streamed(False)), ("repeat", streamed(False)),
+                             ("bucketed", streamed(True)), ("simple", simple)):
+            state, res = one_step(build, label)
+            leaves = tree_leaves(state.params)
+            if ref is None:
+                ref = leaves
+                res["differ"] = 0
+            else:
+                res["differ"] = sum(int((a.view(torch.int16) != b.view(torch.int16)).sum())
+                                    if a.dtype == torch.bfloat16 else
+                                    int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                                    for a, b in zip(leaves, ref))
+                del leaves
+            s2[label] = res
+            del state
+            if on_card:
+                torch.cuda.empty_cache()
+        del ref
+        n_blk = len(tree_leaves(model.param_shapes()["blocks"]))
+        per_step = cfg.n_repeats * n_blk + len(tree_leaves(model.param_shapes())) - n_blk
+        n_leaves = len(tree_leaves(model.param_shapes()))
+        for label, want in (
+                ("per_leaf", expected(sparsign_pack2bit=m * per_step, unpack2bit_sum=per_step,
+                                      vote_update=per_step)),
+                ("repeat", expected(sparsign_pack2bit=m * per_step, unpack2bit_sum=per_step,
+                                    vote_update=per_step)),
+                ("bucketed", expected(sparsign_pack2bit=m * per_step,
+                                      unpack2bit_sum=cfg.n_repeats + 2, vote_update=per_step)),
+                ("simple", expected(sparsign_pack2bit=m * n_leaves, unpack2bit_sum=n_leaves,
+                                    vote_update=n_leaves))):
+            check(s2[label]["launches"] == want,
+                  f"S2 {label}: launches {s2[label]['launches']}, expected {want}")
+        differ = {k: s2[k]["differ"] for k in ("repeat", "bucketed", "simple")}
+        check(not any(differ.values()),
+              f"S2: coordinates that differ from the per-leaf streamed step {differ} "
+              f"(repeat: the card's nondeterminism; bucketed: the double-buffered schedule; "
+              f"simple: the per-layer exchange)")
+        s2["ledgers"] = {k: s2[k]["wire_bytes_per_device"] for k in s2 if isinstance(s2[k], dict)
+                         and "wire_bytes_per_device" in s2[k]}
+
+        # the EF server on psum, 2 steps per leaf against bucketed (digests;
+        # the float32 residual leaves no room for a pristine copy: the
+        # parameters are drawn again from the seed)
+        del pristine
+        if on_card:
+            torch.cuda.empty_cache()
+        ef_comp = dataclasses.replace(comp, server="scaled_sign_ef")
+        digests = []
+        for label, build in (("ef_per_leaf", streamed(False, "psum")),
+                             ("ef_bucketed", streamed(True, "psum"))):
+            state, res = one_step(build, label, ef_comp, steps=2, params=model.init(0, dev))
+            ef_ok = all(bool(torch.isfinite(e).all()) for e in tree_leaves(state.ef_residual))
+            check(ef_ok, f"S2 {label}: non-finite EF residual")
+            digests.append([bit_digest(torch, t) for t in tree_leaves(state.params)
+                            + tree_leaves(state.ef_residual)])
+            res["ef_finite"] = ef_ok
+            s2[label] = res
+            del state
+            if on_card:
+                torch.cuda.empty_cache()
+        check(s2["ef_per_leaf"]["launches"]["ef_server"] == 2 * per_step,
+              f"S2 EF: launches {s2['ef_per_leaf']['launches']}")
+        s2["ef_digests_equal"] = digests[0] == digests[1]
+        check(s2["ef_digests_equal"], "S2 EF: bucketed differs from per leaf (bit digests)")
+        print(f"[streamed S2] {cfg.name} at {cfg.n_layers} layers ({s2['parameters']} "
+              f"parameters, init {init_s:.1f} s): one step each, seconds, peak GB and "
+              f"coordinates that differ from the per-leaf streamed step: "
+              + "; ".join(f"{k} {[round(x, 3) for x in s2[k]['step_s']]} s, "
+                          f"{s2[k]['peak_gb']:.2f} GB, {s2[k]['differ']} differ"
+                          for k in ("per_leaf", "repeat", "bucketed", "simple"))
+              + f"; nnz_frac {s2['per_leaf']['nnz_frac']:.4g} at a fixed budget of "
+              f"{S2_BUDGET}; wire bytes per leaf {s2['per_leaf']['wire_bytes_per_device']:.10g}, "
+              f"bucketed {s2['bucketed']['wire_bytes_per_device']:.10g}, simple "
+              f"{s2['simple']['wire_bytes_per_device']:.10g}; scaled_sign_ef on psum 2 steps, "
+              f"per leaf {[round(x, 3) for x in s2['ef_per_leaf']['step_s']]} s against "
+              f"bucketed {[round(x, 3) for x in s2['ef_bucketed']['step_s']]} s: bit digests "
+              f"equal, residual finite, peak {s2['ef_per_leaf']['peak_gb']:.2f} GB")
+        out["S2"] = s2
+        del model
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # -- S3: qwen2-vl-72b, 8 layers: train, then serve -----------------
+        arch = STREAMED_ARCHS[1]
+        depth[arch] = STREAMED_LAYERS[2]
+        cfg, model, step, state, s3 = run_loop(arch, 2, "S3")
+        params = state.params
+        del step, state
+        serve_args = (["--arch", arch] + ZOO_SERVE_ARGS if on_card else
+                      ["--arch", arch] + [a for a in ZOO_SERVE_ARGS if a != "--full"]
+                      + ["--device", dev])
+        reset_peak(torch)
+        serve_loop = launch_serve.main(serve_args)
+        sync(torch)
+        s3["serve_loop"] = {**serve_loop, "peak_gb": peak_gb()}
+        prefill_len = PREFILL_LEN if on_card else 40
+        s = PREFILL_LEN if on_card else 24
+        gen = torch.Generator(device=dev).manual_seed(5)
+        frames = (torch.randn((PREFILL_BATCH, max(prefill_len, s + 2), cfg.d_model),
+                              generator=gen, device=dev) * 0.3).to(cfg.activation_dtype)
+        pos = torch.arange(frames.shape[1], device=dev, dtype=torch.int32).expand(
+            PREFILL_BATCH, -1)
+        rel, _, agree = decode_vs_forward(torch, model, params, frames, pos, s, floor=False)
+        check(rel <= DECODE_REL_TOL, f"S3 decode after a {s}-frame prefill: {rel:.3g} of max "
+                                     f"|logit| from the full forward (tolerance "
+                                     f"{DECODE_REL_TOL})")
+        prefill = build_prefill(model)
+        pbatch = {"inputs": frames[:, :prefill_len], "positions": pos[:, :prefill_len],
+                  "positions3": pos[:, :prefill_len, None].expand(-1, -1, 3)}
+        reset_peak(torch)
+        sync(torch)
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, pbatch)
+        sync(torch)
+        prefill_s = time.perf_counter() - t0
+        check(tuple(logits.shape) == (PREFILL_BATCH, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()), "S3 prefill: logits not finite or "
+                                                      "misshapen")
+        del logits, caches
+        s3["prefill"] = {"batch": PREFILL_BATCH, "frames": prefill_len, "seconds": prefill_s,
+                         "frames_per_s": PREFILL_BATCH * prefill_len / prefill_s,
+                         "peak_gb": peak_gb()}
+        s3["decode_vs_forward"] = {"prompt": s, "rel_err": rel, "argmax_agree": agree,
+                                   "tol": DECODE_REL_TOL}
+        print(f"[streamed S3] {cfg.name}, {cfg.n_layers} of 80 layers at d_model "
+              f"{cfg.d_model} ({cfg.n_heads}:{cfg.n_kv_heads} heads, QKV bias, M-RoPE "
+              f"{cfg.mrope_sections}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+              f"{s3['parameters']} parameters), M = {m}, {seq} frames a worker: steps "
+              f"{[round(x, 3) for x in s3['step_s']]} s (of which the host's draw of the "
+              f"frames {[round(x, 3) for x in s3['batch_draw_s']]} s), nnz_frac "
+              f"{[float(f'{x:.4g}') for x in s3['nnz_frac']]}, losses "
+              f"{[round(x, 6) for x in s3['loss']]}, wire bytes "
+              f"{s3['wire_bytes_per_device']:.10g} (== the streamed ledger), peak "
+              f"{s3['peak_gb']:.2f} GB, launches "
+              f"{ {k: v for k, v in s3['launches'].items() if v} }; launch.serve "
+              f"{' '.join(serve_args)}: decode {serve_loop['decode_ms_median']:.2f} ms a token, "
+              f"peak {s3['serve_loop']['peak_gb']:.2f} GB; prefill {PREFILL_BATCH} x "
+              f"{prefill_len} frames of the trained weights {prefill_s * 1e3:.1f} ms; decode "
+              f"of position {s} after a {s}-frame prefill vs forward_hidden: max |diff| "
+              f"{rel:.4g} of max |logit| (tolerance {DECODE_REL_TOL}), argmax agrees for "
+              f"{agree:.0%}")
+        out["S3"] = s3
+        del params, model, prefill, frames, pos
+        if on_card:
+            torch.cuda.empty_cache()
+    finally:
+        launch.get_config = get_config
+        launch_serve.get_config = serve_get_config
+    report["streamed"] = out
+
+
 def launch_split(torch, fn) -> list:
     """One traced call of ``fn``: its device activities (kernels, memsets,
     copies) by name in order of first appearance, [name, count, us]."""
@@ -3532,7 +3909,7 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
     for fn in (phase_trainer, phase_zoo, phase_mamba_trainer, phase_serve,
-               phase_mamba_serve, phase_zoo_serve):
+               phase_mamba_serve, phase_zoo_serve, phase_streamed):
         run_phase(fn, report, totals)
     print("[done] phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
     check(all(totals[k] > 0 for k in totals), f"a kernel never launched on the path: {totals}")

@@ -5,7 +5,7 @@ A model is ``n_layers`` blocks arranged as ``n_repeats`` repetitions of a
 stacked over the repeats, as in the JAX package, so the parameter leaves
 (and the seeds the trainer derives from their order) are the same; the
 ``tail_pattern`` blocks after the repeats are not stacked. Only the fields
-the ported model reads are kept; M-RoPE is not ported yet.
+the ported model reads are kept.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     rope_theta: float = 10000.0
     mrope: bool = False
+    mrope_sections: Tuple[int, ...] = ()   # M-RoPE's bands per position stream (t, h, w)
     norm_eps: float = 1e-6
     # --- MoE ---
     n_experts: int = 0

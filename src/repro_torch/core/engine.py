@@ -36,7 +36,7 @@ bucket slot.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, TYPE_CHECKING
+from typing import Callable, Optional, TYPE_CHECKING
 
 import torch
 
@@ -366,12 +366,15 @@ def server_apply(
     n_sel=None,
     server: Optional[str] = None,
     scale=None,
+    leaf_size: Optional[int] = None,
+    l1_reduce: Optional[Callable] = None,
     quorum: int = 1,
     part_total=None,
     q_frac: Optional[float] = None,
     backend: Optional[str] = None,
 ):
-    """C(sum of worker messages) [+ EF] + SGD for one flat leaf.
+    """C(sum of worker messages) [+ EF] + SGD for one leaf, or this
+    process's slice of one.
 
     Returns ``(new_p, new_ef)`` with ``new_p`` in ``p.dtype``.
 
@@ -379,9 +382,14 @@ def server_apply(
       ``vote_update`` kernel; float votes (the FL simulation's decoded-sum
       wire) take the sign directly, as the JAX engine does, since the integer
       kernel would truncate fractional sums. ``ef`` passes through.
-    - ``scaled_sign_ef``: acc = vote_sum / n_sel + ef; scale = ||acc||_1 / d,
-      reduced on the device; update = scale * sign(acc) and new_ef = acc -
-      update through the fused ``ef_server`` kernel.
+    - ``scaled_sign_ef``: acc = vote_sum / n_sel + ef; scale = ||acc||_1 /
+      ``leaf_size`` (default: acc's size), reduced on the device; update =
+      scale * sign(acc) and new_ef = acc - update through the fused
+      ``ef_server`` kernel. On a slice of a leaf (the streamed trainer)
+      ``l1_reduce`` takes |acc| and returns the whole leaf's L1: JAX's hook
+      sums each shard's partial L1 over the FSDP axis; the port's is given
+      the element-wise |acc| because one process holds several workers'
+      shards, and it folds their partials in worker order.
     - ``mean``: p - lr * scale * vote_sum / n_sel.
 
     ``lr`` is a host scalar.
@@ -440,8 +448,10 @@ def server_apply(
             raise ValueError("scaled_sign_ef needs ef and n_sel")
         mean_delta = vote_sum.to(torch.float32) / n_sel_f32()
         eff = ef.to(torch.float32)
-        part = torch.sum(torch.abs(mean_delta + eff))
-        srv_scale = part / device_tensor(float(mean_delta.numel()), p)
+        mag = torch.abs(mean_delta + eff)
+        part = l1_reduce(mag) if l1_reduce is not None else torch.sum(mag)
+        size = leaf_size if leaf_size is not None else mean_delta.numel()
+        srv_scale = part / device_tensor(float(size), p)
         if backend == "cuda":
             upd, new_ef = ef_server_op(mean_delta, eff, srv_scale)
         else:

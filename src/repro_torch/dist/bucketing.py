@@ -24,7 +24,8 @@ once a leaf. Row granularity keeps the packed formats exchange-legal:
 The per-leaf compression is unchanged (seeds, counter base, budget and
 scale), so a slot's payload is the per-leaf wire message byte for byte and
 the bucketed exchange equals the per-leaf one. ``plan_ledger`` is the
-bucketed twin of ``collectives.uplink_ledger``.
+bucketed twin of ``collectives.uplink_ledger``; ``streamed_plan_ledger`` the
+streamed trainer's, which exchanges a layer's plan once a layer.
 """
 
 from __future__ import annotations
@@ -261,3 +262,26 @@ def plan_gather_hbm_bytes(mode: str, wire, plan: BucketPlan) -> float:
     if mode == "decoded":
         return 0.0
     return max((wire.bucket_gather_hbm_bytes(b) for b in plan.buckets), default=0.0)
+
+
+def streamed_plan_ledger(mode: str, wire, block_plan: BucketPlan, outer_plan: BucketPlan,
+                         n_repeats: int, *, share_linf: bool = False) -> Tuple[float, float]:
+    """(payload, scalar) per-device uplink bytes of one bucketed streamed
+    step, JAX's definition. The double-buffered backward exchanges the
+    pending layer's buckets each iteration: it primes with one zero bucket
+    and drains the last pending one after the loop, so each block bucket
+    rides the wire ``n_repeats + 1`` times a step. The shared L-inf vector
+    max runs at compress time, once a real layer (``n_repeats``) and once
+    for the outer group."""
+    bp, bs = plan_ledger(mode, wire, block_plan)
+    op, osc = plan_ledger(mode, wire, outer_plan, share_linf=share_linf)
+    payload = (n_repeats + 1) * bp + op
+    scalar = (n_repeats + 1) * bs + osc
+    if share_linf:
+        n = block_plan.n_slots
+        bytes_ = collectives.allreduce_scalar_bytes(wire.n_workers) * n
+        if n >= 2:
+            payload += n_repeats * bytes_
+        else:
+            scalar += n_repeats * bytes_
+    return payload, scalar

@@ -287,6 +287,21 @@ def scalar_psum(x: torch.Tensor, group: WorkerGroup) -> torch.Tensor:
     return ordered_sum(group.gather(x.reshape(group.local, -1))).reshape(x.shape[1:])
 
 
+def fsdp_all_gather(leaf: torch.Tensor, group: WorkerGroup, axis: int) -> torch.Tensor:
+    """The streamed trainer's parameter gather: each process's slice of a
+    leaf along ``axis`` -> the whole leaf, the slices in rank order. With one
+    process the slice is the leaf, returned as it is (no copy). The only raw
+    collective for parameters: it moves weights, not gradient messages, so
+    the wires' ledger does not bill it."""
+    if group.group is None or group.world == 1:
+        return leaf
+    x = leaf.movedim(axis, 0).contiguous()
+    out = torch.empty((group.world * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.all_gather_into_tensor(out, x, group=group.group)
+    return out.movedim(0, axis)
+
+
 def worker_shared_linf(gs: Sequence[torch.Tensor], group: WorkerGroup,
                        mask=None) -> torch.Tensor:
     """max_m ||g_m||_inf over the workers (TernGrad's magnitude sharing and

@@ -6,7 +6,10 @@ generated tokens over the 2-bit packed downlink (``serve.decode``). The flags
 keep ``repro.launch.serve``'s names; ``--full`` serves the full-width config
 and ``--device cpu`` runs the plain versions on the CPU (the default is the
 card). As in the JAX launcher, the prompt is replayed through decode into a
-cache as deep as prompt + generated tokens.
+cache as deep as prompt + generated tokens. An embedding-input model
+(qwen2-vl-72b's stubbed frontend) takes a prompt of N(0, 0.3^2) embeddings
+and, after it, zero embeddings; an M-RoPE model's decode batch carries
+``positions3``, the three streams at the token's position.
 """
 
 from __future__ import annotations
@@ -75,7 +78,11 @@ def main(argv=None) -> dict:
 
     rng = np.random.RandomState(args.seed)
     b, s = args.batch, args.prompt_len
-    prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s)).astype(np.int32)).to(device)
+    if cfg.input_kind == "tokens":
+        prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s)).astype(np.int32))
+    else:
+        prompt = torch.from_numpy(rng.randn(b, s, cfg.d_model) * 0.3).to(cfg.activation_dtype)
+    prompt = prompt.to(device)
     decode = build_decode_step(model)
     ingest = build_update_ingest(model, lr=1e-4) if args.online_updates else None
 
@@ -86,9 +93,16 @@ def main(argv=None) -> dict:
     _sync(device)
     t0 = time.perf_counter()
     for pos in range(s + args.tokens - 1):
-        inp = prompt[:, pos:pos + 1] if pos < s else tok
+        if pos < s:
+            inp = prompt[:, pos:pos + 1]
+        elif cfg.input_kind == "tokens":
+            inp = tok
+        else:   # no embedding table to feed the argmax through
+            inp = torch.zeros((b, 1, cfg.d_model), dtype=cfg.activation_dtype, device=device)
         batch = {"inputs": inp,
                  "positions": torch.full((b, 1), pos, dtype=torch.int32, device=device)}
+        if cfg.mrope:
+            batch["positions3"] = torch.full((b, 1, 3), pos, dtype=torch.int32, device=device)
         if ingest is not None and pos >= s and (pos - s) % args.online_updates == 0:
             t1 = time.perf_counter()
             params = ingest(params, synth_round(params, n_updates))

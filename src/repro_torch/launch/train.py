@@ -1,17 +1,22 @@
 """Training launcher of the port: ``python -m repro_torch.launch.train --arch <id> [...]``.
 
 The flags keep ``repro.launch.train``'s names and meanings (``--host-data``
-is the worker count M); it runs the ``simple`` trainer on the card (or, with
-``--device cpu``, the plain versions on the CPU), with the bucketed uplink
-(``--bucketed``, one bucket for the whole tree) and the ring gather
+is the worker count M); it runs the registry's trainer for the arch
+(``simple``, or ``streamed`` for qwen2-vl-72b and llama4-scout-17b-a16e;
+``--mode`` overrides it) on the card (or, with ``--device cpu``, the plain
+versions on the CPU), with the bucketed uplink (``--bucketed``: one bucket
+for the whole tree, or the streamed trainer's double-buffered layer and
+outer buckets) and the ring gather
 (``--ring``, ``--ring-chunk-rows`` rows a chunk, default
 ``collectives.DEFAULT_RING_CHUNK_ROWS``) on request. ``--ckpt-dir`` saves a
 checkpoint every ``--ckpt-every`` steps and at the end, and resumes from
 the newest compatible one there; ``--fail-at K`` dies before step K
 (failure injection). A run resumed with another ``--host-data`` restores
-the same logical state and trains on: the state is not sharded, and
-majority-vote state has no per-worker terms. What is not ported yet raises:
-the production meshes and the streamed trainer.
+the same logical state and trains on: a checkpoint holds whole leaves (the
+streamed trainer re-cuts its slices from them), and majority-vote state has
+no per-worker terms. An M-RoPE model's batch carries ``positions3``, the
+three position streams equal to ``positions``, as JAX's launcher builds it.
+What is not ported yet raises: the production meshes.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ from repro_torch.models.model import Model
 from repro_torch.train import loop as loop_lib
 from repro_torch.train.state import LrSchedule, init_state
 from repro_torch.train.step_simple import TrainStepConfig, build_train_step
+from repro_torch.train.step_streamed import (StreamedStepConfig, build_streamed_train_step,
+                                             shard_state)
 
 
 def participation_of(args):
@@ -59,24 +66,31 @@ def build_everything(args, group=None):
                              local_budget=args.local_budget,
                              worker_sample_fraction=args.participation)
     mode = args.mode or trainer_mode(args.arch)
-    if mode != "simple":
-        raise NotImplementedError(f"the {mode!r} trainer is not ported yet (ROADMAP.md)")
     ring_rows = ((args.ring_chunk_rows or collectives.DEFAULT_RING_CHUNK_ROWS)
                  if args.ring else None)
-    step = build_train_step(model, TrainStepConfig(
-        compression=comp, lr=LrSchedule(base=args.lr, warmup=args.warmup),
-        local_lr=args.local_lr, vote_impl=args.vote_impl,
-        quorum=args.quorum, bucketed=args.bucketed, ring_chunk_rows=ring_rows,
-        participation=participation_of(args)), group)
+    lr = LrSchedule(base=args.lr, warmup=args.warmup)
+    if mode == "simple":
+        step = build_train_step(model, TrainStepConfig(
+            compression=comp, lr=lr, local_lr=args.local_lr, vote_impl=args.vote_impl,
+            quorum=args.quorum, bucketed=args.bucketed, ring_chunk_rows=ring_rows,
+            participation=participation_of(args)), group)
+    else:
+        step = build_streamed_train_step(model, StreamedStepConfig(
+            compression=comp, lr=lr, vote_impl=args.vote_impl, quorum=args.quorum,
+            bucketed=args.bucketed, ring_chunk_rows=ring_rows,
+            participation=participation_of(args)), group)
     params = model.init(args.seed, device)
     state = init_state(params, server=comp.server, seed=args.seed)
+    if mode == "streamed":
+        state = shard_state(state, step.layout)
     return cfg, model, group, step, state, comp
 
 
 def batch_fn_for(cfg, args):
     """step -> the global batch, numpy arrays: ``lm_batch``'s tokens, or for
-    an embedding-input model frames of N(0, 0.3^2) in place of the tokens;
-    with ``--tau`` > 1 each entry is repeated over a leading tau axis."""
+    an embedding-input model frames of N(0, 0.3^2) in place of the tokens,
+    and for an M-RoPE model ``positions3`` [B, S, 3]; with ``--tau`` > 1
+    each entry is repeated over a leading tau axis."""
     stream = LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                             global_batch=args.batch, seed=args.seed)
 
@@ -86,6 +100,9 @@ def batch_fn_for(cfg, args):
             # frame embeddings, JAX's launcher's draw: cast to float32, then scaled
             rng = np.random.RandomState(step_idx)
             b["inputs"] = rng.randn(args.batch, args.seq_len, cfg.d_model).astype(np.float32) * 0.3
+        if cfg.mrope:
+            b["positions3"] = np.broadcast_to(b["positions"][..., None],
+                                              b["positions"].shape + (3,)).copy()
         if args.tau > 1:
             b = {k: np.broadcast_to(v[None], (args.tau,) + v.shape).copy() for k, v in b.items()}
         return b

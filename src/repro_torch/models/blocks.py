@@ -5,10 +5,13 @@
 (causal: ``windowed_attention``; bidirectional: the windowed mask of
 ``chunked_attention``), and Mamba2 (``models.mamba2``). The FFNs: dense
 SwiGLU, the GELU MLP with biases, the routed experts of ``models.moe``, or
-none (a mixer-only block, ``ffn=False``, has no ``ln2``). M-RoPE raises.
+none (a mixer-only block, ``ffn=False``, has no ``ln2``). Positions rotate
+by RoPE, or by qwen2-vl's M-RoPE from ``positions3`` [B, S, 3].
 
 ``block_param_defs`` is the one source of parameter shapes and dtypes; the
-model stacks them over the pattern repeats. ``block_cache_defs`` gives one
+model stacks them over the pattern repeats. ``block_logical_axes`` names
+each leaf's axes as JAX's ``block_param_defs`` does (the streamed trainer's
+FSDP layout keeps off the ones tensor parallelism would claim). ``block_cache_defs`` gives one
 block's decode cache: K, V and positions for attention (a ring of
 min(window, max_len) slots under a window), the conv ring and the float32
 SSD state for mamba."""
@@ -22,7 +25,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import gelu, rms_norm, swiglu
-from repro_torch.models.rope import apply_rope
+from repro_torch.models.rope import apply_mrope, apply_rope
 
 
 def moe_dims(cfg: ModelConfig) -> moe_lib.MoEDims:
@@ -47,9 +50,6 @@ def block_param_defs(cfg: ModelConfig, spec: LayerSpec) -> dict:
     """name -> (shape, dtype) of one block."""
     dt = cfg.activation_dtype
     d, hd = cfg.d_model, cfg.head_dim
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md: qwen2-vl-72b waits "
-                                  "for the streamed trainer)")
     defs = {"ln1": ((d,), dt)}
     if spec.ffn:
         defs["ln2"] = ((d,), dt)
@@ -92,6 +92,30 @@ def block_param_defs(cfg: ModelConfig, spec: LayerSpec) -> dict:
     return defs
 
 
+#: the attention leaves' and the dense FFNs' logical axes (JAX's names)
+_LOGICAL_AXES = {
+    "ln1": (None,), "ln2": (None,),
+    "wq": (None, "heads"), "wk": (None, "heads"), "wv": (None, "heads"), "wo": ("heads", None),
+    "bq": ("heads",), "bk": ("heads",), "bv": ("heads",),
+    "w_gate": (None, "ff"), "w_up": (None, "ff"), "w_down": ("ff", None),
+    "w1": (None, "ff"), "b1": ("ff",), "w2": ("ff", None), "b2": (None,),
+}
+
+
+def block_logical_axes(cfg: ModelConfig, spec: LayerSpec) -> dict:
+    """name -> the logical axis names of one block's leaf (None: an axis no
+    rule places), in ``block_param_defs``' order."""
+    out = {}
+    for name in block_param_defs(cfg, spec):
+        if name.startswith("ssm_"):
+            out[name] = mamba2.MAMBA_LOGICAL_AXES[name[len("ssm_"):]]
+        elif name.startswith("moe_"):
+            out[name] = moe_lib.MOE_LOGICAL_AXES[name[len("moe_"):]]
+        else:
+            out[name] = _LOGICAL_AXES[name]
+    return out
+
+
 def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
     b, s, _ = x.shape
     hd = cfg.head_dim
@@ -102,9 +126,16 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
             v.reshape(b, s, cfg.n_kv_heads, hd))
 
 
-def _rope_qk(cfg: ModelConfig, spec: LayerSpec, q, k, positions):
+def _rope_qk(cfg: ModelConfig, spec: LayerSpec, q, k, positions, positions3=None):
     if not spec.use_rope:
         return q, k
+    if cfg.mrope:
+        if positions3 is None:
+            raise ValueError(f"{cfg.name} rotates by M-RoPE: the batch needs positions3 "
+                             f"[B, S, 3]")
+        sec = cfg.mrope_sections
+        return (apply_mrope(q, positions3, cfg.rope_theta, sec),
+                apply_mrope(k, positions3, cfg.rope_theta, sec))
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta)
 
 
@@ -148,7 +179,7 @@ def _ring_cache(k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor, w: in
 
 
 def block_forward(cfg: ModelConfig, spec: LayerSpec, p: dict, h: torch.Tensor,
-                  positions: torch.Tensor, return_cache: bool = False):
+                  positions: torch.Tensor, positions3=None, return_cache: bool = False):
     """Training and prefill forward of one block: h [B, S, D] -> [B, S, D],
     and with ``return_cache`` its decode cache: for attention the prompt's K
     and V after RoPE and their positions, as deep as the prompt (JAX's dense
@@ -164,7 +195,7 @@ def block_forward(cfg: ModelConfig, spec: LayerSpec, p: dict, h: torch.Tensor,
         return (h, {"conv": conv, "state": state}) if return_cache else h
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(cfg, p, x)
-    q, k = _rope_qk(cfg, spec, q, k, positions)
+    q, k = _rope_qk(cfg, spec, q, k, positions, positions3)
     if spec.window is not None and cfg.causal:
         out = attn_lib.windowed_attention(q, k, v, positions=positions, window=spec.window,
                                           q_chunk=min(cfg.q_chunk, q.shape[1]),
@@ -186,7 +217,7 @@ def block_forward(cfg: ModelConfig, spec: LayerSpec, p: dict, h: torch.Tensor,
 
 
 def block_decode(cfg: ModelConfig, spec: LayerSpec, p: dict, h: torch.Tensor, cache: dict,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, positions3=None):
     """One-token decode of one block: h [B, 1, D] at ``positions`` [B, 1]
     against ``cache`` -> (h', cache). The new K, V and position go into slot
     ``position % W`` of the cache in place (``index_copy_``, where JAX
@@ -203,7 +234,7 @@ def block_decode(cfg: ModelConfig, spec: LayerSpec, p: dict, h: torch.Tensor, ca
         return _ffn_residual(cfg, spec, p, h + out), cache
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(cfg, p, x)
-    q, k = _rope_qk(cfg, spec, q, k, positions)
+    q, k = _rope_qk(cfg, spec, q, k, positions, positions3)
     b, w = cache["k"].shape[:2]
     # flat slot index b * W + position % W into the (B * W, ...) views
     flat = torch.arange(b, device=h.device) * w + (positions[:, 0].long() % w)

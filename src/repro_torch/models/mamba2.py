@@ -36,6 +36,15 @@ class MambaDims:
     chunk: int = 128
 
 
+#: each mixer leaf's logical axes, JAX's ``mamba_param_defs`` names
+MAMBA_LOGICAL_AXES = {
+    "w_z": (None, "ff"), "w_x": (None, "ff"), "w_bc": (None, None), "w_dt": (None, None),
+    "conv_x": (None, "ff"), "conv_bc": (None, None), "conv_b_x": ("ff",),
+    "conv_b_bc": (None,), "A_log": (None,), "dt_bias": (None,), "D": (None,),
+    "norm": ("ff",), "w_out": ("ff", None),
+}
+
+
 def mamba_param_defs(dims: MambaDims, dtype: torch.dtype) -> dict:
     """name -> (shape, dtype)."""
     di, n, h = dims.d_inner, dims.d_state, dims.n_heads

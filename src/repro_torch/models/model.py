@@ -10,7 +10,10 @@ with a ``tail_pattern``: its blocks run after the repeats, unstacked), the
 block leaves stacked over the repeats, so ``tree_leaves`` gives the JAX
 flatten order (dict keys sorted) and the trainer's per-leaf seeds match. Remat
 is ``torch.utils.checkpoint(use_reentrant=False)`` per block and per loss
-chunk (and per attention chunk inside a block).
+chunk (and per attention chunk inside a block). ``superblock_apply`` runs one
+repeat of the pattern on one layer's slices, the streamed trainer's unit.
+An M-RoPE model reads ``batch["positions3"]`` [B, S, 3] beside
+``positions``.
 
 Serving: ``prefill`` and ``decode_step``. A decode cache is a list of
 per-layer dicts (``{"k", "v", "pos"}`` for attention, ``{"conv", "state"}``
@@ -67,6 +70,22 @@ class Model:
                                    for s in cfg.tail_pattern)
         return shapes
 
+    def param_logical_axes(self) -> dict:
+        """The parameter tree of logical axis-name tuples (JAX's
+        ``param_logical_axes``): a stacked leaf's repeat axis is None."""
+        cfg = self.cfg
+        out = {"blocks": tuple({k: (None,) + axes for k, axes
+                                in blocks_lib.block_logical_axes(cfg, s).items()}
+                               for s in cfg.pattern),
+               "final_norm": (None,)}
+        if cfg.input_kind == "tokens":
+            out["embed"] = ("vocab", None)
+        if not cfg.tie_embeddings:
+            out["lm_head"] = (None, "vocab")
+        if cfg.tail_pattern:
+            out["tail"] = tuple(blocks_lib.block_logical_axes(cfg, s) for s in cfg.tail_pattern)
+        return out
+
     def param_count(self) -> int:
         return sum(math.prod(s.shape) for s in tree_leaves(self.param_shapes()))
 
@@ -110,16 +129,28 @@ class Model:
             return F.embedding(batch["inputs"].long(), params["embed"])
         return batch["inputs"].to(self.cfg.activation_dtype)
 
+    def _block(self, spec, p, h, positions, positions3, remat: bool):
+        if remat:
+            return checkpoint(blocks_lib.block_forward, self.cfg, spec, p, h, positions,
+                              positions3, use_reentrant=False)
+        return blocks_lib.block_forward(self.cfg, spec, p, h, positions, positions3)
+
+    def superblock_apply(self, block_slices, h, positions, positions3=None) -> torch.Tensor:
+        """One repeat of the pattern: ``block_slices`` holds one dict of a
+        layer's leaves a pattern position. As JAX's, each block is remat'ed
+        on its own only in a pattern of several blocks, so recomputing the
+        superblock holds one block's internals at a time."""
+        remat = self.cfg.remat and len(self.cfg.pattern) > 1
+        for spec, p in zip(self.cfg.pattern, block_slices):
+            h = self._block(spec, p, h, positions, positions3, remat)
+        return h
+
     def forward_hidden(self, params, batch) -> torch.Tensor:
         cfg = self.cfg
         h = self.embed_stage(params, batch)
-        positions = batch["positions"]
+        positions, positions3 = batch["positions"], batch.get("positions3")
         for spec, p in self._layers(params):
-            if cfg.remat:
-                h = checkpoint(blocks_lib.block_forward, cfg, spec, p, h, positions,
-                               use_reentrant=False)
-            else:
-                h = blocks_lib.block_forward(cfg, spec, p, h, positions)
+            h = self._block(spec, p, h, positions, positions3, cfg.remat)
         return rms_norm(h, params["final_norm"], cfg.norm_eps)
 
     def head_loss(self, params, h: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -177,22 +208,23 @@ class Model:
         caches). Each block's cache is as deep as the prompt, as JAX's is, or
         a ring of ``window`` slots under a shorter window."""
         h = self.embed_stage(params, batch)
-        positions = batch["positions"]
+        positions, positions3 = batch["positions"], batch.get("positions3")
         caches = []
         for spec, p in self._layers(params):
-            h, cache = blocks_lib.block_forward(self.cfg, spec, p, h, positions,
+            h, cache = blocks_lib.block_forward(self.cfg, spec, p, h, positions, positions3,
                                                 return_cache=True)
             caches.append(cache)
         return rms_norm(h, params["final_norm"], self.cfg.norm_eps), caches
 
     def decode_step(self, params, caches, batch):
-        """One token for every sequence. batch: {"inputs": [B, 1],
-        "positions": [B, 1]}. Returns (float32 logits [B, V], caches), the
-        caches updated in place."""
+        """One token for every sequence. batch: {"inputs": [B, 1] (or
+        [B, 1, D] embeddings), "positions": [B, 1], for M-RoPE "positions3":
+        [B, 1, 3]}. Returns (float32 logits [B, V], caches), the caches
+        updated in place."""
         h = self.embed_stage(params, batch)
-        positions = batch["positions"]
+        positions, positions3 = batch["positions"], batch.get("positions3")
         for (spec, p), cache in zip(self._layers(params), caches):
-            h, _ = blocks_lib.block_decode(self.cfg, spec, p, h, cache, positions)
+            h, _ = blocks_lib.block_decode(self.cfg, spec, p, h, cache, positions, positions3)
         h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
         return (h[:, 0] @ self.head_weight(params)).to(torch.float32), caches
 

@@ -158,6 +158,15 @@ def moe_ffn(params: dict, x: torch.Tensor, dims: MoEDims, impl: str = "gather") 
     return y
 
 
+#: each leaf's logical axes, as JAX's ``blocks.block_param_defs`` names them
+MOE_LOGICAL_AXES = {
+    "router": (None, None),
+    "w_gate": ("expert", None, None), "w_up": ("expert", None, None),
+    "w_down": ("expert", None, None),
+    "shared_w_gate": (None, "ff"), "shared_w_up": (None, "ff"), "shared_w_down": ("ff", None),
+}
+
+
 def moe_param_shapes(dims: MoEDims, n_shared: int, dtype: torch.dtype) -> dict:
     """name -> (shape, dtype); the router is float32 whatever ``dtype``."""
     e, dm, f = dims.n_experts_padded, dims.d_model, dims.d_ff

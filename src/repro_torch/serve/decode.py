@@ -15,7 +15,9 @@ the 8-bit wire quantizes through ``qsgd8_pack8``.
 The builders take no mesh: the port serves on one card. The steps run under
 ``torch.no_grad``; ``decode`` and ``ingest`` write into the caches and the
 parameters they are given, in place (where JAX donates them), and return
-them. ``serve_input_specs`` waits for ``dist/sharding.py``.
+them. An M-RoPE model's prefill and decode batches carry ``positions3``
+([B, S, 3] and [B, 1, 3]) beside ``positions``. ``serve_input_specs``
+waits for the tensor-parallel placement rules of ``dist/sharding.py``.
 """
 
 from __future__ import annotations

@@ -21,13 +21,16 @@ JAX state holds, and restore as ints. dtype strings are numpy's
 The fingerprint hashes every leaf's (path, shape, dtype): restoring into a
 state whose tree does not match raises ``CheckpointMismatchError`` instead
 of loading another run's weights (``train.loop`` catches it and starts
-fresh, with a warning). The state is not sharded, so a checkpoint restores
-at any worker count M (majority-vote state has no per-worker terms).
+fresh, with a warning). A checkpoint holds whole leaves, so it restores at
+any worker count M (majority-vote state has no per-worker terms), and with
+``shardings`` (the streamed trainer's layout, ``step_streamed.
+state_shardings``) onto this process's slices, in any number of processes.
 
 A leaf on the card is written as ``np.save`` writes its host copy (the same
 header, then the raw bytes), copied through a small pinned staging buffer
 instead of a whole pageable host copy, which halves a save at full width. A
-restore maps each file and copies it to the leaf's device from there.
+restore maps each file and copies it, or this process's slice of it, to the
+leaf's device from there.
 """
 
 from __future__ import annotations
@@ -96,10 +99,14 @@ def _leaf_descs(tree) -> list[list]:
             for p, leaf in _flatten_with_path(tree)]
 
 
+def _fingerprint_of(descs: list) -> str:
+    payload = json.dumps(descs, separators=(",", ":"))
+    return hashlib.sha256(payload.encode()).hexdigest()[:16]
+
+
 def tree_fingerprint(tree) -> str:
     """Stable hex digest of the tree structure and per-leaf shapes and dtypes."""
-    payload = json.dumps(_leaf_descs(tree), separators=(",", ":"))
-    return hashlib.sha256(payload.encode()).hexdigest()[:16]
+    return _fingerprint_of(_leaf_descs(tree))
 
 
 def _widened(t: torch.Tensor) -> torch.Tensor:
@@ -174,11 +181,14 @@ def latest_steps(ckpt_dir: str) -> list[int]:
     return sorted(out)
 
 
-def _read_leaf(path: str, like):
+def _read_leaf(path: str, like, layout=None):
     """A saved leaf as ``like`` holds it: a tensor of like's dtype on like's
-    device (the CPU for a ``ShapeDtype``), copied out of the mapped file, or
-    a host int."""
+    device (the CPU for a ``ShapeDtype``), copied out of the mapped file (only
+    ``layout``'s slice of it, when given), or a host int."""
     arr = np.load(path, mmap_mode="r")
+    if layout is not None and not layout.whole:
+        arr = arr[(slice(None),) * layout.axis + (slice(layout.start,
+                                                         layout.start + layout.size),)]
     if isinstance(like, np.generic):
         return int(arr)
     if isinstance(like, np.ndarray):
@@ -213,14 +223,50 @@ def _unflatten(like, leaves):
     return walk(like)
 
 
+def _is_layout(x) -> bool:
+    return all(hasattr(x, a) for a in ("shape", "axis", "start", "size", "whole"))
+
+
+def _flat_shardings(sh, like, path: str = "") -> list:
+    """``shardings`` aligned with ``_flatten_with_path(like)``: a layout, or
+    None (the whole leaf), a leaf; a None subtree holds whole leaves."""
+    if like is None:
+        return []
+    if _is_leaf(like):
+        if sh is not None and not _is_layout(sh):
+            raise TypeError(f"{path}: shardings hold LeafLayout leaves "
+                            f"(train.step_streamed.state_shardings) or None, not "
+                            f"{type(sh).__name__}")
+        return [sh]
+    if dataclasses.is_dataclass(like):
+        if sh is not None and type(sh) is not type(like):
+            raise TypeError(f"{path}: shardings must mirror the {type(like).__name__} "
+                            f"(train.step_streamed.state_shardings), not {type(sh).__name__}")
+        out = []
+        for f in dataclasses.fields(like):
+            v = getattr(like, f.name)
+            sub = getattr(sh, f.name) if sh is not None else None
+            if isinstance(v, int) and f.name in HOST_INT_DTYPES:
+                out.append(None)
+            else:
+                out += _flat_shardings(sub, v, f"{path}.{f.name}")
+        return out
+    if isinstance(like, dict):
+        return [x for k in sorted(like) for x in
+                _flat_shardings(sh[k] if sh is not None else None, like[k], f"{path}[{k!r}]")]
+    return [x for i, v in enumerate(like) for x in
+            _flat_shardings(sh[i] if sh is not None else None, v, f"{path}[{i}]")]
+
+
 def restore(ckpt_dir: str, like, *, step: Optional[int] = None, shardings=None):
     """Restore into the structure of ``like`` (a tree of tensors or
     ``ShapeDtype`` leaves): each leaf in like's leaf's dtype, on its device.
-    Returns (state, manifest). ``shardings`` waits for the streamed trainer
-    and must be None."""
-    if shardings is not None:
-        raise NotImplementedError("restoring onto shardings is not ported yet: it waits for "
-                                  "the streamed trainer (ROADMAP.md)")
+    Returns (state, manifest). ``shardings`` (a tree mirroring ``like``,
+    ``LeafLayout`` leaves or None) restores onto a streamed layout: like's
+    leaves are this process's slices, the checkpoint's the whole leaves, and
+    each file is mapped and only the slice copied, so a resume at another M
+    or in another number of processes re-cuts the slices from the same
+    files."""
     steps = latest_steps(ckpt_dir)
     if not steps:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
@@ -230,10 +276,15 @@ def restore(ckpt_dir: str, like, *, step: Optional[int] = None, shardings=None):
         manifest = json.load(f)
 
     flat_like = _flatten_with_path(like)
-    want_fp = tree_fingerprint(like)
+    flat_sh = (_flat_shardings(shardings, like) if shardings is not None
+               else [None] * len(flat_like))
+    # the whole leaves' descriptions, whatever slice of them ``like`` holds
+    descs = [[d[0], list(sh.shape) if sh is not None else d[1], d[2]]
+             for d, sh in zip(_leaf_descs(like), flat_sh)]
+    want_fp = _fingerprint_of(descs)
     got_fp = manifest.get("fingerprint")
     if got_fp is not None and got_fp != want_fp:
-        want_desc = {(d[0], tuple(d[1]), d[2]) for d in _leaf_descs(like)}
+        want_desc = {(d[0], tuple(d[1]), d[2]) for d in descs}
         got_desc = {(d[0], tuple(d[1]), d[2]) for d in manifest.get("leaves", [])}
         diff = sorted(x[0] for x in want_desc.symmetric_difference(got_desc))[:8]
         raise CheckpointMismatchError(
@@ -248,6 +299,6 @@ def restore(ckpt_dir: str, like, *, step: Optional[int] = None, shardings=None):
     if [p for p, _ in flat_like] != manifest["paths"]:
         raise CheckpointMismatchError("tree structure mismatch on restore")
 
-    leaves = [_read_leaf(os.path.join(src, f"leaf_{i:05d}.npy"), leaf_like)
-              for i, (_, leaf_like) in enumerate(flat_like)]
+    leaves = [_read_leaf(os.path.join(src, f"leaf_{i:05d}.npy"), leaf_like, sh)
+              for i, ((_, leaf_like), sh) in enumerate(zip(flat_like, flat_sh))]
     return _unflatten(like, leaves), manifest

@@ -33,15 +33,17 @@ class LoopConfig:
     fail_at_step: Optional[int] = None   # failure injection (tests)
 
 
-def _resume(state: TrainState, cfg: LoopConfig, log) -> TrainState:
+def _resume(state: TrainState, cfg: LoopConfig, log, shardings=None) -> TrainState:
     """The newest checkpoint of ``cfg.ckpt_dir`` that fits ``state``: a stale
     one from another model or config neither stops the run nor shadows this
-    run's own checkpoints at lower steps."""
+    run's own checkpoints at lower steps. ``shardings``: a streamed state's
+    layout (``checkpoint.restore``'s)."""
     steps = ckpt_lib.latest_steps(cfg.ckpt_dir)
     for s in reversed(steps):
         try:
             t0 = time.perf_counter()
-            state, manifest = ckpt_lib.restore(cfg.ckpt_dir, state, step=s)
+            state, manifest = ckpt_lib.restore(cfg.ckpt_dir, state, step=s,
+                                               shardings=shardings)
             log(f"[loop] resumed from step {int(manifest['step'])} "
                 f"({time.perf_counter() - t0:.3f} s)")
             return state
@@ -55,10 +57,17 @@ def _resume(state: TrainState, cfg: LoopConfig, log) -> TrainState:
     return state
 
 
-def _save(cfg: LoopConfig, step: int, state: TrainState, log) -> None:
+def _save(cfg: LoopConfig, step: int, state: TrainState, log, prepare=None) -> None:
+    """Save ``state``; ``prepare`` (a streamed step's ``checkpoint_state``)
+    gathers a state of slices into whole leaves and says whether this
+    process writes them."""
     t0 = time.perf_counter()
-    ckpt_lib.save(cfg.ckpt_dir, step, state, keep=cfg.keep)
-    log(f"[loop] saved step {step} ({time.perf_counter() - t0:.3f} s)")
+    write = True
+    if prepare is not None:
+        state, write = prepare(state)
+    if write:
+        ckpt_lib.save(cfg.ckpt_dir, step, state, keep=cfg.keep)
+        log(f"[loop] saved step {step} ({time.perf_counter() - t0:.3f} s)")
 
 
 def run(train_step: Callable, state: TrainState, batch_fn: Callable[[int], dict],
@@ -72,9 +81,12 @@ def run(train_step: Callable, state: TrainState, batch_fn: Callable[[int], dict]
     ``ckpt_every`` steps and at the end; ``fail_at_step`` raises
     ``RuntimeError`` before that step runs. Where the last step's periodic
     save already wrote the end (JAX's loop writes it twice), the end is not
-    saved again."""
+    saved again. A streamed step (``train.step_streamed``) restores onto its
+    layout and saves its state gathered whole, from rank 0."""
+    shardings_of = getattr(train_step, "state_shardings", None)
+    prepare = getattr(train_step, "checkpoint_state", None)
     if cfg.ckpt_dir:
-        state = _resume(state, cfg, log)
+        state = _resume(state, cfg, log, shardings_of(state) if shardings_of else None)
     history, saved = [], False
     t0 = time.perf_counter()
     for step_idx in range(state.step, cfg.total_steps):
@@ -90,9 +102,9 @@ def run(train_step: Callable, state: TrainState, batch_fn: Callable[[int], dict]
                 " ".join(f"{k}={v:.5g}" for k, v in m.items() if k != "step"))
         saved = bool(cfg.ckpt_dir and cfg.ckpt_every and (step_idx + 1) % cfg.ckpt_every == 0)
         if saved:
-            _save(cfg, step_idx + 1, state, log)
+            _save(cfg, step_idx + 1, state, log, prepare)
     if cfg.ckpt_dir and not (saved and state.step == cfg.total_steps):
-        _save(cfg, cfg.total_steps, state, log)
+        _save(cfg, cfg.total_steps, state, log, prepare)
     return state, history
 
 

@@ -33,7 +33,7 @@ from repro.train.state import init_state as j_init_state
 from repro_torch.configs.registry import get_config
 from repro_torch.core.algorithm import CompressionConfig
 from repro_torch.core.budgets import BudgetConfig
-from repro_torch.core.compressors import tree_leaves
+from repro_torch.core.compressors import tree_leaves, tree_unflatten
 from repro_torch.data.synthetic import LMStreamConfig, lm_batch, lm_stream
 from repro_torch.launch import train as launch
 from repro_torch.launch.mesh import make_host_mesh
@@ -236,10 +236,16 @@ def test_checkpoints_restore_across_packages(arch, server, dtype, tmp_path):
 
 
 def test_restore_refuses_shardings(tmp_path):
+    """Shardings that are not a streamed layout (``LeafLayout`` leaves in
+    the state's structure) are refused."""
     state = _tiny_state()
     ckpt.save(str(tmp_path), 1, state)
-    with pytest.raises(NotImplementedError, match="streamed trainer"):
+    with pytest.raises(TypeError, match="state_shardings"):
         ckpt.restore(str(tmp_path), state, shardings=object())
+    with pytest.raises(TypeError, match="LeafLayout"):
+        ckpt.restore(str(tmp_path), state, shardings=dataclasses.replace(
+            state, params=tree_unflatten(state.params, [object()] * len(
+                tree_leaves(state.params)))))
 
 
 def test_lm_stream_and_batches_from_fn_replay_the_steps():
@@ -297,3 +303,56 @@ def test_crash_restart_is_bitwise_and_resumes_at_another_m(tmp_path):
     assert state10.step == 10 and ckpt.latest_steps(d)[-1] == 10
     assert [h["step"] for h in history] == [9] and np.isfinite(history[-1]["loss"])
     assert history[-1]["participated"] == 2.0
+
+
+# ------------------------------------- (e) restore onto the streamed layout
+
+def _streamed_like(arch, server, dtype, rank, world):
+    """The port's streamed state of ``arch`` for rank ``rank`` of ``world``
+    processes of 4 workers: zeros of this process's slices, and the layout."""
+    from repro_torch.dist.collectives import WorkerGroup
+    from repro_torch.train import step_streamed
+
+    model = Model(dataclasses.replace(get_config(arch, smoke=True), dtype=dtype))
+    layout = step_streamed.streamed_layout(
+        model, WorkerGroup(("data",), (4,), rank=rank, world=world))
+    state = step_streamed.shard_state(init_state(model.init(0, "cpu"), server=server, seed=0),
+                                      layout)
+    return state, step_streamed.state_shardings(layout, state), layout
+
+
+@pytest.mark.parametrize("source", ["port", "jax"])
+def test_streamed_state_restores_onto_two_processes_slices(source, tmp_path):
+    """A whole state saved by one process (the port's, or JAX's ``save``)
+    restores onto each rank of two processes of two workers as that rank's
+    slices, which tile the saved leaves; the EF residual likewise, in
+    bfloat16 parameters narrowed from the file's float32."""
+    arch, server, dtype = "llama4-scout-17b-a16e", "scaled_sign_ef", "bfloat16"
+    jstate, tstate = _both_states(arch, server, dtype)
+    if source == "jax":
+        jckpt.save(str(tmp_path), 3, jstate)
+    else:
+        ckpt.save(str(tmp_path), 3, tstate)
+    parts = []
+    for rank in range(2):
+        like, shardings, layout = _streamed_like(arch, server, dtype, rank, 2)
+        got, manifest = ckpt.restore(str(tmp_path), like, shardings=shardings)
+        assert manifest["step"] == 3 and got.step == 3 and got.seed == 0xFEEDBEEF
+        for tree in ("params", "ef_residual"):
+            for x, y, lay in zip(tree_leaves(getattr(got, tree)),
+                                 tree_leaves(getattr(tstate, tree)), tree_leaves(layout)):
+                assert x.dtype == y.dtype and torch.equal(bits(x), bits(lay.cut(y)))
+        parts.append(got)
+    sharded = 0
+    for a, b, whole, lay in zip(tree_leaves(parts[0].params), tree_leaves(parts[1].params),
+                                tree_leaves(tstate.params),
+                                tree_leaves(_streamed_like(arch, server, dtype, 0, 2)[2])):
+        if lay.whole:
+            assert torch.equal(bits(a), bits(b))
+            continue
+        sharded += 1
+        assert torch.equal(bits(torch.cat([a, b], dim=lay.axis)), bits(whole))
+    assert sharded >= 10
+    # one process of 4 holds every leaf whole: the plain restore's state
+    like, shardings, _ = _streamed_like(arch, server, dtype, 0, 1)
+    assert same_state(ckpt.restore(str(tmp_path), like, shardings=shardings)[0], tstate)

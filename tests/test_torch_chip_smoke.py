@@ -307,3 +307,45 @@ def test_ulps_apart_counts_steps_on_the_number_line():
         assert ulps(torch, a, up)[1] == 1
         assert ulps(torch, torch.tensor([0.0], dtype=dtype),
                     torch.tensor([-0.0], dtype=dtype)) == (0, 0)
+
+
+def test_phase_streamed_rehearses_on_the_cpu(monkeypatch, capsys):
+    """The streamed phase at the smoke sizes on the CPU: S1 through the
+    launcher's loop, S2's per-leaf, repeated, bucketed and simple steps bit
+    for bit and the EF runs' equal digests, S3's training, serving and
+    decode within DECODE_REL_TOL; the launchers' get_config put back."""
+    import torch
+
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch
+
+    cs = _chip_smoke()
+    _rehearse(cs, monkeypatch)
+    get_configs = launch.get_config, launch_serve.get_config
+    report = {}
+    cs.phase_streamed(torch, report, {k: 0 for k in cs.REPLACES}, dev="cpu")
+    out = report["streamed"]
+    assert (out["S1"]["leaves"], out["S1"]["exchanges_a_step"]) == (16, 2 * 13 + 3)
+    assert out["S1"]["simple_need_gb"] == 2 * out["S1"]["parameters"] * 2 / 1e9
+    assert [out["S2"][k]["differ"] for k in ("repeat", "bucketed", "simple")] == [0, 0, 0]
+    assert out["S2"]["ef_digests_equal"] and out["S2"]["ef_bucketed"]["ef_finite"]
+    assert (out["S3"]["leaves"], out["S3"]["exchanges_a_step"]) == (14, 2 * 12 + 2)
+    assert out["S3"]["decode_vs_forward"]["rel_err"] <= cs.DECODE_REL_TOL
+    assert out["S3"]["serve_loop"]["decode_steps"] == 47
+    assert cs.STREAMED_LAYERS == (8, 2, 8)
+    assert (launch.get_config, launch_serve.get_config) == get_configs
+    printed = capsys.readouterr().out
+    assert "[streamed S1]" in printed and "[streamed S3]" in printed
+
+
+def test_bit_digest_tells_one_changed_bit():
+    import torch
+
+    cs = _chip_smoke()
+    t = torch.randn(1000)
+    u = t.clone()
+    u.view(torch.int32)[517] ^= 1
+    assert cs.bit_digest(torch, t) == cs.bit_digest(torch, t.clone())
+    assert cs.bit_digest(torch, t) != cs.bit_digest(torch, u)
+    b = t.to(torch.bfloat16)
+    assert cs.bit_digest(torch, b) != cs.bit_digest(torch, -b)

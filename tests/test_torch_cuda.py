@@ -539,3 +539,56 @@ def test_moe_step_on_card_repeats_bit_for_bit(cuda_device):
         out.append([tbits(t) for t in tree_leaves(state.params)] + [tbits(metrics["loss"])])
     for a, b in zip(*out):
         np.testing.assert_array_equal(a, b)
+
+
+def _streamed_smoke(cuda_device, backend, params0):
+    """One streamed llama4-scout smoke step (M = 4, 2-bit wire, majority
+    vote) from a clone of ``params0``: (the parameters' bits and the loss's,
+    the launch counts)."""
+    from repro_torch.train.step_streamed import StreamedStepConfig, build_streamed_train_step
+
+    model = Model(get_config("llama4-scout-17b-a16e", smoke=True))
+    comp = CompressionConfig(compressor="sparsign", budget=BudgetConfig(value=1.0),
+                             server="majority_vote")
+    step = build_streamed_train_step(model, StreamedStepConfig(
+        compression=comp, lr=LrSchedule(base=0.05), vote_impl="allgather_packed",
+        backend=backend), make_mesh((4,), ("data",)))
+    rng = np.random.RandomState(4)
+    batch = {"inputs": rng.randint(0, 256, (4, 64)).astype(np.int32),
+             "labels": rng.randint(0, 256, (4, 64)).astype(np.int32),
+             "positions": np.broadcast_to(np.arange(64, dtype=np.int32), (4, 64)).copy()}
+    params = tree_unflatten(params0, [t.clone() for t in tree_leaves(params0)])
+    state = init_state(params, server=comp.server, seed=1)
+    reset_launch_counts()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    return ([tbits(t) for t in tree_leaves(state.params)] + [tbits(metrics["loss"])],
+            launch_counts())
+
+
+@pytest.mark.cuda
+def test_streamed_step_on_card_matches_plain_versions(cuda_device):
+    """The streamed step through the kernels (M x (2 x 13 + 3) encodes, one
+    decode-sum and one vote_update a layer and leaf) equals the same step
+    through the plain versions on the card (backend="torch", no launch),
+    bit for bit."""
+    params0 = Model(get_config("llama4-scout-17b-a16e", smoke=True)).init(0, device=cuda_device)
+    got, counts = _streamed_smoke(cuda_device, None, params0)
+    want, plain_counts = _streamed_smoke(cuda_device, "torch", params0)
+    assert counts["sparsign_pack2bit"] == 4 * 29
+    assert counts["unpack2bit_sum"] == counts["vote_update"] == 29
+    assert not any(plain_counts.values())
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_streamed_step_on_card_repeats_bit_for_bit(cuda_device):
+    """The same streamed step twice from one state gives the same bits: the
+    recompute, the embedding's backward and the MoE combine add in one
+    order on every run."""
+    params0 = Model(get_config("llama4-scout-17b-a16e", smoke=True)).init(0, device=cuda_device)
+    first, _ = _streamed_smoke(cuda_device, None, params0)
+    second, _ = _streamed_smoke(cuda_device, None, params0)
+    for a, b in zip(first, second):
+        np.testing.assert_array_equal(a, b)

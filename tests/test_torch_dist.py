@@ -1,9 +1,12 @@
 """The port's trainer across processes, on the CPU: two gloo processes
 holding 2 workers each are bit for bit one process holding all 4, for the
 psum, hier (2 x 2: a pod per process) and packed gather wires, each with
-and without the weighted (elastic) exchange, and for the bucketed ring
+and without the weighted (elastic) exchange, for the bucketed ring
 gather (32-row chunks, one hop a chunk between the processes) on the 2-bit
-and golomb wires. At the wire level, pack8's ring on rank r sums in the
+and golomb wires, and for the streamed trainer (llama4-scout's smoke
+config: per leaf on the 2-bit wire, and bucketed with the EF server on
+psum, whose L1 folds the four shards' partials across the processes), where
+each process holds only its slices. At the wire level, pack8's ring on rank r sums in the
 order of its first worker 2r: 2r, 2r - 1, ... (mod 4), as JAX's device 2r
 does. Each process gets its own time limit; the processes reach each other
 over ``tcp://localhost`` on a free port."""
@@ -52,6 +55,28 @@ def run(impl, elastic, compressor="sparsign", budget=BudgetConfig(value=2.0), **
     return {"params": [t.clone() for t in tree_leaves(state.params)],
             "metrics": {k: float(v) for k, v in metrics.items()}}
 
+def run_streamed(impl, server, bucketed):
+    # the streamed trainer: this process's slices after two steps, with the
+    # layout's shard axes
+    from repro_torch.train.step_streamed import (StreamedStepConfig,
+                                                 build_streamed_train_step, shard_state)
+    model = Model(get_config("llama4-scout-17b-a16e", smoke=True))
+    comp = CompressionConfig(compressor="sparsign", budget=BudgetConfig(value=2.0),
+                             server=server)
+    step = build_streamed_train_step(model, StreamedStepConfig(
+        compression=comp, lr=LrSchedule(base=0.05), vote_impl=impl, bucketed=bucketed),
+        make_host_mesh(4))
+    state = shard_state(init_state(model.init(0, device="cpu"), server=comp.server, seed=3),
+                        step.layout)
+    for r in range(2):
+        batch = lm_batch(LMStreamConfig(vocab_size=256, seq_len=16, global_batch=4, seed=5), r)
+        state, metrics = step(state, batch)
+    ef = tree_leaves(state.ef_residual) if state.ef_residual is not None else []
+    return {"params": [t.clone() for t in tree_leaves(state.params)],
+            "ef": [t.clone() for t in ef],
+            "axes": [lay.axis for lay in tree_leaves(step.layout)],
+            "metrics": {k: float(v) for k, v in metrics.items()}}
+
 def pack8_ring():
     # this process's workers' pack8 messages (all four drawn from one seed)
     # through the ring wire: the inputs and the decoded sum
@@ -80,6 +105,8 @@ if __name__ == "__main__":
             "allgather_packed", False, compressor="sparsign_golomb",
             budget=BudgetConfig(kind="target_sparsity", value=0.05), **ring)
         res["pack8-ring"] = pack8_ring()
+        res["streamed-pack2"] = run_streamed("allgather_packed", "majority_vote", False)
+        res["streamed-ef-bucketed"] = run_streamed("psum", "scaled_sign_ef", True)
         torch.save(res, out)
     finally:
         if dist.is_initialized():
@@ -163,3 +190,30 @@ def test_pack8_ring_sums_in_the_order_of_each_process_first_worker(runs):
                 d = torch.zeros(n) + r["levels"][m].reshape(-1)[:n].to(torch.float32) * r["scales"][m]
                 acc = d if acc is None else acc + d
             assert torch.equal(r["sum"].view(torch.int32), acc.view(torch.int32)), (world, rank)
+
+
+@pytest.mark.parametrize("key", ["streamed-pack2", "streamed-ef-bucketed"])
+def test_streamed_two_processes_hold_their_slices_and_equal_one_of_four(key, runs):
+    """Each rank's slices, joined along the shard axis in rank order, are the
+    one process's leaves bit for bit (a replicated leaf equal on both), the
+    EF residual too, with equal metrics; each rank holds fewer bytes than the
+    whole leaf of every sharded leaf, as JAX's check 2 asks."""
+    one, two = runs[0][key], [r[key] for r in runs[1]]
+    assert two[0]["axes"] == two[1]["axes"] == one["axes"]
+    sharded = 0
+    for tree in ("params", "ef"):
+        for i, whole in enumerate(one[tree]):
+            ax = one["axes"][i]
+            parts = [r[tree][i] for r in two]
+            if ax == -1:
+                for p in parts:
+                    assert torch.equal(p.view(torch.int32), whole.view(torch.int32))
+                continue
+            sharded += 1
+            assert all(p.numel() * p.element_size() < whole.numel() * whole.element_size()
+                       for p in parts)
+            joined = torch.cat(parts, dim=ax)
+            assert torch.equal(joined.view(torch.int32), whole.view(torch.int32))
+    assert sharded >= 10
+    for r in two:
+        assert r["metrics"] == one["metrics"]
