@@ -153,7 +153,7 @@ the first, in order; any failure exits non-zero before the last line:
  10. the streamed (FSDP) trainer (phase_streamed), M = 4 in one process,
      4,096 tokens (frames) a worker: S1, llama4-scout-17b-a16e at its
      published widths cut to STREAMED_LAYERS[0] = 8 of 48 layers (19.7 B
-     parameters), 2 steps of sparsign on allgather_packed per leaf through
+     parameters), STREAMED_STEPS = 1 step of sparsign on allgather_packed per leaf through
      the launcher, launches counted (M x (8 x 13 + 3) encodes a step), wire
      bytes against the streamed ledger, its peak beside the simple
      trainer's need (weights and one worker's gradient); S2, the same cut
@@ -162,10 +162,31 @@ the first, in order; any failure exits non-zero before the last line:
      step each, bit for bit, then scaled_sign_ef on psum 2 steps per leaf
      against bucketed (chunked bit digests of parameters and residual) with
      a finite residual; S3, qwen2-vl-72b (M-RoPE, frame inputs, QKV bias)
-     cut to 8 of 80 layers, 2 streamed steps on allgather_packed, then the
-     launcher's serving loop on the same config, a timed 4 x 2048 prefill
-     and decode against the full forward within DECODE_REL_TOL from the
-     trained weights.
+     cut to 8 of 80 layers, STREAMED_STEPS streamed steps on
+     allgather_packed, then the launcher's serving loop on the same config,
+     a timed 4 x 2048 prefill and decode against the full forward within
+     DECODE_REL_TOL from the trained weights;
+ 11. jamba-1.5-large-398b (phase_jamba), J1: its published widths with the
+     pattern cut to positions 2-4 (jamba15_large.card_config: mamba + dense,
+     mamba + MoE, attention without RoPE + dense; 12.9 B parameters), M = 4
+     in one process, 4,096 tokens a worker, one streamed step of sparsign
+     (l2_norm 0.1) with the majority vote on allgather_packed through the
+     launcher, launches counted, wire bytes against the streamed ledger,
+     peak memory; the trained state served through the launcher's loop
+     (batch 4, a 32-token prompt, 16 new tokens), a timed 4 x 2048 prefill
+     and decode of token 2,048 against the full forward within
+     MAMBA_DECODE_REL_TOL; then, the state freed, sparsign_pack2bit at
+     counter base 0 and at a base whose counter wraps, unpack2bit_sum of
+     four messages into int8 and vote_update on a bf16 weight, all on one
+     expert leaf's 3,221,225,472 coordinates, against their plain versions
+     computed in 2^28-coordinate chunks, byte for byte;
+ 12. the analysis gate (phase_analysis), run right after the kernel checks
+     of phases 2, 5, 6 and 8, before any phase traces: ``python -m
+     repro_torch.analysis`` on the card (the repo-lint, every wire mode's
+     recorded collective bytes against the ledger per leaf, bucketed and on
+     the ring at M = 16, the launch budgets, the elastic censuses, the
+     ledger floors, every fused wire op one launch), its lines printed as
+     [analysis]; nonzero fails.
 It prints one JSON line of kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Results also go to
 chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device.
@@ -3172,6 +3193,7 @@ def phase_zoo_serve(torch, report, totals, dev="cuda"):
 # gradient beside them, 78.8 GB), S2's 2 (6.47 B: all three steps fit), and
 # S3's 8 of qwen2-vl-72b's 80 (8.27 B)
 STREAMED_LAYERS = (8, 2, 8)
+STREAMED_STEPS = 1   # S1's and S3's steps through the launcher
 STREAMED_ARCHS = ("llama4-scout-17b-a16e", "qwen2-vl-72b")
 # S2's fixed sparsign budget B (a coordinate votes w.p. min(|g| B, 1)): at
 # B = 1e-3 the card read a density of 1.6e-7, so B = 300 aims at about 5 %
@@ -3297,7 +3319,7 @@ def phase_streamed(torch, report, totals, dev="cuda"):
         # -- S1: llama4-scout, 8 layers at its published widths ------------
         arch = STREAMED_ARCHS[0]
         depth[arch] = STREAMED_LAYERS[0]
-        cfg, model, step, state, s1 = run_loop(arch, 2, "S1")
+        cfg, model, step, state, s1 = run_loop(arch, STREAMED_STEPS, "S1")
         weights_gb = model.param_count() * 2 / 1e9
         s1["simple_need_gb"] = 2 * weights_gb
         print(f"[streamed S1] {cfg.name}, {cfg.n_layers} of 48 layers at d_model {cfg.d_model} "
@@ -3458,7 +3480,7 @@ def phase_streamed(torch, report, totals, dev="cuda"):
         # -- S3: qwen2-vl-72b, 8 layers: train, then serve -----------------
         arch = STREAMED_ARCHS[1]
         depth[arch] = STREAMED_LAYERS[2]
-        cfg, model, step, state, s3 = run_loop(arch, 2, "S3")
+        cfg, model, step, state, s3 = run_loop(arch, STREAMED_STEPS, "S3")
         params = state.params
         del step, state
         serve_args = (["--arch", arch] + ZOO_SERVE_ARGS if on_card else
@@ -3522,6 +3544,269 @@ def phase_streamed(torch, report, totals, dev="cuda"):
         launch.get_config = get_config
         launch_serve.get_config = serve_get_config
     report["streamed"] = out
+
+
+JAMBA_ARCH = "jamba-1.5-large-398b"
+JAMBA_POSITIONS = (2, 5)     # pattern positions 2-4: mamba + dense, mamba + MoE, attention
+JAMBA_WORKERS = 4            # M; PERF.md says what to do if the peak does not fit
+HUGE_N = 16 * 8192 * 24576   # one layer's moe_w_gate: 3,221,225,472 coordinates, above 2^31
+HUGE_CHUNK = 1 << 28         # the plain versions' chunk: their float32 temporaries fit
+HUGE_BASE = (1 << 32) - (1 << 30)   # a counter base whose counter wraps inside the leaf
+HUGE_BUDGET = 0.1            # sparsign's B on N(0, 1) coordinates: about 8 % nonzero
+HUGE_SEED = 24               # the check's draws
+
+
+def huge_leaf_check(torch, dev="cuda", n=HUGE_N, chunk=HUGE_CHUNK) -> dict:
+    """Rows 6, 9 and 2 above 2^31 coordinates: ``sparsign_pack2bit`` of one
+    bf16 gradient-sized tensor at counter base 0 and at HUGE_BASE (its
+    counter wraps), ``unpack2bit_sum`` of four such messages into int8 and
+    ``vote_update`` of a bf16 weight by that sum, each against its plain
+    version computed ``chunk`` coordinates at a time (each chunk at its own
+    counter base and offset): the count of bytes that differ, which must
+    be 0. ``dev="cpu"`` rehearses it at a small ``n``, where the ops are
+    the plain versions."""
+    from repro_torch.kernels.pack2bit.ops import unpack2bit_sum_op
+    from repro_torch.kernels.pack2bit.ref import unpack2bit_sum_ref
+    from repro_torch.kernels.sparsign_pack2bit.ops import sparsign_pack2bit_op
+    from repro_torch.kernels.sparsign_pack2bit.ref import sparsign_pack2bit_ref
+    from repro_torch.kernels.vote_update.ops import vote_update_op
+    from repro_torch.kernels.vote_update.ref import vote_update_ref
+
+    check(n % chunk == 0 and chunk % (512 * 32) == 0, f"{n} is not whole {chunk}-chunks")
+    rows, crows = n // 512, chunk // 512
+    gen = torch.Generator(device=dev).manual_seed(HUGE_SEED)
+    t0 = time.perf_counter()
+    msgs = torch.empty((4, rows, 128), dtype=torch.uint8, device=dev)
+    differ = {"sparsign_pack2bit": 0, "unpack2bit_sum": 0, "vote_update": 0}
+    bases = (0, HUGE_BASE, 0, 0)
+    for i, base in enumerate(bases):
+        g = torch.randn(n, generator=gen, device=dev, dtype=torch.bfloat16)
+        seed = 1000 + (i if i != 1 else 0)   # message 1: message 0's stream from the other base
+        got = sparsign_pack2bit_op(g, HUGE_BUDGET, seed, base)
+        check(tuple(got.shape) == (rows, 128), f"packed shape {tuple(got.shape)}")
+        msgs[i].copy_(got)
+        del got
+        if i < 2:   # the plain version at both bases
+            for c in range(0, n, chunk):
+                want = sparsign_pack2bit_ref(g[c:c + chunk], HUGE_BUDGET, seed,
+                                             (base + c) & 0xFFFFFFFF)
+                r0 = c // 512
+                differ["sparsign_pack2bit"] += int((msgs[i, r0:r0 + crows] != want).sum())
+                del want
+        del g
+    votes = torch.empty(n, dtype=torch.int8, device=dev)
+    unpack2bit_sum_op(msgs, n, (n,), out=votes)
+    for r0 in range(0, rows, crows):
+        want = unpack2bit_sum_ref(msgs[:, r0:r0 + crows],
+                                  out=torch.empty(crows * 512, dtype=torch.int8, device=dev))
+        differ["unpack2bit_sum"] += int((votes[r0 * 512:(r0 + crows) * 512]
+                                         != want.reshape(-1)).sum())
+        del want
+    nnz = [int(torch.count_nonzero(votes[c:c + chunk])) for c in range(0, n, chunk)]
+    del msgs
+    w = torch.randn(n, generator=gen, device=dev, dtype=torch.bfloat16)
+    new_w = vote_update_op(w, votes, 2.0 ** -6)
+    for c in range(0, n, chunk):
+        want = vote_update_ref(w[c:c + chunk], votes[c:c + chunk], 2.0 ** -6)
+        differ["vote_update"] += int((new_w[c:c + chunk].view(torch.uint8)
+                                      != want.view(torch.uint8)).sum())
+        del want
+    moved = int((new_w.view(torch.int16) != w.view(torch.int16)).sum())
+    del w, new_w, votes
+    sync(torch)
+    return {"coordinates": n, "chunk": chunk, "bases": [0, HUGE_BASE], "budget": HUGE_BUDGET,
+            "bytes_differ": differ, "vote_nonzero": sum(nnz), "weights_moved": moved,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_jamba(torch, report, totals, dev="cuda"):
+    """jamba-1.5-large-398b at its published widths, the pattern cut to
+    JAMBA_POSITIONS (``card_config``), one streamed step at M =
+    JAMBA_WORKERS in one process through the launcher, launches counted
+    with every plain version barred; the trained state served through the
+    launcher's loop, a timed prefill and decode against the full forward;
+    then ``huge_leaf_check``. ``dev="cpu"`` rehearses it at the smoke
+    widths, where only the launch counts cannot hold."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import jamba15_large
+    from repro_torch.core.compressors import tree_leaves
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch
+    from repro_torch.serve.decode import build_prefill
+    from repro_torch.train import loop
+
+    on_card, m, out = dev == "cuda", JAMBA_WORKERS, {}
+    seq = TRAINER_SEQ_LEN if on_card else 64
+    where = (["--full", "--seq-len", str(seq)] if on_card else
+             ["--device", dev, "--seq-len", str(seq)])
+    get_config, serve_get_config = launch.get_config, launch_serve.get_config
+    serve_model = launch_serve.Model
+
+    def cut(arch, smoke):
+        return jamba15_large.card_config(JAMBA_POSITIONS, smoke=smoke)
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+
+    try:
+        launch.get_config = launch_serve.get_config = cut
+        # -- J1: one streamed step through the launcher --------------------
+        args = launch.parser().parse_args([
+            "--arch", JAMBA_ARCH, "--host-data", str(m), "--batch", str(m), "--steps", "1",
+            "--seed", "0", "--compressor", "sparsign", "--budget-kind", "l2_norm",
+            "--budget", "0.1", "--server", "majority_vote", "--vote-impl",
+            "allgather_packed"] + where)
+        reset_peak(torch)
+        t0 = time.perf_counter()
+        cfg, model, group, step, state, comp = launch.build_everything(args)
+        sync(torch)
+        init_s = time.perf_counter() - t0
+        init_peak = peak_gb()
+        reset_peak(torch)
+        kernels.reset_launch_counts()
+        with plain_versions_barred():
+            state, history = loop.run(step, state, launch.batch_fn_for(cfg, args),
+                                      loop.LoopConfig(total_steps=1, log_every=1),
+                                      log=lambda line: None)
+        sync(torch)
+        counts = kernels.launch_counts()
+        for k in totals:
+            totals[k] += counts[k]
+        shapes = model.param_shapes()
+        n_blk = len(tree_leaves(shapes["blocks"]))
+        per_step = cfg.n_repeats * n_blk + len(tree_leaves(shapes)) - n_blk
+        want = expected(sparsign_pack2bit=m * per_step, unpack2bit_sum=per_step,
+                        vote_update=per_step)
+        check(counts == want, f"J1: launches {counts}, expected {want}")
+        h = history[0]
+        ledger = float(np.float32(step.ledger[0]))
+        check(math.isfinite(h["loss"]) and h["wire_bytes_per_device"] == ledger,
+              f"J1: {h} against the streamed ledger {ledger}")
+        check(all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params)),
+              "J1: non-finite parameters")
+        sizes = [math.prod(s.shape) for s in tree_leaves(shapes)]
+        j1 = {"config": cfg.name, "layers": cfg.n_layers, "parameters": model.param_count(),
+              "superblock": sum(math.prod(s.shape) for s in tree_leaves(shapes["blocks"])),
+              "largest_leaf": max(sizes), "workers": m, "tokens_per_worker": seq,
+              "init_s": init_s, "init_peak_gb": init_peak, "step_s": h["wall_s"],
+              "loss": h["loss"], "nnz_frac": h["nnz_frac"],
+              "nnz_dropped": h.get("nnz_dropped", 0.0), "wire_bytes_per_device": ledger,
+              "peak_gb": peak_gb(), "launches": counts, "exchanges_a_step": per_step}
+        print(f"[jamba J1] {cfg.name}: pattern positions {JAMBA_POSITIONS[0]}-"
+              f"{JAMBA_POSITIONS[1] - 1} ({', '.join(s.mixer + ('+MoE' if s.moe else '+dense') + ('' if s.use_rope else ' no RoPE') for s in cfg.pattern)}) at d_model "
+              f"{cfg.d_model}, {cfg.n_heads}:{cfg.n_kv_heads} heads, {cfg.n_experts} experts "
+              f"top {cfg.top_k} of d_ff {cfg.moe_d_ff}, ssm_state {cfg.ssm_state}, "
+              f"{cfg.ssm_heads} SSD heads, vocab {cfg.vocab_size}; {j1['parameters']} "
+              f"parameters, superblock {j1['superblock']}, largest leaf {j1['largest_leaf']}; "
+              f"M = {m}, {seq} tokens a worker, sparsign l2_norm 0.1, majority vote on "
+              f"allgather_packed: init {init_s:.1f} s (peak {init_peak:.2f} GB), step "
+              f"{j1['step_s']:.3f} s, loss {j1['loss']:.6f}, nnz_frac {j1['nnz_frac']:.4g}, "
+              f"dropped {j1['nnz_dropped']:.0f}, wire bytes {ledger:.10g} (== the streamed "
+              f"ledger), peak {j1['peak_gb']:.2f} GB, launches a step "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        out["J1"] = j1
+        params = state.params
+        del step, state
+
+        # -- serving the trained state at the same depth --------------------
+        class Trained(serve_model):   # the launcher's model, with the trained weights
+            def init(self, seed, device=None):
+                return params
+
+        launch_serve.Model = Trained
+        serve_args = (["--arch", JAMBA_ARCH] + ZOO_SERVE_ARGS if on_card else
+                      ["--arch", JAMBA_ARCH] + [a for a in ZOO_SERVE_ARGS if a != "--full"]
+                      + ["--device", dev])
+        reset_peak(torch)
+        serve_loop = launch_serve.main(serve_args)
+        sync(torch)
+        serve_loop["peak_gb"] = peak_gb()
+        prefill_len = PREFILL_LEN if on_card else 40
+        s = PREFILL_LEN if on_card else 24
+        gen = torch.Generator(device=dev).manual_seed(5)
+        toks = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, max(prefill_len, s + 2)),
+                             generator=gen, device=dev, dtype=torch.int32)
+        pos = torch.arange(toks.shape[1], device=dev, dtype=torch.int32).expand(
+            PREFILL_BATCH, -1)
+        prefill = build_prefill(model)
+        pbatch = {"inputs": toks[:, :prefill_len], "positions": pos[:, :prefill_len]}
+        prefill(params, pbatch)   # warm: the first call's allocations
+        reset_peak(torch)
+        sync(torch)
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, pbatch)
+        sync(torch)
+        prefill_s = time.perf_counter() - t0
+        check(tuple(logits.shape) == (PREFILL_BATCH, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()), "J1 prefill: logits not finite or "
+                                                      "misshapen")
+        prefill_peak = peak_gb()
+        del logits, caches
+        rel, floor, agree = decode_vs_forward(torch, model, params, toks, pos, s)
+        check(rel <= MAMBA_DECODE_REL_TOL and agree == 1.0,
+              f"J1 decode of token {s}: {rel:.3g} of max |logit| from the full forward "
+              f"(tolerance {MAMBA_DECODE_REL_TOL}), argmax agrees for {agree:.0%}")
+        out["serve"] = {"loop": serve_loop, "prefill": {
+            "batch": PREFILL_BATCH, "tokens": prefill_len, "seconds": prefill_s,
+            "tokens_per_s": PREFILL_BATCH * prefill_len / prefill_s, "peak_gb": prefill_peak},
+            "decode_vs_forward": {"prompt": s, "rel_err": rel, "longer_forward_rel": floor,
+                                  "argmax_agree": agree, "tol": MAMBA_DECODE_REL_TOL}}
+        print(f"[jamba J1] launch.serve {' '.join(serve_args)} on the trained state: decode "
+              f"{serve_loop['decode_ms_median']:.2f} ms a token, peak "
+              f"{serve_loop['peak_gb']:.2f} GB; prefill {PREFILL_BATCH} x {prefill_len} "
+              f"tokens {prefill_s * 1e3:.1f} ms ({PREFILL_BATCH * prefill_len / prefill_s:.0f} "
+              f"tokens/s), peak {prefill_peak:.2f} GB; decode of token {s} after a {s}-token "
+              f"prefill vs forward_hidden: max |diff| {rel:.4g} of max |logit| (a forward one "
+              f"token longer {floor:.4g}; tolerance {MAMBA_DECODE_REL_TOL}), argmax agrees for "
+              f"{agree:.0%}")
+        del params, model, prefill, toks, pos
+        if on_card:
+            torch.cuda.empty_cache()
+    finally:
+        launch.get_config, launch_serve.get_config = get_config, serve_get_config
+        launch_serve.Model = serve_model
+
+    # -- rows 6, 9, 2 above 2^31 coordinates, the state freed ---------------
+    reset_peak(torch)
+    huge = huge_leaf_check(torch, dev) if on_card else huge_leaf_check(
+        torch, dev, n=3 * (1 << 14), chunk=1 << 14)
+    huge["peak_gb"] = peak_gb()
+    check(not any(huge["bytes_differ"].values()),
+          f"above 2^31: bytes that differ from the chunked plain versions "
+          f"{huge['bytes_differ']}")
+    check(huge["vote_nonzero"] > 0 and huge["weights_moved"] > 0,
+          f"above 2^31: a vacuous check {huge}")
+    print(f"[jamba J1] above 2^31: {huge['coordinates']} bf16 coordinates (one moe_w_gate "
+          f"leaf), sparsign_pack2bit at counter bases 0 and {HUGE_BASE} (the counter wraps), "
+          f"unpack2bit_sum of 4 messages into int8 ({huge['vote_nonzero']} nonzero sums), "
+          f"vote_update of a bf16 weight ({huge['weights_moved']} moved) against the plain "
+          f"versions in {huge['chunk']}-coordinate chunks: bytes that differ "
+          f"{huge['bytes_differ']}, {huge['seconds']:.1f} s, peak {huge['peak_gb']:.2f} GB")
+    out["above_2_31"] = huge
+    report["jamba"] = out
+
+
+def phase_analysis(torch, report, dev="cuda"):
+    """``python -m repro_torch.analysis`` on ``dev`` (its ``main``), its lines
+    printed as [analysis]; a nonzero exit fails the run. ``main`` runs it
+    before any phase traces with torch.profiler: after some 400,000 traced
+    kernels in one process the profiler sees no device activity, and the
+    gate's one-launch check reads it (PERF.md §7)."""
+    from repro_torch.analysis.__main__ import main as analysis_main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = analysis_main(["--device", dev])
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"[analysis] {line}")
+    print(f"[analysis] exit {rc}, {seconds:.1f} s on {dev}")
+    report["analysis"] = {"exit": rc, "seconds": seconds, "lines": lines}
+    check(rc == 0, "the analysis gate failed (the [analysis] lines above)")
 
 
 def launch_split(torch, fn) -> list:
@@ -3901,6 +4186,7 @@ def main() -> int:
         main_times.update(more_times)
     del timer
     torch.cuda.empty_cache()
+    run_phase(phase_analysis, report)
     totals = run_phase(phase_fl, report)
     run_phase(phase_baselines, report, totals)
     run_phase(phase_golomb_two_pass, report, totals)
@@ -3909,7 +4195,7 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
     for fn in (phase_trainer, phase_zoo, phase_mamba_trainer, phase_serve,
-               phase_mamba_serve, phase_zoo_serve, phase_streamed):
+               phase_mamba_serve, phase_zoo_serve, phase_streamed, phase_jamba):
         run_phase(fn, report, totals)
     print("[done] phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
     check(all(totals[k] > 0 for k in totals), f"a kernel never launched on the path: {totals}")

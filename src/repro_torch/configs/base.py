@@ -11,6 +11,7 @@ the ported model reads are kept.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -70,7 +71,9 @@ class ModelConfig:
     loss_chunk: int = 512          # seq-chunk of the softmax-xent loop
     decode_chunk: int = 8192       # kv-chunk of decode attention
     remat: bool = True
+    # which serving shapes are valid (``configs.shapes``' skip rules)
     supports_decode: bool = True   # False: an encoder-only model serves no decode
+    supports_long_context: bool = False   # a sub-quadratic mechanism (SSM, hybrid, window)
 
     @property
     def head_dim(self) -> int:
@@ -95,3 +98,24 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    def param_count(self) -> int:
+        """Total parameters, from the port's ``Model.param_shapes``."""
+        from repro_torch.models.model import Model   # models import this module
+        return Model(self).param_count()
+
+    def active_param_count(self) -> int:
+        """Parameters touched a token (MoE: the routed experts' leaves count
+        ``top_k`` of their ``n_experts_padded`` experts), JAX's definition."""
+        if self.n_experts == 0:
+            return self.param_count()
+        from repro_torch.models.model import Model   # models import this module
+        shapes = Model(self).param_shapes()
+        routed = routed_active = 0
+        for bp in shapes["blocks"] + shapes.get("tail", ()):
+            for name, sd in bp.items():
+                if name.startswith("moe_w_") and len(sd.shape) >= 3:
+                    n = math.prod(sd.shape)
+                    routed += n
+                    routed_active += n // self.n_experts_padded * self.top_k
+        return self.param_count() - routed + routed_active

@@ -27,6 +27,7 @@ def config() -> ModelConfig:
         tail_pattern=(_LOCAL, _LOCAL),
         tie_embeddings=True,
         rope_theta=1_000_000.0,
+        supports_long_context=True,
     )
 
 
@@ -43,6 +44,7 @@ def smoke_config() -> ModelConfig:
         pattern=(LayerSpec(mixer="attn", window=8),) * 5 + (LayerSpec(mixer="attn"),),
         tail_pattern=(LayerSpec(mixer="attn", window=8),) * 2,
         tie_embeddings=True,
+        supports_long_context=True,
         dtype="float32",
         attn_chunk=16, q_chunk=8, loss_chunk=16,
     )

@@ -24,6 +24,7 @@ def config() -> ModelConfig:
         ssm_expand=2,
         ssm_head_dim=64,
         tie_embeddings=True,
+        supports_long_context=True,
     )
 
 
@@ -42,6 +43,7 @@ def smoke_config() -> ModelConfig:
         ssm_head_dim=16,
         ssm_chunk=8,
         tie_embeddings=True,
+        supports_long_context=True,
         dtype="float32",
         loss_chunk=16,
     )

@@ -1,15 +1,14 @@
 """Architecture registry of the port: ``--arch <id>`` resolution with the
-smoke variants and the trainer mode, for the architectures the port runs,
-in the JAX registry's order. jamba-1.5-large-398b, the JAX registry's one
-other entry, is not ported yet and raises ``KeyError``."""
+smoke variants and the trainer mode: every entry of the JAX registry, in its
+order."""
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import (gemma3_27b, granite_34b, hubert_xlarge, llama4_scout,
-                                 mamba2_370m, qwen15_4b, qwen25_32b, qwen2_moe_a27b,
-                                 qwen2_vl_72b)
+from repro_torch.configs import (gemma3_27b, granite_34b, hubert_xlarge, jamba15_large,
+                                 llama4_scout, mamba2_370m, qwen15_4b, qwen25_32b,
+                                 qwen2_moe_a27b, qwen2_vl_72b)
 from repro_torch.configs.base import ModelConfig
 
 
@@ -28,12 +27,10 @@ _ENTRIES = [
     ArchEntry("mamba2-370m", mamba2_370m, "simple"),
     ArchEntry("hubert-xlarge", hubert_xlarge, "simple"),
     ArchEntry("qwen2-vl-72b", qwen2_vl_72b, "streamed"),
+    ArchEntry("jamba-1.5-large-398b", jamba15_large, "streamed"),
     ArchEntry("qwen2-moe-a2.7b", qwen2_moe_a27b, "simple"),
     ArchEntry("llama4-scout-17b-a16e", llama4_scout, "streamed"),
 ]
-#: the JAX registry's entries still to port, each with where it stands
-NOT_PORTED = {"jamba-1.5-large-398b": "its port waits for a later slice (ROADMAP.md §1 item 3: "
-                                      "one 8-layer pattern repeat is 90.3 GB in bf16)"}
 
 REGISTRY = {e.arch_id: e for e in _ENTRIES}
 ARCH_IDS = [e.arch_id for e in _ENTRIES]
@@ -43,10 +40,7 @@ def get_entry(arch_id: str) -> ArchEntry:
     try:
         return REGISTRY[arch_id]
     except KeyError:
-        if arch_id in NOT_PORTED:
-            raise KeyError(f"arch {arch_id!r} is not ported yet: {NOT_PORTED[arch_id]}; "
-                           f"ported: {ARCH_IDS}") from None
-        raise KeyError(f"unknown arch {arch_id!r}; ported: {ARCH_IDS}") from None
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}") from None
 
 
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:

@@ -69,8 +69,10 @@ def resolve_budget(cfg: BudgetConfig, g: torch.Tensor, *, shared_linf=None,
             s = torch.amax(torch.abs(_flat(g, rows)), dim=1).reshape(shape)
         return 1.0 / torch.clamp(s, min=1e-12)
     if cfg.kind == "l2_norm":
-        flat = _flat(g, rows)
-        n = torch.linalg.vector_norm(flat, dim=1).reshape(shape)
+        # upcast inside the reduction: on the card no float32 copy of a bf16
+        # leaf is made (12.9 GB for one of jamba's 3.2 B-coordinate leaves)
+        flat = g.reshape(g.shape[0], -1) if rows else g.reshape(1, -1)
+        n = torch.linalg.vector_norm(flat, dim=1, dtype=torch.float32).reshape(shape)
         d = device_tensor(float(flat.shape[1]), g)
         return torch.sqrt(d) / torch.clamp(n, min=1e-12) * device_tensor(cfg.value, g)
     if cfg.kind == "target_sparsity":

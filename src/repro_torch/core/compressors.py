@@ -186,6 +186,9 @@ SCALE_PROTOCOLS = ("none", "local_norm", "shared_max")
 #: what the aggregated message means to the server: scale-free votes, votes
 #: times a scale, or a non-ternary payload
 SERVER_DECODES = ("sign", "scaled_sign", "dequant")
+#: the uplink bit models ``core.encoding.baseline_bits_per_round`` bills a
+#: row's messages under (``CompressorSpec.uplink_bits``)
+UPLINK_BIT_MODELS = ("dense_sign", "golomb_ternary", "level8", "fp32")
 #: the uplink payload format a row's messages take on a packed wire: the flat
 #: 2-bit ternary codebook, the Golomb stream, the 8-bit levels, or floats
 #: (which ride the decoded psum)

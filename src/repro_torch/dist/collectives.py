@@ -65,6 +65,7 @@ monolithic sum in the last bit, and across processes, as JAX's devices do.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional, Sequence, Tuple
@@ -157,6 +158,155 @@ class ParticipationSpec:
 
 
 # ---------------------------------------------------------------------------
+# The collective recorder (the counterpart of JAX's ``collective_census``)
+# ---------------------------------------------------------------------------
+
+#: the byte model of each recorded collective (per device, ring collectives):
+#: all-reduce 2(M - 1)/M x in, all-gather (M - 1) x in, and a ring's hop loop
+#: (one ``ppermute`` record a chunk) (M - 1) x chunk; the VoteWire ledgers
+#: bill the same models
+ALL_REDUCE_PRIMS = ("psum", "pmax")
+MODELED_PRIMS = ALL_REDUCE_PRIMS + ("all_gather", "ppermute")
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveRecord:
+    """One collective call as one worker's operand: ``in_elems`` and
+    ``in_bytes`` a worker, over ``n_workers`` = M. ``primitive`` is the
+    collective of the JAX program it stands for, which the ledger bills:
+    ``psum`` also for a float sum the port gathers and adds in worker order
+    (``ordered_psum``: bit for bit, where an all-reduce's order is
+    unspecified). ``moved`` is the collective that really runs between
+    processes when it differs (that gather, ``all_gather``: (M - 1) x in
+    where the ledger bills 2(M - 1)/M x in). ``role``: ``wire`` the uplink
+    ledger bills it, ``scalar`` a
+    protocol or metric scalar it does not (loss, nnz, counts, the EF L1
+    partials), ``param`` the streamed trainer's FSDP parameter gathers.
+    ``zero_workers`` holds, for an integer payload of two elements or more,
+    whether each of the process's workers (flat index ``first_worker + j``)
+    shipped all zeros."""
+
+    primitive: str
+    in_elems: int
+    in_bytes: int
+    dtype: str
+    n_workers: int
+    role: str = "wire"
+    first_worker: int = 0
+    zero_workers: tuple = ()
+    moved: str = ""
+
+    def _bytes(self, primitive: str) -> float:
+        m = self.n_workers
+        if m <= 1:
+            return 0.0
+        if primitive in ALL_REDUCE_PRIMS:
+            return 2.0 * (m - 1) / m * self.in_bytes
+        if primitive in ("all_gather", "ppermute"):
+            return float((m - 1) * self.in_bytes)
+        raise ValueError(f"no byte model for {primitive!r}")
+
+    def ring_bytes(self) -> float:
+        """Per-device bytes the ledger bills, under the ring model (JAX's
+        ``CollectiveRecord.ring_bytes``); 0 for one worker."""
+        return self._bytes(self.primitive)
+
+    def moved_bytes(self) -> float:
+        """Per-device bytes a group of M processes really moves: the
+        ``moved`` collective's, else ``ring_bytes``."""
+        return self._bytes(self.moved or self.primitive)
+
+
+@dataclasses.dataclass
+class Census:
+    """Every collective recorded inside one ``record_collectives`` block.
+    ``unknown`` holds records whose primitive has no byte model: excluded
+    from every sum, and a blocking finding of the census rule."""
+
+    records: list = dataclasses.field(default_factory=list)
+    unknown: list = dataclasses.field(default_factory=list)
+
+    def add(self, rec: CollectiveRecord) -> None:
+        (self.records if rec.primitive in MODELED_PRIMS else self.unknown).append(rec)
+
+    def counts(self) -> dict:
+        out = {}
+        for r in self.records:
+            out[r.primitive] = out.get(r.primitive, 0) + 1
+        return out
+
+    def _select(self, *, payload: bool, roles=("wire",)):
+        return [r for r in self.records if r.role in roles
+                and ((r.in_elems >= 2) if payload else (r.in_elems <= 1))]
+
+    def payload_bytes(self) -> float:
+        """Array payloads (two elements or more) the uplink ledger bills."""
+        return sum(r.ring_bytes() for r in self._select(payload=True))
+
+    def scalar_bytes(self) -> float:
+        """Scalars (one element) the ledger bills: decode scales, weights,
+        the shared L-inf max."""
+        return sum(r.ring_bytes() for r in self._select(payload=False))
+
+    def payload_count(self) -> int:
+        return len(self._select(payload=True))
+
+    def moved_bytes(self) -> float:
+        """What the billed records (payloads and scalars) move between
+        processes: above ``payload_bytes() + scalar_bytes()`` by the
+        worker-order gathers billed as all-reduces."""
+        return sum(r.moved_bytes() for r in self.records if r.role == "wire")
+
+    def scalar_count(self) -> int:
+        return len(self._select(payload=False, roles=("wire", "scalar")))
+
+
+_CENSUSES: list = []   # the open record_collectives blocks, innermost last
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Record every collective wrapper's call inside the block into the
+    yielded ``Census``: ``WorkerGroup.gather`` and ``all_reduce``, a ring's
+    hop loop (``_ring_order``, once a chunk and side channel: the loop of
+    M - 1 hops that ``ring_permute`` makes between processes) and
+    ``fsdp_all_gather``, at the wrapper's entry, also in one process where
+    nothing moves. Outside a block the wrappers do no extra work."""
+    census = Census()
+    _CENSUSES.append(census)
+    try:
+        yield census
+    finally:
+        _CENSUSES.remove(census)
+
+
+def _record(primitive: str, x, group: "WorkerGroup", *, role: str = "wire",
+            stacked: bool = True, moved: str = "") -> None:
+    """Record one call into every open census. ``x`` is the (local, ...)
+    stack of the process's workers' operands, or a sequence of them, or,
+    with ``stacked=False``, one operand (a per-process partial). An integer
+    payload of two elements or more a worker notes which workers' are all
+    zeros."""
+    local = group.local
+    if stacked:
+        elems = sum(t.numel() for t in x) // local if isinstance(x, (list, tuple)) \
+            else x.numel() // local
+    else:
+        elems = x.numel()
+    t0 = x[0] if isinstance(x, (list, tuple)) else x
+    zeros = ()
+    if stacked and role == "wire" and elems >= 2 and not t0.is_floating_point():
+        zeros = tuple(not bool(torch.count_nonzero(x[j])) for j in range(local))
+    rec = CollectiveRecord(primitive=primitive, in_elems=elems,
+                           in_bytes=elems * t0.element_size(),
+                           dtype=str(t0.dtype).split(".")[-1], n_workers=group.n_workers,
+                           role=role, first_worker=group.rank * local,
+                           zero_workers=zeros, moved=moved)
+    for census in _CENSUSES:
+        census.add(rec)
+
+
+# ---------------------------------------------------------------------------
 # The worker group
 # ---------------------------------------------------------------------------
 
@@ -191,6 +341,11 @@ class WorkerGroup:
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """(local, ...) -> (M, ...) in flat worker order: the all-gather."""
+        if _CENSUSES:
+            _record("all_gather", x, self)
+        return self._gather(x)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
         if self.group is None or self.world == 1:
             return x
         out = torch.empty((self.n_workers,) + tuple(x.shape[1:]), dtype=x.dtype,
@@ -201,6 +356,9 @@ class WorkerGroup:
     def all_reduce(self, x: torch.Tensor, op=None) -> torch.Tensor:
         """Reduce a per-process partial over the processes (integer sums and
         maxima only: exact in any order)."""
+        if _CENSUSES:
+            maximum = op is not None and op == dist.ReduceOp.MAX
+            _record("pmax" if maximum else "psum", x, self, stacked=False)
         if self.group is not None and self.world > 1:
             dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=self.group)
         return x
@@ -280,11 +438,23 @@ def vote_psum(votes: torch.Tensor, group: WorkerGroup, n_workers: int) -> torch.
     return group.all_reduce(torch.sum(votes.to(sd), dim=0, dtype=sd))
 
 
+def ordered_psum(x: torch.Tensor, group: WorkerGroup, *, role: str = "wire",
+                 fold=ordered_sum) -> torch.Tensor:
+    """The all-reduce of a float (local, ...) stack, bit for bit in any
+    process layout: gathered in worker order, then added up by ``fold``
+    (``ordered_sum``, or the hier wire's two-level fold). The recorder
+    bills it as the psum of the JAX program it stands for and notes the
+    all-gather that moves; ``role`` as in ``CollectiveRecord``."""
+    if _CENSUSES:
+        _record("psum", x, group, role=role, moved="all_gather")
+    return fold(group._gather(x))
+
+
 def scalar_psum(x: torch.Tensor, group: WorkerGroup) -> torch.Tensor:
     """All-reduce of O(1) protocol and metric scalars (loss, nnz,
     participation counts): ``x`` holds one value per local worker; gathered,
     then summed in worker order."""
-    return ordered_sum(group.gather(x.reshape(group.local, -1))).reshape(x.shape[1:])
+    return ordered_psum(x.reshape(group.local, -1), group, role="scalar").reshape(x.shape[1:])
 
 
 def fsdp_all_gather(leaf: torch.Tensor, group: WorkerGroup, axis: int) -> torch.Tensor:
@@ -293,6 +463,8 @@ def fsdp_all_gather(leaf: torch.Tensor, group: WorkerGroup, axis: int) -> torch.
     process the slice is the leaf, returned as it is (no copy). The only raw
     collective for parameters: it moves weights, not gradient messages, so
     the wires' ledger does not bill it."""
+    if _CENSUSES:
+        _record("all_gather", leaf, group, role="param")
     if group.group is None or group.world == 1:
         return leaf
     x = leaf.movedim(axis, 0).contiguous()
@@ -349,7 +521,7 @@ def decoded_exchange(values: torch.Tensor, scale, mask, group: WorkerGroup, *,
     pairs = [decoded_message(values[j], scale[j], mask[j], is_ternary=is_ternary)
              for j in range(values.shape[0])]
     dec = torch.stack([d for d, _ in pairs])
-    return ordered_sum(group.gather(dec)), torch.stack([n for _, n in pairs])
+    return ordered_psum(dec, group), torch.stack([n for _, n in pairs])
 
 
 def decoded_exchange_bucket(payload: torch.Tensor, group: WorkerGroup) -> torch.Tensor:
@@ -357,7 +529,7 @@ def decoded_exchange_bucket(payload: torch.Tensor, group: WorkerGroup) -> torch.
     (local, rows, 512) stack of decoded, masked messages (``decoded_message``
     per leaf, laid out by ``dist.bucketing``). The sum is element-wise, so
     each leaf's slice equals the per-leaf ``decoded_exchange`` bit for bit."""
-    return ordered_sum(group.gather(payload))
+    return ordered_psum(payload, group)
 
 
 def decoded_wire_bytes(n_coords: int, n_workers: int) -> float:
@@ -523,6 +695,9 @@ def _ring_order(chunks, side: tuple, group: WorkerGroup):
     def at(bufs, sides, j):
         return bufs[j], tuple(s[j] for s in sides)
 
+    if _CENSUSES:   # the hop loop: one record for the chunk, one a side channel
+        for x in (chunks,) + tuple(side):
+            _record("ppermute", x, group)
     yield at(chunks, side, 0)
     bufs, sides = chunks, side
     for _ in range(group.world - 1):
@@ -649,13 +824,18 @@ class VoteWire:
                 f"weighted exchange family is the elastic-participation path: pass "
                 f"participation= to make_vote_wire")
 
-    def _weighted(self, values: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-        """(M, ...) float32 products w_m * votes_m, gathered in worker order."""
-        w = weight.to(torch.float32).reshape((-1,) + (1,) * (values.dim() - 1))
-        return self.group.gather(values.to(torch.float32) * w)
-
     def _f32_sum(self, x: torch.Tensor) -> torch.Tensor:
         return ordered_sum(x)
+
+    def _weighted_psums(self, values: torch.Tensor, weight: torch.Tensor):
+        """The two float32 all-reduces of JAX's elastic psum wires, in worker
+        order: the products w_m * votes_m, and each worker's weight
+        broadcast to its message's shape (the per-coordinate W; the ledger
+        bills both arrays)."""
+        w = weight.to(torch.float32).reshape((-1,) + (1,) * (values.dim() - 1))
+        wv = ordered_psum(values.to(torch.float32) * w, self.group, fold=self._f32_sum)
+        wtot = ordered_psum(w.expand(values.shape), self.group, fold=self._f32_sum)
+        return wv, wtot
 
     def exchange_weighted(self, values: torch.Tensor, size: int, shape, *, weight,
                           scale=None):
@@ -665,9 +845,7 @@ class VoteWire:
         message is already zeroed). Both sums run in worker order."""
         self._require_participation()
         self._check_scale(scale)
-        wv = self._f32_sum(self._weighted(values, weight))
-        wtot = self._f32_sum(self.group.gather(weight.to(torch.float32)))
-        return wv, wtot.expand(tuple(shape))
+        return self._weighted_psums(values, weight)
 
     def exchange_bucket_weighted(self, payload: torch.Tensor, bucket, *, weight, scale=None):
         """Bucketed elastic exchange: (per-leaf weighted sums, per-leaf
@@ -675,10 +853,8 @@ class VoteWire:
         self._require_participation()
         self._check_scale(scale)
         from repro_torch.dist import bucketing  # bucketing imports this module
-        wv = self._f32_sum(self._weighted(payload, weight))
-        wtot = self._f32_sum(self.group.gather(weight.to(torch.float32)))
-        return (bucketing.split_bucket(wv, bucket),
-                [wtot.expand(s.shape) for s in bucket.slots])
+        wv, wtot = self._weighted_psums(payload, weight)
+        return bucketing.split_bucket(wv, bucket), bucketing.split_bucket(wtot, bucket)
 
     def wire_bytes(self, n_coords: int) -> float:
         """Per-device wire bytes to exchange one n-coordinate leaf (ring

@@ -2,8 +2,9 @@
 
 The flags keep ``repro.launch.train``'s names and meanings (``--host-data``
 is the worker count M); it runs the registry's trainer for the arch
-(``simple``, or ``streamed`` for qwen2-vl-72b and llama4-scout-17b-a16e;
-``--mode`` overrides it) on the card (or, with ``--device cpu``, the plain
+(``simple``, or ``streamed`` for qwen2-vl-72b, jamba-1.5-large-398b and
+llama4-scout-17b-a16e; ``--mode`` overrides it) on the card (or, with
+``--device cpu``, the plain
 versions on the CPU), with the bucketed uplink (``--bucketed``: one bucket
 for the whole tree, or the streamed trainer's double-buffered layer and
 outer buckets) and the ring gather

@@ -44,14 +44,16 @@ def dense_init(generator: torch.Generator, shape, dtype: torch.dtype, device,
     """Truncated normal in [-2, 2] standard deviations, std ``fan_in ** -0.5``
     with fan_in = shape[0], as the JAX initializer draws it (the numbers
     differ: torch's generator is not ``jax.random``). A leaf of more than
-    ``SLICED_DRAW_COORDS`` coordinates is drawn one slice of its leading
-    axis after the other into the output, so the float32 draw of one slice
-    is all that is alive beside it."""
+    ``SLICED_DRAW_COORDS`` coordinates is drawn one slice of its first axis
+    longer than 1 after the other into the output (a stacked leaf of one
+    repeat, say jamba's (1, 16, 8192, 24576) experts, slices its experts), so
+    the float32 draw of one slice is all that is alive beside it."""
     fan_in = shape[0] if len(shape) >= 2 else max(shape[-1], 1)
     std = scale if scale is not None else fan_in ** -0.5
     if math.prod(shape) <= SLICED_DRAW_COORDS:
         return _draw(generator, shape, std, device).to(dtype)
     out = torch.empty(shape, dtype=dtype, device=device)
-    for i in range(shape[0]):
-        out[i].copy_(_draw(generator, shape[1:], std, device))
+    lead = next(i for i, size in enumerate(shape) if size > 1)
+    for piece in out.reshape(tuple(shape[lead:])):
+        piece.copy_(_draw(generator, shape[lead + 1:], std, device))
     return out

@@ -1,6 +1,6 @@
 """`streamed`-mode train step, the port of ``repro.train.step_streamed``: for
 models whose gradient does not fit beside their weights (qwen2-vl-72b,
-llama4-scout-17b-a16e).
+jamba-1.5-large-398b, llama4-scout-17b-a16e).
 
 Every parameter leaf is FSDP-sharded over the M workers of a
 ``WorkerGroup`` along one axis (``build_fsdp_layout``: the largest axis M
@@ -343,7 +343,7 @@ def build_streamed_train_step(model, step_cfg: StreamedStepConfig,
 
         def reduce(mag: torch.Tensor) -> torch.Tensor:
             parts = torch.stack([torch.sum(c) for c in mag.split(lay.shard, dim=axis)])
-            return collectives.ordered_sum(group.gather(parts))
+            return collectives.ordered_psum(parts, group, role="scalar")
 
         return reduce
 

@@ -12,6 +12,19 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one thread while this module's rehearsals run: smoke-size
+    phases are bound by op launches, and 8 threads a worker only crowd the
+    other test workers (the zoo and ring rehearsals: 11.6 s on one thread,
+    32.3 s and 144 s of CPU on 8)."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _run(script: pathlib.Path, cwd: pathlib.Path):
     env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"), "CUDA_VISIBLE_DEVICES": "",
            "HOME": os.environ.get("HOME", str(cwd))}
@@ -336,6 +349,90 @@ def test_phase_streamed_rehearses_on_the_cpu(monkeypatch, capsys):
     assert (launch.get_config, launch_serve.get_config) == get_configs
     printed = capsys.readouterr().out
     assert "[streamed S1]" in printed and "[streamed S3]" in printed
+
+
+def test_phase_jamba_rehearses_on_the_cpu(monkeypatch, capsys):
+    """The jamba phase at the smoke widths on the CPU: J1's streamed step
+    through the launcher on the card cut (positions 2-4: mamba + dense,
+    mamba + MoE, attention without RoPE), its ledger, serving the trained
+    state through the launcher with decode against the full forward, and
+    the above-2^31 check's control flow at a small size; the launchers'
+    get_config and Model put back."""
+    import torch
+
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch
+
+    cs = _chip_smoke()
+    _rehearse(cs, monkeypatch)
+    saved = launch.get_config, launch_serve.get_config, launch_serve.Model
+    report = {}
+    cs.phase_jamba(torch, report, {k: 0 for k in cs.REPLACES}, dev="cpu")
+    out = report["jamba"]
+    j1 = out["J1"]
+    assert j1["config"] == "jamba-1.5-large-398b-smoke@p2-4" and j1["layers"] == 3
+    assert j1["exchanges_a_step"] == 18 + 19 + 9 + 3
+    assert j1["nnz_dropped"] == 0.0
+    assert out["serve"]["decode_vs_forward"]["rel_err"] <= cs.MAMBA_DECODE_REL_TOL
+    assert out["serve"]["decode_vs_forward"]["argmax_agree"] == 1.0
+    assert out["serve"]["loop"]["decode_steps"] == 47
+    huge = out["above_2_31"]
+    assert huge["bytes_differ"] == {"sparsign_pack2bit": 0, "unpack2bit_sum": 0,
+                                    "vote_update": 0}
+    assert huge["vote_nonzero"] > 0 and huge["weights_moved"] > 0
+    assert cs.HUGE_N == 3_221_225_472 and cs.HUGE_N % cs.HUGE_CHUNK == 0
+    assert cs.HUGE_BASE + cs.HUGE_N > 2 ** 32 > cs.HUGE_BASE   # the counter wraps
+    assert (launch.get_config, launch_serve.get_config, launch_serve.Model) == saved
+    printed = capsys.readouterr().out
+    assert printed.count("[jamba J1]") == 3
+
+
+def test_huge_leaf_check_counts_differing_bytes(monkeypatch):
+    """The above-2^31 check compares bytes: a plain version that differs in
+    one coordinate is counted, so a 0 there is not vacuous."""
+    import torch
+
+    from repro_torch.kernels.vote_update import ref as vote_ref
+
+    cs = _chip_smoke()
+    real = vote_ref.vote_update_ref
+
+    def off_by_one(w, votes, eta, quorum=1):
+        out = real(w, votes, eta, quorum).clone()
+        out.view(torch.int16)[0] ^= 1
+        return out
+
+    monkeypatch.setattr(vote_ref, "vote_update_ref", off_by_one)
+    huge = cs.huge_leaf_check(torch, "cpu", n=2 * (1 << 14), chunk=1 << 14)
+    assert huge["bytes_differ"]["vote_update"] == 2   # one byte a chunk
+    assert huge["bytes_differ"]["sparsign_pack2bit"] == 0
+
+
+def test_phase_analysis_rehearses_on_the_cpu(monkeypatch, capsys):
+    """The analysis phase calls the gate's ``main`` on the given device,
+    prints its lines as [analysis], and fails the run on a nonzero exit.
+    The gate itself exits 0 on the CPU in tests/test_torch_analysis.py;
+    here its ``main`` is a stand-in."""
+    import torch
+
+    from repro_torch.analysis import __main__ as gate
+
+    cs = _chip_smoke()
+    calls = []
+
+    def main(argv):
+        calls.append(argv)
+        print("repolint: 3 checks, 0 findings")
+        return 0 if len(calls) == 1 else 1
+
+    monkeypatch.setattr(gate, "main", main)
+    report = {}
+    cs.phase_analysis(torch, report, dev="cpu")
+    assert calls == [["--device", "cpu"]] and report["analysis"]["exit"] == 0
+    printed = capsys.readouterr().out
+    assert "[analysis] repolint: 3 checks" in printed and "[analysis] exit 0" in printed
+    with pytest.raises(RuntimeError, match="analysis gate failed"):
+        cs.phase_analysis(torch, report, dev="cpu")
 
 
 def test_bit_digest_tells_one_changed_bit():

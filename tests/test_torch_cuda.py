@@ -592,3 +592,25 @@ def test_streamed_step_on_card_repeats_bit_for_bit(cuda_device):
     second, _ = _streamed_smoke(cuda_device, None, params0)
     for a, b in zip(first, second):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_wire_kernels_above_2_31_coordinates_on_card(cuda_device):
+    """sparsign_pack2bit (counter base 0 and a base whose counter wraps),
+    unpack2bit_sum of four messages into int8 and vote_update on one of
+    jamba's 3,221,225,472-coordinate expert leaves, against their plain
+    versions in 2^28-coordinate chunks: 0 bytes differ
+    (``chip_smoke.huge_leaf_check``, about 45 GB of device memory)."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    huge = chip_smoke.huge_leaf_check(torch, str(cuda_device))
+    assert huge["coordinates"] == 3_221_225_472 > 2 ** 31
+    assert huge["bytes_differ"] == {"sparsign_pack2bit": 0, "unpack2bit_sum": 0,
+                                    "vote_update": 0}
+    assert huge["vote_nonzero"] > 0 and huge["weights_moved"] > 0
+    torch.cuda.empty_cache()

@@ -154,26 +154,24 @@ def test_rope_matches_jax():
 
 
 def test_registry_names_the_ported_architectures():
-    """The ported entries in the JAX registry's order, each with its trainer
-    mode; the one unported architecture, jamba-1.5-large-398b, raises, names
-    ROADMAP.md and the ported ones."""
+    """Every entry of the JAX registry, in its order, each with JAX's trainer
+    mode and JAX's config (smoke and full) in the port's types; an unknown
+    arch raises ``KeyError`` naming the known ones."""
     from repro.configs.registry import ARCH_IDS as J_ARCH_IDS
     from repro.configs.registry import trainer_mode as j_trainer_mode
     from repro_torch.configs.registry import trainer_mode
 
     assert ARCH_IDS == ["gemma3-27b", "qwen2.5-32b", "granite-34b", "qwen1.5-4b",
-                        "mamba2-370m", "hubert-xlarge", "qwen2-vl-72b", "qwen2-moe-a2.7b",
-                        "llama4-scout-17b-a16e"]
-    assert ARCH_IDS == [a for a in J_ARCH_IDS if a in ARCH_IDS]
+                        "mamba2-370m", "hubert-xlarge", "qwen2-vl-72b", "jamba-1.5-large-398b",
+                        "qwen2-moe-a2.7b", "llama4-scout-17b-a16e"]
+    assert ARCH_IDS == J_ARCH_IDS
     for arch in ARCH_IDS:
-        want = "streamed" if arch in ("qwen2-vl-72b", "llama4-scout-17b-a16e") else "simple"
+        want = ("streamed" if arch in ("qwen2-vl-72b", "jamba-1.5-large-398b",
+                                       "llama4-scout-17b-a16e") else "simple")
         assert trainer_mode(arch) == j_trainer_mode(arch) == want
         for smoke in (True, False):
             assert get_config(arch, smoke) == _port_of(jget_config(arch, smoke))
-    assert j_trainer_mode("jamba-1.5-large-398b") == "streamed"
-    with pytest.raises(KeyError, match="ROADMAP.md.*qwen2-moe-a2.7b"):
-        get_config("jamba-1.5-large-398b")
-    with pytest.raises(KeyError, match="unknown arch"):
+    with pytest.raises(KeyError, match="unknown arch.*jamba-1.5-large-398b"):
         get_config("no-such-arch")
 
 
