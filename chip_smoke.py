@@ -81,9 +81,10 @@ the first, in order; any failure exits non-zero before the last line:
      repro_torch.launch.train's build path, M = 4 workers on the card, one
      sequence of 4096 tokens each (train_4k's length; the global batch cut
      from 256 to 4), 2 steps a run (sign, noisy_sign, TernGrad and the
-     elastic 2-bit and pack8 runs 1; the elastic, bucketed and ring runs
-     and the golomb and pack8 runs their rings are held against cut to
-     VARIANT_LAYERS = 4 layers):
+     elastic 2-bit and pack8 runs 1; the elastic, bucketed and ring runs,
+     the golomb and pack8 runs their rings are held against, sign,
+     noisy_sign, TernGrad and the decoded psum cut to VARIANT_LAYERS = 4
+     layers):
      sparsign/majority vote on the allgather_packed, psum and hier (2 x 2) wires
      (parameters bitwise equal across the three; after the psum run its
      state, 15.8 GB on disk, is saved with train.checkpoint, restored into
@@ -185,8 +186,22 @@ the first, in order; any failure exits non-zero before the last line:
      repro_torch.analysis`` on the card (the repo-lint, every wire mode's
      recorded collective bytes against the ledger per leaf, bucketed and on
      the ring at M = 16, the launch budgets, the elastic censuses, the
-     ledger floors, every fused wire op one launch), its lines printed as
-     [analysis]; nonzero fails.
+     ledger floors, every fused wire op one launch, the tensor-parallel
+     census at M = 4 x T = 2), its lines printed as [analysis]; nonzero
+     fails;
+ 13. tensor parallelism (phase_tp), right after the gate: rows 1, 5, 6 and
+     12 on model rank 1's slice of w_up and of lm_head at T = 2 (the
+     counter map) bit for bit against their plain versions and timed
+     beside as many contiguous coordinates, this run's contiguous rows
+     against PERF.md's; qwen1.5-4b at full width and 40 layers, M = 4
+     workers x T = 2 model ranks in one process, two steps of sparsign
+     l2_norm 0.1 with majority vote on allgather_packed (launches counted,
+     wire bytes == the slice ledger); at 4 layers the T = 2 round against
+     T = 1 (injected gradients bit for bit on psum and allgather_packed,
+     scaled_sign_ef to rtol 1e-6; the model's own gradients in float32 and
+     bf16, the share of updated coordinates that differ printed; float32
+     gradients no farther from float64 than TP_F64_RATIO x T = 1's); a
+     checkpoint saved at T = 2 restored at T = 1 bit for bit.
 It prints one JSON line of kernel numbers, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Results also go to
 chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device.
@@ -2163,20 +2178,20 @@ def phase_trainer(torch, report, totals):
                               ef_server=leaves), 2, None),
         # one step each, as the elastic runs: their launches are per step, no
         # run is held against them, and the run must make room for the
-        # mamba2-370m, checkpoint and zoo phases
-        ("sign/majority_vote allgather_packed", ["--compressor", "sign"] + majority + packed,
-         None, dict(ternary_pack2bit=leaves * m, **voted), 1, None),
-        ("noisy_sign/majority_vote allgather_packed",
+        # mamba2-370m, checkpoint and zoo phases; VARIANT_LAYERS deep, which
+        # pays for phase_tp (a leaf's launches do not depend on the depth)
+        ("sign/majority_vote allgather_packed" + cut, ["--compressor", "sign"] + majority
+         + packed, None, dict(ternary_pack2bit=leaves * m, **voted), 1, VARIANT_LAYERS),
+        ("noisy_sign/majority_vote allgather_packed" + cut,
          ["--compressor", "noisy_sign", "--budget", "1e-4"] + majority + packed, None,
-         dict(ternary_pack2bit=leaves * m, **voted), 1, None),
-        ("terngrad/mean allgather_packed", ["--compressor", "terngrad", "--server", "mean"]
-         + packed, None, dict(ternary_pack2bit=leaves * m, unpack2bit_sum=leaves), 1, None),
+         dict(ternary_pack2bit=leaves * m, **voted), 1, VARIANT_LAYERS),
+        ("terngrad/mean allgather_packed" + cut, ["--compressor", "terngrad", "--server",
+                                                  "mean"] + packed, None,
+         dict(ternary_pack2bit=leaves * m, unpack2bit_sum=leaves), 1, VARIANT_LAYERS),
         (golomb, ["--compressor", "sparsign_golomb"] + target + majority + packed, None,
          golomb_voted, 2, None),
         (pack8, qsgd8 + packed, None, dict(qsgd8_pack8=leaves * m, unpack8_sum=leaves), 2,
          None),
-        ("qsgd8/mean psum (decoded)", qsgd8 + ["--vote-impl", "psum"], None,
-         dict(qsgd8_pack8=leaves * m), 2, None),
         # the variant runs, cut to VARIANT_LAYERS layers so the zoo's phases
         # fit the time: elastic, bucketed and ring, and the monolithic runs
         # the rings are held against at the same depth
@@ -2198,6 +2213,10 @@ def phase_trainer(torch, report, totals):
         (pack8 + cut, qsgd8 + packed, None, dict(qsgd8_pack8=leaves * m, unpack8_sum=leaves),
          2, VARIANT_LAYERS),
         (pack8 + " ring" + cut, qsgd8 + packed + ring, None, None, 2, VARIANT_LAYERS),
+        # held against the pack8 run at the same depth (VARIANT_LAYERS, which
+        # pays for phase_tp)
+        ("qsgd8/mean psum (decoded)" + cut, qsgd8 + ["--vote-impl", "psum"], None,
+         dict(qsgd8_pack8=leaves * m), 2, VARIANT_LAYERS),
         ("elastic " + pack8 + cut, qsgd8 + packed + elastic, None,
          dict(qsgd8_pack8=leaves * m, unpack8_sum=leaves), 1, VARIANT_LAYERS),
     ]
@@ -2214,7 +2233,7 @@ def phase_trainer(torch, report, totals):
                                                            "bits"),
                ring2: (golomb + cut, "bits"),
                golomb + " bucketed ring" + cut: (golomb + cut, "bits"),
-               "qsgd8/mean psum (decoded)": (pack8, "bits"),
+               "qsgd8/mean psum (decoded)" + cut: (pack8 + cut, "bits"),
                pack8 + " ring" + cut: (pack8 + cut, "ulps")}
     # each ring run's peak memory beside its monolithic twins': the same
     # wire's, and the golomb run (the same budget, whose bisection sets it)
@@ -3788,6 +3807,454 @@ def phase_jamba(torch, report, totals, dev="cuda"):
     report["jamba"] = out
 
 
+# ---------------------------------------------------------------------------
+# phase_tp: the tensor-parallel 'model' axis on the simple trainer
+# ---------------------------------------------------------------------------
+
+TP_T = 2             # model ranks
+TP_LAYERS = 4        # the runs held against T = 1, from one state and one batch
+# The model's own float32 gradients at T = 2 are held against float64, not
+# against T = 1's bits: at full width and random init, T = 1's float32
+# gradients themselves lie up to 12 % of a block leaf's norm from float64
+# (PERF.md, section 6), so T = 1 and T = 2 flip a share of their symbols apart
+# whatever the split. Each leaf's T = 2 error to float64 may exceed T = 1's by
+# this factor
+TP_F64_RATIO = 1.25
+# PERF.md's kernel table (section 6): the contiguous rows' card ms that the
+# slices are timed beside, on "NVIDIA H100 80GB HBM3, 700.00 W"; this run's
+# own times are printed against them, a change beyond 3 % marked
+PERF6_MS = {"sparsign 100x545002 f32": 0.1170,
+            "sparsign_pack2bit w_down bf16": 0.5359,
+            "ternary_pack2bit sign w_down bf16": 0.5275,
+            "ternary_pack2bit sparsign w_down bf16": 0.5360,
+            "qsgd8_pack8 w_down bf16": 0.7404}
+# the slices of rows 1, 5, 6 and 12's holds: one layer's w_up (2,560 x 6,912)
+# cut on its columns, and lm_head (2,560 x 151,936) on its vocabulary
+TP_SLICE_SHAPES = {"w_up": (2560, 6912), "lm_head": (2560, 151936)}
+
+
+class InjectedGrads:
+    """A model's parameter tree whose loss is sum_i <p_i, g_i>, the worker's
+    gradients g_i taken from the batch (``g{i}``, one leading row a worker):
+    autograd's gradient of leaf i is g_i exactly, so two trainers compress
+    the same numbers. Its tensor-parallel form gives each model rank its
+    slice of g_i."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def param_shapes(self):
+        return self.model.param_shapes()
+
+    def param_logical_axes(self):
+        return self.model.param_logical_axes()
+
+    def loss(self, params, batch):
+        from repro_torch.core.compressors import tree_leaves
+        total = sum(torch_sum(p, batch[f"g{i}"][0]) for i, p in enumerate(tree_leaves(params)))
+        return total, {"loss": total}
+
+    def tensor_parallel(self, mg):
+        return _InjectedTP(self.model, mg)
+
+
+class _InjectedTP:
+    def __init__(self, model, mg):
+        from repro_torch.models import tensor_parallel as tpl
+        self.mg, self.tpl = mg, tpl
+        self.placements = tpl.placements_for(model, mg.size)
+
+    def loss(self, params, batch):
+        from repro_torch.core.compressors import tree_leaves
+        total = sum(torch_sum(p, self.tpl.shard_leaf(batch[f"g{i}"][0], pl, self.mg))
+                    for i, (p, pl) in enumerate(zip(tree_leaves(params),
+                                                    tree_leaves(self.placements))))
+        return total, {"loss": total}
+
+
+def torch_sum(p, g):
+    """<p, g> in float32: its gradient with respect to p is g, exactly."""
+    return (p.float() * g.float()).sum()
+
+
+def tp_slice_holds(torch, timer, report, dev="cuda", shapes=None):
+    """Rows 1, 5 (the sign and the sparsign rule), 6 and 12 on model rank 1's
+    slice at T = 2 of each TP_SLICE_SHAPES leaf in bf16 (w_up: run L = 3,456
+    of G = 6,912 at offset o = 3,456; lm_head: 75,968 of 151,936): bit for bit
+    against their plain versions on the same inputs, each timed beside the
+    same kernel on as many contiguous coordinates."""
+    from repro_torch.kernels.common import canonical_rows
+    from repro_torch.kernels.pack8.ops import qsgd8_pack8_op
+    from repro_torch.kernels.pack8.ref import qsgd8_pack8_ref
+    from repro_torch.kernels.sparsign.ops import sparsign_op
+    from repro_torch.kernels.sparsign.ref import sparsign_ref
+    from repro_torch.kernels.sparsign_pack2bit.ops import sparsign_pack2bit_op
+    from repro_torch.kernels.sparsign_pack2bit.ref import sparsign_pack2bit_ref
+    from repro_torch.kernels.ternary.ops import ternary_pack2bit_op
+    from repro_torch.kernels.ternary.ref import ternary_pack2bit_ref
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    out = {}
+    for name, (rows, cols) in (shapes or TP_SLICE_SHAPES).items():
+        g = (torch.randn((rows, cols), generator=gen, device=dev) * 0.01).to(torch.bfloat16)
+        run = cols // TP_T
+        cmap = (run, cols, run)            # model rank 1's slice
+        s = g[:, run:].contiguous()
+        flat = g.reshape(-1)[:s.numel()]   # as many contiguous coordinates
+        n = s.numel()
+        base, seed, budget = 4096, 12345, 50.0
+        scale = torch.tensor(0.0005, device=dev)
+        pack_bytes = n * 2 + canonical_rows(n) * 128
+        cases = {  # row: (kernel on the slice, its plain version, contiguous kernel, bytes)
+            "sparsign (row 1)": (
+                lambda: sparsign_op(s, budget, seed, base, counter_map=cmap),
+                lambda: sparsign_ref(s, budget, seed, base, counter_map=cmap),
+                lambda: sparsign_op(flat, budget, seed, base), n * 3),
+            "ternary_pack2bit sign (row 5)": (
+                lambda: ternary_pack2bit_op(s, 0.0, seed, base, rule="sign", counter_map=cmap),
+                lambda: ternary_pack2bit_ref(s, 0.0, seed, base, rule="sign", counter_map=cmap),
+                lambda: ternary_pack2bit_op(flat, 0.0, seed, base, rule="sign"), pack_bytes),
+            "ternary_pack2bit sparsign (row 5)": (
+                lambda: ternary_pack2bit_op(s, budget, seed, base, rule="sparsign",
+                                            counter_map=cmap),
+                lambda: ternary_pack2bit_ref(s, budget, seed, base, rule="sparsign",
+                                             counter_map=cmap),
+                lambda: ternary_pack2bit_op(flat, budget, seed, base, rule="sparsign"),
+                pack_bytes),
+            "sparsign_pack2bit (row 6)": (
+                lambda: sparsign_pack2bit_op(s, budget, seed, base, counter_map=cmap),
+                lambda: sparsign_pack2bit_ref(s, budget, seed, base, counter_map=cmap),
+                lambda: sparsign_pack2bit_op(flat, budget, seed, base), pack_bytes),
+            "qsgd8_pack8 (row 12)": (
+                lambda: qsgd8_pack8_op(s, scale, seed, base, counter_map=cmap),
+                lambda: qsgd8_pack8_ref(s, scale, seed, base, counter_map=cmap),
+                lambda: qsgd8_pack8_op(flat, scale, seed, base), n * 2 + canonical_rows(n) * 512),
+        }
+        # the whole leaf's symbols at the slice's coordinates, for row 1
+        whole = sparsign_ref(g, budget, seed, base)[:, run:]
+        res = {}
+        for label, (kern, plain, contiguous, nbytes) in cases.items():
+            a, b = kern(), plain()
+            err = max_abs_err(a, b)
+            check(same_bits(a, b), f"tp {name} {label}: the slice's kernel differs from its "
+                                   f"plain version (max |err| {err})")
+            if label.startswith("sparsign (row 1)"):
+                check(torch.equal(a, whole), f"tp {name}: the slice's symbols are not the "
+                                             f"whole leaf's")
+            t_map, t_flat = timer(kern)["ms"], timer(contiguous)["ms"]
+            b_ms = bound(nbytes, 0)[0]
+            res[label] = {"ms": t_map, "contiguous_ms": t_flat, "bound_ms": b_ms,
+                          "max_abs_err": err, "coords": n}
+            print(f"[tp] {name} slice ({rows} x {run} of {cols}, L {run} G {cols} o {run}) "
+                  f"{label}: 0 bytes from the plain version; kernel {t_map:.4f} ms, contiguous "
+                  f"{t_flat:.4f} ms ({t_map / t_flat - 1:+.1%}), bound {b_ms:.4f} ms")
+        out[name] = res
+        del g, s, flat, whole
+    return out
+
+
+def tp_contiguous_rows(report) -> dict:
+    """This run's contiguous timings of the rows the slices use, against
+    PERF6_MS: within 3 % each (printed; card-to-card noise reached 2.7 %)."""
+    times = {**report.get("timings", {}), **report.get("wire_timings", {}),
+             **report.get("pack8_timings", {})}
+    out = {}
+    for key, ms in PERF6_MS.items():
+        if key not in times:
+            continue
+        now = times[key]["ms"]
+        out[key] = {"ms": now, "perf_md_ms": ms, "change": now / ms - 1}
+        print(f"[tp] contiguous {key}: {now:.4f} ms against PERF.md's {ms:.4f} "
+              f"({now / ms - 1:+.2%}){'' if abs(now / ms - 1) <= 0.03 else ' -- beyond 3 %'}")
+    return out
+
+
+def tp_injected_batch(torch, model, m: int, seed: int, dev):
+    """Per-worker gradients of every leaf (M rows), in the leaves' dtype."""
+    from repro_torch.core.compressors import tree_leaves
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for i, sd in enumerate(tree_leaves(model.param_shapes())):
+        g = torch.empty((m,) + tuple(sd.shape), dtype=sd.dtype, device=dev)
+        for w in range(m):
+            g[w].copy_(torch.randn(tuple(sd.shape), generator=gen, device=dev) * 0.02)
+        out[f"g{i}"] = g
+    return out
+
+
+def phase_tp(torch, report, totals, dev="cuda", timer=None, slice_shapes=None):
+    """The tensor-parallel 'model' axis at T = 2, qwen1.5-4b at its published
+    width, in one process (the card is one; NCCL takes one rank a device):
+    the four counter-map kernels on slices; 40 layers, M = 4 workers x T = 2
+    model ranks, two steps of sparsign l2_norm 0.1 with majority vote on
+    allgather_packed through the launcher (launches counted with every plain
+    version barred, wire bytes == the slice ledger); at TP_LAYERS layers from
+    one state and one batch, the T = 2 round against T = 1: injected
+    gradients on psum and allgather_packed bit for bit, scaled_sign_ef to
+    rtol 1e-6, the model's own gradients in float32 and bf16 (the share of
+    updated coordinates that differ printed; in float32 each leaf's gradient
+    no farther from float64 than TP_F64_RATIO times T = 1's); a checkpoint saved
+    at T = 2 restored at T = 1 bit for bit. ``dev="cpu"`` rehearses it at the
+    smoke size."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.analysis.drivers import tp_slice_ledger
+    from repro_torch.core.algorithm import CompressionConfig
+    from repro_torch.core.budgets import BudgetConfig
+    from repro_torch.core.compressors import tree_leaves
+    from repro_torch.dist import collectives
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import loop
+    from repro_torch.train.state import LrSchedule, init_state
+    from repro_torch.train.step_simple import TrainStepConfig, build_train_step
+
+    out = report["tp"] = {}
+    m = 4
+    if timer is None:
+        timer = Timer(torch)
+    out["slices"] = tp_slice_holds(torch, timer, report, dev, slice_shapes)
+    out["contiguous"] = tp_contiguous_rows(report)
+
+    # -- 40 layers (the smoke config's depth on the CPU), M = 4 x T = 2
+    where = (["--full", "--seq-len", str(TRAINER_SEQ_LEN)] if dev == "cuda"
+             else ["--device", dev, "--seq-len", "64"])
+    args = launch.parser().parse_args(
+        ["--arch", "qwen1.5-4b", "--host-data", str(m), "--host-model", str(TP_T), "--batch",
+         str(m), "--steps", "2", "--seed", "0", "--compressor", "sparsign", "--budget-kind",
+         "l2_norm", "--budget", "0.1", "--server", "majority_vote", "--vote-impl",
+         "allgather_packed"] + where)
+    reset_peak(torch)
+    t0 = time.perf_counter()
+    cfg, model, group, step, state, comp = launch.build_everything(args)
+    sync(torch)
+    build_s = time.perf_counter() - t0
+    pls = tree_leaves(step.placements)
+    sizes = [math.prod(sd.shape) for sd in tree_leaves(model.param_shapes())]
+    msgs = sum(TP_T if pl.sharded else 1 for pl in pls)   # a worker's messages a step
+    ledger = float(np.float32(tp_slice_ledger(step, model)))
+    whole_ledger = float(np.float32(sum(collectives.uplink_ledger(step.mode, step.wire, n)
+                                        for n in sizes)))
+    kernels.reset_launch_counts()
+    with plain_versions_barred():
+        state, history = loop.run(step, state, launch.batch_fn_for(cfg, args),
+                                  loop.LoopConfig(total_steps=2, log_every=1),
+                                  log=lambda line: None)
+    sync(torch)
+    counts = kernels.launch_counts()
+    want = expected(sparsign_pack2bit=msgs * m * 2, unpack2bit_sum=msgs * 2,
+                    vote_update=msgs * 2)
+    check(counts == want, f"tp: launches {counts}, expected {want}")
+    for k in totals:
+        totals[k] += counts[k]
+    walls = [h["wall_s"] for h in history]
+    step_s = [b - a for a, b in zip([0.0] + walls[:-1], walls)]
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" else 0.0
+    for h in history:
+        check(math.isfinite(h["loss"]), f"tp: non-finite loss {h['loss']}")
+        check(h["wire_bytes_per_device"] == ledger,
+              f"tp: wire bytes {h['wire_bytes_per_device']} != the slice ledger {ledger}")
+    check(all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params)),
+          "tp: non-finite parameters")
+    out["full"] = {"layers": cfg.n_layers, "workers": m, "model_ranks": TP_T,
+                   "tokens_per_worker": args.seq_len, "parameters": sum(sizes),
+                   "messages_a_worker": msgs, "build_s": build_s, "step_s": step_s,
+                   "peak_gb": peak, "loss": [h["loss"] for h in history],
+                   "nnz_frac": [h["nnz_frac"] for h in history],
+                   "wire_bytes_per_device": ledger, "whole_leaf_ledger": whole_ledger,
+                   "launches": counts}
+    print(f"[tp] qwen1.5-4b {cfg.n_layers} layers at d_model {cfg.d_model}, M = {m} x T = "
+          f"{TP_T} ({sum(sizes)} parameters, {msgs} messages a worker): build {build_s:.2f} s, "
+          f"steps {[round(x, 3) for x in step_s]} s, peak {peak:.2f} GB, losses "
+          f"{[round(h['loss'], 6) for h in history]}, nnz "
+          f"{[round(h['nnz_frac'], 6) for h in history]}, wire bytes {ledger:.10g} (== the "
+          f"slice ledger; whole leaves {whole_ledger:.10g}), launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    del step, state, model
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- TP_LAYERS layers: T = 2 against T = 1 from one state and one batch
+    base_cfg = launch.get_config("qwen1.5-4b", smoke=dev != "cuda")
+    layers = min(TP_LAYERS, base_cfg.n_layers)
+
+    def cut(dtype=None):
+        c = dataclasses.replace(base_cfg, n_layers=layers)
+        return dataclasses.replace(c, dtype=dtype) if dtype else c
+
+    def one_round(net, comp, impl, t, params, batch):
+        step = build_train_step(net, TrainStepConfig(
+            compression=comp, lr=LrSchedule(base=0.05), vote_impl=impl), make_host_mesh(m, t))
+        st = init_state(params, server=comp.server, seed=7)
+        if t > 1:
+            st = step.shard_state(st)
+        kernels.reset_launch_counts()
+        with plain_versions_barred():
+            st, metrics = step(st, batch)
+        sync(torch)
+        counts = kernels.launch_counts()
+        whole = step.whole_state(st) if t > 1 else st
+        return whole, {k: float(v) for k, v in metrics.items()}, counts, step
+
+    def clone(tree):
+        return [p.clone() for p in tree_leaves(tree)]
+
+    fixed = CompressionConfig(compressor="sparsign", budget=BudgetConfig(value=2.0),
+                              server="majority_vote")
+    ef = CompressionConfig(compressor="sparsign", budget=BudgetConfig(value=2.0),
+                           server="scaled_sign_ef")
+    model = Model(cut())
+    net = InjectedGrads(model)
+    leaves = len(tree_leaves(model.param_shapes()))
+    pls = tree_leaves(net.tensor_parallel(make_host_mesh(m, TP_T).model).placements)
+    msgs = sum(TP_T if pl.sharded else 1 for pl in pls)
+    params = model.init(3, dev)
+    batch = tp_injected_batch(torch, model, m, 11, dev)
+    injected = {}
+    for label, comp, impl, per_t in (
+            ("fixed psum", fixed, "psum",
+             {1: dict(sparsign=leaves * m, vote_update=leaves),
+              TP_T: dict(sparsign=msgs * m, vote_update=msgs)}),
+            ("fixed allgather_packed", fixed, "allgather_packed",
+             {1: dict(sparsign_pack2bit=leaves * m, unpack2bit_sum=leaves, vote_update=leaves),
+              TP_T: dict(sparsign_pack2bit=msgs * m, unpack2bit_sum=msgs, vote_update=msgs)}),
+            ("scaled_sign_ef psum", ef, "psum",
+             {1: dict(sparsign=leaves * m, ef_server=leaves),
+              TP_T: dict(sparsign=msgs * m, ef_server=msgs)})):
+        res = {}
+        for t in (1, TP_T):
+            whole, metrics, counts, _ = one_round(net, comp, impl, t,
+                                                  tree_unflatten_like(model, clone(params)),
+                                                  batch)
+            check(counts == expected(**per_t[t]),
+                  f"tp injected {label} T = {t}: launches {counts}, expected "
+                  f"{expected(**per_t[t])}")
+            if t > 1:
+                for k in totals:
+                    totals[k] += counts[k]
+            res[t] = whole
+        a, b = tree_leaves(res[TP_T].params), tree_leaves(res[1].params)
+        differ = sum(int((bits(x) != bits(y)).sum()) for x, y in zip(a, b))
+        moved_alike = all(torch.equal(x != p, y != p) for x, y, p in
+                          zip(a, b, tree_leaves(params)))
+        if comp.server == "majority_vote":
+            check(differ == 0, f"tp injected {label}: T = {TP_T} differs from T = 1 in "
+                               f"{differ} coordinates")
+        else:   # the L1's order of sums: held as the CPU test holds it
+            check(moved_alike and all(torch.allclose(x.float(), y.float(), rtol=1e-6, atol=0)
+                                      for x, y in zip(a, b)),
+                  f"tp injected {label}: beyond rtol 1e-6 of T = 1")
+        injected[label] = {"differ": differ, "moved_alike": moved_alike,
+                           "coords": sum(x.numel() for x in a)}
+        print(f"[tp] {layers} layers, injected gradients, {label}: T = {TP_T} against T = 1, "
+              f"{differ} of {injected[label]['coords']} coordinates differ, the same "
+              f"coordinates moved: {moved_alike}")
+        del res
+    out["injected"] = injected
+    del batch, net
+
+    # -- the model's own gradients: one round in float32 and bf16 (printed),
+    # then float32 against float64 (bounded)
+    full_comp = CompressionConfig(compressor="sparsign",
+                                  budget=BudgetConfig(kind="l2_norm", value=0.1),
+                                  server="majority_vote")
+    own = {}
+    tp_state = None
+    lm_args = launch.parser().parse_args(["--arch", "qwen1.5-4b", "--batch", str(m), "--seed",
+                                          "0"] + where)
+    for dtype in ("float32", "bfloat16"):
+        net = Model(cut(dtype))
+        p0 = net.init(3, dev)
+        batch = launch.batch_fn_for(net.cfg, lm_args)(0)
+        res = {}
+        for t in (1, TP_T):
+            whole, metrics, _, step = one_round(net, full_comp, "allgather_packed", t,
+                                                tree_unflatten_like(net, clone(p0)), batch)
+            res[t] = (whole, metrics)
+            if t > 1 and dtype == "bfloat16":
+                tp_state = (whole, step, net)
+        a, b = tree_leaves(res[TP_T][0].params), tree_leaves(res[1][0].params)
+        moved = sum(int(((y != p) | (x != p)).sum()) for x, y, p in
+                    zip(a, b, tree_leaves(p0)))
+        differ = sum(int((bits(x) != bits(y)).sum()) for x, y in zip(a, b))
+        dloss = res[TP_T][1]["loss"] - res[1][1]["loss"]
+        share = differ / max(moved, 1)
+        own[dtype] = {"loss_t1": res[1][1]["loss"], "loss_t2": res[TP_T][1]["loss"],
+                      "loss_diff": dloss, "updated": moved, "differ": differ, "share": share}
+        print(f"[tp] {layers} layers, the model's own gradients in {dtype}: loss T = 1 "
+              f"{res[1][1]['loss']:.7f}, T = {TP_T} {res[TP_T][1]['loss']:.7f} (diff "
+              f"{dloss:.3g}); {differ} of {moved} updated coordinates differ ({share:.3g})")
+        del res, p0
+    out["own_gradients"] = own
+    out["float64"] = tp_float64_check(torch, cut, dev, launch.batch_fn_for(cut(), lm_args)(0))
+
+    # -- checkpoint: saved at T = 2, restored at T = 1
+    whole, step, net = tp_state
+    with tempfile.TemporaryDirectory() as d:
+        state_whole, write = step.checkpoint_state(step.shard_state(whole))
+        ckpt.save(d, 1, state_whole)
+        like = init_state(net.init(5, dev), server=full_comp.server, seed=7)
+        back, _ = ckpt.restore(d, like)
+    same = all(torch.equal(bits(x), bits(y)) for x, y in
+               zip(tree_leaves(back.params), tree_leaves(whole.params)))
+    check(write and same, "tp: the checkpoint saved at T = 2 does not restore at T = 1 "
+                          "bit for bit")
+    out["checkpoint_t2_to_t1"] = same
+    print(f"[tp] checkpoint saved at T = {TP_T} ({layers} layers, bf16) restored at T = 1: "
+          f"bit for bit {same}")
+
+
+def tp_float64_check(torch, cut, dev, batch) -> dict:
+    """Worker 0's gradients in float32 at T = 1 and at T = 2 (gathered), each
+    leaf's distance to the float64 gradient of the same weights, relative to
+    its norm: T = 2's at most TP_F64_RATIO times T = 1's (+ 1e-7)."""
+    from repro_torch.core.compressors import tree_leaves, tree_unflatten
+    from repro_torch.dist.collectives import ModelGroup
+    from repro_torch.models import tensor_parallel as tpl
+    from repro_torch.models.model import Model
+
+    one = {k: torch.as_tensor(v[:1]).to(dev) for k, v in batch.items()}
+
+    def grads(loss_fn, params):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        loss = loss_fn(tree_unflatten(params, leaves), one)[0]
+        return [g.detach() for g in torch.autograd.grad(loss, leaves)]
+
+    net = Model(cut("float32"))
+    p32 = net.init(3, dev)
+    g1 = grads(net.loss, p32)
+    mg = ModelGroup(TP_T)
+    tpm = net.tensor_parallel(mg)
+    g2 = tree_leaves(tpl.gather_tree(tree_unflatten(p32, grads(
+        tpm.loss, tpl.shard_tree(p32, tpm.placements, mg))), tpm.placements, mg))
+    p64 = tree_unflatten(p32, [p.double() for p in tree_leaves(p32)])
+    del p32
+    g64 = grads(Model(cut("float64")).loss, p64)
+    del p64
+    e1 = [float((a.double() - c).norm() / c.norm()) for a, c in zip(g1, g64)]
+    e2 = [float((b.double() - c).norm() / c.norm()) for b, c in zip(g2, g64)]
+    t2_t1 = [float((b - a).norm() / a.norm()) for a, b in zip(g1, g2)]
+    worse = [i for i, (a, b) in enumerate(zip(e1, e2)) if b > TP_F64_RATIO * a + 1e-7]
+    print(f"[tp] float32 gradients against float64 (worker 0): T = 1 {min(e1):.3g}-{max(e1):.3g} "
+          f"of a leaf's norm, T = {TP_T} {min(e2):.3g}-{max(e2):.3g}; T = {TP_T} against T = 1 "
+          f"{min(t2_t1):.3g}-{max(t2_t1):.3g}; leaves farther than {TP_F64_RATIO} x T = 1's: "
+          f"{worse}")
+    check(not worse, f"tp float32: leaves {worse} lie farther from float64 at T = {TP_T} "
+                     f"({[e2[i] for i in worse]}) than {TP_F64_RATIO} x T = 1's "
+                     f"({[e1[i] for i in worse]})")
+    return {"t1_err": e1, "t2_err": e2, "t2_vs_t1": t2_t1}
+
+
+def tree_unflatten_like(model, leaves):
+    from repro_torch.core.compressors import tree_unflatten
+    return tree_unflatten(model.param_shapes(), leaves)
+
+
 def phase_analysis(torch, report, dev="cuda"):
     """``python -m repro_torch.analysis`` on ``dev`` (its ``main``), its lines
     printed as [analysis]; a nonzero exit fails the run. ``main`` runs it
@@ -4187,7 +4654,10 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
     run_phase(phase_analysis, report)
-    totals = run_phase(phase_fl, report)
+    totals = {k: 0 for k in kernels.launch_counts()}
+    run_phase(phase_tp, report, totals)
+    for k, v in run_phase(phase_fl, report).items():
+        totals[k] += v
     run_phase(phase_baselines, report, totals)
     run_phase(phase_golomb_two_pass, report, totals)
     timer = Timer(torch)

@@ -3,7 +3,8 @@ port's analysis gate and exit nonzero on any error finding.
 
 Order, as JAX's gate: the AST repo-lint; the fused wire ops against their
 plain chains (and, on the card, one launch each); the wire-mode collective
-censuses (per leaf, bucketed, on the ring); the launch-count budgets (with
+censuses (per leaf, bucketed, on the ring); the tensor-parallel censuses at
+(4 workers, 2 model ranks), each rank's wire bytes against the slice ledger; the launch-count budgets (with
 the bucketed >= 5x floor on the stacked-block configs); the elastic gate
 (censuses, counts, a dropped worker's payload all zeros); the entropy-wire
 byte floor; the ring's residency floor. The steps run on the card unless
@@ -31,6 +32,7 @@ def main(argv=None) -> int:
     passes = [("repolint", run_repolint),
               ("spec rules", lambda: drivers.run_spec_checks(device)),
               ("collective census", lambda: drivers.run_census_checks(device=device)),
+              ("tensor-parallel census", lambda: drivers.run_tp_census_checks(device=device)),
               ("collective counts", lambda: drivers.run_count_checks(device=device)),
               ("participation wire", lambda: drivers.run_participation_checks(device=device)),
               ("entropy wire budget", drivers.entropy_wire_checks),

@@ -297,6 +297,66 @@ def run_census_checks(m: int = HYPOTHETICAL_M, device: str = "cuda") -> tuple:
     return findings + moved_note(CollectiveCensus(), "census", rows), checks
 
 
+#: the tensor-parallel censuses: a (TP_M, TP_T) ('data', 'model') mesh in one
+#: process, fixed-budget sparsign with majority vote on each wire
+TP_M, TP_T = 4, 2
+TP_IMPLS = ("psum", "allgather_packed")
+
+
+@functools.lru_cache(maxsize=None)
+def run_tp_step(vote_impl: str, device: str = "cuda"):
+    """One step of the tiny model at (TP_M workers, TP_T model ranks) with the
+    recorder open. Returns (census, model, step)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.state import LrSchedule, init_state
+    from repro_torch.train.step_simple import TrainStepConfig, build_train_step
+
+    model = tiny_model()
+    step = build_train_step(model, TrainStepConfig(
+        compression=mode_comp("votes"), lr=LrSchedule(base=0.05), vote_impl=vote_impl),
+        make_mesh((TP_M, TP_T), ("data", "model")))
+    state = step.shard_state(init_state(model.init(0, device), server="majority_vote",
+                                        seed=STEP_SEED))
+    with collectives.record_collectives() as census:
+        step(state, tiny_batch(model.cfg.vocab_size, b=TP_M))
+    return census, model, step
+
+
+def tp_slice_ledger(step, model) -> float:
+    """A device's uplink ledger under tensor parallelism: each cut leaf's
+    slice, each replicated leaf whole (the step's wire_bytes_per_device)."""
+    pls = tree_leaves(step.placements)
+    return sum(collectives.uplink_ledger(step.mode, step.wire,
+                                         n // pl.parts if pl.sharded else n)
+               for n, pl in zip(_leaf_sizes(model), pls))
+
+
+def run_tp_census_checks(device: str = "cuda") -> tuple:
+    """At (4, 2) on psum and allgather_packed: each model rank's device's
+    recorded wire bytes == the slice ledger (no billed scalars), and a note
+    of the 'model' axis's own reductions (role ``tp``: the ordered
+    all-reduces of the row-parallel partials, the embedding, the loss and
+    the L2 statistics), which the uplink ledger does not bill."""
+    rule = CollectiveCensus()
+    findings, checks = [], 0
+    for impl in TP_IMPLS:
+        census, model, step = run_tp_step(impl, device)
+        ledger = tp_slice_ledger(step, model)
+        for rank in range(TP_T):
+            findings += rule.check(f"step[tp {TP_M}x{TP_T} {impl} rank {rank}]",
+                                   census.for_model_rank(rank), ledger_payload=ledger,
+                                   ledger_scalar=0.0)
+            checks += 1
+        tp = census.tp_records()
+        findings.append(rule.finding(
+            f"step[tp {TP_M}x{TP_T} {impl}]",
+            f"{len(tp)} reductions over 'model' (role tp: {len(tp)} calls, "
+            f"{sum(r.ring_bytes() for r in tp):.1f} B billed as all-reduces, "
+            f"{sum(r.moved_bytes() for r in tp):.1f} B moved as rank-order gathers between "
+            f"processes), not in the uplink ledger", severity="info"))
+    return findings, checks
+
+
 def mode_count_budget(mode: str, model, *, bucketed: bool, m: int = HYPOTHETICAL_M) -> tuple:
     """(payload launches, scalar launch cap) of one simple-mode round, JAX's
     budget: a payload exchange a leaf (a ring: a chunk), or a bucket; plus

@@ -57,8 +57,11 @@ def solve_budget_for_sparsity(g: torch.Tensor, target: float, iters: int = 30, *
 
 
 def resolve_budget(cfg: BudgetConfig, g: torch.Tensor, *, shared_linf=None,
-                   rows: bool = False) -> torch.Tensor:
-    """The float32 B to feed sparsign for ``g``: 0-d, or (rows,) with ``rows``."""
+                   rows: bool = False, leaf_slice=None) -> torch.Tensor:
+    """The float32 B to feed sparsign for ``g``: 0-d, or (rows,) with ``rows``.
+    ``leaf_slice`` (``engine.LeafSlice``): g is a model rank's slice, and the
+    L2 budget reads the whole leaf's size and sum of squares (reduced over
+    'model' in rank order) instead of g's own."""
     shape = (g.shape[0],) if rows else ()
     if cfg.kind == "fixed":
         return torch.full(shape, cfg.value, dtype=torch.float32, device=g.device)
@@ -68,6 +71,10 @@ def resolve_budget(cfg: BudgetConfig, g: torch.Tensor, *, shared_linf=None,
         else:
             s = torch.amax(torch.abs(_flat(g, rows)), dim=1).reshape(shape)
         return 1.0 / torch.clamp(s, min=1e-12)
+    if cfg.kind == "l2_norm" and leaf_slice is not None:
+        d = device_tensor(float(leaf_slice.numel), g)
+        n = torch.sqrt(leaf_slice.sum_sq)
+        return torch.sqrt(d) / torch.clamp(n, min=1e-12) * device_tensor(cfg.value, g)
     if cfg.kind == "l2_norm":
         # upcast inside the reduction: on the card no float32 copy of a bf16
         # leaf is made (12.9 GB for one of jamba's 3.2 B-coordinate leaves)

@@ -81,6 +81,14 @@ def _scale_qsgd(g: torch.Tensor, rows: bool = False, *, s: int = QSGD8_LEVELS) -
     return torch.clamp(_scale_l2(g, rows), min=1e-12) / float(s)
 
 
+#: the L2-based local scales as functions of the message's sum of squares: a
+#: model rank's slice of a leaf takes the whole leaf's, reduced over 'model'
+SCALE_FROM_SUM_SQ = {
+    _scale_l2: torch.sqrt,
+    _scale_qsgd: lambda sum_sq: torch.clamp(torch.sqrt(sum_sq), min=1e-12) / float(QSGD8_LEVELS),
+}
+
+
 # ---------------------------------------------------------------------------
 # Normalized value functions (CompressorSpec.values): the plain versions of the
 # kernel ops, argument for argument

@@ -41,7 +41,8 @@ from typing import Callable, Optional, TYPE_CHECKING
 import torch
 
 from repro_torch.core.budgets import BudgetConfig, resolve_budget
-from repro_torch.core.compressors import CompressedGrad, chunked_values, get_spec
+from repro_torch.core.compressors import (SCALE_FROM_SUM_SQ, CompressedGrad, chunked_values,
+                                          get_spec)
 from repro_torch.kernels.common import SUBLANE_PAD, device_tensor, jnp_sign, to_2d
 from repro_torch.kernels.ef_server.ops import ef_server_op
 from repro_torch.kernels.ef_server.ref import ef_server_ref
@@ -243,6 +244,64 @@ def local_step_config(cfg: "CompressionConfig") -> "CompressionConfig":
         local_steps=1)
 
 
+@dataclasses.dataclass(frozen=True)
+class LeafSlice:
+    """A model rank's slice of a leaf (tensor parallelism): its counter map
+    ``(run, leaf_run, offset)`` (``kernels.common.counter_index``: the slice
+    draws the whole leaf's counters), the whole leaf's coordinate count, and,
+    where the row needs it (``needs_leaf_sum_sq``), the whole leaf's float32
+    sum of squares, reduced over 'model' in rank order."""
+
+    counter_map: tuple
+    numel: int
+    sum_sq: Optional[torch.Tensor] = None
+
+
+#: the (compressor, wire) pairs whose encoders take the counter map, with
+#: the budget kinds their statistics are reduced over 'model' for
+TP_COMPRESSORS = {
+    "sparsign": ("psum", "hier", "allgather_packed"),
+    "qsgd8": ("psum", "allgather_packed"),
+    "sign": ("allgather_packed",),
+    "noisy_sign": ("allgather_packed",),
+    "terngrad": ("allgather_packed",),
+}
+TP_BUDGETS = ("fixed", "l2_norm")
+
+
+def check_tensor_parallel(cfg: "CompressionConfig", vote_impl: str) -> None:
+    """Build-time gate of a compression config under tensor parallelism:
+    the (compressor, wire) pairs whose encoders draw a slice's counters from
+    the whole leaf (the sparsign, fused 2-bit and qsgd8 kernels' counter
+    map) and whose statistics are reduced over 'model'. Anything else is not
+    ported yet and raises."""
+    wires = TP_COMPRESSORS.get(cfg.compressor)
+    if wires is None or vote_impl not in wires:
+        raise NotImplementedError(
+            f"compressor {cfg.compressor!r} on vote_impl {vote_impl!r} under tensor "
+            f"parallelism is not ported yet (its encoder has no counter map); ported: "
+            f"{TP_COMPRESSORS}")
+    if get_spec(cfg.compressor).scale_protocol == "none" and cfg.budget.kind not in TP_BUDGETS:
+        raise NotImplementedError(
+            f"budget {cfg.budget.kind!r} under tensor parallelism is not ported yet "
+            f"(ported: {TP_BUDGETS})")
+
+
+def needs_leaf_sum_sq(cfg: "CompressionConfig") -> bool:
+    """Does compressing a slice read the whole leaf's sum of squares (the L2
+    budget, or qsgd8's L2 decode scale)?"""
+    spec = get_spec(cfg.compressor)
+    if spec.scale_protocol == "none":
+        return cfg.budget.kind == "l2_norm"
+    return spec.scale_protocol == "local_norm" and spec.local_scale in SCALE_FROM_SUM_SQ
+
+
+def leaf_sum_sq(g: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of squares of one slice: a partial of ``LeafSlice.sum_sq``."""
+    x = g.to(torch.float32)
+    return torch.sum(x * x)
+
+
 def is_batched(seed) -> bool:
     """Is ``seed`` a 1-D sequence of per-row seeds (a batch of messages)?"""
     return torch.as_tensor(seed).dim() == 1
@@ -257,9 +316,15 @@ def compress_leaf(
     shared_linf=None,
     backend: Optional[str] = None,
     wire=None,
+    leaf_slice: Optional[LeafSlice] = None,
 ) -> CompressedGrad:
     """Q(g, B): one worker's uplink message, or every worker's at once when
     ``seed`` is a 1-D sequence of per-row seeds and g is (workers, ...).
+
+    ``leaf_slice``: g is a model rank's slice of a leaf (tensor
+    parallelism). Its symbols are the whole leaf's at the same coordinates:
+    the kernels draw the whole leaf's counters (the counter map), and the L2
+    budget and qsgd8's scale read the whole leaf's sum of squares.
 
     ``wire`` (a ``VoteWire``, one message only) selects the message's
     wire-native format. On the ``pack2`` wire ``values`` is the (rows, 128)
@@ -299,9 +364,21 @@ def compress_leaf(
     # the golomb wire's capacity is sized by its plan fraction: the encoders
     # take the same p, or the message's shape disagrees with the ledger
     fused_kwargs = {"p": wire.p} if wire_fmt == "golomb" else {}
-    scale = spec.resolve_scale(g, shared_linf, rows=rows)
+    cmap = {}
+    if leaf_slice is not None:
+        if rows or wire_fmt == "golomb":
+            raise NotImplementedError("a batched or golomb message of a model rank's slice is "
+                                      "not ported yet")
+        cmap = {"counter_map": tuple(leaf_slice.counter_map)}
+    if leaf_slice is not None and leaf_slice.sum_sq is not None and spec.local_scale in \
+            SCALE_FROM_SUM_SQ and spec.scale_protocol == "local_norm":
+        # an L2-based scale (qsgd8's max(||g||_2, eps) / 127) of the whole leaf
+        scale = SCALE_FROM_SUM_SQ[spec.local_scale](leaf_slice.sum_sq)
+    else:
+        scale = spec.resolve_scale(g, shared_linf, rows=rows)
     if scale is None:
-        param = resolve_budget(cfg.budget, g, shared_linf=shared_linf, rows=rows)
+        param = resolve_budget(cfg.budget, g, shared_linf=shared_linf, rows=rows,
+                               leaf_slice=leaf_slice)
         msg_scale = torch.ones((), dtype=torch.float32, device=g.device)
     else:
         param = msg_scale = scale
@@ -309,14 +386,14 @@ def compress_leaf(
             msg_scale = scale.expand(g.shape[0]).reshape((g.shape[0],) + (1,) * (g.dim() - 1))
     if want_packed and backend == "cuda" and spec.fused_pack_op is not None:
         return CompressedGrad(
-            values=spec.fused_pack_op(g, param, seed, counter_base, **fused_kwargs),
+            values=spec.fused_pack_op(g, param, seed, counter_base, **fused_kwargs, **cmap),
             scale=msg_scale)
     if backend == "cuda" and spec.kernel_op is not None:
-        vals = spec.kernel_op(g, param, seed, counter_base)
-    elif spec.chunkable:
+        vals = spec.kernel_op(g, param, seed, counter_base, **cmap)
+    elif spec.chunkable and not cmap:
         vals = chunked_values(spec.values, g, param, seed, counter_base)
     else:
-        vals = spec.values(g, param, seed, counter_base)
+        vals = spec.values(g, param, seed, counter_base, **cmap)
     if wire_fmt == "golomb":
         # the two-pass chain: the golomb_pack kernel on the card
         vals = (golomb_pack_op(vals, p=wire.p) if backend == "cuda"
@@ -354,6 +431,14 @@ def compress_leaf_rows(
                         backend=backend, wire=wire)
     return CompressedGrad(values=bucketing.as_rows(msg.values, wire.native_format, rows),
                           scale=msg.scale)
+
+
+def ef_l1_partial(vote_sum: torch.Tensor, ef: torch.Tensor, n_sel) -> torch.Tensor:
+    """sum |vote_sum / n_sel + ef| in float32: ``scaled_sign_ef``'s L1 of one
+    slice of a leaf, as ``server_apply`` computes it, for a caller that
+    reduces the slices' partials itself (tensor parallelism)."""
+    n = torch.clamp(device_tensor(n_sel, ef), min=1.0)
+    return torch.sum(torch.abs(vote_sum.to(torch.float32) / n + ef.to(torch.float32)))
 
 
 def server_apply(

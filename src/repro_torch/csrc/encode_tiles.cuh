@@ -29,40 +29,93 @@
 //                            thread offset is i, 16-byte loads
 //   load_edge(c, g, tile, lane, n)
 //                            the same element by element, values past n as 0
-//   store<kMasked>(state, c, out, tile, lane, n, counter_base)
-//                            encode and write the chunk's wire bytes
+//   store<kMasked, kMap>(state, c, out, tile, lane, n, counter_base, map)
+//                            encode and write the chunk's wire bytes; with a
+//                            MapMode other than kNoMap, coordinate i draws
+//                            counter_base + map.offset(i) (CounterMap), else
+//                            counter_base + i
+//
+// A model rank's slice of a leaf (the *_map_launch entry points) draws the
+// counters of the whole leaf's coordinates, as sparsign.cu's map does: slice
+// coordinate i takes counter_base + i + (i / run) * skip. An encoder splits
+// a thread's first coordinate of a tile once (one division) and steps the
+// quotient to its later groups; a group of consecutive coordinates (8 or 16)
+// crosses at most one run's end when run is at least 16 (kRunMap). A
+// shorter run (a tiny leaf's slice) takes kShortRunMap: one division a
+// coordinate. kNoMap is the contiguous walker, code for code.
 #pragma once
 
 #include "common.cuh"
 
 namespace repro {
 
+enum MapMode : int { kNoMap = 0, kRunMap = 1, kShortRunMap = 2 };
+constexpr long long kMinRunMapRun = 16;   // kRunMap's shortest run
+
+// The counter map of a slice: run, the slice's contiguous run, and skip, the
+// leaf's run less the slice's (mod 2^32).
+struct CounterMap {
+  long long run;
+  uint32_t skip;
+
+  // the counter of coordinate i less counter_base (kShortRunMap's, a division)
+  __device__ __forceinline__ uint32_t offset(long long i) const {
+    return static_cast<uint32_t>(i) + static_cast<uint32_t>(i / run) * skip;
+  }
+
+  // coordinate i = q run + r
+  __device__ __forceinline__ void split(long long i, long long& q, long long& r) const {
+    q = i / run;
+    r = i - q * run;
+  }
+
+  // (q, r) of coordinate i advanced by d >= 0
+  __device__ __forceinline__ void advance(long long& q, long long& r, long long d) const {
+    r += d;
+    while (r >= run) {
+      r -= run;
+      ++q;
+    }
+  }
+
+  // the group of consecutive coordinates from i = q run + r: a of its first
+  // coordinate (its counter times RNG_GOLDEN), and the first index e of the
+  // group past the run's end, where skip joins the counter
+  __device__ __forceinline__ void group(uint32_t counter_base, long long i, long long q,
+                                        long long r, uint32_t& a, int& cross) const {
+    a = (counter_base + static_cast<uint32_t>(i) + static_cast<uint32_t>(q) * skip) *
+        RNG_GOLDEN;
+    const long long left = run - r;
+    cross = left < 64 ? static_cast<int>(left) : 64;
+  }
+};
+
 // The tiles past the last whole tile of data. (Written as a loop in
 // encode_kernel's body on the kernel's own offset, the same code took 71
 // registers for noisy_sign where this takes 60, and noisy_sign ran 6 % and
 // stochastic_ternary 2.5 % slower on the H100: PERF.md.)
-template <class Enc>
+template <class Enc, int kMap>
 __device__ __forceinline__ void encode_edge_tiles(const typename Enc::State& state,
                                                   const typename Enc::In* __restrict__ g,
                                                   uint8_t* __restrict__ out, long long t,
                                                   long long tiles, long long n,
-                                                  uint32_t counter_base) {
+                                                  uint32_t counter_base, CounterMap map) {
   const typename Enc::Lane lane = Enc::lane();
   for (; t < tiles; t += gridDim.x) {
     typename Enc::Chunk c;
     Enc::load_edge(c, g, t, lane, n);
-    Enc::template store<true>(state, c, out, t, lane, n, counter_base);
+    Enc::template store<true, kMap>(state, c, out, t, lane, n, counter_base, map);
   }
 }
 
 // Register prefetch: tile t + gridDim.x's loads are issued before tile t is
 // encoded. full_tiles: the tiles wholly inside the data (0 when g is not
 // 16-byte aligned), tiles: rows / Enc::kTileRows.
-template <class Enc>
+template <class Enc, int kMap>
 __global__ void __launch_bounds__(kThreads, Enc::kMinBlocks)
 encode_kernel(const typename Enc::In* __restrict__ g, uint8_t* __restrict__ out,
               const long long* __restrict__ seed, const float* __restrict__ param, long long n,
-              long long tiles, long long full_tiles, uint32_t counter_base) {
+              long long tiles, long long full_tiles, uint32_t counter_base, CounterMap map) {
   __shared__ typename Enc::State shared_state;
   if (threadIdx.x == 0)
     shared_state = Enc::State::make(static_cast<uint32_t>(seed[0]), param[0]);
@@ -76,39 +129,57 @@ encode_kernel(const typename Enc::In* __restrict__ g, uint8_t* __restrict__ out,
     const typename Enc::Chunk cur = next;
     if (t + gridDim.x < full_tiles)
       Enc::load_full(next, g, (t + gridDim.x) * Enc::kTileCoords + lane.off);
-    Enc::template store<false>(state, cur, out, t, lane, n, counter_base);
+    Enc::template store<false, kMap>(state, cur, out, t, lane, n, counter_base, map);
   }
-  encode_edge_tiles<Enc>(state, g, out, t, tiles, n, counter_base);
+  encode_edge_tiles<Enc, kMap>(state, g, out, t, tiles, n, counter_base, map);
 }
 
 // Launch the encoder of one message on the current stream. g: n contiguous
 // values; out: the wire of rows canonical rows, rows = canonical_rows(n), a
-// multiple of 32; seed: int64[1] holding a uint32 value; param: float32[1].
+// multiple of 32; seed: int64[1] holding a uint32 value; param: float32[1];
+// with kMap, map.run >= 1 (a slice's counters, CounterMap): kRunMap from
+// kMinRunMapRun on, kShortRunMap below.
 // static: each library that includes this header (sparsign_pack2bit.cu,
 // ternary.cu, pack8.cu) keeps its own cached grid size, where an inline
 // function's static would be one GNU_UNIQUE object shared by every library
 // loaded in the process (a library once launched with another's cache so).
-template <class Enc>
-static int launch_encode(const void* g, void* out, const void* seed, const void* param,
-                         long long n, long long rows, unsigned int counter_base,
-                         cudaStream_t stream) {
+template <class Enc, int kMap>
+static int launch_mode(const void* g, void* out, const void* seed, const void* param,
+                       long long n, long long rows, unsigned int counter_base,
+                       cudaStream_t stream, CounterMap map) {
   if (!aligned(out, Enc::kOutAlign)) return static_cast<int>(cudaErrorMisalignedAddress);
   static int grid_cap = 0;  // blocks that fit on the card at once, per instantiation
   if (grid_cap == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, encode_kernel<Enc>, kThreads, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, encode_kernel<Enc, kMap>, kThreads,
+                                                  0);
     grid_cap = sms * (per_sm > 0 ? per_sm : 1);
   }
   const long long tiles = rows / Enc::kTileRows;
   const long long full_tiles = aligned(g, 16) ? n / Enc::kTileCoords : 0;
   const unsigned int grid = static_cast<unsigned int>(tiles < grid_cap ? tiles : grid_cap);
-  encode_kernel<Enc><<<grid, kThreads, 0, stream>>>(
+  encode_kernel<Enc, kMap><<<grid, kThreads, 0, stream>>>(
       static_cast<const typename Enc::In*>(g), static_cast<uint8_t*>(out),
       static_cast<const long long*>(seed), static_cast<const float*>(param), n, tiles,
-      full_tiles, counter_base);
+      full_tiles, counter_base, map);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class Enc, bool kMap = false>
+static int launch_encode(const void* g, void* out, const void* seed, const void* param,
+                         long long n, long long rows, unsigned int counter_base,
+                         cudaStream_t stream, CounterMap map = {1, 0u}) {
+  if constexpr (!kMap) {
+    return launch_mode<Enc, kNoMap>(g, out, seed, param, n, rows, counter_base, stream, map);
+  } else {
+    if (map.run < 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (map.run >= kMinRunMapRun)
+      return launch_mode<Enc, kRunMap>(g, out, seed, param, n, rows, counter_base, stream, map);
+    return launch_mode<Enc, kShortRunMap>(g, out, seed, param, n, rows, counter_base, stream,
+                                          map);
+  }
 }
 
 }  // namespace repro

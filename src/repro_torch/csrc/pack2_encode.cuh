@@ -212,11 +212,16 @@ __device__ __forceinline__ void load_masked(Chunk<T>& c, const T* __restrict__ g
 // of the span packs column block k's coordinate 4 q + i at bits 2k, 2k + 1.
 // a0: the first coordinate's counter times RNG_GOLDEN. A kept coordinate's
 // bit pair is 11 in the keep mask and its sign's in the sign mask, so its
-// code is keep & (neg ^ 01): 01 for +, 10 for -.
-template <typename T, class Rule, bool kMasked>
-__device__ __forceinline__ Vec<uint32_t, kEncSpan / 4> encode(const Rule& rule,
-                                                              const Chunk<T>& c, uint32_t a0,
-                                                              long long i, long long n) {
+// code is keep & (neg ^ 01): 01 for +, 10 for -. With kRunMap, column block
+// k draws from ak[k] (its first coordinate's a); with kCross too, adding
+// skip_a (the map's skip times RNG_GOLDEN) from its coordinate cross[k] on.
+// With kShortRunMap, a0 is counter_base and every coordinate's counter is
+// map->offset's.
+template <typename T, class Rule, bool kMasked, int kMap = kNoMap, bool kCross = false>
+__device__ __forceinline__ Vec<uint32_t, kEncSpan / 4> encode(
+    const Rule& rule, const Chunk<T>& c, uint32_t a0, long long i, long long n,
+    const uint32_t* ak = nullptr, const int* cross = nullptr, uint32_t skip_a = 0u,
+    const CounterMap* map = nullptr) {
   Vec<uint32_t, kEncSpan / 4> out;
 #pragma unroll
   for (int q = 0; q < kEncSpan / 4; ++q) {
@@ -227,7 +232,16 @@ __device__ __forceinline__ Vec<uint32_t, kEncSpan / 4> encode(const Rule& rule,
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
         const int e = 4 * q + b;
-        const uint32_t a = a0 + static_cast<uint32_t>(k * kRowBytes + e) * RNG_GOLDEN;
+        uint32_t a;
+        if constexpr (kMap == kShortRunMap) {
+          a = (a0 + map->offset(i + k * kRowBytes + e)) * RNG_GOLDEN;
+        } else if constexpr (kCross) {
+          a = ak[k] + static_cast<uint32_t>(e) * RNG_GOLDEN + (e >= cross[k] ? skip_a : 0u);
+        } else if constexpr (kMap == kRunMap) {
+          a = ak[k] + static_cast<uint32_t>(e) * RNG_GOLDEN;
+        } else {
+          a = a0 + static_cast<uint32_t>(k * kRowBytes + e) * RNG_GOLDEN;
+        }
         const bool valid = !kMasked || i + k * kRowBytes + e < n;
         if constexpr (Rule::kInputSign) {
           m[b] = valid ? __float_as_uint(rule.margin(c.value(k, e), a)) : 0u;
@@ -250,15 +264,40 @@ __device__ __forceinline__ Vec<uint32_t, kEncSpan / 4> encode(const Rule& rule,
 }
 
 // One tile of a thread: its chunk's wire bytes to row (tile, sub), bytes slot * kEncSpan on.
-template <typename T, class Rule, bool kMasked>
+template <typename T, class Rule, bool kMasked, int kMap>
 __device__ __forceinline__ void encode_store(const Rule& rule, const Chunk<T>& c,
                                              uint8_t* __restrict__ out, long long tile, int sub,
-                                             int slot, long long n, uint32_t counter_base) {
+                                             int slot, long long n, uint32_t counter_base,
+                                             const CounterMap& map) {
   const long long row = tile * kEncTileRows + sub;
   const long long i = row * kLanes + slot * kEncSpan;
-  const uint32_t a0 = (counter_base + static_cast<uint32_t>(i)) * RNG_GOLDEN;
-  *reinterpret_cast<Vec<uint32_t, kEncSpan / 4>*>(out + row * kRowBytes + slot * kEncSpan) =
-      encode<T, Rule, kMasked>(rule, c, a0, i, n);
+  auto* dst = reinterpret_cast<Vec<uint32_t, kEncSpan / 4>*>(out + row * kRowBytes +
+                                                             slot * kEncSpan);
+  if constexpr (kMap == kShortRunMap) {
+    *dst = encode<T, Rule, kMasked, kShortRunMap>(rule, c, counter_base, i, n, nullptr,
+                                                   nullptr, 0u, &map);
+  } else if constexpr (kMap == kRunMap) {
+    uint32_t ak[4];
+    int cross[4];
+    long long q, r;
+    map.split(i, q, r);
+    bool crosses = false;   // a run ends inside a column block's span: rare
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k > 0) map.advance(q, r, kRowBytes);
+      map.group(counter_base, i + k * kRowBytes, q, r, ak[k], cross[k]);
+      crosses |= cross[k] < kEncSpan;
+    }
+    if (crosses) {
+      *dst = encode<T, Rule, kMasked, kRunMap, true>(rule, c, 0u, i, n, ak, cross,
+                                                     map.skip * RNG_GOLDEN);
+    } else {
+      *dst = encode<T, Rule, kMasked, kRunMap>(rule, c, 0u, i, n, ak);
+    }
+  } else {
+    const uint32_t a0 = (counter_base + static_cast<uint32_t>(i)) * RNG_GOLDEN;
+    *dst = encode<T, Rule, kMasked>(rule, c, a0, i, n);
+  }
 }
 
 // The 2-bit encoder of rule Rule for encode_tiles.cuh's walker: a thread owns
@@ -289,12 +328,12 @@ struct Pack2Encoder {
                                                    long long t, const Lane& l, long long n) {
     load_masked(c, g, (t * kEncTileRows + l.sub) * kLanes + l.slot * kEncSpan, n);
   }
-  template <bool kMasked>
+  template <bool kMasked, int kMap>
   static __device__ __forceinline__ void store(const Rule& rule, const Chunk& c,
                                                uint8_t* __restrict__ out, long long t,
                                                const Lane& l, long long n,
-                                               uint32_t counter_base) {
-    encode_store<T, Rule, kMasked>(rule, c, out, t, l.sub, l.slot, n, counter_base);
+                                               uint32_t counter_base, const CounterMap& map) {
+    encode_store<T, Rule, kMasked, kMap>(rule, c, out, t, l.sub, l.slot, n, counter_base, map);
   }
 };
 

@@ -233,11 +233,17 @@ struct Qsgd8Encoder {
   }
 
   // i: the flat index of the thread's first coordinate; a0: its counter
-  // times RNG_GOLDEN
-  template <bool kHoisted>
+  // times RNG_GOLDEN. With kRunMap, run j draws from aj[j] (its first
+  // coordinate's a); with kCross too, adding skip_a from its coordinate
+  // cross[j] on. With kShortRunMap, a0 is counter_base and every
+  // coordinate's counter is map->offset's.
+  template <bool kHoisted, int kMap = kNoMap, bool kCross = false>
   static __device__ __forceinline__ void encode(const State& s, const Chunk& c,
                                                 uint8_t* __restrict__ out, long long i,
-                                                uint32_t a0) {
+                                                uint32_t a0, const uint32_t* aj = nullptr,
+                                                const int* cross = nullptr,
+                                                uint32_t skip_a = 0u,
+                                                const CounterMap* map = nullptr) {
 #pragma unroll
     for (int j = 0; j < kRuns; ++j) {
       Vec<uint32_t, kRun / 4> o;
@@ -247,7 +253,16 @@ struct Qsgd8Encoder {
 #pragma unroll
         for (int b = 0; b < 4; ++b) {
           const int e = 4 * q + b;
-          const uint32_t a = a0 + static_cast<uint32_t>(j * kRunStride + e) * RNG_GOLDEN;
+          uint32_t a;
+          if constexpr (kMap == kShortRunMap) {
+            a = (a0 + map->offset(i + j * kRunStride + e)) * RNG_GOLDEN;
+          } else if constexpr (kCross) {
+            a = aj[j] + static_cast<uint32_t>(e) * RNG_GOLDEN + (e >= cross[j] ? skip_a : 0u);
+          } else if constexpr (kMap == kRunMap) {
+            a = aj[j] + static_cast<uint32_t>(e) * RNG_GOLDEN;
+          } else {
+            a = a0 + static_cast<uint32_t>(j * kRunStride + e) * RNG_GOLDEN;
+          }
           top[b] = scaled_ceil<kHoisted>(s, value(c, j, e)) + uniform_complement(s.folded, a);
         }
         const uint32_t lv = prmt(prmt(top[0], top[1], 0x0073u), prmt(top[2], top[3], 0x0073u),
@@ -259,16 +274,49 @@ struct Qsgd8Encoder {
   }
 
   // kMasked is not needed: load_edge's zeros encode as 0
-  template <bool kMasked>
+  template <bool kMasked, int kMap>
   static __device__ __forceinline__ void store(const State& s, const Chunk& c,
                                                uint8_t* __restrict__ out, long long t,
-                                               const Lane& l, long long, uint32_t counter_base) {
+                                               const Lane& l, long long, uint32_t counter_base,
+                                               const CounterMap& map) {
     const long long i = t * kTileCoords + l.off;
-    const uint32_t a0 = (counter_base + static_cast<uint32_t>(i)) * RNG_GOLDEN;
-    if (s.hoisted) {
-      encode<true>(s, c, out, i, a0);
+    if constexpr (kMap == kShortRunMap) {
+      if (s.hoisted) {
+        encode<true, kShortRunMap>(s, c, out, i, counter_base, nullptr, nullptr, 0u, &map);
+      } else {
+        encode<false, kShortRunMap>(s, c, out, i, counter_base, nullptr, nullptr, 0u, &map);
+      }
+    } else if constexpr (kMap == kRunMap) {
+      uint32_t aj[kRuns];
+      int cross[kRuns];
+      long long q, r;
+      map.split(i, q, r);
+      bool crosses = false;   // a slice run ends inside one of the thread's runs: rare
+#pragma unroll
+      for (int j = 0; j < kRuns; ++j) {
+        if (j > 0) map.advance(q, r, kRunStride);
+        map.group(counter_base, i + j * kRunStride, q, r, aj[j], cross[j]);
+        crosses |= cross[j] < kRun;
+      }
+      const uint32_t skip_a = map.skip * RNG_GOLDEN;
+      if (crosses) {
+        if (s.hoisted) {
+          encode<true, kRunMap, true>(s, c, out, i, 0u, aj, cross, skip_a);
+        } else {
+          encode<false, kRunMap, true>(s, c, out, i, 0u, aj, cross, skip_a);
+        }
+      } else if (s.hoisted) {
+        encode<true, kRunMap>(s, c, out, i, 0u, aj);
+      } else {
+        encode<false, kRunMap>(s, c, out, i, 0u, aj);
+      }
     } else {
-      encode<false>(s, c, out, i, a0);
+      const uint32_t a0 = (counter_base + static_cast<uint32_t>(i)) * RNG_GOLDEN;
+      if (s.hoisted) {
+        encode<true>(s, c, out, i, a0);
+      } else {
+        encode<false>(s, c, out, i, a0);
+      }
     }
   }
 };
@@ -344,6 +392,24 @@ extern "C" int qsgd8_pack8_launch(const void* g, void* out, const void* seed,
   if (dtype == 1)
     return launch_encode<Qsgd8Encoder<__nv_bfloat16>>(g, out, seed, param, n, rows,
                                                       counter_base, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A model rank's slice: as qsgd8_pack8_launch, coordinate i drawing counter
+// counter_base + i + (i / run) * skip (encode_tiles.cuh's CounterMap, run >= 1).
+extern "C" int qsgd8_pack8_map_launch(const void* g, void* out, const void* seed,
+                                      const void* param, long long n, long long rows,
+                                      unsigned int counter_base, long long run,
+                                      unsigned int skip, int dtype, void* stream) {
+  if (rows <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const CounterMap map{run, skip};
+  if (dtype == 0)
+    return launch_encode<Qsgd8Encoder<float>, true>(g, out, seed, param, n, rows,
+                                                    counter_base, s, map);
+  if (dtype == 1)
+    return launch_encode<Qsgd8Encoder<__nv_bfloat16>, true>(g, out, seed, param, n, rows,
+                                                            counter_base, s, map);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -40,3 +40,23 @@ extern "C" int sparsign_pack2bit_launch(const void* g, void* out, const void* se
                                                                     rows, counter_base, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// A model rank's slice: as sparsign_pack2bit_launch, coordinate i drawing
+// counter counter_base + i + (i / run) * skip (encode_tiles.cuh's CounterMap,
+// run >= 1).
+extern "C" int sparsign_pack2bit_map_launch(const void* g, void* out, const void* seed,
+                                            const void* budget, long long n, long long rows,
+                                            unsigned int counter_base, long long run,
+                                            unsigned int skip, int dtype, void* stream) {
+  using namespace repro;
+  if (rows <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const CounterMap map{run, skip};
+  if (dtype == 0)
+    return launch_encode<Pack2Encoder<float, SparsignRule>, true>(g, out, seed, budget, n, rows,
+                                                                  counter_base, s, map);
+  if (dtype == 1)
+    return launch_encode<Pack2Encoder<__nv_bfloat16, SparsignRule>, true>(
+        g, out, seed, budget, n, rows, counter_base, s, map);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -120,22 +120,23 @@ int launch_rule(int rule, const void* g, void* out, const void* seeds, const voi
   }
 }
 
-template <typename T>
+template <typename T, bool kMap = false>
 int launch_pack_rule(int rule, const void* g, void* out, const void* seed, const void* param,
-                     long long n, long long rows, unsigned int counter_base, cudaStream_t s) {
+                     long long n, long long rows, unsigned int counter_base, cudaStream_t s,
+                     CounterMap map = {1, 0u}) {
   switch (rule) {
     case SPARSIGN:
-      return launch_encode<Pack2Encoder<T, SparsignRule>>(g, out, seed, param, n, rows,
-                                                          counter_base, s);
+      return launch_encode<Pack2Encoder<T, SparsignRule>, kMap>(g, out, seed, param, n, rows,
+                                                                counter_base, s, map);
     case SIGN:
-      return launch_encode<Pack2Encoder<T, SignRule>>(g, out, seed, param, n, rows,
-                                                      counter_base, s);
+      return launch_encode<Pack2Encoder<T, SignRule>, kMap>(g, out, seed, param, n, rows,
+                                                            counter_base, s, map);
     case NOISY_SIGN:
-      return launch_encode<Pack2Encoder<T, NoisySignRule>>(g, out, seed, param, n, rows,
-                                                           counter_base, s);
+      return launch_encode<Pack2Encoder<T, NoisySignRule>, kMap>(g, out, seed, param, n, rows,
+                                                                 counter_base, s, map);
     case STOCHASTIC_TERNARY:
-      return launch_encode<Pack2Encoder<T, StochasticTernaryRule>>(g, out, seed, param, n, rows,
-                                                                   counter_base, s);
+      return launch_encode<Pack2Encoder<T, StochasticTernaryRule>, kMap>(
+          g, out, seed, param, n, rows, counter_base, s, map);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -172,5 +173,25 @@ extern "C" int ternary_pack2bit_launch(const void* g, void* out, const void* see
     return launch_pack_rule<float>(rule, g, out, seed, param, n, rows, counter_base, s);
   if (dtype == 1)
     return launch_pack_rule<__nv_bfloat16>(rule, g, out, seed, param, n, rows, counter_base, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A model rank's slice: as ternary_pack2bit_launch, coordinate i drawing
+// counter counter_base + i + (i / run) * skip (encode_tiles.cuh's CounterMap,
+// run >= 1).
+extern "C" int ternary_pack2bit_map_launch(const void* g, void* out, const void* seed,
+                                           const void* param, long long n, long long rows,
+                                           unsigned int counter_base, long long run,
+                                           unsigned int skip, int dtype, int rule,
+                                           void* stream) {
+  if (rows <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const CounterMap map{run, skip};
+  if (dtype == 0)
+    return launch_pack_rule<float, true>(rule, g, out, seed, param, n, rows, counter_base, s,
+                                         map);
+  if (dtype == 1)
+    return launch_pack_rule<__nv_bfloat16, true>(rule, g, out, seed, param, n, rows,
+                                                 counter_base, s, map);
   return static_cast<int>(cudaErrorInvalidValue);
 }

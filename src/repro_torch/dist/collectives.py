@@ -184,7 +184,10 @@ class CollectiveRecord:
     partials), ``param`` the streamed trainer's FSDP parameter gathers.
     ``zero_workers`` holds, for an integer payload of two elements or more,
     whether each of the process's workers (flat index ``first_worker + j``)
-    shipped all zeros."""
+    shipped all zeros. ``model_ranks``: under tensor parallelism, the model
+    ranks whose devices this call stands for (one for a slice's exchange,
+    every local rank for a replicated leaf's, which one process makes once);
+    role ``tp`` is a reduction over 'model' itself."""
 
     primitive: str
     in_elems: int
@@ -195,6 +198,7 @@ class CollectiveRecord:
     first_worker: int = 0
     zero_workers: tuple = ()
     moved: str = ""
+    model_ranks: tuple = ()   # the model ranks whose devices make the call (): all
 
     def _bytes(self, primitive: str) -> float:
         m = self.n_workers
@@ -260,8 +264,31 @@ class Census:
     def scalar_count(self) -> int:
         return len(self._select(payload=False, roles=("wire", "scalar")))
 
+    def for_model_rank(self, rank: int) -> "Census":
+        """The calls one device of model rank ``rank`` makes: its slices'
+        exchanges and the replicated leaves', without the 'model' axis's own
+        reductions (role ``tp``)."""
+        keep = [r for r in self.records if r.role != "tp"
+                and (not r.model_ranks or rank in r.model_ranks)]
+        return Census(records=keep, unknown=list(self.unknown))
+
+    def tp_records(self) -> list:
+        return [r for r in self.records if r.role == "tp"]
+
 
 _CENSUSES: list = []   # the open record_collectives blocks, innermost last
+_MODEL_RANKS: list = [()]   # the model ranks the wire calls stand for, innermost last
+
+
+@contextlib.contextmanager
+def for_model_ranks(ranks):
+    """Recorded wire calls inside the block stand for the devices of these
+    model ranks (``CollectiveRecord.model_ranks``)."""
+    _MODEL_RANKS.append(tuple(ranks))
+    try:
+        yield
+    finally:
+        _MODEL_RANKS.pop()
 
 
 @contextlib.contextmanager
@@ -301,7 +328,7 @@ def _record(primitive: str, x, group: "WorkerGroup", *, role: str = "wire",
                            in_bytes=elems * t0.element_size(),
                            dtype=str(t0.dtype).split(".")[-1], n_workers=group.n_workers,
                            role=role, first_worker=group.rank * local,
-                           zero_workers=zeros, moved=moved)
+                           zero_workers=zeros, moved=moved, model_ranks=_MODEL_RANKS[-1])
     for census in _CENSUSES:
         census.add(rec)
 
@@ -323,6 +350,12 @@ class WorkerGroup:
     group: Optional[object] = None
     rank: int = 0
     world: int = 1
+    model: Optional["ModelGroup"] = None   # the 'model' axis (None: no tensor parallelism)
+
+    @property
+    def model_size(self) -> int:
+        """T, the 'model' axis's size (1 without tensor parallelism)."""
+        return self.model.size if self.model is not None else 1
 
     def __post_init__(self):
         if len(self.axes) != len(self.sizes) or not self.axes:
@@ -362,6 +395,98 @@ class WorkerGroup:
         if self.group is not None and self.world > 1:
             dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=self.group)
         return x
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ModelGroup:
+    """The T model ranks of the 'model' (tensor-parallel) axis that share one
+    worker. This process holds ``local`` consecutive ranks from ``offset``
+    (a leading dimension, as the workers are); the other ranks live in the
+    ``world`` processes of ``group`` (None: all here), this one being its
+    ``rank``-th. The devices of a mesh are row-major over (worker axes...,
+    'model'), JAX's mesh order, so a process holds either whole workers
+    (every rank, ``group`` None) or some ranks of one worker.
+
+    One reduction: the ORDERED all-reduce ``tp_sum``: the partials of all T
+    ranks are gathered, then added in rank order, so one process and several
+    give the same bits."""
+
+    size: int
+    offset: int = 0
+    local: int = 0
+    group: Optional[object] = None
+    rank: int = 0
+    world: int = 1
+
+    def __post_init__(self):
+        if self.local == 0:
+            object.__setattr__(self, "local", self.size)
+        if self.size < 1 or self.local * self.world != self.size:
+            raise ValueError(f"{self.size} model ranks do not split into {self.world} "
+                             f"processes of {self.local}")
+
+    @property
+    def ranks(self) -> range:
+        """This process's model ranks."""
+        return range(self.offset, self.offset + self.local)
+
+
+def _record_tp(primitive: str, parts: Sequence[torch.Tensor], mg: ModelGroup) -> None:
+    """Record one 'model'-axis reduction (role ``tp``: neither the uplink
+    ledger nor a protocol scalar): one rank's operand, over T ranks."""
+    t0 = parts[0]
+    rec = CollectiveRecord(primitive=primitive, in_elems=t0.numel(),
+                           in_bytes=t0.numel() * t0.element_size(),
+                           dtype=str(t0.dtype).split(".")[-1], n_workers=mg.size, role="tp",
+                           first_worker=mg.offset,
+                           moved="all_gather" if primitive == "psum" else "")
+    for census in _CENSUSES:
+        census.add(rec)
+
+
+def tp_gather(parts: Sequence[torch.Tensor], mg: ModelGroup) -> list:
+    """This process's ranks' tensors (one a local rank, equal shapes) -> all
+    T ranks' in rank order: the 'model' axis's all-gather."""
+    if mg.group is None or mg.world == 1:
+        return list(parts)
+    x = torch.stack(list(parts)).contiguous()
+    out = torch.empty((mg.size,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, x, group=mg.group)
+    return list(out.unbind(0))
+
+
+def tp_sum(parts: Sequence[torch.Tensor], mg: ModelGroup) -> torch.Tensor:
+    """The ordered all-reduce over 'model': ``parts`` holds one partial a
+    local rank; every rank's is gathered, then they are added in rank order
+    (((p0 + p1) + p2) + ...), the same bits in any process layout. Recorded
+    as a ``psum`` of role ``tp``."""
+    if _CENSUSES:
+        _record_tp("psum", parts, mg)
+    every = tp_gather(parts, mg)
+    acc = every[0]
+    for x in every[1:]:
+        acc = acc + x
+    return acc
+
+
+def tp_max(parts: Sequence[torch.Tensor], mg: ModelGroup) -> torch.Tensor:
+    """The elementwise max over 'model' of one partial a local rank (exact in
+    any order). Recorded as a ``pmax`` of role ``tp``."""
+    if _CENSUSES:
+        _record_tp("pmax", parts, mg)
+    local = torch.stack(list(parts)).amax(dim=0)
+    if mg.group is not None and mg.world > 1:
+        dist.all_reduce(local, op=dist.ReduceOp.MAX, group=mg.group)
+    return local
+
+
+def tp_all_gather(parts: Sequence[torch.Tensor], mg: ModelGroup, dim: int) -> torch.Tensor:
+    """Each local rank's slice of a leaf along ``dim`` -> the whole leaf,
+    slices in rank order (a parameter gather: recorded as an ``all_gather``
+    of role ``tp``)."""
+    if _CENSUSES:
+        _record_tp("all_gather", parts, mg)
+    return torch.cat(tp_gather(parts, mg), dim=dim)
 
 
 def worker_count(group: WorkerGroup) -> int:

@@ -31,14 +31,20 @@ _p, _i, _ll, _u32 = _c.c_void_p, _c.c_int, _c.c_longlong, _c.c_uint32
 # argtypes of each library's C entry points: pointers and the stream as
 # c_void_p, or ctypes would pass them as 32-bit ints and cut them
 SIGNATURES = {
-    "sparsign": {"sparsign_launch": [_p, _p, _p, _p, _i, _ll, _ll, _u32, _i, _p]},
+    "sparsign": {"sparsign_launch": [_p, _p, _p, _p, _i, _ll, _ll, _u32, _i, _p],
+                 "sparsign_map_launch": [_p, _p, _p, _p, _i, _ll, _ll, _u32, _ll, _u32, _i,
+                                         _p]},
     "vote_update": {"vote_update_launch": [_p, _p, _p, _ll, _c.c_float, _i, _i, _i, _p]},
     "ef_server": {"ef_server_launch": [_p, _p, _p, _p, _p, _ll, _p]},
     "ternary": {"ternary_launch": [_p, _p, _p, _p, _i, _ll, _ll, _u32, _i, _i, _p],
-                "ternary_pack2bit_launch": [_p, _p, _p, _p, _ll, _ll, _u32, _i, _i, _p]},
+                "ternary_pack2bit_launch": [_p, _p, _p, _p, _ll, _ll, _u32, _i, _i, _p],
+                "ternary_pack2bit_map_launch": [_p, _p, _p, _p, _ll, _ll, _u32, _ll, _u32, _i,
+                                                _i, _p]},
     "weighted_vote_update": {"weighted_vote_update_launch":
                              [_p, _p, _p, _p, _ll, _c.c_float, _c.c_float, _i, _i, _p]},
-    "sparsign_pack2bit": {"sparsign_pack2bit_launch": [_p, _p, _p, _p, _ll, _ll, _u32, _i, _p]},
+    "sparsign_pack2bit": {"sparsign_pack2bit_launch": [_p, _p, _p, _p, _ll, _ll, _u32, _i, _p],
+                          "sparsign_pack2bit_map_launch": [_p, _p, _p, _p, _ll, _ll, _u32, _ll,
+                                                           _u32, _i, _p]},
     "unpack2bit": {"unpack2bit_sum_into_launch": [_p, _p, _i, _ll, _i, _i, _p],
                    "unpack2bit_wsum_into_launch": [_p, _p, _p, _i, _ll, _i, _p]},
     "golomb_encode": {"golomb_encode_launch": [_p, _p, _p, _p, _p, _ll, _ll, _u32, _i, _i, _p],
@@ -48,6 +54,7 @@ SIGNATURES = {
     "pack2bit": {"pack2bit_launch": [_p, _p, _ll, _ll, _p],
                  "unpack2bit_launch": [_p, _p, _ll, _p]},
     "pack8": {"qsgd8_pack8_launch": [_p, _p, _p, _p, _ll, _ll, _u32, _i, _p],
+              "qsgd8_pack8_map_launch": [_p, _p, _p, _p, _ll, _ll, _u32, _ll, _u32, _i, _p],
               "unpack8_sum_into_launch": [_p, _p, _p, _i, _ll, _i, _p]},
 }
 #: entry points that return something other than a CUDA error code

@@ -114,3 +114,28 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtypes) -> None:
         raise TypeError(f"{name} must have dtype in {dtypes}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def map_args(counter_base, counter_map) -> tuple:
+    """A slice's counter map ``(run, leaf_run, offset)`` as the kernels'
+    launch arguments: (counter_base + offset, run, leaf_run - run), both
+    uint32 values wrapped as the unsharded counter wraps."""
+    run, leaf_run, offset = (int(v) for v in counter_map)
+    if run < 1 or leaf_run < run or not 0 <= offset <= leaf_run - run:
+        raise ValueError(f"counter map {counter_map!r}: need 1 <= run <= leaf_run and "
+                         f"0 <= offset <= leaf_run - run")
+    return (int(counter_base) + offset) & 0xFFFFFFFF, run, (leaf_run - run) & 0xFFFFFFFF
+
+
+def counter_index(n: int, counter_base, device, counter_map=None) -> torch.Tensor:
+    """int64 counters of a message's n flat coordinates: ``counter_base + j``,
+    or for a model rank's slice of a leaf (``counter_map = (run, leaf_run,
+    offset)``: the slice is rows of ``run`` contiguous coordinates of the
+    leaf's rows of ``leaf_run``, ``offset`` into each) the whole leaf's
+    counter at the same coordinate, ``counter_base + (j // run) * leaf_run +
+    offset + j % run``. ``prng`` masks them to 32 bits, as the kernels wrap."""
+    j = torch.arange(n, dtype=torch.int64, device=device)
+    if counter_map is None:
+        return j + int(counter_base)
+    base, run, skip = map_args(counter_base, counter_map)
+    return j + base + torch.div(j, run, rounding_mode="floor") * skip

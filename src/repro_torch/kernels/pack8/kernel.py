@@ -8,19 +8,22 @@ import torch
 
 from repro_torch.core.prng import MASK32
 from repro_torch.kernels import build
-from repro_torch.kernels.common import LANES, canonical_rows, check_cuda_tensor, decode_sum_out
+from repro_torch.kernels.common import (LANES, canonical_rows, check_cuda_tensor,
+                                       decode_sum_out, map_args)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def qsgd8_pack8_cuda(g: torch.Tensor, param: torch.Tensor, seed: torch.Tensor,
-                     counter_base: int = 0) -> torch.Tensor:
+                     counter_base: int = 0, counter_map=None) -> torch.Tensor:
     """The (canonical_rows(n), 512) int8 pack8 wire of qsgd8(g) on the card,
     one launch: the signed stochastic levels of g's flat stream, the pad
     rows 0. ``seed``: int64 CUDA tensor of one uint32 stream seed, drawing
     counters ``counter_base + j``; ``param``: float32 CUDA tensor of one
-    value, the decode scale. Allocates the output, launches on the current
-    stream and does not synchronise."""
+    value, the decode scale. ``counter_map`` (run, leaf_run, offset): g
+    is a model rank's slice of a leaf, drawing the whole leaf's
+    counters. Allocates the output, launches on the current stream and does
+    not synchronise."""
     check_cuda_tensor("g", g, tuple(_DTYPES))
     check_cuda_tensor("seed", seed, (torch.int64,))
     check_cuda_tensor("param", param, (torch.float32,))
@@ -29,10 +32,16 @@ def qsgd8_pack8_cuda(g: torch.Tensor, param: torch.Tensor, seed: torch.Tensor,
                          f"{param.numel()}")
     n = g.numel()
     out = torch.empty((canonical_rows(n), LANES), dtype=torch.int8, device=g.device)
-    err = build.library("pack8", "qsgd8_pack8_launch")(
-        g.data_ptr(), out.data_ptr(), seed.data_ptr(), param.data_ptr(), n, out.shape[0],
-        int(counter_base) & MASK32, _DTYPES[g.dtype],
-        torch.cuda.current_stream(g.device).cuda_stream)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    if counter_map is None:
+        err = build.library("pack8", "qsgd8_pack8_launch")(
+            g.data_ptr(), out.data_ptr(), seed.data_ptr(), param.data_ptr(), n, out.shape[0],
+            int(counter_base) & MASK32, _DTYPES[g.dtype], stream)
+    else:
+        base, run, skip = map_args(counter_base, counter_map)
+        err = build.library("pack8", "qsgd8_pack8_map_launch")(
+            g.data_ptr(), out.data_ptr(), seed.data_ptr(), param.data_ptr(), n, out.shape[0],
+            base, run, skip, _DTYPES[g.dtype], stream)
     build.check_launch("qsgd8_pack8", err)
     qsgd8_pack8_cuda.launches += 1
     return out

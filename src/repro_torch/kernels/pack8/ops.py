@@ -18,22 +18,27 @@ from repro_torch.kernels.pack8.kernel import qsgd8_pack8_cuda, unpack8_sum_cuda
 from repro_torch.kernels.pack8.ref import qsgd8_pack8_ref, unpack8_sum_ref
 
 
-def qsgd8_pack8_op(g: torch.Tensor, param, seed, counter_base=0) -> torch.Tensor:
+def qsgd8_pack8_op(g: torch.Tensor, param, seed, counter_base=0, *,
+                   counter_map=None) -> torch.Tensor:
     """Quantize -> 8-bit wire: (any shape, f32/bf16) -> (rows, 512) int8
     signed levels, one pass on the card, the bytes of
     ``to_2d(qsgd8_levels_ref(g, ...))``. ``seed`` is one stream seed over g's
     flat index and ``param`` the decode scale (a host number or a device
-    scalar)."""
+    scalar). ``counter_map``: g is a model rank's slice of a leaf, as
+    ``sparsign_op`` takes it."""
     if not g.is_cuda:
-        return qsgd8_pack8_ref(g, param, seed, counter_base)
+        return qsgd8_pack8_ref(g, param, seed, counter_base, counter_map=counter_map)
     s = device_tensor(seed, g, torch.int64).reshape(-1) & MASK32
     p = device_tensor(param, g).reshape(-1)
-    return qsgd8_pack8_cuda(g.contiguous(), p.contiguous(), s.contiguous(), counter_base)
+    return qsgd8_pack8_cuda(g.contiguous(), p.contiguous(), s.contiguous(), counter_base,
+                            counter_map)
 
 
-def qsgd8_op(g: torch.Tensor, param, seed, counter_base=0) -> torch.Tensor:
+def qsgd8_op(g: torch.Tensor, param, seed, counter_base=0, *,
+             counter_map=None) -> torch.Tensor:
     """int8 signed qsgd8 levels in the leaf shape (the decoded-wire path)."""
-    return from_2d(qsgd8_pack8_op(g, param, seed, counter_base), g.numel(), g.shape)
+    return from_2d(qsgd8_pack8_op(g, param, seed, counter_base, counter_map=counter_map),
+                   g.numel(), g.shape)
 
 
 def unpack8_sum_op(gathered: torch.Tensor, scales: torch.Tensor, n: int, shape, *, out=None,

@@ -25,21 +25,23 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import prng
-from repro_torch.kernels.common import decode_sum_out, device_tensor, to_2d
+from repro_torch.kernels.common import counter_index, decode_sum_out, device_tensor, to_2d
 from repro_torch.kernels.ternary.ref import as_rows
 
 #: level count of the 8-bit wire: 1 sign bit + 7 level bits = 2**7 - 1
 QSGD8_LEVELS = 127
 
 
-def qsgd8_levels_ref(g: torch.Tensor, param, seed, counter_base=0) -> torch.Tensor:
+def qsgd8_levels_ref(g: torch.Tensor, param, seed, counter_base=0, *,
+                     counter_map=None) -> torch.Tensor:
     """int8 signed stochastic levels of ``g`` (any shape, f32/bf16), shaped
     like ``g``. ``param`` is the decode scale max(||g||_2, eps) / 127 of the
     whole tensor (a scalar, or one value per row with per-row seeds, as
     ``ternary_compress_ref`` takes them); counters run over g's flat index
-    from ``counter_base``."""
+    from ``counter_base`` (a model rank's slice: ``counter_map``, as
+    ``ternary_compress_ref`` takes it)."""
     rows, seeds = as_rows(g.to(torch.float32), seed)
-    idx = torch.arange(rows.shape[1], dtype=torch.int64, device=g.device) + int(counter_base)
+    idx = counter_index(rows.shape[1], counter_base, g.device, counter_map)
     prm = torch.clamp(device_tensor(param, g).reshape(-1, 1), min=1e-20)
     r = torch.abs(rows) / prm
     low = torch.floor(r)
@@ -51,10 +53,12 @@ def qsgd8_levels_ref(g: torch.Tensor, param, seed, counter_base=0) -> torch.Tens
     return sym.to(torch.int8).reshape(g.shape)
 
 
-def qsgd8_pack8_ref(g: torch.Tensor, param, seed, counter_base=0) -> torch.Tensor:
+def qsgd8_pack8_ref(g: torch.Tensor, param, seed, counter_base=0, *,
+                    counter_map=None) -> torch.Tensor:
     """(any shape) -> (rows, LANES) int8 canonical wire view: quantize, then
     pad to the canonical view, the two passes the fused kernel does in one."""
-    view, _ = to_2d(qsgd8_levels_ref(g, param, seed, counter_base).reshape(-1))
+    view, _ = to_2d(qsgd8_levels_ref(g, param, seed, counter_base,
+                                     counter_map=counter_map).reshape(-1))
     return view
 
 

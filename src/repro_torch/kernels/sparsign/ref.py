@@ -9,7 +9,9 @@ import torch
 from repro_torch.kernels.ternary.ref import ternary_compress_ref
 
 
-def sparsign_ref(g: torch.Tensor, budget, seed, counter_base=0) -> torch.Tensor:
-    """int8 ternary sparsign of ``g``; ``seed`` and ``budget`` per
-    ``ternary_compress_ref`` (one stream, or one per row)."""
-    return ternary_compress_ref(g, budget, seed, counter_base, rule="sparsign")
+def sparsign_ref(g: torch.Tensor, budget, seed, counter_base=0, *,
+                 counter_map=None) -> torch.Tensor:
+    """int8 ternary sparsign of ``g``; ``seed``, ``budget`` and
+    ``counter_map`` per ``ternary_compress_ref`` (one stream, or one per row)."""
+    return ternary_compress_ref(g, budget, seed, counter_base, rule="sparsign",
+                                counter_map=counter_map)

@@ -11,7 +11,9 @@ from repro_torch.kernels.pack2bit.ref import pack2bit_ref
 from repro_torch.kernels.sparsign.ref import sparsign_ref
 
 
-def sparsign_pack2bit_ref(g: torch.Tensor, budget, seed, counter_base=0) -> torch.Tensor:
+def sparsign_pack2bit_ref(g: torch.Tensor, budget, seed, counter_base=0, *,
+                          counter_map=None) -> torch.Tensor:
     """(any shape) -> (rows, 128) uint8 packed canonical wire of sparsign(g)."""
-    view, _ = to_2d(sparsign_ref(g, budget, seed, counter_base).reshape(-1))
+    view, _ = to_2d(sparsign_ref(g, budget, seed, counter_base,
+                                 counter_map=counter_map).reshape(-1))
     return pack2bit_ref(view)

@@ -8,7 +8,7 @@ import torch
 
 from repro_torch.core.prng import MASK32
 from repro_torch.kernels import build
-from repro_torch.kernels.common import check_cuda_tensor, packed_shape
+from repro_torch.kernels.common import check_cuda_tensor, map_args, packed_shape
 from repro_torch.kernels.ternary.rules import RULES
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -51,12 +51,15 @@ ternary_cuda.launches = 0
 
 
 def ternary_pack2bit_cuda(g: torch.Tensor, param: torch.Tensor, seed: torch.Tensor,
-                          counter_base: int = 0, *, rule: str) -> torch.Tensor:
+                          counter_base: int = 0, *, rule: str,
+                          counter_map=None) -> torch.Tensor:
     """The (canonical_rows(n), 128) uint8 packed wire of RULES[rule](g) on
     the card, one launch; coordinates past g's end pack as 0. ``seed``: int64
     CUDA tensor of one uint32 stream seed over g's flat index; ``param``:
-    float32 CUDA tensor of one value. Allocates the output, launches on the
-    current stream and does not synchronise."""
+    float32 CUDA tensor of one value. ``counter_map`` (run, leaf_run,
+    offset): g is a model rank's slice of a leaf, drawing the
+    whole leaf's counters. Allocates the output, launches on the current
+    stream and does not synchronise."""
     if rule not in RULE_IDS:
         raise ValueError(f"unknown ternary rule {rule!r}; known: {sorted(RULE_IDS)}")
     check_cuda_tensor("g", g, tuple(_DTYPES))
@@ -67,10 +70,16 @@ def ternary_pack2bit_cuda(g: torch.Tensor, param: torch.Tensor, seed: torch.Tens
                          f"and {param.numel()}")
     n = g.numel()
     out = torch.empty(packed_shape(n), dtype=torch.uint8, device=g.device)
-    err = build.library("ternary", "ternary_pack2bit_launch")(
-        g.data_ptr(), out.data_ptr(), seed.data_ptr(), param.data_ptr(), n, out.shape[0],
-        int(counter_base) & MASK32, _DTYPES[g.dtype], RULE_IDS[rule],
-        torch.cuda.current_stream(g.device).cuda_stream)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    if counter_map is None:
+        err = build.library("ternary", "ternary_pack2bit_launch")(
+            g.data_ptr(), out.data_ptr(), seed.data_ptr(), param.data_ptr(), n, out.shape[0],
+            int(counter_base) & MASK32, _DTYPES[g.dtype], RULE_IDS[rule], stream)
+    else:
+        base, run, skip = map_args(counter_base, counter_map)
+        err = build.library("ternary", "ternary_pack2bit_map_launch")(
+            g.data_ptr(), out.data_ptr(), seed.data_ptr(), param.data_ptr(), n, out.shape[0],
+            base, run, skip, _DTYPES[g.dtype], RULE_IDS[rule], stream)
     build.check_launch("ternary_pack2bit", err)
     ternary_pack2bit_cuda.launches += 1
     return out

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import prng
-from repro_torch.kernels.common import device_tensor, to_2d
+from repro_torch.kernels.common import counter_index, device_tensor, to_2d
 from repro_torch.kernels.pack2bit.ref import pack2bit_ref
 from repro_torch.kernels.ternary.rules import RULES
 
@@ -31,11 +31,13 @@ def as_rows(g: torch.Tensor, seed):
 
 
 def ternary_compress_ref(g: torch.Tensor, param, seed, counter_base=0, *,
-                         rule: str) -> torch.Tensor:
-    """int8 ternary RULES[rule] symbols, shaped like ``g``."""
+                         rule: str, counter_map=None) -> torch.Tensor:
+    """int8 ternary RULES[rule] symbols, shaped like ``g``; with
+    ``counter_map`` each row is a model rank's slice drawing the whole leaf's
+    counters (``kernels.common.counter_index``)."""
     fn = RULES[rule]
     rows, seeds = as_rows(g.to(torch.float32), seed)
-    idx = torch.arange(rows.shape[1], dtype=torch.int64, device=g.device) + int(counter_base)
+    idx = counter_index(rows.shape[1], counter_base, g.device, counter_map)
 
     def u(salt: int):
         s = seeds if salt == 0 else prng.fold_seed(seeds, salt)
@@ -50,9 +52,10 @@ def ternary_compress_ref(g: torch.Tensor, param, seed, counter_base=0, *,
 
 
 def ternary_pack2bit_ref(g: torch.Tensor, param, seed, counter_base=0, *,
-                         rule: str) -> torch.Tensor:
+                         rule: str, counter_map=None) -> torch.Tensor:
     """The (rows, 128) uint8 packed canonical wire of RULES[rule](g): the
     two-pass composition; the canonical pad is zeros after the rule, so
     coordinates past g's end pack as 0."""
-    view, _ = to_2d(ternary_compress_ref(g, param, seed, counter_base, rule=rule).reshape(-1))
+    view, _ = to_2d(ternary_compress_ref(g, param, seed, counter_base, rule=rule,
+                                         counter_map=counter_map).reshape(-1))
     return pack2bit_ref(view)

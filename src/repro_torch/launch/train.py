@@ -17,7 +17,11 @@ the same logical state and trains on: a checkpoint holds whole leaves (the
 streamed trainer re-cuts its slices from them), and majority-vote state has
 no per-worker terms. An M-RoPE model's batch carries ``positions3``, the
 three position streams equal to ``positions``, as JAX's launcher builds it.
-What is not ported yet raises: the production meshes.
+``--host-model T`` adds a
+tensor-parallel 'model' axis of T ranks (the simple trainer's dense
+attention families; ``train.step_tp``); its checkpoints hold whole leaves,
+so a run resumes at another T or M. What is not ported yet raises: a
+launch on the production meshes.
 """
 
 from __future__ import annotations
@@ -59,8 +63,12 @@ def build_everything(args, group=None):
     cfg = get_config(args.arch, smoke=args.smoke)
     model = Model(cfg)
     if group is None:
-        group = (make_host_mesh(args.host_data, args.host_model) if args.mesh == "host"
-                 else make_production_mesh(multi_pod=(args.mesh == "multipod")))
+        if args.mesh != "host":
+            mesh = make_production_mesh(multi_pod=(args.mesh == "multipod"))
+            raise NotImplementedError(
+                f"a launch on the production mesh {dict(mesh.shape)} ({mesh.size} devices, one "
+                f"process a device) is not ported yet; use --mesh host")
+        group = make_host_mesh(args.host_data, args.host_model)
     comp = CompressionConfig(compressor=args.compressor,
                              budget=BudgetConfig(kind=args.budget_kind, value=args.budget),
                              server=args.server, local_steps=args.tau,
@@ -84,6 +92,8 @@ def build_everything(args, group=None):
     state = init_state(params, server=comp.server, seed=args.seed)
     if mode == "streamed":
         state = shard_state(state, step.layout)
+    elif group.model_size > 1:
+        state = step.shard_state(state)
     return cfg, model, group, step, state, comp
 
 

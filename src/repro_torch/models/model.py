@@ -86,6 +86,12 @@ class Model:
             out["tail"] = tuple(blocks_lib.block_logical_axes(cfg, s) for s in cfg.tail_pattern)
         return out
 
+    def tensor_parallel(self, mg):
+        """This model run tensor-parallel over the model ranks of ``mg``
+        (``models.tensor_parallel.TPModel``)."""
+        from repro_torch.models.tensor_parallel import TPModel   # it imports blocks
+        return TPModel(self, mg)
+
     def param_count(self) -> int:
         return sum(math.prod(s.shape) for s in tree_leaves(self.param_shapes()))
 

@@ -189,6 +189,9 @@ def _read_leaf(path: str, like, layout=None):
     if layout is not None and not layout.whole:
         arr = arr[(slice(None),) * layout.axis + (slice(layout.start,
                                                          layout.start + layout.size),)]
+        pieces = getattr(layout, "pieces", 1)
+        if pieces > 1:   # a tensor-parallel leaf: its model slices, stacked
+            arr = np.stack(np.split(arr, pieces, axis=layout.axis))
     if isinstance(like, np.generic):
         return int(arr)
     if isinstance(like, np.ndarray):
@@ -266,7 +269,9 @@ def restore(ckpt_dir: str, like, *, step: Optional[int] = None, shardings=None):
     leaves are this process's slices, the checkpoint's the whole leaves, and
     each file is mapped and only the slice copied, so a resume at another M
     or in another number of processes re-cuts the slices from the same
-    files."""
+    files. A layout with ``pieces`` (``step_tp.TPLeafLayout``) restores its
+    block as that many model slices stacked on a new leading axis: the
+    tensor-parallel layout, at any T."""
     steps = latest_steps(ckpt_dir)
     if not steps:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")

@@ -137,7 +137,11 @@ def build_train_step(model, step_cfg: TrainStepConfig, group: WorkerGroup) -> Ca
     Like JAX's donated buffers, the step writes each new leaf of the
     parameters and the EF residual into the input state's tensor, leaf by
     leaf, so one copy of each is alive instead of two; the input state must
-    not be read again."""
+    not be read again. A group with a 'model' axis of size T > 1 takes the
+    tensor-parallel step (``train.step_tp``), its state in the TP layout."""
+    if group.model_size > 1:
+        from repro_torch.train.step_tp import build_tp_train_step  # it imports this module
+        return build_tp_train_step(model, step_cfg, group)
     comp = step_cfg.compression
     mode = engine.wire_mode(comp, vote_impl=step_cfg.vote_impl)
     wire_fmt = engine.wire_payload_format(comp, mode, vote_impl=step_cfg.vote_impl)

@@ -248,7 +248,11 @@ def build_streamed_train_step(model, step_cfg: StreamedStepConfig,
                               group: WorkerGroup) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics), ``state``
     holding this process's slices (``shard_state``). Build-time refusals
-    (``ValueError``): tail blocks, tied embeddings, tau > 1."""
+    (``ValueError``): tail blocks, tied embeddings, tau > 1. A 'model' axis
+    of size T > 1 is not ported yet (``NotImplementedError``)."""
+    if group.model_size > 1:
+        raise NotImplementedError("the streamed trainer with a tensor-parallel 'model' axis "
+                                  f"of {group.model_size} is not ported yet")
     cfg = model.cfg
     comp = step_cfg.compression
     if cfg.tail_pattern:

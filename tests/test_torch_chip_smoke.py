@@ -446,3 +446,36 @@ def test_bit_digest_tells_one_changed_bit():
     assert cs.bit_digest(torch, t) != cs.bit_digest(torch, u)
     b = t.to(torch.bfloat16)
     assert cs.bit_digest(torch, b) != cs.bit_digest(torch, -b)
+
+
+def test_phase_tp_rehearses_on_the_cpu(monkeypatch, capsys):
+    """The tensor-parallel phase at the smoke size on the CPU: the slice
+    holds on small slices, the launcher's M = 4 x T = 2 run with wire bytes
+    at the slice ledger, the injected fixed-budget rounds at T = 2 equal to
+    T = 1 bit for bit, the float32 gradients no farther from float64 than
+    TP_F64_RATIO times T = 1's, and the T = 2 checkpoint restored at T = 1."""
+    import torch
+
+    cs = _chip_smoke()
+    _rehearse(cs, monkeypatch)
+    report = {}
+
+    def stub_timer(fn, **kw):
+        fn()
+        return {"ms": 1.0, "p25": 1.0, "p75": 1.0}
+
+    cs.phase_tp(torch, report, {k: 0 for k in cs.REPLACES}, dev="cpu", timer=stub_timer,
+                slice_shapes={"w_up": (8, 96), "lm_head": (8, 256)})
+    out = report["tp"]
+    assert out["full"]["messages_a_worker"] == 27 and out["full"]["model_ranks"] == 2
+    assert out["full"]["wire_bytes_per_device"] <= out["full"]["whole_leaf_ledger"]
+    assert set(out["slices"]) == {"w_up", "lm_head"}
+    assert all(r["max_abs_err"] == 0 for s in out["slices"].values() for r in s.values())
+    assert [out["injected"][k]["differ"] for k in ("fixed psum", "fixed allgather_packed")] \
+        == [0, 0]
+    assert out["injected"]["scaled_sign_ef psum"]["moved_alike"]
+    assert set(out["own_gradients"]) == {"float32", "bfloat16"}
+    assert all(b <= cs.TP_F64_RATIO * a + 1e-7
+               for a, b in zip(out["float64"]["t1_err"], out["float64"]["t2_err"]))
+    assert out["checkpoint_t2_to_t1"]
+    assert "[tp] qwen1.5-4b" in capsys.readouterr().out

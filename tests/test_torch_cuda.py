@@ -614,3 +614,76 @@ def test_wire_kernels_above_2_31_coordinates_on_card(cuda_device):
                                     "vote_update": 0}
     assert huge["vote_nonzero"] > 0 and huge["weights_moved"] > 0
     torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_counter_map_kernels_match_plain_versions_on_card(cuda_device, dtype):
+    """Rows 1, 5 (every rule), 6 and 12 on a model rank's slice of a leaf
+    (the counter map): the slice's symbols are the plain versions' bit for
+    bit and, for row 1, the whole leaf's at the same coordinates; runs that
+    are and are not multiples of the encoders' groups, runs shorter than a
+    group (the walker's short-run mode), a counter base that wraps inside
+    the slice, a slice cut on a middle axis."""
+    cases = [((64, 6912), 2, 1, 12345), ((37, 504), 2, 1, 7), ((8, 34), 2, 0, 2**32 - 40),
+             ((5, 96, 40), 3, 2, 99), ((300, 16), 2, 1, 5), ((129, 6), 3, 2, 2**32 - 9)]
+    for shape, t, rank, base in cases:
+        g = torch.from_numpy(grad_like(int(np.prod(shape)), 3).reshape(shape)).to(
+            cuda_device, dtype)
+        dim = 1 if len(shape) == 3 else len(shape) - 1
+        width = shape[dim] // t
+        s = g.narrow(dim, rank * width, width).contiguous()
+        leaf_run = int(np.prod(shape[dim:]))
+        run = leaf_run // t
+        cmap = (run, leaf_run, rank * run)
+        scale = torch.tensor(0.02, device=cuda_device)
+        got = sparsign_op(s, 3.0, 77, base, counter_map=cmap)
+        assert torch.equal(got, sparsign_ref(s, 3.0, 77, base, counter_map=cmap))
+        whole = sparsign_ref(g, 3.0, 77, base).narrow(dim, rank * width, width)
+        assert torch.equal(got, whole), shape
+        assert torch.equal(sparsign_pack2bit_op(s, 3.0, 77, base, counter_map=cmap),
+                           sparsign_pack2bit_ref(s, 3.0, 77, base, counter_map=cmap))
+        for rule in RULES:
+            prm = 0.3 if rule == "noisy_sign" else 3.0
+            assert torch.equal(
+                ternary_pack2bit_op(s, prm, 77, base, rule=rule, counter_map=cmap),
+                ternary_pack2bit_ref(s, prm, 77, base, rule=rule, counter_map=cmap)), rule
+        assert torch.equal(qsgd8_pack8_op(s, scale, 77, base, counter_map=cmap),
+                           qsgd8_pack8_ref(s, scale, 77, base, counter_map=cmap))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["psum", "allgather_packed"])
+def test_tp_trainer_step_on_card_matches_plain_versions(cuda_device, impl):
+    """One smoke-size step at M = 4 x T = 2 through the kernels and through
+    the plain versions (backend='torch') on the card: the same parameters,
+    bit for bit, and the counter-map kernels launched once a worker and
+    message."""
+    from repro_torch.launch.mesh import make_host_mesh
+    model = Model(get_config("qwen1.5-4b", smoke=True))
+    comp = CompressionConfig(compressor="sparsign",
+                             budget=BudgetConfig(kind="l2_norm", value=0.1),
+                             server="majority_vote")
+    rng = np.random.RandomState(0)
+    batch = {"inputs": rng.randint(0, 256, (4, 16)).astype(np.int32),
+             "labels": rng.randint(0, 256, (4, 16)).astype(np.int32),
+             "positions": np.broadcast_to(np.arange(16, dtype=np.int32), (4, 16)).copy()}
+    out = {}
+    for backend in (None, "torch"):
+        step = build_train_step(model, TrainStepConfig(
+            compression=comp, lr=LrSchedule(base=0.05), vote_impl=impl, backend=backend),
+            make_host_mesh(4, 2))
+        state = step.shard_state(init_state(model.init(0, device=cuda_device),
+                                            server=comp.server, seed=1))
+        reset_launch_counts()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        out[backend] = [tbits(t) for t in tree_leaves(step.whole_state(state).params)]
+        if backend is None:   # 12 leaves cut on 'model', 3 replicated: 27 messages a worker
+            encoder = "sparsign" if impl == "psum" else "sparsign_pack2bit"
+            assert counts[encoder] == 27 * 4 and counts["vote_update"] == 27
+        else:
+            assert not any(counts.values())
+    for a, b in zip(out[None], out["torch"]):
+        np.testing.assert_array_equal(a, b)
