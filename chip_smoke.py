@@ -213,6 +213,7 @@ import contextlib
 import dataclasses
 import gzip
 import io
+import itertools
 import json
 import math
 import pathlib
@@ -2043,7 +2044,7 @@ def plain_versions_barred():
     names = [(engine_mod, "pack2bit_ref"), (engine_mod, "vote_update_ref"),
              (engine_mod, "golomb_encode_ref"), (coll_mod, "ungolomb_sum_ref"),
              (coll_mod, "ungolomb_wsum_ref"), (golomb_ops, "golomb_encode_ref"),
-             (golomb_ops, "sparsign_ref"), (golomb_ops, "ungolomb_sum_ref"),
+             (golomb_ops, "sparsign_golomb_ref"), (golomb_ops, "ungolomb_sum_ref"),
              (golomb_ops, "ungolomb_wsum_ref"),
              (engine_mod, "weighted_vote_update_ref"), (engine_mod, "ef_server_ref"),
              (coll_mod, "unpack2bit_sum_ref"), (coll_mod, "unpack2bit_wsum_ref"),
@@ -3877,21 +3878,36 @@ def torch_sum(p, g):
     return (p.float() * g.float()).sum()
 
 
+#: the row-4 rules held on slices, with their params (stochastic_ternary's
+#: scale and noisy_sign's sigma against N(0, 0.01) gradients)
+TP_TERNARY_PARAMS = {"stochastic_ternary": 0.02, "sign": 0.0, "noisy_sign": 0.01}
+#: row 14's budget on the slices: about 5 % nonzero on N(0, 0.01) gradients
+TP_GOLOMB_BUDGET = 6.0
+#: the two map kernels this slice added, their slice-hold labels: the kernels
+#: line lists their counter-map launches beside their rows
+TP_NEW_MAPS = {"ternary": "ternary stochastic_ternary (row 4)",
+               "sparsign_golomb": "sparsign_golomb (row 14)"}
+
+
 def tp_slice_holds(torch, timer, report, dev="cuda", shapes=None):
-    """Rows 1, 5 (the sign and the sparsign rule), 6 and 12 on model rank 1's
-    slice at T = 2 of each TP_SLICE_SHAPES leaf in bf16 (w_up: run L = 3,456
-    of G = 6,912 at offset o = 3,456; lm_head: 75,968 of 151,936): bit for bit
+    """Rows 1, 4 (the stochastic_ternary, sign and noisy_sign rules), 5 (the
+    sign and the sparsign rule), 6, 12 and 14 on model rank 1's slice at
+    T = 2 of each TP_SLICE_SHAPES leaf in bf16 (w_up: run L = 3,456 of G =
+    6,912 at offset o = 3,456; lm_head: 75,968 of 151,936): bit for bit
     against their plain versions on the same inputs, each timed beside the
-    same kernel on as many contiguous coordinates."""
+    same kernel on as many contiguous coordinates; rows 4 and 14's plain
+    versions timed too (the kernels line)."""
     from repro_torch.kernels.common import canonical_rows
+    from repro_torch.kernels.golomb.ops import sparsign_golomb_op
+    from repro_torch.kernels.golomb.ref import golomb_rows, sparsign_golomb_ref
     from repro_torch.kernels.pack8.ops import qsgd8_pack8_op
     from repro_torch.kernels.pack8.ref import qsgd8_pack8_ref
     from repro_torch.kernels.sparsign.ops import sparsign_op
     from repro_torch.kernels.sparsign.ref import sparsign_ref
     from repro_torch.kernels.sparsign_pack2bit.ops import sparsign_pack2bit_op
     from repro_torch.kernels.sparsign_pack2bit.ref import sparsign_pack2bit_ref
-    from repro_torch.kernels.ternary.ops import ternary_pack2bit_op
-    from repro_torch.kernels.ternary.ref import ternary_pack2bit_ref
+    from repro_torch.kernels.ternary.ops import ternary_compress_op, ternary_pack2bit_op
+    from repro_torch.kernels.ternary.ref import ternary_compress_ref, ternary_pack2bit_ref
 
     gen = torch.Generator(device=dev).manual_seed(25)
     out = {}
@@ -3929,7 +3945,22 @@ def tp_slice_holds(torch, timer, report, dev="cuda", shapes=None):
                 lambda: qsgd8_pack8_op(s, scale, seed, base, counter_map=cmap),
                 lambda: qsgd8_pack8_ref(s, scale, seed, base, counter_map=cmap),
                 lambda: qsgd8_pack8_op(flat, scale, seed, base), n * 2 + canonical_rows(n) * 512),
+            "sparsign_golomb (row 14)": (
+                lambda: sparsign_golomb_op(s, TP_GOLOMB_BUDGET, seed, base, p=GOLOMB_P,
+                                           counter_map=cmap, leaf_n=g.numel()),
+                lambda: sparsign_golomb_ref(s, TP_GOLOMB_BUDGET, seed, base, p=GOLOMB_P,
+                                            counter_map=cmap, leaf_n=g.numel()),
+                lambda: sparsign_golomb_op(flat, TP_GOLOMB_BUDGET, seed, base, p=GOLOMB_P),
+                n * 2 + golomb_rows(n, GOLOMB_P, g.numel()) * 128),
         }
+        for rule, prm in TP_TERNARY_PARAMS.items():
+            cases[f"ternary {rule} (row 4)"] = (
+                lambda rule=rule, prm=prm: ternary_compress_op(s, prm, seed, base, rule=rule,
+                                                               counter_map=cmap),
+                lambda rule=rule, prm=prm: ternary_compress_ref(s, prm, seed, base, rule=rule,
+                                                                counter_map=cmap),
+                lambda rule=rule, prm=prm: ternary_compress_op(flat, prm, seed, base, rule=rule),
+                n * 3)
         # the whole leaf's symbols at the slice's coordinates, for row 1
         whole = sparsign_ref(g, budget, seed, base)[:, run:]
         res = {}
@@ -3941,16 +3972,85 @@ def tp_slice_holds(torch, timer, report, dev="cuda", shapes=None):
             if label.startswith("sparsign (row 1)"):
                 check(torch.equal(a, whole), f"tp {name}: the slice's symbols are not the "
                                              f"whole leaf's")
+            if label.startswith("sparsign_golomb"):
+                shipped, dropped = golomb_header(a)
+                check(dropped == 0, f"tp {name} {label}: {dropped} nonzeros dropped")
             t_map, t_flat = timer(kern)["ms"], timer(contiguous)["ms"]
-            b_ms = bound(nbytes, 0)[0]
+            rule = label.split()[1] if label.startswith("ternary ") else None
+            b_ms, b_by = bound(nbytes, rule_ops(rule, 1, n) if rule in OPS_PER_COORD else 0)
             res[label] = {"ms": t_map, "contiguous_ms": t_flat, "bound_ms": b_ms,
-                          "max_abs_err": err, "coords": n}
+                          "bound_by": b_by, "max_abs_err": err, "coords": n}
+            if label in TP_NEW_MAPS.values():
+                res[label]["plain_ms"] = timer(plain, reps=3, warmup=1)["ms"]
             print(f"[tp] {name} slice ({rows} x {run} of {cols}, L {run} G {cols} o {run}) "
                   f"{label}: 0 bytes from the plain version; kernel {t_map:.4f} ms, contiguous "
                   f"{t_flat:.4f} ms ({t_map / t_flat - 1:+.1%}), bound {b_ms:.4f} ms")
         out[name] = res
         del g, s, flat, whole
     return out
+
+
+#: the short-run holds: a leaf of TP_SHORT_LEAF coordinates a row, slices of
+#: 252 (at offset 252) and 17 (at 34) coordinates a row, at counter base 0 and
+#: at one whose counter wraps inside the slice
+TP_SHORT_LEAF = (64, 504)
+TP_SHORT_MAPS = ((252, 252), (17, 34))
+TP_SHORT_BASES = (0, (1 << 32) - 5000)
+
+
+def tp_short_runs(torch, dev="cuda") -> dict:
+    """Every counter-map kernel (rows 1, 4, 5, 6, 12, 14) on slices of
+    TP_SHORT_MAPS' runs of a bf16 leaf, at each TP_SHORT_BASES base: bit for
+    bit against its plain version, and the plain version against the whole
+    leaf's symbols at the slice's coordinates (rows 1 and 4)."""
+    from repro_torch.kernels.golomb.ops import sparsign_golomb_op
+    from repro_torch.kernels.golomb.ref import sparsign_golomb_ref
+    from repro_torch.kernels.pack8.ops import qsgd8_pack8_op
+    from repro_torch.kernels.pack8.ref import qsgd8_pack8_ref
+    from repro_torch.kernels.sparsign.ops import sparsign_op
+    from repro_torch.kernels.sparsign.ref import sparsign_ref
+    from repro_torch.kernels.sparsign_pack2bit.ops import sparsign_pack2bit_op
+    from repro_torch.kernels.sparsign_pack2bit.ref import sparsign_pack2bit_ref
+    from repro_torch.kernels.ternary.ops import ternary_compress_op, ternary_pack2bit_op
+    from repro_torch.kernels.ternary.ref import ternary_compress_ref, ternary_pack2bit_ref
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    rows, leaf_run = TP_SHORT_LEAF
+    g = (torch.randn(TP_SHORT_LEAF, generator=gen, device=dev) * 0.01).to(torch.bfloat16)
+    scale = torch.tensor(0.0005, device=dev)
+    held = 0
+    for (run, off), base in itertools.product(TP_SHORT_MAPS, TP_SHORT_BASES):
+        s = g[:, off:off + run].contiguous()
+        cmap = (run, leaf_run, off)
+        pairs = {
+            "sparsign": (sparsign_op, sparsign_ref, 50.0, {}),
+            "sparsign_pack2bit": (sparsign_pack2bit_op, sparsign_pack2bit_ref, 50.0, {}),
+            "qsgd8_pack8": (qsgd8_pack8_op, qsgd8_pack8_ref, scale, {}),
+            "sparsign_golomb": (sparsign_golomb_op, sparsign_golomb_ref, TP_GOLOMB_BUDGET,
+                                {"p": GOLOMB_P, "leaf_n": g.numel()}),
+        }
+        for rule, prm in TP_TERNARY_PARAMS.items():
+            pairs[f"ternary {rule}"] = (ternary_compress_op, ternary_compress_ref, prm,
+                                        {"rule": rule})
+            pairs[f"ternary_pack2bit {rule}"] = (ternary_pack2bit_op, ternary_pack2bit_ref, prm,
+                                                 {"rule": rule})
+        for label, (op, ref, prm, kw) in pairs.items():
+            a = op(s, prm, 12345, base, counter_map=cmap, **kw)
+            b = ref(s, prm, 12345, base, counter_map=cmap, **kw)
+            check(same_bits(a, b), f"tp short run {run} at {off}, base {base}: {label}'s "
+                                   f"kernel differs from its plain version")
+            held += 1
+        whole = sparsign_ref(g, 50.0, 12345, base)[:, off:off + run]
+        check(torch.equal(sparsign_op(s, 50.0, 12345, base, counter_map=cmap), whole),
+              f"tp short run {run}: the slice's symbols are not the whole leaf's")
+        whole = ternary_compress_ref(g, 0.02, 12345, base, rule="stochastic_ternary")
+        check(torch.equal(ternary_compress_op(s, 0.02, 12345, base, rule="stochastic_ternary",
+                                              counter_map=cmap), whole[:, off:off + run]),
+              f"tp short run {run}: row 4's slice symbols are not the whole leaf's")
+    print(f"[tp] short runs ({rows} rows of {leaf_run}: runs {[r for r, _ in TP_SHORT_MAPS]} "
+          f"at bases {list(TP_SHORT_BASES)}): {held} kernel calls 0 bytes from their plain "
+          f"versions; rows 1 and 4 equal the whole leaf's symbols")
+    return {"held": held}
 
 
 def tp_contiguous_rows(report) -> dict:
@@ -4019,6 +4119,7 @@ def phase_tp(torch, report, totals, dev="cuda", timer=None, slice_shapes=None):
     if timer is None:
         timer = Timer(torch)
     out["slices"] = tp_slice_holds(torch, timer, report, dev, slice_shapes)
+    out["short_runs"] = tp_short_runs(torch, dev)
     out["contiguous"] = tp_contiguous_rows(report)
 
     # -- 40 layers (the smoke config's depth on the CPU), M = 4 x T = 2
@@ -4087,9 +4188,12 @@ def phase_tp(torch, report, totals, dev="cuda", timer=None, slice_shapes=None):
         c = dataclasses.replace(base_cfg, n_layers=layers)
         return dataclasses.replace(c, dtype=dtype) if dtype else c
 
-    def one_round(net, comp, impl, t, params, batch):
+    map_totals = out["map_launches"] = {k: 0 for k in kernels.map_launch_counts()}
+
+    def one_round(net, comp, impl, t, params, batch, **kw):
         step = build_train_step(net, TrainStepConfig(
-            compression=comp, lr=LrSchedule(base=0.05), vote_impl=impl), make_host_mesh(m, t))
+            compression=comp, lr=LrSchedule(base=0.05), vote_impl=impl, **kw),
+            make_host_mesh(m, t))
         st = init_state(params, server=comp.server, seed=7)
         if t > 1:
             st = step.shard_state(st)
@@ -4098,6 +4202,9 @@ def phase_tp(torch, report, totals, dev="cuda", timer=None, slice_shapes=None):
             st, metrics = step(st, batch)
         sync(torch)
         counts = kernels.launch_counts()
+        if t > 1:
+            for k, v in kernels.map_launch_counts().items():
+                map_totals[k] += v
         whole = step.whole_state(st) if t > 1 else st
         return whole, {k: float(v) for k, v in metrics.items()}, counts, step
 
@@ -4156,6 +4263,11 @@ def phase_tp(torch, report, totals, dev="cuda", timer=None, slice_shapes=None):
               f"coordinates moved: {moved_alike}")
         del res
     out["injected"] = injected
+    out["round"] = tp_round_runs(torch, one_round, net, model, params, batch, totals, m, msgs,
+                                 leaves, pls)
+    check(all(map_totals[k] > 0 for k in TP_NEW_MAPS),
+          f"tp: counter-map launches {map_totals}: a new map kernel never ran on the path")
+    print(f"[tp] counter-map launches on the path: {map_totals}")
     del batch, net
 
     # -- the model's own gradients: one round in float32 and bf16 (printed),
@@ -4207,6 +4319,119 @@ def phase_tp(torch, report, totals, dev="cuda", timer=None, slice_shapes=None):
     out["checkpoint_t2_to_t1"] = same
     print(f"[tp] checkpoint saved at T = {TP_T} ({layers} layers, bf16) restored at T = 1: "
           f"bit for bit {same}")
+
+
+#: the elastic runs' participation: dyadic weights (every order of the
+#: weighted sums exact) and a report dropout
+TP_ELASTIC = {"weights": (1.5, 0.5, 2.0, 1.0), "dropout": 0.25}
+#: the share of coordinates that may differ from T = 1 beyond float noise
+#: where a float sum over the whole leaf decides (a budget's or a scale's last bit)
+TP_FLIP_BOUND = 1e-4
+
+
+def float_flips(torch, got, want, p0) -> int:
+    """Coordinates of two runs' leaves that differ beyond float noise: by
+    more than 1e-5 of the leaf's largest update plus two ulps of the value
+    in the leaf's dtype (a flipped symbol moves its coordinate by a share of
+    a decode unit; a budget or a decode scale an ulp apart by about an ulp
+    of the update)."""
+    n = 0
+    for a, b, p in zip(got, want, p0):
+        a32, b32, p32 = a.float(), b.float(), p.float()
+        upd = torch.maximum((a32 - p32).abs().max(), (b32 - p32).abs().max())
+        eps = torch.finfo(a.dtype).eps
+        n += int(((a32 - b32).abs() > 1e-5 * upd + 2 * eps * b32.abs()).sum())
+    return n
+
+
+def tp_round_runs(torch, one_round, net, model, params, batch, totals, m, msgs, leaves,
+                  pls) -> dict:
+    """The paper's round under the 'model' axis at TP_LAYERS layers, T = 2
+    against T = 1 from one state and one batch of injected gradients, with
+    every plain version barred: sign and TernGrad on psum (row 4's counter
+    map) and the elastic 2-bit gather, bit for bit; sparsign_golomb under
+    target_sparsity 0.05 (row 14's map: nnz_dropped 0, wire bytes the slice
+    ledger, its bytes beside T = 1's) and 1-bit L2 QSGD with the mean server
+    (the decoded psum), each within TP_FLIP_BOUND of T = 1 beyond float
+    noise, printed."""
+    import numpy as np
+
+    from repro_torch.analysis.drivers import tp_slice_ledger
+    from repro_torch.core.algorithm import CompressionConfig
+    from repro_torch.core.budgets import BudgetConfig
+    from repro_torch.core.compressors import tree_leaves
+    from repro_torch.dist.collectives import ParticipationSpec
+
+    runs = (  # label, compression, vote_impl, step options, launches at T = 1 and T = 2, exact
+        ("sign psum", CompressionConfig(compressor="sign", server="majority_vote"), "psum", {},
+         {1: dict(ternary=leaves * m, vote_update=leaves),
+          2: dict(ternary=msgs * m, vote_update=msgs)}, True),
+        ("terngrad psum", CompressionConfig(compressor="terngrad", server="mean"), "psum", {},
+         {1: dict(ternary=leaves * m), 2: dict(ternary=msgs * m)}, True),
+        ("elastic sparsign allgather_packed", CompressionConfig(
+            compressor="sparsign", budget=BudgetConfig(value=2.0), server="majority_vote"),
+         "allgather_packed", {"participation": ParticipationSpec(**TP_ELASTIC)},
+         {1: dict(sparsign_pack2bit=leaves * m, unpack2bit_wsum=leaves,
+                  weighted_vote_update=leaves),
+          2: dict(sparsign_pack2bit=msgs * m, unpack2bit_wsum=msgs, weighted_vote_update=msgs)},
+         True),
+        ("sparsign_golomb target_sparsity allgather_packed", CompressionConfig(
+            compressor="sparsign_golomb",
+            budget=BudgetConfig(kind="target_sparsity", value=GOLOMB_P),
+            server="majority_vote"), "allgather_packed", {},
+         {1: dict(sparsign_golomb=leaves * m, ungolomb_sum=leaves, vote_update=leaves),
+          2: dict(sparsign_golomb=msgs * m, ungolomb_sum=msgs, vote_update=msgs)}, False),
+        ("qsgd_1bit_l2 mean allgather_packed", CompressionConfig(
+            compressor="qsgd_1bit_l2", server="mean"), "allgather_packed", {},
+         {1: dict(ternary=leaves * m), 2: dict(ternary=msgs * m)}, False),
+    )
+    out = {}
+    p0 = tree_leaves(params)
+    for label, comp, impl, kw, per_t, exact in runs:
+        res, mets = {}, {}
+        for t in (1, TP_T):
+            whole, metrics, counts, step = one_round(
+                net, comp, impl, t, tree_unflatten_like(model, [p.clone() for p in p0]), batch,
+                **kw)
+            want = expected(**per_t[1 if t == 1 else 2])
+            check(counts == want, f"tp round {label} T = {t}: launches {counts}, expected {want}")
+            if t > 1:
+                for k in totals:
+                    totals[k] += counts[k]
+                ledger = float(np.float32(tp_slice_ledger(step, net)))
+                check(metrics["wire_bytes_per_device"] == ledger,
+                      f"tp round {label}: wire bytes {metrics['wire_bytes_per_device']} != the "
+                      f"slice ledger {ledger}")
+            check(metrics.get("nnz_dropped", 0.0) == 0.0,
+                  f"tp round {label} T = {t}: {metrics.get('nnz_dropped')} nonzeros dropped")
+            res[t], mets[t] = whole, metrics
+            del step
+        a, b = tree_leaves(res[TP_T].params), tree_leaves(res[1].params)
+        size = sum(x.numel() for x in a)
+        differ = sum(int((bits(x) != bits(y)).sum()) for x, y in zip(a, b))
+        moved = sum(int(((x != p) | (y != p)).sum()) for x, y, p in zip(a, b, p0))
+        flips = float_flips(torch, a, b, p0)
+        if exact:
+            check(differ == 0, f"tp round {label}: T = {TP_T} differs from T = 1 in {differ} "
+                               f"coordinates")
+        else:
+            check(flips <= TP_FLIP_BOUND * size,
+                  f"tp round {label}: {flips} of {size} coordinates differ from T = 1 beyond "
+                  f"float noise (bound {TP_FLIP_BOUND})")
+        out[label] = {"differ": differ, "flips": flips, "updated": moved, "coords": size,
+                      "wire_bytes_t1": mets[1]["wire_bytes_per_device"],
+                      "wire_bytes_t2": mets[TP_T]["wire_bytes_per_device"],
+                      "nnz_frac_t1": mets[1]["nnz_frac"], "nnz_frac_t2": mets[TP_T]["nnz_frac"],
+                      "nnz_dropped": mets[TP_T].get("nnz_dropped")}
+        print(f"[tp] {model.cfg.n_layers} layers, injected gradients, {label}: T = {TP_T} "
+              f"against T = 1 {differ} of {size} coordinates differ in any bit, {flips} beyond "
+              f"float noise (a share {flips / max(moved, 1):.3g} of the {moved} updated); wire "
+              f"bytes T = {TP_T} "
+              f"{mets[TP_T]['wire_bytes_per_device']:.10g} (the slice ledger), T = 1 "
+              f"{mets[1]['wire_bytes_per_device']:.10g}; nnz {mets[TP_T]['nnz_frac']:.6g} "
+              f"(T = 1 {mets[1]['nnz_frac']:.6g}), dropped {mets[TP_T].get('nnz_dropped', '-')}")
+        del res
+    return out
 
 
 def tp_float64_check(torch, cut, dev, batch) -> dict:
@@ -4678,6 +4903,18 @@ def main() -> int:
                      "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+    # the counter-map launches of rows 4 and 14 (a model rank's slice), timed
+    # on lm_head's vocabulary slice, their launches those of phase_tp's runs
+    slices = report["tp"]["slices"]
+    for name, label in TP_NEW_MAPS.items():
+        t = slices["lm_head"][label]
+        rows.append({"name": f"{name} (counter map)", "route": "cuda", "source": SOURCE[name],
+                     "replaces": REPLACES[name],
+                     "launches": report["tp"]["map_launches"][name],
+                     "max_abs_err": max(slices[k][label]["max_abs_err"]
+                                        for k in TP_SLICE_SHAPES),
+                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": None})
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
     print(f"[done] {report['wall_s']:.1f} s wall")

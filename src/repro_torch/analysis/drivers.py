@@ -298,22 +298,32 @@ def run_census_checks(m: int = HYPOTHETICAL_M, device: str = "cuda") -> tuple:
 
 
 #: the tensor-parallel censuses: a (TP_M, TP_T) ('data', 'model') mesh in one
-#: process, fixed-budget sparsign with majority vote on each wire
+#: process. Setup -> (the wire setup whose compression it runs, vote_impl,
+#: elastic): fixed-budget sparsign with majority vote on psum and on the 2-bit
+#: gather, sparsign_golomb under target_sparsity on the Golomb gather (a
+#: slice's capacity: its whole leaf's nonzeros), and the elastic 2-bit gather
 TP_M, TP_T = 4, 2
-TP_IMPLS = ("psum", "allgather_packed")
+TP_SETUPS = {
+    "psum": ("votes", "psum", False),
+    "allgather_packed": ("votes", "allgather_packed", False),
+    "golomb": ("golomb", "allgather_packed", False),
+    "elastic": ("votes", "allgather_packed", True),
+}
 
 
 @functools.lru_cache(maxsize=None)
-def run_tp_step(vote_impl: str, device: str = "cuda"):
+def run_tp_step(setup: str, device: str = "cuda"):
     """One step of the tiny model at (TP_M workers, TP_T model ranks) with the
-    recorder open. Returns (census, model, step)."""
+    recorder open, a ``TP_SETUPS`` setup. Returns (census, model, step)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train.state import LrSchedule, init_state
     from repro_torch.train.step_simple import TrainStepConfig, build_train_step
 
+    mode, vote_impl, elastic = TP_SETUPS[setup]
     model = tiny_model()
     step = build_train_step(model, TrainStepConfig(
-        compression=mode_comp("votes"), lr=LrSchedule(base=0.05), vote_impl=vote_impl),
+        compression=mode_comp(mode), lr=LrSchedule(base=0.05), vote_impl=vote_impl,
+        participation=participation_spec() if elastic else None),
         make_mesh((TP_M, TP_T), ("data", "model")))
     state = step.shard_state(init_state(model.init(0, device), server="majority_vote",
                                         seed=STEP_SEED))
@@ -322,34 +332,53 @@ def run_tp_step(vote_impl: str, device: str = "cuda"):
     return census, model, step
 
 
+def tp_slice_ledger_split(step, model) -> tuple:
+    """(payload, scalar) of a device's uplink ledger under tensor
+    parallelism, split as the census splits it: each cut leaf's slice (its
+    slice wire, ``VoteWire.for_slice``), each replicated leaf whole; the
+    ternary gather wires' elastic weight and the shared L-inf max are
+    scalars."""
+    pls = tree_leaves(step.placements)
+    payload = scalar = 0.0
+    for n, pl in zip(_leaf_sizes(model), pls):
+        wire = step.wire.for_slice(n) if pl.sharded else step.wire
+        n_dev = n // pl.parts if pl.sharded else n
+        total = collectives.uplink_ledger(step.mode, wire, n_dev, share_linf=step.share_linf)
+        sc = 0.0
+        if step.mode not in ("decoded", "pack8"):
+            sc += wire.weight_bytes()
+        if step.share_linf:
+            sc += collectives.allreduce_scalar_bytes(wire.n_workers)
+        payload += total - sc
+        scalar += sc
+    return payload, scalar
+
+
 def tp_slice_ledger(step, model) -> float:
     """A device's uplink ledger under tensor parallelism: each cut leaf's
     slice, each replicated leaf whole (the step's wire_bytes_per_device)."""
-    pls = tree_leaves(step.placements)
-    return sum(collectives.uplink_ledger(step.mode, step.wire,
-                                         n // pl.parts if pl.sharded else n)
-               for n, pl in zip(_leaf_sizes(model), pls))
+    return sum(tp_slice_ledger_split(step, model))
 
 
 def run_tp_census_checks(device: str = "cuda") -> tuple:
-    """At (4, 2) on psum and allgather_packed: each model rank's device's
-    recorded wire bytes == the slice ledger (no billed scalars), and a note
-    of the 'model' axis's own reductions (role ``tp``: the ordered
+    """At (4, 2) on each ``TP_SETUPS`` wire: each model rank's device's
+    recorded wire bytes == the slice ledger, payload and billed scalars, and
+    a note of the 'model' axis's own reductions (role ``tp``: the ordered
     all-reduces of the row-parallel partials, the embedding, the loss and
-    the L2 statistics), which the uplink ledger does not bill."""
+    the whole-leaf statistics), which the uplink ledger does not bill."""
     rule = CollectiveCensus()
     findings, checks = [], 0
-    for impl in TP_IMPLS:
-        census, model, step = run_tp_step(impl, device)
-        ledger = tp_slice_ledger(step, model)
+    for setup in TP_SETUPS:
+        census, model, step = run_tp_step(setup, device)
+        payload, scalar = tp_slice_ledger_split(step, model)
         for rank in range(TP_T):
-            findings += rule.check(f"step[tp {TP_M}x{TP_T} {impl} rank {rank}]",
-                                   census.for_model_rank(rank), ledger_payload=ledger,
-                                   ledger_scalar=0.0)
+            findings += rule.check(f"step[tp {TP_M}x{TP_T} {setup} rank {rank}]",
+                                   census.for_model_rank(rank), ledger_payload=payload,
+                                   ledger_scalar=scalar)
             checks += 1
         tp = census.tp_records()
         findings.append(rule.finding(
-            f"step[tp {TP_M}x{TP_T} {impl}]",
+            f"step[tp {TP_M}x{TP_T} {setup}]",
             f"{len(tp)} reductions over 'model' (role tp: {len(tp)} calls, "
             f"{sum(r.ring_bytes() for r in tp):.1f} B billed as all-reduces, "
             f"{sum(r.moved_bytes() for r in tp):.1f} B moved as rank-order gathers between "

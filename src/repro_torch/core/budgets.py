@@ -20,6 +20,9 @@ import torch
 from repro_torch.kernels.common import device_tensor
 
 
+BUDGET_KINDS = ("fixed", "linf_share", "l2_norm", "target_sparsity")
+
+
 @dataclasses.dataclass(frozen=True)
 class BudgetConfig:
     kind: str = "fixed"          # fixed | linf_share | l2_norm | target_sparsity
@@ -56,12 +59,42 @@ def solve_budget_for_sparsity(g: torch.Tensor, target: float, iters: int = 30, *
     return out if rows else out[0]
 
 
+def solve_budget_for_sparsity_slices(parts, target: float, numel: int, *, psum, pmax,
+                                     iters: int = 30) -> torch.Tensor:
+    """``solve_budget_for_sparsity`` of a leaf cut into model ranks' slices:
+    ``parts`` holds this process's slices, ``psum`` and ``pmax`` reduce one
+    partial a local rank over 'model' (``collectives.tp_sum``, the ordered
+    all-reduce, and ``tp_max``). The smallest nonzero is exact (the max of
+    the slices' negated minima); each iteration's mean over the whole leaf
+    is one ordered sum of the slices' partial sums over ``numel``, so every
+    rank sees the same bits, takes the same branch and ends on one B, which
+    is asserted (a device-side check, no host read)."""
+    absg = [torch.abs(x.to(torch.float32)).reshape(-1) for x in parts]
+    inf = device_tensor(float("inf"), absg[0])
+    min_nz = -pmax([-torch.amin(torch.where(a > 0, a, inf)) for a in absg])
+    hi = 1.0 / torch.clamp(min_nz, min=1e-20)
+    hi = torch.clamp(hi, max=1e20)
+    lo = torch.clamp(hi, max=1e-12)
+    n = device_tensor(float(numel), absg[0])
+    for _ in range(iters):
+        mid = torch.sqrt(lo) * torch.sqrt(hi)
+        s = psum([torch.sum(torch.clamp(a * mid, 0.0, 1.0)) for a in absg]) / n
+        below = s < target
+        lo, hi = torch.where(below, mid, lo), torch.where(below, hi, mid)
+    out = torch.sqrt(lo) * torch.sqrt(hi)
+    every = [out] * len(parts)
+    torch._assert_async(pmax(every) == -pmax([-b for b in every]),
+                        "the model ranks of a worker ended the bisection on different budgets")
+    return out
+
+
 def resolve_budget(cfg: BudgetConfig, g: torch.Tensor, *, shared_linf=None,
                    rows: bool = False, leaf_slice=None) -> torch.Tensor:
     """The float32 B to feed sparsign for ``g``: 0-d, or (rows,) with ``rows``.
     ``leaf_slice`` (``engine.LeafSlice``): g is a model rank's slice, and the
     L2 budget reads the whole leaf's size and sum of squares (reduced over
-    'model' in rank order) instead of g's own."""
+    'model' in rank order) instead of g's own, ``target_sparsity`` the budget
+    solved on the whole leaf (``solve_budget_for_sparsity_slices``)."""
     shape = (g.shape[0],) if rows else ()
     if cfg.kind == "fixed":
         return torch.full(shape, cfg.value, dtype=torch.float32, device=g.device)
@@ -82,6 +115,11 @@ def resolve_budget(cfg: BudgetConfig, g: torch.Tensor, *, shared_linf=None,
         n = torch.linalg.vector_norm(flat, dim=1, dtype=torch.float32).reshape(shape)
         d = device_tensor(float(flat.shape[1]), g)
         return torch.sqrt(d) / torch.clamp(n, min=1e-12) * device_tensor(cfg.value, g)
+    if cfg.kind == "target_sparsity" and leaf_slice is not None:
+        if leaf_slice.budget is None:
+            raise ValueError("a model rank's slice takes the target_sparsity budget solved on "
+                             "the whole leaf (engine.leaf_slices)")
+        return leaf_slice.budget
     if cfg.kind == "target_sparsity":
         return solve_budget_for_sparsity(g, cfg.value, rows=rows)
-    raise ValueError(f"unknown budget kind {cfg.kind!r}")
+    raise ValueError(f"unknown budget kind {cfg.kind!r}; known: {BUDGET_KINDS}")

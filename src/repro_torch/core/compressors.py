@@ -81,12 +81,37 @@ def _scale_qsgd(g: torch.Tensor, rows: bool = False, *, s: int = QSGD8_LEVELS) -
     return torch.clamp(_scale_l2(g, rows), min=1e-12) / float(s)
 
 
-#: the L2-based local scales as functions of the message's sum of squares: a
-#: model rank's slice of a leaf takes the whole leaf's, reduced over 'model'
-SCALE_FROM_SUM_SQ = {
-    _scale_l2: torch.sqrt,
-    _scale_qsgd: lambda sum_sq: torch.clamp(torch.sqrt(sum_sq), min=1e-12) / float(QSGD8_LEVELS),
+#: each local scale as (the statistic of the whole leaf it reads, the scale
+#: from that statistic, the leaf's coordinate count and dtype): a model rank's
+#: slice of a leaf takes the whole leaf's statistic, reduced over 'model' from
+#: the slices' partials (``LEAF_STATS``). The L1 sum ends in the leaf's dtype,
+#: as ``_scale_l1_mean`` takes it
+LEAF_SCALES = {
+    _scale_l1_mean: ("abs_sum", lambda s, n, dt: s.to(dt).to(torch.float32) / float(n)),
+    _scale_l2: ("sum_sq", lambda s, n, dt: torch.sqrt(s)),
+    _scale_linf: ("linf", lambda s, n, dt: s),
+    _scale_qsgd: ("sum_sq",
+                  lambda s, n, dt: torch.clamp(torch.sqrt(s), min=1e-12) / float(QSGD8_LEVELS)),
 }
+
+
+def _abs_sum(x: torch.Tensor) -> torch.Tensor:
+    return torch.sum(torch.abs(x.to(torch.float32)))
+
+
+def _sum_sq(x: torch.Tensor) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    return torch.sum(xf * xf)
+
+
+def _linf(x: torch.Tensor) -> torch.Tensor:
+    return torch.amax(torch.abs(x.to(torch.float32)))
+
+
+#: a whole-leaf statistic as (its float32 partial on one slice, how the
+#: partials reduce over 'model': "sum", the ordered all-reduce in rank order,
+#: or "max", exact in any order)
+LEAF_STATS = {"abs_sum": (_abs_sum, "sum"), "sum_sq": (_sum_sq, "sum"), "linf": (_linf, "max")}
 
 
 # ---------------------------------------------------------------------------
@@ -100,7 +125,7 @@ _noisy_sign_values = partial(ternary_compress_ref, rule="noisy_sign")
 _stochastic_ternary_values = partial(ternary_compress_ref, rule="stochastic_ternary")
 
 
-def _identity_values(g, param, seed, counter_base):
+def _identity_values(g, param, seed, counter_base, counter_map=None):
     return g
 
 

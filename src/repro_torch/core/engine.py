@@ -40,9 +40,10 @@ from typing import Callable, Optional, TYPE_CHECKING
 
 import torch
 
-from repro_torch.core.budgets import BudgetConfig, resolve_budget
-from repro_torch.core.compressors import (SCALE_FROM_SUM_SQ, CompressedGrad, chunked_values,
-                                          get_spec)
+from repro_torch.core.budgets import (BudgetConfig, resolve_budget,
+                                     solve_budget_for_sparsity_slices)
+from repro_torch.core.compressors import (LEAF_SCALES, LEAF_STATS, CompressedGrad,
+                                          chunked_values, get_spec)
 from repro_torch.kernels.common import SUBLANE_PAD, device_tensor, jnp_sign, to_2d
 from repro_torch.kernels.ef_server.ops import ef_server_op
 from repro_torch.kernels.ef_server.ref import ef_server_ref
@@ -248,58 +249,51 @@ def local_step_config(cfg: "CompressionConfig") -> "CompressionConfig":
 class LeafSlice:
     """A model rank's slice of a leaf (tensor parallelism): its counter map
     ``(run, leaf_run, offset)`` (``kernels.common.counter_index``: the slice
-    draws the whole leaf's counters), the whole leaf's coordinate count, and,
-    where the row needs it (``needs_leaf_sum_sq``), the whole leaf's float32
-    sum of squares, reduced over 'model' in rank order."""
+    draws the whole leaf's counters), the whole leaf's coordinate count, and
+    the whole leaf's statistics that compressing the slice reads
+    (``leaf_slices``): the float32 sum of squares, sum of |g| or L-inf
+    (``compressors.LEAF_STATS``), and the ``target_sparsity`` budget solved
+    on the whole leaf."""
 
     counter_map: tuple
     numel: int
     sum_sq: Optional[torch.Tensor] = None
+    abs_sum: Optional[torch.Tensor] = None
+    linf: Optional[torch.Tensor] = None
+    budget: Optional[torch.Tensor] = None
 
 
-#: the (compressor, wire) pairs whose encoders take the counter map, with
-#: the budget kinds their statistics are reduced over 'model' for
-TP_COMPRESSORS = {
-    "sparsign": ("psum", "hier", "allgather_packed"),
-    "qsgd8": ("psum", "allgather_packed"),
-    "sign": ("allgather_packed",),
-    "noisy_sign": ("allgather_packed",),
-    "terngrad": ("allgather_packed",),
-}
-TP_BUDGETS = ("fixed", "l2_norm")
-
-
-def check_tensor_parallel(cfg: "CompressionConfig", vote_impl: str) -> None:
-    """Build-time gate of a compression config under tensor parallelism:
-    the (compressor, wire) pairs whose encoders draw a slice's counters from
-    the whole leaf (the sparsign, fused 2-bit and qsgd8 kernels' counter
-    map) and whose statistics are reduced over 'model'. Anything else is not
-    ported yet and raises."""
-    wires = TP_COMPRESSORS.get(cfg.compressor)
-    if wires is None or vote_impl not in wires:
-        raise NotImplementedError(
-            f"compressor {cfg.compressor!r} on vote_impl {vote_impl!r} under tensor "
-            f"parallelism is not ported yet (its encoder has no counter map); ported: "
-            f"{TP_COMPRESSORS}")
-    if get_spec(cfg.compressor).scale_protocol == "none" and cfg.budget.kind not in TP_BUDGETS:
-        raise NotImplementedError(
-            f"budget {cfg.budget.kind!r} under tensor parallelism is not ported yet "
-            f"(ported: {TP_BUDGETS})")
-
-
-def needs_leaf_sum_sq(cfg: "CompressionConfig") -> bool:
-    """Does compressing a slice read the whole leaf's sum of squares (the L2
-    budget, or qsgd8's L2 decode scale)?"""
+def leaf_statistics(cfg: "CompressionConfig") -> tuple:
+    """The whole-leaf statistics (``compressors.LEAF_STATS``' names) that
+    compressing a model rank's slice reads: the L2 budget's sum of squares,
+    or the local scale's statistic (scaled sign's L1, 1-bit QSGD's L2 or
+    L-inf, qsgd8's L2). A shared-max row reads the step's shared L-inf."""
     spec = get_spec(cfg.compressor)
-    if spec.scale_protocol == "none":
-        return cfg.budget.kind == "l2_norm"
-    return spec.scale_protocol == "local_norm" and spec.local_scale in SCALE_FROM_SUM_SQ
+    if spec.scale_protocol == "local_norm":
+        return (LEAF_SCALES[spec.local_scale][0],)
+    if spec.scale_protocol == "none" and cfg.budget.kind == "l2_norm":
+        return ("sum_sq",)
+    return ()
 
 
-def leaf_sum_sq(g: torch.Tensor) -> torch.Tensor:
-    """The float32 sum of squares of one slice: a partial of ``LeafSlice.sum_sq``."""
-    x = g.to(torch.float32)
-    return torch.sum(x * x)
+def leaf_slices(cfg: "CompressionConfig", parts, maps, numel: int, *, psum: Callable,
+                pmax: Callable) -> list:
+    """The ``LeafSlice`` of each of this process's model ranks' slices
+    ``parts`` of one leaf (``maps``: their counter maps). Each whole-leaf
+    statistic is reduced over 'model' from the slices' partials: ``psum``
+    the ordered all-reduce (rank order), ``pmax`` the max, each taking one
+    partial a local rank (``collectives.tp_sum``, ``tp_max``), so every rank
+    of a worker holds the same bits. A ``target_sparsity`` budget is solved
+    on the whole leaf (``budgets.solve_budget_for_sparsity_slices``)."""
+    stats = {}
+    for name in leaf_statistics(cfg):
+        partial, how = LEAF_STATS[name]
+        stats[name] = (psum if how == "sum" else pmax)([partial(x) for x in parts])
+    spec = get_spec(cfg.compressor)
+    if spec.scale_protocol == "none" and cfg.budget.kind == "target_sparsity":
+        stats["budget"] = solve_budget_for_sparsity_slices(parts, cfg.budget.value, numel,
+                                                           psum=psum, pmax=pmax)
+    return [LeafSlice(tuple(m), numel, **stats) for m in maps]
 
 
 def is_batched(seed) -> bool:
@@ -323,8 +317,9 @@ def compress_leaf(
 
     ``leaf_slice``: g is a model rank's slice of a leaf (tensor
     parallelism). Its symbols are the whole leaf's at the same coordinates:
-    the kernels draw the whole leaf's counters (the counter map), and the L2
-    budget and qsgd8's scale read the whole leaf's sum of squares.
+    the kernels draw the whole leaf's counters (the counter map), the
+    budgets and local scales read the whole leaf's statistics (``LeafSlice``),
+    and a golomb message holds as many nonzeros as the whole leaf's would.
 
     ``wire`` (a ``VoteWire``, one message only) selects the message's
     wire-native format. On the ``pack2`` wire ``values`` is the (rows, 128)
@@ -366,14 +361,15 @@ def compress_leaf(
     fused_kwargs = {"p": wire.p} if wire_fmt == "golomb" else {}
     cmap = {}
     if leaf_slice is not None:
-        if rows or wire_fmt == "golomb":
-            raise NotImplementedError("a batched or golomb message of a model rank's slice is "
-                                      "not ported yet")
+        if rows:
+            raise ValueError("a model rank's slice is one message: pass one seed")
         cmap = {"counter_map": tuple(leaf_slice.counter_map)}
-    if leaf_slice is not None and leaf_slice.sum_sq is not None and spec.local_scale in \
-            SCALE_FROM_SUM_SQ and spec.scale_protocol == "local_norm":
-        # an L2-based scale (qsgd8's max(||g||_2, eps) / 127) of the whole leaf
-        scale = SCALE_FROM_SUM_SQ[spec.local_scale](leaf_slice.sum_sq)
+        if wire_fmt == "golomb":   # the slice's capacity: the whole leaf's nonzeros
+            fused_kwargs["leaf_n"] = leaf_slice.numel
+    if leaf_slice is not None and spec.scale_protocol == "local_norm":
+        # the whole leaf's local scale, from its statistic reduced over 'model'
+        stat, from_stat = LEAF_SCALES[spec.local_scale]
+        scale = from_stat(getattr(leaf_slice, stat), leaf_slice.numel, g.dtype)
     else:
         scale = spec.resolve_scale(g, shared_linf, rows=rows)
     if scale is None:
@@ -396,8 +392,9 @@ def compress_leaf(
         vals = spec.values(g, param, seed, counter_base, **cmap)
     if wire_fmt == "golomb":
         # the two-pass chain: the golomb_pack kernel on the card
-        vals = (golomb_pack_op(vals, p=wire.p) if backend == "cuda"
-                else golomb_encode_ref(vals, p=wire.p))
+        leaf_n = fused_kwargs.get("leaf_n")
+        vals = (golomb_pack_op(vals, p=wire.p, leaf_n=leaf_n) if backend == "cuda"
+                else golomb_encode_ref(vals, p=wire.p, leaf_n=leaf_n))
     elif wire_fmt == "pack8":
         # the pack8 payload is the canonical int8 view of the levels
         vals, _ = to_2d(vals.reshape(-1))

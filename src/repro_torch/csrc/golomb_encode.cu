@@ -43,6 +43,15 @@
 // Shipped and dropped counts are atomicAdds into the zeroed header. The int8
 // ternary tensor never exists for the sparsign source. Every float operation
 // of the draw is an _rn intrinsic, as in sparsign.cu.
+//
+// A model rank's slice of a leaf (golomb_encode_map_launch, the sparsign
+// source only) draws the whole leaf's counters, as sparsign.cu's map does:
+// slice coordinate i takes counter_base + i + (i / run) * skip. A thread
+// splits its first coordinate once (one division) and steps the counter, adding
+// skip where a run ends. The stream itself is the slice's: gaps, positions and
+// signs in the slice's own coordinates, so the decode-sums (golomb_decode.cu)
+// read a slice's message as any other. kMap false is the contiguous source,
+// code for code.
 #include "golomb.cuh"
 
 namespace {
@@ -91,7 +100,7 @@ __device__ __forceinline__ unsigned long long seg_bits(const Seg& s, int b) {
 
 // Symbol sources: load(i) gives the nonzero and negative masks of the kPer
 // coordinates from i (bit k for coordinate i + k; coordinates >= n are 0).
-template <typename T>
+template <typename T, bool kMap = false>
 struct SparsignSrc {
   const T* g;
   const long long* seed;  // one uint32 stream seed, on the device
@@ -100,6 +109,8 @@ struct SparsignSrc {
   bool vec_ok;
   uint32_t seed_hash;
   float budget;
+  long long run;          // kMap: the slice's run, and the leaf's run less it
+  uint32_t skip;
 
   __device__ __forceinline__ void prepare() {
     seed_hash = mix32(static_cast<uint32_t>(seed[0]) + RNG_GOLDEN);
@@ -110,6 +121,13 @@ struct SparsignSrc {
                                        uint64_t& neg) const {
     constexpr int V = 16 / sizeof(T);
     nz = neg = 0;
+    uint32_t counter = counter_base + static_cast<uint32_t>(i);
+    long long left = 0;  // kMap: coordinates left in the run from the current one
+    if constexpr (kMap) {
+      const long long q = i / run;
+      counter += static_cast<uint32_t>(q) * skip;
+      left = run - (i - q * run);
+    }
 #pragma unroll
     for (int k = 0; k < kPer / V; ++k) {
       const Vec<T, V> v = load_vec<T, V>(g, i + k * V, n, vec_ok);
@@ -118,11 +136,17 @@ struct SparsignSrc {
         const long long pos = i + k * V + e;
         const float x = to_f32<T>(v.v[e]);
         const float p = fminf(fmaxf(__fmul_rn(fabsf(x), budget), 0.0f), 1.0f);
-        const bool hit = pos < n &&
-                         uniform01(seed_hash, counter_base + static_cast<uint32_t>(pos)) < p;
+        const bool hit = pos < n && uniform01(seed_hash, counter) < p;
         const int s = hit ? (x > 0.0f ? 1 : (x < 0.0f ? -1 : 0)) : 0;
         nz |= static_cast<uint64_t>(s != 0) << (k * V + e);
         neg |= static_cast<uint64_t>(s < 0) << (k * V + e);
+        ++counter;
+        if constexpr (kMap) {
+          if (--left == 0) {  // the run ends: the next coordinate is the next row's
+            left = run;
+            counter += skip;
+          }
+        }
       }
     }
   }
@@ -403,11 +427,45 @@ extern "C" int golomb_encode_launch(const void* src, void* out, const void* seed
   const float* bd = static_cast<const float*>(budget);
   if (src_kind == 0) {
     return encode(SparsignSrc<float>{static_cast<const float*>(src), sd, bd, counter_base,
-                                     vec_ok, 0u, 0.0f}, out, scratch, n, rows, b, s);
+                                     vec_ok, 0u, 0.0f, n, 0u}, out, scratch, n, rows, b, s);
   }
   if (src_kind == 1) {
     return encode(SparsignSrc<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(src), sd, bd,
-                                             counter_base, vec_ok, 0u, 0.0f},
+                                             counter_base, vec_ok, 0u, 0.0f, n, 0u},
+                  out, scratch, n, rows, b, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A model rank's slice: as golomb_encode_launch for the sparsign sources
+// (src_kind 0 or 1), coordinate i drawing counter counter_base + i + (i / run) *
+// skip (run >= 1; counter_base holds the slice's offset in the leaf's run, skip
+// the leaf's run less the slice's). rows is the slice's capacity.
+extern "C" int golomb_encode_map_launch(const void* src, void* out, const void* seed,
+                                        const void* budget, void* scratch, long long n,
+                                        long long rows, unsigned int counter_base,
+                                        long long run, unsigned int skip, int b, int src_kind,
+                                        void* stream) {
+  if (n <= 0 || rows <= 0) return 0;
+  if (!aligned(out, 4) || !aligned(scratch, 16)) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  if (n >= (1ll << 31) || b < 0 || b > 31 || run <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec_ok = aligned(src, 16);
+  const long long* sd = static_cast<const long long*>(seed);
+  const float* bd = static_cast<const float*>(budget);
+  if (src_kind == 0) {
+    return encode(SparsignSrc<float, true>{static_cast<const float*>(src), sd, bd,
+                                           counter_base, vec_ok, 0u, 0.0f, run, skip},
+                  out, scratch, n, rows, b, s);
+  }
+  if (src_kind == 1) {
+    return encode(SparsignSrc<__nv_bfloat16, true>{static_cast<const __nv_bfloat16*>(src), sd,
+                                                   bd, counter_base, vec_ok, 0u, 0.0f, run,
+                                                   skip},
                   out, scratch, n, rows, b, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);

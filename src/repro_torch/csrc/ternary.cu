@@ -37,6 +37,14 @@
 // library functions (the build uses no --use_fast_math), the ones the plain
 // version's torch.log, torch.cos and torch.sqrt call on the card.
 //
+// A model rank's slice of a leaf (ternary_map_launch) draws the counters of
+// the whole leaf's coordinates, as csrc/sparsign.cu's map does: slice column j
+// takes counter_base + j + (j / run) * skip. The division is taken once a
+// thread, its later columns step the quotient as they cross a run, and a
+// thread whose columns lie in one run and one row takes the contiguous loop
+// from its own base counter. kMap false is the contiguous kernel, code for
+// code.
+//
 // The pack variant (ternary_pack2bit_launch) takes one message: the rule's
 // instantiation of pack2_encode.cuh's encoder, the template that
 // sparsign_pack2bit.cu launches for sparsign; coordinates past n (the TPU
@@ -60,12 +68,12 @@ __device__ __forceinline__ RuleFor<R> load_row(const long long* __restrict__ see
   return RuleFor<R>::make(static_cast<uint32_t>(seeds[r]), param[param_per_row ? r : 0]);
 }
 
-template <typename T, int N, int R>
+template <typename T, int N, int R, bool kMap>
 __global__ void __launch_bounds__(kThreads)
 ternary_kernel(const T* __restrict__ g, int8_t* __restrict__ out,
                const long long* __restrict__ seeds, const float* __restrict__ param,
                int param_per_row, long long rows, long long n, uint32_t counter_base,
-               bool vec_ok) {
+               bool vec_ok, long long run, uint32_t skip) {
   const long long total = rows * n;
   const long long i = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * N;
   if (i >= total) return;
@@ -73,48 +81,75 @@ ternary_kernel(const T* __restrict__ g, int8_t* __restrict__ out,
   long long r = i / n;
   long long col = i - r * n;
   RuleFor<R> row = load_row<R>(seeds, param, param_per_row, r);
+  long long q = 0, in_run = 0;  // kMap: col = q * run + in_run
   Vec<int8_t, N> o;
+  if constexpr (kMap) {
+    q = col / run;
+    in_run = col - q * run;
+    if (col + N <= n && in_run + N <= run) {  // the thread's columns in one run: the rule
+      const uint32_t c0 = counter_base + static_cast<uint32_t>(col) +
+                          static_cast<uint32_t>(q) * skip;
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        o.v[k] = rule_symbol(row, to_f32<T>(gv.v[k]),
+                             (c0 + static_cast<uint32_t>(k)) * RNG_GOLDEN);
+      }
+      store_vec<int8_t, N>(out, i, total, vec_ok, o);
+      return;
+    }
+  }
 #pragma unroll
   for (int k = 0; k < N; ++k) {
     if (col == n) {  // this thread's elements run into the next worker's row
       ++r;
       col = 0;
+      if constexpr (kMap) q = in_run = 0;
       if (r < rows) row = load_row<R>(seeds, param, param_per_row, r);
     }
-    o.v[k] = rule_symbol(row, to_f32<T>(gv.v[k]),
-                         (counter_base + static_cast<uint32_t>(col)) * RNG_GOLDEN);
+    uint32_t counter = counter_base + static_cast<uint32_t>(col);
+    if constexpr (kMap) counter += static_cast<uint32_t>(q) * skip;
+    o.v[k] = rule_symbol(row, to_f32<T>(gv.v[k]), counter * RNG_GOLDEN);
     ++col;
+    if constexpr (kMap) {
+      if (++in_run == run) {
+        in_run = 0;
+        ++q;
+      }
+    }
   }
   store_vec<int8_t, N>(out, i, total, vec_ok, o);
 }
 
-template <typename T, int N, int R>
+template <typename T, int N, int R, bool kMap>
 int launch(const void* g, void* out, const void* seeds, const void* param, int param_per_row,
-           long long rows, long long n, unsigned int counter_base, cudaStream_t stream) {
+           long long rows, long long n, unsigned int counter_base, long long run,
+           unsigned int skip, cudaStream_t stream) {
   const long long total = rows * n;
   const bool vec_ok = aligned(g, sizeof(T) * N) && aligned(out, N);
-  ternary_kernel<T, N, R><<<grid_for(total, N), kThreads, 0, stream>>>(
+  ternary_kernel<T, N, R, kMap><<<grid_for(total, N), kThreads, 0, stream>>>(
       static_cast<const T*>(g), static_cast<int8_t*>(out),
       static_cast<const long long*>(seeds), static_cast<const float*>(param), param_per_row,
-      rows, n, counter_base, vec_ok);
+      rows, n, counter_base, vec_ok, run, skip);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int N>
+template <typename T, int N, bool kMap>
 int launch_rule(int rule, const void* g, void* out, const void* seeds, const void* param,
                 int param_per_row, long long rows, long long n, unsigned int counter_base,
-                cudaStream_t s) {
+                long long run, unsigned int skip, cudaStream_t s) {
   switch (rule) {
     case SPARSIGN:
-      return launch<T, N, SPARSIGN>(g, out, seeds, param, param_per_row, rows, n, counter_base, s);
+      return launch<T, N, SPARSIGN, kMap>(g, out, seeds, param, param_per_row, rows, n,
+                                          counter_base, run, skip, s);
     case SIGN:
-      return launch<T, N, SIGN>(g, out, seeds, param, param_per_row, rows, n, counter_base, s);
+      return launch<T, N, SIGN, kMap>(g, out, seeds, param, param_per_row, rows, n,
+                                      counter_base, run, skip, s);
     case NOISY_SIGN:
-      return launch<T, N, NOISY_SIGN>(g, out, seeds, param, param_per_row, rows, n,
-                                      counter_base, s);
+      return launch<T, N, NOISY_SIGN, kMap>(g, out, seeds, param, param_per_row, rows, n,
+                                            counter_base, run, skip, s);
     case STOCHASTIC_TERNARY:
-      return launch<T, N, STOCHASTIC_TERNARY>(g, out, seeds, param, param_per_row, rows, n,
-                                              counter_base, s);
+      return launch<T, N, STOCHASTIC_TERNARY, kMap>(g, out, seeds, param, param_per_row, rows,
+                                                    n, counter_base, run, skip, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -152,11 +187,30 @@ extern "C" int ternary_launch(const void* g, void* out, const void* seeds, const
   if (rows <= 0 || n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_rule<float, 4>(rule, g, out, seeds, param, param_per_row, rows, n,
-                                 counter_base, s);
+    return launch_rule<float, 4, false>(rule, g, out, seeds, param, param_per_row, rows, n,
+                                        counter_base, n, 0u, s);
   if (dtype == 1)
-    return launch_rule<__nv_bfloat16, 8>(rule, g, out, seeds, param, param_per_row, rows, n,
-                                         counter_base, s);
+    return launch_rule<__nv_bfloat16, 8, false>(rule, g, out, seeds, param, param_per_row,
+                                                rows, n, counter_base, n, 0u, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A model rank's slice: as ternary_launch, each row's column j drawing counter
+// counter_base + j + (j / run) * skip (run >= 1; counter_base holds the slice's
+// offset in the leaf's run, skip the leaf's run less the slice's).
+extern "C" int ternary_map_launch(const void* g, void* out, const void* seeds,
+                                  const void* param, int param_per_row, long long rows,
+                                  long long n, unsigned int counter_base, long long run,
+                                  unsigned int skip, int dtype, int rule, void* stream) {
+  if (rows <= 0 || n <= 0) return 0;
+  if (run <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_rule<float, 4, true>(rule, g, out, seeds, param, param_per_row, rows, n,
+                                       counter_base, run, skip, s);
+  if (dtype == 1)
+    return launch_rule<__nv_bfloat16, 8, true>(rule, g, out, seeds, param, param_per_row,
+                                               rows, n, counter_base, run, skip, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -531,10 +531,11 @@ def packed8_nbytes(n_coords: int) -> int:
     return canonical_rows(n_coords) * LANES
 
 
-def golomb_payload_nbytes(n_coords: int, p: float) -> int:
+def golomb_payload_nbytes(n_coords: int, p: float, leaf_n: Optional[int] = None) -> int:
     """Bytes of one worker's entropy-coded golomb message for an n-coordinate
-    leaf at plan fraction p: the static capacity, padding included."""
-    return golomb_nbytes(n_coords, p)
+    leaf (or a slice of an ``leaf_n``-coordinate one) at plan fraction p: the
+    static capacity, padding included."""
+    return golomb_nbytes(n_coords, p, leaf_n)
 
 
 def _golomb_decode_sum(gathered: torch.Tensor, size: int, shape, *, p: float,
@@ -1029,6 +1030,12 @@ class VoteWire:
         """Peak gathered-payload memory for ONE bucket exchange."""
         return 0.0
 
+    def for_slice(self, leaf_n: int) -> "VoteWire":
+        """The wire that carries a model rank's slice of an
+        ``leaf_n``-coordinate leaf (tensor parallelism): this one, for a wire
+        whose message size follows the slice's coordinates alone."""
+        return self
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class HierVoteWire(VoteWire):
@@ -1250,9 +1257,19 @@ class GolombWire(VoteWire):
     backend: Optional[str] = None
     p: float = 0.05
     ring_chunk_rows: Optional[int] = None
+    #: a model rank's slice of a leaf of this many coordinates (``for_slice``):
+    #: the leaf's capacity bounds the slice's nonzeros (``golomb_rows``)
+    leaf_n: Optional[int] = None
 
     name = "allgather_golomb"
     native_format = "golomb"
+
+    def for_slice(self, leaf_n: int) -> "GolombWire":
+        """The wire of a model rank's slice of an ``leaf_n``-coordinate leaf:
+        its message holds as many nonzeros as the whole leaf's would, since
+        a budget solved for the whole leaf may put more than the slice's
+        share in it, and its own unary spill."""
+        return dataclasses.replace(self, leaf_n=int(leaf_n))
 
     @staticmethod
     def _header_count(values, at: int) -> torch.Tensor:
@@ -1359,7 +1376,8 @@ class GolombWire(VoteWire):
 
     def wire_bytes(self, n_coords):
         # all-gather of the capacity-padded coded payload to M - 1 peers
-        return float((self.n_workers - 1) * golomb_payload_nbytes(n_coords, self.p))
+        return float((self.n_workers - 1)
+                     * golomb_payload_nbytes(n_coords, self.p, self.leaf_n))
 
     def bucket_payload_bytes(self, n_coords, rows=None):
         # bucket rows are capacity rows, not coordinate rows: bill exactly the
@@ -1370,13 +1388,13 @@ class GolombWire(VoteWire):
     def payload_rows(self, n_coords: int) -> int:
         """Capacity rows of one n-coordinate message at the wire's plan
         fraction: the bucket plan's ``rows_fn`` for this wire."""
-        return golomb_rows(n_coords, self.p)
+        return golomb_rows(n_coords, self.p, self.leaf_n)
 
     def bucket_ring_chunks(self, bucket):
         return len(_slot_groups(bucket.slots, self.ring_chunk_rows))
 
     def gather_hbm_bytes(self, n_coords):
-        rows = golomb_rows(n_coords, self.p)
+        rows = golomb_rows(n_coords, self.p, self.leaf_n)
         if self.ring_chunk_rows is None:
             return float(self.n_workers * rows * ROW_BYTES)
         # a leaf's stream is one chunk whatever its size: two whole streams

@@ -2,7 +2,9 @@
 PyTorch version in the family's ``ref.py``.
 
 Each launch wrapper counts its launches in a plain integer (``.launches``),
-so a run can show that its path went through the kernels."""
+so a run can show that its path went through the kernels; a wrapper with a
+counter-map form (a model rank's slice of a leaf) also counts those launches
+in ``.map_launches``."""
 
 from __future__ import annotations
 
@@ -38,10 +40,21 @@ WRAPPERS = {
 }
 
 
+#: the wrappers with a counter-map form, by the same names
+MAP_WRAPPERS = {name: fn for name, fn in WRAPPERS.items() if hasattr(fn, "map_launches")}
+
+
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def map_launch_counts() -> dict:
+    """The counter-map launches among ``launch_counts()``, by wrapper."""
+    return {name: fn.map_launches for name, fn in MAP_WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for fn in MAP_WRAPPERS.values():
+        fn.map_launches = 0

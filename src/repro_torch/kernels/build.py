@@ -37,6 +37,8 @@ SIGNATURES = {
     "vote_update": {"vote_update_launch": [_p, _p, _p, _ll, _c.c_float, _i, _i, _i, _p]},
     "ef_server": {"ef_server_launch": [_p, _p, _p, _p, _p, _ll, _p]},
     "ternary": {"ternary_launch": [_p, _p, _p, _p, _i, _ll, _ll, _u32, _i, _i, _p],
+                "ternary_map_launch": [_p, _p, _p, _p, _i, _ll, _ll, _u32, _ll, _u32, _i, _i,
+                                       _p],
                 "ternary_pack2bit_launch": [_p, _p, _p, _p, _ll, _ll, _u32, _i, _i, _p],
                 "ternary_pack2bit_map_launch": [_p, _p, _p, _p, _ll, _ll, _u32, _ll, _u32, _i,
                                                 _i, _p]},
@@ -48,6 +50,8 @@ SIGNATURES = {
     "unpack2bit": {"unpack2bit_sum_into_launch": [_p, _p, _i, _ll, _i, _i, _p],
                    "unpack2bit_wsum_into_launch": [_p, _p, _p, _i, _ll, _i, _p]},
     "golomb_encode": {"golomb_encode_launch": [_p, _p, _p, _p, _p, _ll, _ll, _u32, _i, _i, _p],
+                      "golomb_encode_map_launch": [_p, _p, _p, _p, _p, _ll, _ll, _u32, _ll,
+                                                   _u32, _i, _i, _p],
                       "golomb_encode_scratch_bytes": [_ll]},
     "golomb_decode": {"ungolomb_launch": [_p, _p, _p, _p, _p, _i, _ll, _ll, _i, _p],
                       "ungolomb_scratch_bytes": [_i, _ll, _ll, _i]},

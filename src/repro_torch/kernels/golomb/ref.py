@@ -16,7 +16,10 @@ nonzero fraction p):
     zero bit, b remainder bits LSB-first, then 1 sign bit (1 = negative).
 
 Capacity is static: a six-sigma bound on the nonzero count at the plan
-fraction plus the worst-case unary spill. A denser message is truncated at
+fraction plus the worst-case unary spill. A model rank's slice of a leaf
+(tensor parallelism, ``leaf_n``) takes the whole leaf's bound on its nonzeros
+(a slice never holds more than its leaf, and a budget solved for the whole
+leaf may put more than its share in one slice) and its own unary spill. A denser message is truncated at
 capacity (a suffix of its codes is dropped and counted in the header), and a
 configuration whose capacity cannot beat the flat 2-bit wire fails when it is
 built (``golomb_rows`` raises).
@@ -29,11 +32,13 @@ lengths in int32 (``emit_stream``), which wraps once a message's codes pass
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from repro_torch.core.encoding import golomb_bstar
 from repro_torch.kernels.common import LANES, canonical_rows
+from repro_torch.kernels.sparsign.ref import sparsign_ref
 
 #: in-band header: two uint32 LE counters (shipped nonzeros, dropped nonzeros)
 HEADER_BYTES = 8
@@ -55,19 +60,22 @@ def golomb_capacity_nnz(n: int, p: float) -> int:
     return min(n, int(math.ceil(mean + 6.0 * sdev + 8.0)))
 
 
-def golomb_capacity_bits(n: int, p: float) -> int:
+def golomb_capacity_bits(n: int, p: float, leaf_n: Optional[int] = None) -> int:
     """Worst-case coded bits for a message of at most capacity_nnz nonzeros:
-    2 + b bits a code, plus unary parts that sum to at most n / 2^b."""
+    2 + b bits a code, plus unary parts that sum to at most n / 2^b. For a
+    slice of an ``leaf_n``-coordinate leaf the nonzeros are bounded by the
+    leaf's capacity (and n)."""
     b = rice_b(p)
-    cap = golomb_capacity_nnz(n, p)
+    cap = min(n, golomb_capacity_nnz(n if leaf_n is None else leaf_n, p))
     return cap * (2 + b) + int(math.ceil(n / float(1 << b)))
 
 
-def golomb_rows(n: int, p: float) -> int:
-    """Payload rows of one n-coordinate message at plan fraction p: the one
+def golomb_rows(n: int, p: float, leaf_n: Optional[int] = None) -> int:
+    """Payload rows of one n-coordinate message at plan fraction p (a slice
+    of an ``leaf_n``-coordinate leaf: ``golomb_capacity_bits``): the one
     capacity rule of the encoder's output shape and the wire's ledger. Raises
     when the capacity cannot beat the flat 2-bit wire."""
-    cap_bytes = HEADER_BYTES + (golomb_capacity_bits(n, p) + 7) // 8
+    cap_bytes = HEADER_BYTES + (golomb_capacity_bits(n, p, leaf_n) + 7) // 8
     rows = -(-cap_bytes // ROW_BYTES)
     pack2_bytes = canonical_rows(n) * ROW_BYTES
     if rows * ROW_BYTES >= pack2_bytes:
@@ -79,10 +87,10 @@ def golomb_rows(n: int, p: float) -> int:
     return rows
 
 
-def golomb_nbytes(n: int, p: float) -> int:
-    """One worker's payload bytes for an n-coordinate leaf, capacity padding
-    included."""
-    return golomb_rows(n, p) * ROW_BYTES
+def golomb_nbytes(n: int, p: float, leaf_n: Optional[int] = None) -> int:
+    """One worker's payload bytes for an n-coordinate leaf (or a slice of an
+    ``leaf_n``-coordinate one), capacity padding included."""
+    return golomb_rows(n, p, leaf_n) * ROW_BYTES
 
 
 # ---------------------------------------------------------------------------
@@ -127,11 +135,22 @@ def emit_stream(t_flat: torch.Tensor, *, b: int, rows: int) -> torch.Tensor:
     return torch.cat([_le32(shipped), _le32(dropped), body]).reshape(rows, ROW_BYTES)
 
 
-def golomb_encode_ref(t: torch.Tensor, *, p: float) -> torch.Tensor:
-    """Ternary message (any shape) -> (golomb_rows(n, p), ROW_BYTES) uint8
-    wire payload: the plain version of both encode kernels."""
+def golomb_encode_ref(t: torch.Tensor, *, p: float,
+                      leaf_n: Optional[int] = None) -> torch.Tensor:
+    """Ternary message (any shape) -> (golomb_rows(n, p, leaf_n), ROW_BYTES)
+    uint8 wire payload: the plain version of both encode kernels."""
     n = int(t.numel())
-    return emit_stream(t.reshape(-1), b=rice_b(p), rows=golomb_rows(n, p))
+    return emit_stream(t.reshape(-1), b=rice_b(p), rows=golomb_rows(n, p, leaf_n))
+
+
+def sparsign_golomb_ref(g: torch.Tensor, budget, seed, counter_base=0, *, p: float,
+                        counter_map=None, leaf_n: Optional[int] = None) -> torch.Tensor:
+    """The plain version of the fused encoder: the coded wire of sparsign(g)
+    (``kernels.sparsign.ref``). A model rank's slice (``counter_map``,
+    ``leaf_n``) draws the whole leaf's counters and takes the slice
+    capacity of ``golomb_rows``; its stream is in the slice's coordinates."""
+    t = sparsign_ref(g, budget, seed, counter_base, counter_map=counter_map)
+    return golomb_encode_ref(t, p=p, leaf_n=leaf_n)
 
 
 # ---------------------------------------------------------------------------

@@ -44,10 +44,12 @@ def qsgd8_pack8_cuda(g: torch.Tensor, param: torch.Tensor, seed: torch.Tensor,
             base, run, skip, _DTYPES[g.dtype], stream)
     build.check_launch("qsgd8_pack8", err)
     qsgd8_pack8_cuda.launches += 1
+    qsgd8_pack8_cuda.map_launches += counter_map is not None
     return out
 
 
 qsgd8_pack8_cuda.launches = 0
+qsgd8_pack8_cuda.map_launches = 0
 
 
 def unpack8_sum_cuda(gathered: torch.Tensor, scales: torch.Tensor, *, out=None,

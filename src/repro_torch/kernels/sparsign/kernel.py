@@ -44,7 +44,9 @@ def sparsign_cuda(g: torch.Tensor, budget: torch.Tensor, seeds: torch.Tensor,
             g.numel() // rows, base, run, skip, _DTYPES[g.dtype], stream)
     build.check_launch("sparsign", err)
     sparsign_cuda.launches += 1
+    sparsign_cuda.map_launches += counter_map is not None
     return out
 
 
 sparsign_cuda.launches = 0
+sparsign_cuda.map_launches = 0

@@ -42,7 +42,9 @@ def sparsign_pack2bit_cuda(g: torch.Tensor, budget: torch.Tensor, seed: torch.Te
             base, run, skip, _DTYPES[g.dtype], stream)
     build.check_launch("sparsign_pack2bit", err)
     sparsign_pack2bit_cuda.launches += 1
+    sparsign_pack2bit_cuda.map_launches += counter_map is not None
     return out
 
 
 sparsign_pack2bit_cuda.launches = 0
+sparsign_pack2bit_cuda.map_launches = 0

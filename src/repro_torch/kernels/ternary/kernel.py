@@ -17,15 +17,18 @@ RULE_IDS = {name: i for i, name in enumerate(RULES)}
 
 
 def ternary_cuda(g: torch.Tensor, param: torch.Tensor, seeds: torch.Tensor,
-                 counter_base: int = 0, *, rule: str) -> torch.Tensor:
+                 counter_base: int = 0, *, rule: str, counter_map=None) -> torch.Tensor:
     """int8 RULES[rule] symbols of ``g`` (rows, ...) on the card, one launch
     for all rows.
 
     ``seeds``: int64 CUDA tensor of ``rows`` uint32 stream seeds, row r of ``g``
     drawing counters ``counter_base + j``. ``param``: float32 CUDA tensor with
     one value for all rows or one per row (the rule's budget, sigma or scale).
-    Allocates the output, launches on the current stream and does not
-    synchronise."""
+    ``counter_map`` (run, leaf_run, offset): each row is a model rank's slice
+    of a leaf, drawing the whole leaf's counters
+    (``kernels.common.counter_index``; ``ternary_map_launch``, counted in
+    ``map_launches`` too). Allocates the output, launches on the current
+    stream and does not synchronise."""
     if rule not in RULE_IDS:
         raise ValueError(f"unknown ternary rule {rule!r}; known: {sorted(RULE_IDS)}")
     check_cuda_tensor("g", g, tuple(_DTYPES))
@@ -37,17 +40,26 @@ def ternary_cuda(g: torch.Tensor, param: torch.Tensor, seeds: torch.Tensor,
     if param.numel() not in (1, rows):
         raise ValueError(f"param needs 1 or {rows} values, got {param.numel()}")
     out = torch.empty(g.shape, dtype=torch.int8, device=g.device)
-    err = build.library("ternary")(
-        g.data_ptr(), out.data_ptr(), seeds.data_ptr(), param.data_ptr(),
-        int(param.numel() == rows and rows > 1), rows, g.numel() // rows,
-        int(counter_base) & MASK32, _DTYPES[g.dtype], RULE_IDS[rule],
-        torch.cuda.current_stream(g.device).cuda_stream)
+    per_row = int(param.numel() == rows and rows > 1)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    if counter_map is None:
+        err = build.library("ternary")(
+            g.data_ptr(), out.data_ptr(), seeds.data_ptr(), param.data_ptr(), per_row, rows,
+            g.numel() // rows, int(counter_base) & MASK32, _DTYPES[g.dtype], RULE_IDS[rule],
+            stream)
+    else:
+        base, run, skip = map_args(counter_base, counter_map)
+        err = build.library("ternary", "ternary_map_launch")(
+            g.data_ptr(), out.data_ptr(), seeds.data_ptr(), param.data_ptr(), per_row, rows,
+            g.numel() // rows, base, run, skip, _DTYPES[g.dtype], RULE_IDS[rule], stream)
     build.check_launch("ternary", err)
     ternary_cuda.launches += 1
+    ternary_cuda.map_launches += counter_map is not None
     return out
 
 
 ternary_cuda.launches = 0
+ternary_cuda.map_launches = 0
 
 
 def ternary_pack2bit_cuda(g: torch.Tensor, param: torch.Tensor, seed: torch.Tensor,
@@ -82,7 +94,9 @@ def ternary_pack2bit_cuda(g: torch.Tensor, param: torch.Tensor, seed: torch.Tens
             base, run, skip, _DTYPES[g.dtype], RULE_IDS[rule], stream)
     build.check_launch("ternary_pack2bit", err)
     ternary_pack2bit_cuda.launches += 1
+    ternary_pack2bit_cuda.map_launches += counter_map is not None
     return out
 
 
 ternary_pack2bit_cuda.launches = 0
+ternary_pack2bit_cuda.map_launches = 0

@@ -20,18 +20,18 @@ def ternary_compress_op(g: torch.Tensor, param, seed, counter_base=0, *,
                         rule: str, counter_map=None) -> torch.Tensor:
     """int8 ternary RULES[rule] symbols of ``g`` (f32/bf16). ``seed`` is one
     stream seed over g's flat index, or a 1-D sequence of per-row seeds for g
-    of shape (rows, ...); ``param`` is a scalar or one value per row. A
-    model rank's slice (``counter_map``) has no kernel here yet: on the card
-    it raises."""
+    of shape (rows, ...); ``param`` is a scalar or one value per row;
+    ``counter_map`` (run, leaf_run, offset) makes each row a model rank's
+    slice of a leaf, drawing the whole leaf's counters (the kernel's map
+    form on the card: the psum and hier wires and the decoded psum under
+    tensor parallelism)."""
     if not g.is_cuda:
         return ternary_compress_ref(g, param, seed, counter_base, rule=rule,
                                     counter_map=counter_map)
-    if counter_map is not None:
-        raise NotImplementedError("the flat ternary kernel's counter map (a model rank's "
-                                  "slice) is not ported yet: use the allgather_packed wire")
     seeds = device_tensor(seed, g, torch.int64).reshape(-1) & MASK32
     p = device_tensor(param, g).reshape(-1)
-    return ternary_cuda(g.contiguous(), p.contiguous(), seeds, counter_base, rule=rule)
+    return ternary_cuda(g.contiguous(), p.contiguous(), seeds, counter_base, rule=rule,
+                        counter_map=counter_map)
 
 
 def ternary_pack2bit_op(g: torch.Tensor, param, seed, counter_base=0, *,

@@ -19,9 +19,11 @@ no per-worker terms. An M-RoPE model's batch carries ``positions3``, the
 three position streams equal to ``positions``, as JAX's launcher builds it.
 ``--host-model T`` adds a
 tensor-parallel 'model' axis of T ranks (the simple trainer's dense
-attention families; ``train.step_tp``); its checkpoints hold whole leaves,
-so a run resumes at another T or M. What is not ported yet raises: a
-launch on the production meshes.
+attention families, with every compressor, wire, budget and server, elastic
+participation and local steps; ``train.step_tp``); its checkpoints hold
+whole leaves, so a run resumes at another T or M. What is not ported yet
+raises: a launch on the production meshes, and under T > 1 the bucketed
+uplink and the ring.
 """
 
 from __future__ import annotations

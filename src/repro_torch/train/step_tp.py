@@ -9,25 +9,37 @@ compressors see the whole logical leaf. Here each model rank of a worker
 ``torch.distributed`` when the ranks span processes):
 
   1. computes the worker's gradient in the TP layout
-     (``model.tensor_parallel(mg)``: ``models.tensor_parallel.TPModel``);
+     (``model.tensor_parallel(mg)``: ``models.tensor_parallel.TPModel``),
+     or with tau > 1 local steps (Alg. 2) the sum of its compressed local
+     steps, each slice drawing the whole leaf's counters;
   2. compresses each slice so its symbols are the whole leaf's at the same
      coordinates: the kernels draw the whole leaf's counters (the counter
-     map, ``tensor_parallel.slice_counter_map``), and a statistic of the
-     whole leaf (the L2 budget's and qsgd8's sum of squares in rank order,
-     TernGrad's L-inf max) is reduced over 'model'; a replicated leaf is
-     compressed whole, as a device of JAX's mesh compresses it;
+     map, ``tensor_parallel.slice_counter_map``), and every statistic of the
+     whole leaf is reduced over 'model' from the slices' partials
+     (``engine.leaf_slices``: the L2 budget's and the L2 scales' sums of
+     squares and scaled sign's L1 in rank order, 1-bit QSGD's L-inf max,
+     ``target_sparsity``'s bisection, one ordered sum an iteration), TernGrad's
+     and ``linf_share``'s shared L-inf is a max over the ranks and the
+     workers; a replicated leaf is compressed whole, as a device of JAX's
+     mesh compresses it;
   3. exchanges each slice's messages over the worker axes (its own
-     canonical packed view on the gather wires) and updates only its slice;
-     ``scaled_sign_ef``'s L1 is the ordered sum of the slices' partials.
+     canonical packed view on the gather wires, its own Golomb stream, sized
+     by the whole leaf's capacity, on the golomb wire) and updates only its
+     slice; ``scaled_sign_ef``'s L1 is the ordered sum of the slices'
+     partials. Under elastic participation every rank of a worker takes the
+     worker's mask and weight, and each slice's weighted exchange gives the
+     same W.
 
 ``wire_bytes_per_device`` bills what one device sends: each sharded leaf's
 slice ledger and each replicated leaf's whole one. JAX's step reports the
 whole leaves' ledger (``g.size`` inside a ``shard_map`` manual over the
 worker axes only).
 
-Not ported yet under T > 1, each raising: the bucketed uplink, the ring,
-elastic participation, the Golomb wire, ``target_sparsity`` and every
-(compressor, wire) pair outside ``engine.TP_COMPRESSORS``.
+Every (compressor, wire, budget, server) of the T = 1 step runs. Not ported
+yet under T > 1, each raising: the bucketed uplink and the ring (a counter
+map a bucket segment), and, elsewhere, MoE and mamba2 blocks
+(``models.tensor_parallel``), the streamed trainer and a 'model' axis over a
+process subgroup (``launch.mesh``).
 """
 
 from __future__ import annotations
@@ -69,13 +81,10 @@ class TPLeafLayout:
 
 def check_supported(step_cfg) -> None:
     """Raise for what the tensor-parallel step does not port yet."""
-    comp = step_cfg.compression
     for flag, what in ((step_cfg.bucketed, "the bucketed uplink"),
-                       (step_cfg.ring_chunk_rows is not None, "the ring gather"),
-                       (step_cfg.participation is not None, "elastic participation")):
+                       (step_cfg.ring_chunk_rows is not None, "the ring gather")):
         if flag:
             raise tp_lib.not_ported(what)
-    engine.check_tensor_parallel(comp, step_cfg.vote_impl)
 
 
 def build_tp_train_step(model, step_cfg, group: WorkerGroup):
@@ -94,14 +103,24 @@ def build_tp_train_step(model, step_cfg, group: WorkerGroup):
     dev_numel = [n // pl.parts if pl.sharded else n for n, pl in zip(numels, pls)]
     mode = engine.wire_mode(comp, vote_impl=step_cfg.vote_impl)
     wire_fmt = engine.wire_payload_format(comp, mode, vote_impl=step_cfg.vote_impl)
-    wire = collectives.make_vote_wire(step_cfg.vote_impl, group, backend=step_cfg.backend,
-                                      wire_format=wire_fmt)
+    part = step_cfg.participation
+    if part is not None:
+        engine.check_participation_server(comp.server, comp.compressor)
+    wire = collectives.make_vote_wire(
+        step_cfg.vote_impl, group, backend=step_cfg.backend, wire_format=wire_fmt,
+        golomb_p=(engine.resolve_golomb_p(comp, step_cfg.golomb_p)
+                  if wire_fmt == "golomb" else None),
+        participation=part)
+    # a slice's wire: the golomb capacity of a slice is its whole leaf's
+    leaf_wires = [wire.for_slice(n) if pl.sharded else wire for n, pl in zip(numels, pls)]
+    count_dropped = wire.native_format == "golomb"
     share_linf = engine.needs_shared_linf(comp)
-    need_sq = engine.needs_leaf_sum_sq(comp)
     if mode != "votes" and engine.needs_server_ef(comp.server):
         raise ValueError(f"server {comp.server!r} needs the integer vote wire, but compressor "
                          f"{comp.compressor!r} rides the {mode!r} wire")
     quorum_leaves = tree_leaves(engine.broadcast_quorum(step_cfg.quorum, model.param_shapes()))
+    q_fracs = ([part.resolve_q_frac(q, wire.n_workers) for q in quorum_leaves]
+               if part is not None else None)
     if mode != "votes" and any(q != 1 for q in quorum_leaves):
         raise ValueError(f"quorum={step_cfg.quorum!r} is a vote-server deadband; compressor "
                          f"{comp.compressor!r} rides the {mode!r} wire")
@@ -110,13 +129,16 @@ def build_tp_train_step(model, step_cfg, group: WorkerGroup):
     backend = step_cfg.backend
     first_rank = mg.offset == 0   # counts the replicated leaves' metrics once
 
+    def psum(parts):
+        return collectives.tp_sum(parts, mg)
+
+    def pmax(parts):
+        return collectives.tp_max(parts, mg)
+
     def grads_of(params, batch):
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         loss = tpm.loss(tree_unflatten(params, leaves), batch)[0]
         return loss.detach(), list(torch.autograd.grad(loss, leaves))
-
-    def slice_of(i, r, sum_sq=None):
-        return engine.LeafSlice(maps[i][r], numels[i], sum_sq)
 
     def local_grads(params, batch, wseed):
         """(loss, message sources in the TP layout): step_simple's
@@ -137,7 +159,8 @@ def build_tp_train_step(model, step_cfg, group: WorkerGroup):
                 if pls[i].sharded:
                     q = torch.stack([engine.compress_leaf(
                         g[r], local_cfg, seed, base, backend=backend,
-                        leaf_slice=slice_of(i, r)).values for r in range(mg.local)])
+                        leaf_slice=engine.LeafSlice(maps[i][r], numels[i])).values
+                        for r in range(mg.local)])
                 else:
                     q = engine.compress_leaf(g, local_cfg, seed, base, backend=backend).values
                 eta = torch.full((), float(step_cfg.local_lr), dtype=w[i].dtype,
@@ -153,6 +176,12 @@ def build_tp_train_step(model, step_cfg, group: WorkerGroup):
         widx = collectives.worker_index(group, dev)
         rseed = sampling.round_seed(state.seed, state.step)
         mask = sampling.participation_mask(rseed, state.step, widx, comp.worker_sample_fraction)
+        w_eff = None
+        if part is not None:
+            # the worker's reporting bit and weight, the same on each of its
+            # model ranks (keyed by the worker's index, never drawn a rank)
+            mask = mask & sampling.report_mask(rseed, state.step, widx, part.dropout)
+            w_eff = part.weights_array(n_workers, dev)[widx] * mask.to(torch.float32)
         lr = step_cfg.lr(state.step)
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         n_leaves = len(p_leaves)
@@ -161,6 +190,7 @@ def build_tp_train_step(model, step_cfg, group: WorkerGroup):
         msgs = [[[] for _ in range(mg.local if pl.sharded else 1)] for pl in pls]
         scales = [[[] for _ in range(mg.local if pl.sharded else 1)] for pl in pls]
         nnz = [[zero] * mg.local for _ in range(group.local)]
+        dropped = [[zero] * mg.local for _ in range(group.local)]
         losses, sources, seeds = [], [], []
 
         def compress_worker(j, src, shared):
@@ -168,23 +198,28 @@ def build_tp_train_step(model, step_cfg, group: WorkerGroup):
                 seed_i = prng.fold_seed_int(seeds[j], i)
                 sh = shared[i] if shared is not None else None
                 if pls[i].sharded:
-                    sq = (collectives.tp_sum([engine.leaf_sum_sq(x) for x in g.unbind(0)], mg)
-                          if need_sq else None)
-                    parts = [(r, g[r], slice_of(i, r, sq)) for r in range(mg.local)]
+                    slices = engine.leaf_slices(comp, list(g.unbind(0)), maps[i], numels[i],
+                                                psum=psum, pmax=pmax)
+                    parts = [(r, g[r], slices[r]) for r in range(mg.local)]
                 else:
                     parts = [(0, g, None)]
                 for r, x, lsl in parts:
-                    kw = {} if mode == "decoded" else {"wire": wire}
+                    kw = {} if mode == "decoded" else {"wire": leaf_wires[i]}
                     msg = engine.compress_leaf(x, comp, seed_i, backend=backend, shared_linf=sh,
                                                leaf_slice=lsl, **kw)
-                    scales[i][r].append(msg.scale)
                     if mode == "decoded":
+                        # elastic: the weight premultiplies the decode scale
+                        scales[i][r].append(msg.scale * w_eff[j] if part is not None
+                                            else msg.scale)
                         msgs[i][r].append(msg.values)
                         continue
+                    scales[i][r].append(msg.scale)
                     values = wire.mask_message(msg.values, mask[j])
                     msgs[i][r].append(values)
                     if pls[i].sharded or first_rank:
                         nnz[j][r] = nnz[j][r] + wire.message_nnz(values)
+                        if count_dropped:
+                            dropped[j][r] = dropped[j][r] + wire.message_dropped(values)
 
         for j in range(group.local):
             w = group.rank * group.local + j
@@ -207,8 +242,7 @@ def build_tp_train_step(model, step_cfg, group: WorkerGroup):
                     x = s[i]
                     parts = ([torch.amax(torch.abs(y.to(torch.float32))) for y in x.unbind(0)]
                              if pls[i].sharded else [torch.amax(torch.abs(x.to(torch.float32)))])
-                    per_worker.append(collectives.tp_max(parts, mg) if pls[i].sharded
-                                      else parts[0])
+                    per_worker.append(pmax(parts) if pls[i].sharded else parts[0])
                 local = torch.stack(per_worker)
                 local = torch.where(mask, local, torch.zeros((), device=dev))
                 with collectives.for_model_ranks(mg.ranks):
@@ -219,19 +253,22 @@ def build_tp_train_step(model, step_cfg, group: WorkerGroup):
                 sources[j] = None
 
         n_sel = collectives.scalar_psum(mask.to(torch.float32), group)
+        if mode == "decoded":   # the mean's divisor: W (one protocol scalar) or n_sel
+            n_dec = collectives.scalar_psum(w_eff, group) if part is not None else n_sel
         ef_flat = (tree_leaves(state.ef_residual) if state.ef_residual is not None
                    else [None] * n_leaves)
         wire_bytes, gather_hbm = 0.0, 0.0
         for i, p in enumerate(p_leaves):
             n_dev = dev_numel[i]
-            wire_bytes += collectives.uplink_ledger(mode, wire, n_dev, share_linf=share_linf)
+            wire_bytes += collectives.uplink_ledger(mode, leaf_wires[i], n_dev,
+                                                    share_linf=share_linf)
             if mode != "decoded":
-                gather_hbm = max(gather_hbm, wire.gather_hbm_bytes(n_dev))
+                gather_hbm = max(gather_hbm, leaf_wires[i].gather_hbm_bytes(n_dev))
             sharded = pls[i].sharded
             views = list(p.unbind(0)) if sharded else [p]
             efs = (list(ef_flat[i].unbind(0)) if sharded else [ef_flat[i]]) \
                 if ef_flat[i] is not None else [None] * len(views)
-            aggs = []
+            aggs, wtots = [], []
             for r, pr in enumerate(views):
                 stack = torch.stack(msgs[i][r])
                 msgs[i][r] = None
@@ -242,25 +279,35 @@ def build_tp_train_step(model, step_cfg, group: WorkerGroup):
                         agg, k = collectives.decoded_exchange(
                             stack, torch.stack(scales[i][r]), mask, group,
                             is_ternary=comp.is_ternary)
+                        n_or_w = n_dec
                         if sharded or first_rank:
                             for j in range(group.local):
                                 nnz[j][r] = nnz[j][r] + k[j]
                     else:
                         wire_scale = torch.stack(scales[i][r]) if mode == "pack8" else None
-                        agg = wire.exchange(stack, pr.numel(), tuple(pr.shape),
-                                            scale=wire_scale)
+                        if part is not None:
+                            agg, n_or_w = wire.exchange_weighted(stack, pr.numel(),
+                                                                 tuple(pr.shape), weight=w_eff,
+                                                                 scale=wire_scale)
+                        else:
+                            agg, n_or_w = wire.exchange(stack, pr.numel(), tuple(pr.shape),
+                                                        scale=wire_scale), n_sel
                 del stack
                 aggs.append(agg)
+                wtots.append(n_or_w)
             l1 = None
             if sharded and comp.server == "scaled_sign_ef" and mode == "votes":
                 # the whole leaf's L1: the slices' partials in rank order
-                l1 = collectives.tp_sum([engine.ef_l1_partial(a, e, n_sel)
-                                         for a, e in zip(aggs, efs)], mg)
-            for r, (pr, agg, ef) in enumerate(zip(views, aggs, efs)):
+                l1 = psum([engine.ef_l1_partial(a, e, n_sel) for a, e in zip(aggs, efs)])
+            for r, (pr, agg, ef, n_or_w) in enumerate(zip(views, aggs, efs, wtots)):
                 if mode != "votes":
                     mean_scale = scales[i][r][-1] if mode == "scaled_votes" else None
-                    new_p, new_ef = engine.server_apply(pr, agg, comp, lr=lr, ef=ef, n_sel=n_sel,
-                                                        server="mean", scale=mean_scale,
+                    new_p, new_ef = engine.server_apply(pr, agg, comp, lr=lr, ef=ef,
+                                                        n_sel=n_or_w, server="mean",
+                                                        scale=mean_scale, backend=backend)
+                elif part is not None:
+                    new_p, new_ef = engine.server_apply(pr, agg, comp, lr=lr, ef=ef,
+                                                        part_total=n_or_w, q_frac=q_fracs[i],
                                                         backend=backend)
                 else:
                     new_p, new_ef = engine.server_apply(
@@ -276,12 +323,15 @@ def build_tp_train_step(model, step_cfg, group: WorkerGroup):
         f32 = np.float32
         total = sum(numels)
         loss_mean = collectives.scalar_psum(torch.stack(losses), group) / f32(n_workers)
-        worker_nnz = torch.stack([collectives.tp_sum(nnz[j], mg) for j in range(group.local)])
+        worker_nnz = torch.stack([psum(nnz[j]) for j in range(group.local)])
         nnz_mean = (collectives.scalar_psum(worker_nnz, group) / f32(n_workers) / f32(total))
         metrics = {"loss": loss_mean, "lr": torch.tensor(lr, device=dev), "nnz_frac": nnz_mean,
                    "participated": n_sel,
                    "wire_bytes_per_device": torch.tensor(f32(wire_bytes), device=dev),
                    "gather_hbm_bytes": torch.tensor(f32(gather_hbm), device=dev)}
+        if count_dropped:
+            metrics["nnz_dropped"] = collectives.scalar_psum(
+                torch.stack([psum(dropped[j]) for j in range(group.local)]), group)
         return TrainState(params=params, ef_residual=state.ef_residual, step=state.step + 1,
                           seed=state.seed), metrics
 
@@ -324,6 +374,7 @@ def build_tp_train_step(model, step_cfg, group: WorkerGroup):
 
     step.wire = wire
     step.mode = mode
+    step.share_linf = share_linf
     step.plan = None
     step.placements = placements
     step.tp_model = tpm

@@ -450,10 +450,13 @@ def test_bit_digest_tells_one_changed_bit():
 
 def test_phase_tp_rehearses_on_the_cpu(monkeypatch, capsys):
     """The tensor-parallel phase at the smoke size on the CPU: the slice
-    holds on small slices, the launcher's M = 4 x T = 2 run with wire bytes
-    at the slice ledger, the injected fixed-budget rounds at T = 2 equal to
-    T = 1 bit for bit, the float32 gradients no farther from float64 than
-    TP_F64_RATIO times T = 1's, and the T = 2 checkpoint restored at T = 1."""
+    holds on small slices (rows 4 and 14 among them) and the short runs, the
+    launcher's M = 4 x T = 2 run with wire bytes at the slice ledger, the
+    injected fixed-budget rounds at T = 2 equal to T = 1 bit for bit, the
+    paper's round (sign, TernGrad, elastic bit for bit; golomb under
+    target_sparsity and 1-bit L2 QSGD within the flip bound), the float32
+    gradients no farther from float64 than TP_F64_RATIO times T = 1's, and
+    the T = 2 checkpoint restored at T = 1."""
     import torch
 
     cs = _chip_smoke()
@@ -478,4 +481,11 @@ def test_phase_tp_rehearses_on_the_cpu(monkeypatch, capsys):
     assert all(b <= cs.TP_F64_RATIO * a + 1e-7
                for a, b in zip(out["float64"]["t1_err"], out["float64"]["t2_err"]))
     assert out["checkpoint_t2_to_t1"]
+    assert all(label in out["slices"]["lm_head"] for label in cs.TP_NEW_MAPS.values())
+    assert out["short_runs"]["held"] > 0
+    rounds = out["round"]
+    assert len(rounds) == 5 and all(r["nnz_dropped"] in (None, 0.0) for r in rounds.values())
+    assert [rounds[k]["differ"] for k in ("sign psum", "terngrad psum",
+                                          "elastic sparsign allgather_packed")] == [0, 0, 0]
+    assert all(r["flips"] <= cs.TP_FLIP_BOUND * r["coords"] for r in rounds.values())
     assert "[tp] qwen1.5-4b" in capsys.readouterr().out

@@ -653,6 +653,101 @@ def test_counter_map_kernels_match_plain_versions_on_card(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row4_and_row14_counter_maps_match_plain_versions_on_card(cuda_device, dtype):
+    """The two map launches of rows 4 (``ternary_map_launch``, every rule,
+    several rows with their own seeds and params) and 14
+    (``golomb_encode_map_launch``, the slice capacity of its whole leaf) on
+    a model rank's slice: bit for bit against their plain versions, row 4
+    also the whole leaf's symbols; the cases of the rows 1, 5, 6, 12 test
+    above, and each launch counted as a map launch."""
+    from repro_torch.kernels import map_launch_counts
+    from repro_torch.kernels.golomb.ref import sparsign_golomb_ref
+    cases = [((64, 6912), 2, 1, 12345), ((37, 504), 2, 1, 7), ((8, 34), 2, 0, 2**32 - 40),
+             ((5, 96, 40), 3, 2, 99), ((300, 16), 2, 1, 5), ((129, 6), 3, 2, 2**32 - 9)]
+    reset_launch_counts()
+    calls = 0
+    for shape, t, rank, base in cases:
+        g = torch.from_numpy(grad_like(int(np.prod(shape)), 4).reshape(shape)).to(
+            cuda_device, dtype)
+        dim = 1 if len(shape) == 3 else len(shape) - 1
+        width = shape[dim] // t
+        s = g.narrow(dim, rank * width, width).contiguous()
+        leaf_run = int(np.prod(shape[dim:]))
+        run = leaf_run // t
+        cmap = (run, leaf_run, rank * run)
+        for rule in RULES:
+            prm = 0.3 if rule == "noisy_sign" else 3.0
+            got = ternary_compress_op(s, prm, 77, base, rule=rule, counter_map=cmap)
+            assert torch.equal(got, ternary_compress_ref(s, prm, 77, base, rule=rule,
+                                                         counter_map=cmap)), (shape, rule)
+            whole = ternary_compress_ref(g, prm, 77, base, rule=rule)
+            assert torch.equal(got, whole.narrow(dim, rank * width, width)), (shape, rule)
+            rows = torch.stack([s, -s])
+            assert torch.equal(
+                ternary_compress_op(rows, [prm, 2 * prm], [77, 78], base, rule=rule,
+                                    counter_map=cmap),
+                ternary_compress_ref(rows, [prm, 2 * prm], [77, 78], base, rule=rule,
+                                     counter_map=cmap)), (shape, rule)
+            calls += 2
+        coded = sparsign_golomb_op(s, 0.5, 77, base, p=0.05, counter_map=cmap,
+                                   leaf_n=g.numel())
+        assert torch.equal(coded, sparsign_golomb_ref(s, 0.5, 77, base, p=0.05,
+                                                      counter_map=cmap, leaf_n=g.numel()))
+    torch.cuda.synchronize()
+    maps = map_launch_counts()
+    assert maps["ternary"] == calls and maps["sparsign_golomb"] == len(cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["sign-psum", "terngrad-psum", "golomb", "elastic", "qsgd_1bit"])
+def test_tp_round_variants_on_card_match_plain_versions(cuda_device, case):
+    """One smoke-size step at M = 4 x T = 2 of the paper's round under the
+    'model' axis through the kernels and through the plain versions
+    (backend='torch') on the card: the same parameters bit for bit, and the
+    row-4 or row-14 map launched once a worker and cut leaf."""
+    from repro_torch.kernels import map_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+    model = Model(get_config("qwen1.5-4b", smoke=True))
+    comp, impl, kw, mapped = {
+        "sign-psum": (CompressionConfig(compressor="sign"), "psum", {}, "ternary"),
+        "terngrad-psum": (CompressionConfig(compressor="terngrad", server="mean"), "psum", {},
+                          "ternary"),
+        "golomb": (CompressionConfig(compressor="sparsign_golomb",
+                                     budget=BudgetConfig(kind="target_sparsity", value=0.05)),
+                   "allgather_packed", {}, "sparsign_golomb"),
+        "elastic": (CompressionConfig(compressor="sparsign", budget=BudgetConfig(value=2.0)),
+                    "allgather_packed",
+                    {"participation": ParticipationSpec(weights=(1.5, 0.5, 2.0, 1.0),
+                                                        dropout=0.25)}, "sparsign_pack2bit"),
+        "qsgd_1bit": (CompressionConfig(compressor="qsgd_1bit_l2", server="mean"),
+                      "allgather_packed", {}, "ternary"),
+    }[case]
+    rng = np.random.RandomState(0)
+    batch = {"inputs": rng.randint(0, 256, (4, 16)).astype(np.int32),
+             "labels": rng.randint(0, 256, (4, 16)).astype(np.int32),
+             "positions": np.broadcast_to(np.arange(16, dtype=np.int32), (4, 16)).copy()}
+    out = {}
+    for backend in (None, "torch"):
+        step = build_train_step(model, TrainStepConfig(
+            compression=comp, lr=LrSchedule(base=0.05), vote_impl=impl, backend=backend, **kw),
+            make_host_mesh(4, 2))
+        state = step.shard_state(init_state(model.init(0, device=cuda_device),
+                                            server=comp.server, seed=1))
+        reset_launch_counts()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        out[backend] = [tbits(t) for t in tree_leaves(step.whole_state(state).params)]
+        if backend is None:   # 12 leaves cut on 'model', 3 replicated: 24 slices a worker
+            assert map_launch_counts()[mapped] == 24 * 4
+        else:
+            assert not any(launch_counts().values())
+        assert float(metrics.get("nnz_dropped", 0.0)) == 0.0
+    for a, b in zip(out[None], out["torch"]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("impl", ["psum", "allgather_packed"])
 def test_tp_trainer_step_on_card_matches_plain_versions(cuda_device, impl):
     """One smoke-size step at M = 4 x T = 2 through the kernels and through

@@ -60,6 +60,9 @@ LOSS_RTOL = 1e-6
 # test_torch_window holds it
 GRAD_RTOL_DEEP = {"gemma3-27b": 1e-3}
 M, T = 4, 2
+#: the noisy_sign flip bound against JAX (tests/test_torch_ternary.py): at most 1
+#: symbol in 10^5
+NOISY_FLIP_RATE = 1e-5
 FAMILIES = ["qwen1.5-4b", "qwen2.5-32b", "granite-34b", "gemma3-27b", "hubert-xlarge"]
 
 
@@ -207,80 +210,168 @@ def _state_of(leaves, server):
                       server=server, seed=11)
 
 
-def jax_round(params, per, jc, *, seed, step, lr, efs=None):
+def jax_round(params, per, jc, *, seed, step, lr, efs=None, impl="psum", part=None):
     """One round of the trainer on whole leaves from the JAX package's
-    parts, worker by worker: seeds and masks (``sampling``), the engine's
-    compress_leaf (jnp backend), the messages summed (int8 votes, or decoded
-    floats in worker order for a scaled row) and server_apply."""
+    parts, worker by worker, as JAX's ``step_simple`` composes them: seeds
+    and masks (``sampling``; with ``part``, a ParticipationSpec, the report
+    mask and the effective weights), the shared L-inf max where the row
+    shares it, the engine's compress_leaf (jnp backend), the messages summed
+    in worker order (int8 votes; weighted float votes and W; or decoded
+    floats for a decoded or pack8 row) and server_apply."""
     rseed = jsampling.round_seed(jnp.uint32(seed), jnp.int32(step))
     wseeds = [jprng.fold_seed(rseed, 0x5EED) + jnp.uint32(w) * jnp.uint32(0x9E3779B9)
               for w in range(M)]
     mask = [jsampling.participation_mask(rseed, jnp.int32(step), jnp.uint32(w),
                                          jc.worker_sample_fraction) for w in range(M)]
+    w_eff = None
+    if part is not None:
+        mask = [m & jsampling.report_mask(rseed, jnp.int32(step), jnp.uint32(w), part.dropout)
+                for w, m in enumerate(mask)]
+        w_eff = [jnp.float32(part.weights[w]) * jnp.asarray(m, jnp.float32)
+                 for w, m in enumerate(mask)]
+        q_frac = part.resolve_q_frac(1, M)
     n_sel = sum(jnp.asarray(m, jnp.float32) for m in mask)
+    mode = jengine.wire_mode(jc, vote_impl=impl)
     out, out_ef = [], []
     for i, p in enumerate(params):
+        shared = None
+        if jengine.needs_shared_linf(jc):
+            shared = max(jnp.where(mask[w], jnp.max(jnp.abs(jnp.asarray(per[i][w]))), 0.0)
+                         for w in range(M))
         msgs = [jengine.compress_leaf(jnp.asarray(per[i][w]), jc, jprng.fold_seed(wseeds[w], i),
-                                      backend="jnp") for w in range(M)]
-        if jc.compressor == "qsgd8":
+                                      backend="jnp", shared_linf=shared) for w in range(M)]
+        ef = None if efs is None else jnp.asarray(efs[i])
+        if mode in ("decoded", "pack8"):
             total = None
             for w, msg in enumerate(msgs):
-                dec = jnp.where(mask[w], msg.values.astype(jnp.float32) * msg.scale, 0.0)
+                sc = msg.scale * w_eff[w] if part is not None else msg.scale
+                dec = jnp.where(mask[w], msg.values.astype(jnp.float32) * sc, 0.0)
                 total = dec if total is None else total + dec
-            new, ef = jengine.server_apply(jnp.asarray(p), total, jc, lr=lr, n_sel=n_sel,
+            divisor = sum(w_eff) if part is not None else n_sel
+            new, ef = jengine.server_apply(jnp.asarray(p), total, jc, lr=lr, n_sel=divisor,
                                            server="mean", backend="jnp")
+        elif part is not None:
+            total = None
+            for w, m in enumerate(msgs):
+                wv = jnp.where(mask[w], m.values, 0).astype(jnp.float32) * w_eff[w]
+                total = wv if total is None else total + wv
+            new, ef = jengine.server_apply(jnp.asarray(p), total, jc, lr=lr,
+                                           part_total=sum(w_eff), q_frac=q_frac, backend="jnp")
         else:
             votes = sum(jnp.where(mask[w], m.values, 0).astype(jnp.int32)
                         for w, m in enumerate(msgs)).astype(jnp.int8)
-            new, ef = jengine.server_apply(
-                jnp.asarray(p), votes, jc, lr=lr, n_sel=n_sel,
-                ef=None if efs is None else jnp.asarray(efs[i]), backend="jnp")
+            if mode == "scaled_votes":
+                new, ef = jengine.server_apply(jnp.asarray(p), votes, jc, lr=lr, n_sel=n_sel,
+                                               server="mean", scale=msgs[-1].scale,
+                                               backend="jnp")
+            else:
+                new, ef = jengine.server_apply(jnp.asarray(p), votes, jc, lr=lr, n_sel=n_sel,
+                                               ef=ef, backend="jnp")
         out.append(np.asarray(new))
         out_ef.append(None if ef is None else np.asarray(ef))
     return out, out_ef
 
 
-def _tp_step(tcomp, impl, mesh=((M, T), ("data", "model"))):
+MESH = ((M, T), ("data", "model"))
+HIER_MESH = ((2, 2, T), ("pod", "data", "model"))
+#: dyadic weights: every order of the weighted sums is exact
+ELASTIC = ParticipationSpec(weights=(1.5, 0.5, 2.0, 1.0), dropout=0.25)
+
+
+def _tp_step(tcomp, impl, mesh=MESH, **kw):
     return build_train_step(InjectedTPModel(), TrainStepConfig(
-        compression=tcomp, lr=LrSchedule(base=0.05), vote_impl=impl), make_mesh(*mesh))
+        compression=tcomp, lr=LrSchedule(base=0.05), vote_impl=impl, **kw), make_mesh(*mesh))
 
 
+def _t1_step(tcomp, impl, **kw):
+    mesh = ((2, 2), ("pod", "data")) if impl == "hier" else ((M,), ("data",))
+    return build_train_step(InjectedTPModel(), TrainStepConfig(
+        compression=tcomp, lr=LrSchedule(base=0.05), vote_impl=impl, **kw), make_mesh(*mesh))
+
+
+#: name: (compressor, server, vote_impl, options). Options: ``budget``
+#: (default: 2.0 for the sparsign rows, else 1.0), ``kind`` (the budget's),
+#: ``exact`` (gradients in multiples of 1/8: every sum of squares or of |g|
+#: exact in any order), ``golomb_p``, ``part`` (a ParticipationSpec) and
+#: ``flips`` (noisy_sign: the Box-Muller flip bound against JAX, the round
+#: held bit for bit against the port's T = 1 instead)
 ROUND_CASES = {
-    "sparsign-psum": ("sparsign", "majority_vote", "psum", ((M, T), ("data", "model"))),
-    "sparsign-hier": ("sparsign", "majority_vote", "hier",
-                      ((2, 2, T), ("pod", "data", "model"))),
-    "sparsign-packed": ("sparsign", "majority_vote", "allgather_packed",
-                        ((M, T), ("data", "model"))),
-    "qsgd8-pack8": ("qsgd8", "mean", "allgather_packed", ((M, T), ("data", "model"))),
-    "qsgd8-decoded-psum": ("qsgd8", "mean", "psum", ((M, T), ("data", "model"))),
+    "sparsign-psum": ("sparsign", "majority_vote", "psum", {}),
+    "sparsign-hier": ("sparsign", "majority_vote", "hier", {}),
+    "sparsign-packed": ("sparsign", "majority_vote", "allgather_packed", {}),
+    "qsgd8-pack8": ("qsgd8", "mean", "allgather_packed", {"exact": True}),
+    "qsgd8-decoded-psum": ("qsgd8", "mean", "psum", {"exact": True}),
+    "sign-psum": ("sign", "majority_vote", "psum", {}),
+    "sign-hier": ("sign", "majority_vote", "hier", {}),
+    "noisy_sign-psum": ("noisy_sign", "majority_vote", "psum", {"budget": 0.3, "flips": True}),
+    "noisy_sign-hier": ("noisy_sign", "majority_vote", "hier", {"budget": 0.3, "flips": True}),
+    "terngrad-psum": ("terngrad", "mean", "psum", {}),
+    "terngrad-hier": ("terngrad", "mean", "hier", {}),
+    "qsgd_1bit_linf-packed": ("qsgd_1bit_linf", "mean", "allgather_packed", {}),
+    "scaled_sign-packed": ("scaled_sign", "mean", "allgather_packed", {"exact": True}),
+    "linf_share-psum": ("sparsign", "majority_vote", "psum", {"kind": "linf_share"}),
+    "golomb-packed": ("sparsign_golomb", "majority_vote", "allgather_packed",
+                      {"budget": 0.2, "golomb_p": 0.1}),
+    "elastic-packed": ("sparsign", "majority_vote", "allgather_packed", {"part": ELASTIC}),
+    "elastic-psum": ("sparsign", "majority_vote", "psum", {"part": ELASTIC}),
 }
+
+
+def _configs(comp_name, server, opts):
+    budget = opts.get("budget", 2.0 if comp_name.startswith("sparsign") else 1.0)
+    kind = opts.get("kind", "fixed")
+    return (JConfig(compressor=comp_name, budget=JBudget(kind=kind, value=budget), server=server),
+            CompressionConfig(compressor=comp_name, budget=BudgetConfig(kind=kind, value=budget),
+                              server=server))
 
 
 @pytest.mark.parametrize("case", list(ROUND_CASES))
 def test_tp_round_matches_jax_on_whole_leaves(case):
     """Two (4, 2) rounds with injected gradients: the slices, reassembled,
-    equal JAX's whole-leaf round bit for bit; wire bytes are the slice
-    ledger (each device's slices, replicated leaves whole)."""
-    comp_name, server, impl, mesh = ROUND_CASES[case]
-    exact = comp_name == "qsgd8"   # its L2 scale: a sum of squares, exact in any order
-    budget = 2.0 if comp_name == "sparsign" else 1.0
-    jc = JConfig(compressor=comp_name, budget=JBudget(value=budget), server=server)
-    tc = CompressionConfig(compressor=comp_name, budget=BudgetConfig(value=budget),
-                           server=server)
-    step = _tp_step(tc, impl, mesh)
+    equal JAX's whole-leaf round bit for bit wherever the whole leaf's
+    statistic is exact (a fixed budget, linf_share, TernGrad, 1-bit L-inf
+    QSGD, sign, the elastic weights; scaled sign and qsgd8 on gradients whose
+    sums are exact); noisy_sign within the Box-Muller flip bound of JAX and
+    bit for bit against the port's T = 1. Wire bytes are the slice ledger
+    (each device's slices, replicated leaves whole); the golomb wire drops
+    no nonzero."""
+    comp_name, server, impl, opts = ROUND_CASES[case]
+    jc, tc = _configs(comp_name, server, opts)
+    part = opts.get("part")
+    kw = {k: opts[k] for k in ("golomb_p",) if k in opts}
+    if part is not None:
+        kw["participation"] = part
+    step = _tp_step(tc, impl, HIER_MESH if impl == "hier" else MESH, **kw)
+    t1 = _t1_step(tc, impl, **kw) if opts.get("flips") else None
+    exact = opts.get("exact", False)
     params, _, _ = _tp_injected(0, exact)
     state = step.shard_state(_state_of(params, server))
+    s1 = _state_of(params, server) if t1 is not None else None
+    differ = 0
     for r in range(2):
         _, per, batch = _tp_injected(r + 1, exact)
-        want, _ = jax_round(params, per, jc, seed=11, step=r, lr=np.float32(0.05))
+        want, _ = jax_round(params, per, jc, seed=11, step=r, lr=np.float32(0.05), impl=impl,
+                            part=part)
         state, metrics = step(state, batch)
         got = [t.numpy().copy() for t in tree_leaves(step.whole_state(state).params)]
-        for a, b in zip(got, want):
-            np.testing.assert_array_equal(f32bits(a), f32bits(b))
+        if t1 is None:
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(f32bits(a), f32bits(b))
+        else:
+            s1, _ = t1(s1, batch)
+            for a, b in zip(got, tree_leaves(s1.params)):
+                np.testing.assert_array_equal(f32bits(a), f32bits(b.numpy()))
+            differ += sum(int((f32bits(a) != f32bits(b)).sum()) for a, b in zip(got, want))
         assert any((a != p).any() for a, p in zip(got, params))
         assert float(metrics["wire_bytes_per_device"]) == np.float32(
             tp_slice_ledger(step, InjectedTPModel()))
-        params = got
+        if "nnz_dropped" in metrics:
+            assert float(metrics["nnz_dropped"]) == 0.0
+        params = want if t1 is None else got
+    if t1 is not None:
+        size = sum(a.size for a in got)
+        print(f"{case} at (4, 2): {differ} of {2 * size} coordinates differ from JAX")
+        assert differ <= max(1, int(np.ceil(NOISY_FLIP_RATE * 2 * M * size)))
 
 
 def test_tp_round_scaled_sign_ef_against_jax():
@@ -342,6 +433,161 @@ def test_tp_round_l2_budget_flip_bound():
     assert moved > 0 and flips <= 1e-4 * a.size
 
 
+def _leaves(tree):
+    return [t.numpy().copy() for t in tree_leaves(tree)]
+
+
+def float_flips(got, want, p0) -> int:
+    """Coordinates of two runs' leaves that differ beyond float noise: by
+    more than 1e-5 of the leaf's largest update plus two ulps of the value.
+    A flipped symbol moves a coordinate by a share of a whole decode unit; a
+    budget or a decode scale an ulp apart moves it by about an ulp of the
+    update."""
+    n = 0
+    for a, b, p in zip(got, want, p0):
+        upd = max(float(np.abs(a - p).max()), float(np.abs(b - p).max()))
+        n += int((np.abs(a - b) > 1e-5 * upd + 2 * np.spacing(np.abs(b))).sum())
+    return n
+
+
+def _t2_and_t1(tc, impl, params, batches, **kw):
+    """The parameters (leaves) and last metrics of rounds at (4, 2) and
+    (4, 1) from one state, one round a batch."""
+    t2, t1 = _tp_step(tc, impl, HIER_MESH if impl == "hier" else MESH, **kw), _t1_step(tc, impl,
+                                                                                         **kw)
+    s2 = t2.shard_state(_state_of(params, tc.server))
+    s1 = _state_of(params, tc.server)
+    for batch in batches:
+        s2, m2 = t2(s2, batch)
+        s1, m1 = t1(s1, batch)
+    assert float(m2["wire_bytes_per_device"]) == np.float32(
+        tp_slice_ledger(t2, InjectedTPModel()))
+    return (_leaves(t2.whole_state(s2).params), {k: float(v) for k, v in m2.items()},
+            _leaves(s1.params), {k: float(v) for k, v in m1.items()})
+
+
+#: where a float sum over the whole leaf decides: name: (compressor, server,
+#: vote_impl, budget kind, budget value)
+FLIP_CASES = {
+    "target_sparsity": ("sparsign", "majority_vote", "allgather_packed", "target_sparsity", 0.05),
+    "target_sparsity-golomb": ("sparsign_golomb", "majority_vote", "allgather_packed",
+                               "target_sparsity", 0.05),
+    "qsgd_1bit_l2": ("qsgd_1bit_l2", "mean", "allgather_packed", "fixed", 1.0),
+    "scaled_sign": ("scaled_sign", "mean", "psum", "fixed", 1.0),
+}
+
+
+@pytest.mark.parametrize("case", list(FLIP_CASES))
+def test_tp_round_float_sum_flip_bound(case):
+    """Where a float sum over the whole leaf decides (each of
+    target_sparsity's 30 bisection means, 1-bit L2 QSGD's sum of squares,
+    scaled sign's L1), T = 2 adds the slices' partials in rank order and
+    T = 1 sums the whole leaf: a budget may part by an ulp, which flips a
+    symbol only where its draw lands between the two thresholds, and a
+    decode scale by an ulp, which moves each update by about an ulp of the
+    update. Bound: at most 1e-4 of the coordinates differ from T = 1 beyond
+    float noise (``float_flips``; a flipped symbol moves its coordinate by a
+    share of a decode unit); both that count and the bits apart printed. The
+    golomb wire drops nothing."""
+    comp_name, server, impl, kind, value = FLIP_CASES[case]
+    tc = CompressionConfig(compressor=comp_name, budget=BudgetConfig(kind=kind, value=value),
+                           server=server)
+    params, _, b1 = _tp_injected(5)
+    _, _, b2 = _tp_injected(6)
+    a, m2, b, m1 = _t2_and_t1(tc, impl, params, [b1, b2])
+    size = sum(x.size for x in a)
+    moved = sum(int(((x != p) | (y != p)).sum()) for x, y, p in zip(a, b, params))
+    bitwise = sum(int((f32bits(x) != f32bits(y)).sum()) for x, y in zip(a, b))
+    flips = float_flips(a, b, params)
+    print(f"{case} at (4, 2), two rounds: {flips} of {size} coordinates differ from T = 1 "
+          f"beyond float noise, {bitwise} in any bit ({moved} updated)")
+    assert moved > 0 and flips <= 1e-4 * size
+    for m in (m1, m2):
+        assert m.get("nnz_dropped", 0.0) == 0.0
+
+
+def _tau_batch(seeds, exact=False):
+    """Injected gradients of len(seeds) local steps: (tau, M, ...) a leaf."""
+    per = [_tp_injected(sd, exact)[2] for sd in seeds]
+    return {k: np.stack([b[k] for b in per]) for k in per[0]}
+
+
+#: name: (compression config, vote_impl, step options, tau batch): rounds at
+#: (4, 2) and (4, 1), held bit for bit
+T1_CASES = {
+    "local_steps-psum": (CompressionConfig(
+        compressor="sparsign", budget=BudgetConfig(value=2.0, local_value=1.5),
+        server="majority_vote", local_steps=2), "psum", {}, True),
+    "local_steps-packed": (CompressionConfig(
+        compressor="sparsign", budget=BudgetConfig(value=0.5, local_value=3.0),
+        server="majority_vote", local_steps=2), "allgather_packed", {}, True),
+    "elastic-qsgd_1bit_linf-decoded": (CompressionConfig(
+        compressor="qsgd_1bit_linf", server="mean"), "psum", {"participation": ELASTIC}, False),
+    "elastic-terngrad-packed": (CompressionConfig(
+        compressor="terngrad", server="mean"), "allgather_packed", {"participation": ELASTIC},
+        False),
+    "elastic-golomb": (CompressionConfig(
+        compressor="sparsign_golomb", budget=BudgetConfig(value=0.2), server="majority_vote"),
+        "allgather_packed", {"participation": ELASTIC, "golomb_p": 0.1}, False),
+}
+
+
+@pytest.mark.parametrize("case", list(T1_CASES))
+def test_tp_round_equals_t1_bit_for_bit(case):
+    """Two rounds at (4, 2) against (4, 1) from one state, injected
+    gradients: Alg. 2's tau = 2 local steps (EF-SPARSIGNSGD's inner sparsign
+    at B_l, each slice drawing the whole leaf's counters of step c), and
+    elastic rounds on the decoded psum, the scaled-vote gather and the
+    Golomb wire (every model rank of a worker takes its mask and weight):
+    the same bits, the same metrics but the per-device wire bytes."""
+    tc, impl, kw, tau = T1_CASES[case]
+    params, _, _ = _tp_injected(0)
+    batches = ([_tau_batch((1, 2)), _tau_batch((3, 4))] if tau
+               else [_tp_injected(1)[2], _tp_injected(2)[2]])
+    a, m2, b, m1 = _t2_and_t1(tc, impl, params, batches, **kw)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(f32bits(x), f32bits(y))
+    assert any((x != p).any() for x, p in zip(a, params))
+    for k in m1:
+        if k not in ("wire_bytes_per_device", "gather_hbm_bytes", "loss"):
+            assert m2[k] == m1[k], k
+
+
+def test_tp_golomb_skewed_slice_drops_nothing():
+    """target_sparsity 0.05 solves B for the whole leaf. With all of w_up's
+    gradient mass in model rank 0's half (its 'ff' columns 0-47 of 96), that
+    slice carries about p x the leaf's coordinates: more nonzeros than a
+    capacity sized for its own half holds (``golomb_rows(n_slice, p)`` drops
+    some), fewer than the leaf's. The slice capacity of the whole leaf
+    (``leaf_n``) drops none, and the (4, 2) round reports nnz_dropped 0, as
+    the (4, 1) round does."""
+    from repro_torch.core.budgets import solve_budget_for_sparsity
+    from repro_torch.kernels.golomb.ref import golomb_encode_ref
+    from repro_torch.kernels.sparsign.ref import sparsign_ref
+
+    def header(coded, at):
+        return int.from_bytes(coded.reshape(-1)[at:at + 4].numpy().tobytes(), "little")
+
+    params, per, batch = _tp_injected(9)
+    wup = tree_leaves(TP_SHAPES).index(TP_SHAPES["blocks"][0]["w_up"])
+    batch[f"g{wup}"][..., 48:] = 0.0
+    g = torch.from_numpy(batch[f"g{wup}"][0])
+    sym = sparsign_ref(g, solve_budget_for_sparsity(g, 0.05), 77)
+    half = sym[..., :48].contiguous()
+    naive = golomb_encode_ref(half, p=0.05)
+    sliced = golomb_encode_ref(half, p=0.05, leaf_n=g.numel())
+    assert header(naive, 4) > 0 and header(sliced, 4) == 0
+    assert header(sliced, 0) == int(torch.count_nonzero(half))
+    tc = CompressionConfig(compressor="sparsign_golomb",
+                           budget=BudgetConfig(kind="target_sparsity", value=0.05),
+                           server="majority_vote")
+    _, m2, _, m1 = _t2_and_t1(tc, "allgather_packed", params, [batch])
+    print(f"skewed w_up: rank 0's slice holds {header(sliced, 0)} nonzeros, its own-size "
+          f"capacity drops {header(naive, 4)}; nnz_dropped T = 2 {m2['nnz_dropped']}, "
+          f"T = 1 {m1['nnz_dropped']}")
+    assert m2["nnz_dropped"] == 0.0 and m1["nnz_dropped"] == 0.0
+
+
 def test_tp_fixed_budget_model_step_equals_t1_on_votes():
     """The qwen1.5-4b smoke model itself, M = 4 x T = 2 against M = 4 x T = 1,
     one round of fixed-budget sparsign: every coordinate whose gradient
@@ -381,17 +627,18 @@ from repro_torch.core.algorithm import CompressionConfig
 from repro_torch.core.budgets import BudgetConfig
 from repro_torch.core.compressors import tree_leaves
 from repro_torch.data.synthetic import LMStreamConfig, lm_batch
+from repro_torch.dist.collectives import ParticipationSpec
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.model import Model
 from repro_torch.train.state import LrSchedule, init_state
 from repro_torch.train.step_simple import TrainStepConfig, build_train_step
 
-def run(data, impl, budget):
+def run(data, impl, budget, compressor="sparsign", participation=None):
     model = Model(get_config("qwen1.5-4b", smoke=True))
-    comp = CompressionConfig(compressor="sparsign", budget=budget, server="majority_vote")
+    comp = CompressionConfig(compressor=compressor, budget=budget, server="majority_vote")
     step = build_train_step(model, TrainStepConfig(
-        compression=comp, lr=LrSchedule(base=0.05), vote_impl=impl),
-        make_mesh((data, 2), ("data", "model")))
+        compression=comp, lr=LrSchedule(base=0.05), vote_impl=impl,
+        participation=participation), make_mesh((data, 2), ("data", "model")))
     state = step.shard_state(init_state(model.init(0, device="cpu"), server=comp.server, seed=3))
     for r in range(2):
         batch = lm_batch(LMStreamConfig(vocab_size=256, seq_len=16, global_batch=4, seed=5), r)
@@ -407,7 +654,10 @@ if __name__ == "__main__":
                                 rank=int(rank), world_size=int(world))
     try:
         res = {"2x2": run(2, "allgather_packed", BudgetConfig(kind="l2_norm", value=0.1)),
-               "1x2": run(1, "psum", BudgetConfig(kind="l2_norm", value=0.1))}
+               "1x2": run(1, "psum", BudgetConfig(kind="l2_norm", value=0.1)),
+               "1x2-golomb-elastic": run(
+                   1, "allgather_packed", BudgetConfig(kind="target_sparsity", value=0.05),
+                   "sparsign_golomb", ParticipationSpec(weights=(1.5,), dropout=0.25))}
         torch.save(res, out)
     finally:
         if dist.is_initialized():
@@ -449,13 +699,15 @@ def proc_runs(tmp_path_factory):
     return torch.load(tmp / "w1r0.pt"), [torch.load(tmp / f"w2r{r}.pt") for r in range(2)]
 
 
-@pytest.mark.parametrize("key", ["2x2", "1x2"])
+@pytest.mark.parametrize("key", ["2x2", "1x2", "1x2-golomb-elastic"])
 def test_two_processes_equal_one(key, proc_runs):
     """(2 data x 2 model): each process holds a whole worker; (1 x 2): each
-    holds one model rank, so every TP all-reduce crosses the processes. Both
+    holds one model rank, so every TP all-reduce crosses the processes, as
+    does each of target_sparsity's 30 bisection sums (the Golomb wire, with
+    an elastic weight and dropout: the ranks end on one budget). Both
     ranks' gathered parameters and the metrics equal one process's bit for
-    bit (the L2 budget's sums of squares and the loss reductions are
-    ordered)."""
+    bit (the L2 budget's sums of squares, the bisection's means and the
+    loss reductions are ordered)."""
     one, two = proc_runs
     for res in two:
         for a, b in zip(res[key]["params"], one[key]["params"]):
@@ -528,26 +780,31 @@ def test_launcher_host_model_2_runs_and_resumes_at_t1(tmp_path, capsys):
 REFUSALS = {
     "moe": dict(arch="qwen2-moe-a2.7b"),
     "mamba": dict(arch="mamba2-370m"),
-    "golomb": dict(compressor="sparsign_golomb", impl="allgather_packed",
-                   budget=BudgetConfig(kind="target_sparsity", value=0.05)),
-    "target_sparsity": dict(budget=BudgetConfig(kind="target_sparsity", value=0.05)),
-    "linf_share": dict(budget=BudgetConfig(kind="linf_share", value=1.0)),
-    "scaled_sign": dict(compressor="scaled_sign", server="mean", impl="allgather_packed"),
-    "sign-on-psum": dict(compressor="sign"),
-    "qsgd_1bit": dict(compressor="qsgd_1bit_l2", server="mean", impl="allgather_packed"),
     "bucketed": dict(bucketed=True),
     "ring": dict(impl="allgather_packed", ring_chunk_rows=32),
-    "elastic": dict(participation=ParticipationSpec(weights=(1.0, 1.0, 1.0, 1.0))),
+    "subgroup": dict(subgroup=True),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_what_is_not_ported_under_t2_raises(case):
+    """What T > 1 does not port yet raises "not ported yet": MoE and mamba2
+    blocks, the bucketed uplink, the ring, and a 'model' axis over a process
+    subgroup (one gloo process, its subgroup of itself)."""
     kw = dict(REFUSALS[case])
+    if kw.pop("subgroup", False):
+        import torch.distributed as dist
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                                world_size=1)
+        try:
+            with pytest.raises(NotImplementedError, match="not ported yet"):
+                make_host_mesh(M, T, group=dist.new_group([0]))
+        finally:
+            dist.destroy_process_group()
+        return
     arch = kw.pop("arch", "qwen1.5-4b")
-    comp = CompressionConfig(compressor=kw.pop("compressor", "sparsign"),
-                             budget=kw.pop("budget", BudgetConfig(value=1.0)),
-                             server=kw.pop("server", "majority_vote"))
+    comp = CompressionConfig(compressor="sparsign", budget=BudgetConfig(value=1.0),
+                             server="majority_vote")
     cfg = TrainStepConfig(compression=comp, lr=LrSchedule(), vote_impl=kw.pop("impl", "psum"),
                           **kw)
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -564,17 +821,20 @@ def test_streamed_trainer_under_t2_raises():
 
 
 def test_tp_census_each_rank_equals_the_slice_ledger():
-    """The analysis gate's tensor-parallel census at (4, 2) on psum and
-    allgather_packed: each model rank's recorded wire bytes equal the slice
-    ledger, which the step reports as wire_bytes_per_device; the 'model'
-    axis's own reductions are a note, not a finding."""
+    """The analysis gate's tensor-parallel census at (4, 2) on psum, the
+    2-bit gather, the Golomb gather (target_sparsity) and the elastic 2-bit
+    gather: each model rank's recorded wire bytes equal the slice ledger,
+    which the step reports as wire_bytes_per_device; the 'model' axis's own
+    reductions are a note, not a finding."""
     from repro_torch.analysis import drivers
     findings, checks = drivers.run_tp_census_checks(device="cpu")
-    assert checks == len(drivers.TP_IMPLS) * drivers.TP_T
-    assert [f.severity for f in findings] == ["info"] * len(drivers.TP_IMPLS)
+    assert checks == len(drivers.TP_SETUPS) * drivers.TP_T
+    assert [f.severity for f in findings] == ["info"] * len(drivers.TP_SETUPS)
     assert all("reductions over 'model'" in f.message for f in findings)
     census, model, step = drivers.run_tp_step("allgather_packed", "cpu")
     assert census.tp_records() and all(r.role == "tp" for r in census.tp_records())
     assert (census.for_model_rank(0).payload_bytes()
             == drivers.tp_slice_ledger(step, model)
             < sum(r.ring_bytes() for r in census.records if r.role == "wire"))
+    census, model, step = drivers.run_tp_step("elastic", "cpu")
+    assert drivers.tp_slice_ledger_split(step, model)[1] > 0
