@@ -6,12 +6,14 @@
     python3 chip_smoke.py --pack2-split [CSRC ...]    # the fused 2-bit encoders alone
     python3 chip_smoke.py --pack8-split [CSRC ...]    # the qsgd8 encoder alone
     python3 chip_smoke.py --decode-split [CSRC ...]   # the 2-bit and pack8 decode-sums alone
+    python3 chip_smoke.py --int8-split [CSRC ...]     # rows 1, 4 and 5 (the int8 encoders)
     python3 chip_smoke.py --sass LISTING.sass.gz      # a saved listing's loops, no card
 
 The split forms time the Golomb wire's four kernels, the two fused 2-bit
-encoders in every rule, qsgd8_pack8 in bf16 and float32, or the 2-bit and
+encoders in every rule, qsgd8_pack8 in bf16 and float32, the 2-bit and
 pack8 decode-sums' monolithic forms (unpack2bit_sum, unpack2bit_wsum and
-unpack8_sum at M = 1 and 4), at w_down and
+unpack8_sum at M = 1 and 4), or rows 1 and 4 (also at LM_SLICE_N and the FL
+shapes) and row 5 in every rule, at w_down and
 split each call's device time by launch, for the kernel sources of each CSRC
 directory given (default: the checkout's), A B B A for two, with each tree's
 ptxas report and SASS census (listings under chiprun_out/sass/). Phases of
@@ -23,7 +25,14 @@ the first, in order; any failure exits non-zero before the last line:
      +-0/NaN/+-inf inputs (ternary: each of its four rules, per-row params;
      weighted_vote_update: scalar and per-coordinate W); time kernel, plain
      version and, where one exists, the one PyTorch call with CUDA events;
-     and the timer's floor: an empty kernel and a copy of 6.54 MB;
+     and the timer's floor: an empty kernel and a copy of 6.54 MB; then rows
+     1 and 4 on the int8 encoder (phase_int8): bit for bit at w_down in bf16
+     and at tile edges, row starts off 16-byte lines, n = 1 and wrapping
+     bases in f32 and bf16; noisy_sign's noise bound over all 2^24 values of
+     each uniform; the fast paths' fallback counts (rows 4 and 5) on random
+     gradients and on built near-ties, which must fall back; rows 1 and 4
+     timed at w_down and at LM_SLICE_N beside their bounds; the SASS census
+     of the encoder's loops;
   3. the federated slice: run_fl on cnn_cifar at full width (d = 545,002) in
      the Table 2 protocol (M = 20, 20% participation, batch 32) and at
      FLConfig's defaults (M = 100, full participation, batch 128), each with
@@ -797,6 +806,184 @@ def phase_kernels(torch, timer, report):
                   "ternary": f"ternary stochastic_ternary 50x{D_MLP} f32",
                   "weighted_vote_update": f"weighted_vote_update {D_CNN} float32 W scalar"}
     return errs, {k: timings[v] for k, v in main_shape.items()}
+
+
+#: the int8 encoder's edge cases (rows, n, counter_base, element offset of g):
+#: rows about a run (16), a tile (4,096 and 8,192) and an FL row long, row
+#: starts anywhere on a 16-byte line, g off 16-byte alignment, bases that wrap
+INT8_EDGES = [(1, 1, 0, 0), (7, 1, 3, 0), (1000, 5, 2**32 - 9, 0), (33, 17, 0, 1),
+              (3, 4095, 2**32 - 7, 0), (2, 4096, 0, 0), (5, 4097, 17, 1), (9, 8191, 0, 0),
+              (4, 8192, 2**32 - 5000, 0), (3, 8193, 5, 3), (3, D_CNN, 2**32 - 300000, 0),
+              (2, D_CNN, 0, 1)]
+INT8_NEAR_TIES = 1 << 20     # coordinates of the built near-tie inputs
+
+
+def noise_bound(torch) -> dict:
+    """noisy_sign's fast path bound, over every uniform the kernels draw:
+    Â, A, Ĉ and C at all 2^24 values (``noise_table``, the library's own
+    code); the compiled delta must cover max|Â - A| max|Ĉ| + max|A| max|Ĉ -
+    C| + 2^-22 (n's own rounding, |A C| < 8)."""
+    from repro_torch.kernels.ternary.kernel import noise_table
+
+    tab, delta = noise_table("cuda")
+    check(bool(torch.isfinite(tab).all()), "the noise table holds a value that is not finite")
+    t = tab.double()
+    out = {"err_radius": float((t[0] - t[1]).abs().max()),
+           "err_angle": float((t[2] - t[3]).abs().max()),
+           "max_radius": float(t[1].abs().max()), "max_angle_approx": float(t[2].abs().max()),
+           "delta": float(delta)}
+    del tab, t
+    out["needed"] = (out["err_radius"] * out["max_angle_approx"] +
+                     out["max_radius"] * out["err_angle"] + 2.0**-22) * (1 + 2.0**-40)
+    print(f"[int8] noise bound over 2^24 uniforms each: max|Â - A| {out['err_radius']:.4e}, "
+          f"max|Ĉ - C| {out['err_angle']:.4e}, max|A| {out['max_radius']:.7f}, max|Ĉ| "
+          f"{out['max_angle_approx']:.7f}: needs {out['needed']:.4e}, delta {out['delta']:.4e}")
+    check(out["needed"] <= out["delta"], f"noisy_sign's compiled delta {out['delta']} does not "
+                                         f"cover the measured bound {out['needed']}")
+    return out
+
+
+def near_ties(torch, seed: int, m: int) -> dict:
+    """Inputs that sit in the fast paths' bands, each rule's (g, param):
+    stochastic_ternary's |g| / s at its own uniform (a few ulps either way),
+    noisy_sign's g at -sigma n of its own noise (on it, and a few ulps off)."""
+    from repro_torch.core import prng
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.arange(m, device=dev)
+    s = torch.tensor(seed, device=dev)
+    wiggle = 1 + torch.randint(-3, 4, (m,), generator=gen, device=dev).float() * 2.0**-23
+    sign = torch.where(torch.rand(m, generator=gen, device=dev) < 0.5, -1.0, 1.0)
+    u1 = torch.clamp(prng.uniform01(prng.fold_seed(s, 1), idx), min=1e-12)
+    u2 = prng.uniform01(prng.fold_seed(s, 2), idx)
+    noise = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(
+        torch.tensor(2.0 * math.pi, device=dev, dtype=torch.float32) * u2)
+    return {"stochastic_ternary": (prng.uniform01(s, idx) * 0.37 * wiggle * sign, 0.37),
+            "noisy_sign": (-(0.3 * noise) * wiggle, 0.3)}
+
+
+def phase_int8(torch, timer, report):
+    """Rows 1 and 4 on the int8 encoder (csrc/int8_encode.cuh) and the
+    rules' fast paths, which row 5 shares: bit for bit against the plain
+    versions at w_down in bf16 (every rule) and at INT8_EDGES in float32 and
+    bf16; noisy_sign's noise bound over every uniform (noise_bound); the
+    fallbacks of rows 4 and 5 on the phase's random gradients and on built
+    near-ties (which must fall back, and stay bit for bit); rows 1 and 4 at
+    w_down and at LM_SLICE_N contiguous coordinates timed beside their
+    bounds; the SASS census of the encoder's loops."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sparsign.kernel import sparsign_cuda
+    from repro_torch.kernels.sparsign.ops import sparsign_op
+    from repro_torch.kernels.sparsign.ref import sparsign_ref
+    from repro_torch.kernels.ternary.kernel import ternary_cuda, ternary_fallbacks
+    from repro_torch.kernels.ternary.ops import ternary_compress_op, ternary_pack2bit_op
+    from repro_torch.kernels.ternary.ref import ternary_compress_ref, ternary_pack2bit_ref
+    from repro_torch.kernels.ternary.rules import RULES
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(27)
+    errs = {"sparsign": 0.0, "ternary": 0.0}
+    out = report["int8"] = {}
+
+    def held(kind, label, k, r):
+        torch.cuda.synchronize()
+        check(same_bits(k, r), f"{kind} {label} differs from its plain version in "
+                               f"{int((k != r).sum())} symbols")
+        errs[kind] = max(errs[kind], max_abs_err(k, r))
+
+    # -- edges: tiles, row starts, alignment, tiny rows, wrapping bases
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, n, base, off in INT8_EDGES:
+            g = torch.randn(rows * n + off, generator=gen, device=dev) * 0.5
+            g[off:off + 8] = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e-30,
+                                           -3e-39, 0.0, -0.0, 2.0**-130], device=dev)[:rows * n]
+            g = g.to(dtype)[off:].reshape(rows, n)
+            seeds = torch.randint(0, 2**32, (rows,), generator=gen, device=dev)
+            prm = torch.rand(rows, generator=gen, device=dev) * 3
+            prm[:3] = torch.tensor([float("nan"), 0.0, float("inf")], device=dev)[:rows]
+            for p in (prm, torch.tensor([0.7], device=dev)):
+                held("sparsign", f"{rows}x{n} {dtype} base {base} offset {off}",
+                     sparsign_op(g, p, seeds, base), sparsign_ref(g, p, seeds, base))
+                for rule in RULES:
+                    held("ternary", f"{rule} {rows}x{n} {dtype} base {base} offset {off}",
+                         ternary_compress_op(g, p, seeds, base, rule=rule),
+                         ternary_compress_ref(g, p, seeds, base, rule=rule))
+    print(f"[int8] rows 1 and 4 (every rule) at {len(INT8_EDGES)} edge shapes in f32 and bf16, "
+          f"per-row and shared params: bitwise ok")
+
+    # -- w_down in bf16: bit for bit, the fallbacks, and the times
+    n = N_WDOWN
+    g = (torch.randn(n, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    seed = torch.full((1,), 12345, dtype=torch.int64, device=dev)
+    chunk = 1 << 26
+
+    def plain_rows(ref, x, p, **kw):
+        return torch.cat([ref(x[s:s + chunk], p, 12345, s, **kw)
+                          for s in range(0, x.numel(), chunk)])
+
+    held("sparsign", "w_down bf16", sparsign_op(g, 1.0, 12345), plain_rows(sparsign_ref, g, 1.0))
+    fallbacks = out["fallbacks"] = {}
+    ternary_fallbacks(dev)
+    for rule in RULES:
+        p = PACK2_PARAMS[rule]
+        k = ternary_compress_op(g, p, 12345, rule=rule)
+        fallbacks[f"ternary {rule} w_down"] = ternary_fallbacks(dev)
+        held("ternary", f"{rule} w_down bf16", k, plain_rows(ternary_compress_ref, g, p, rule=rule))
+        del k
+        ternary_pack2bit_op(g, p, 12345, rule=rule)
+        fallbacks[f"ternary_pack2bit {rule} w_down"] = ternary_fallbacks(dev)
+    for key, count in fallbacks.items():
+        print(f"[int8] fallbacks {key}: {count} of {n} coordinates ({count / n:.3e})")
+    timings = {}
+    for label, x in (("w_down", g), ("lm_head slice", g[:LM_SLICE_N])):
+        m = x.numel()
+        prm = {rule: torch.full((1,), PACK2_PARAMS[rule], device=dev) for rule in RULES}
+        timings[f"sparsign {label} bf16"] = measure(
+            timer, lambda x=x: sparsign_cuda(x, prm["sparsign"], seed),
+            lambda x=x: plain_rows(sparsign_ref, x, prm["sparsign"][0]), m * 3 + 12,
+            rule_ops("sparsign", 1, m), plain_reps=3)
+        for rule in RULES:
+            timings[f"ternary {rule} {label} bf16"] = measure(
+                timer, lambda x=x, rule=rule: ternary_cuda(x, prm[rule], seed, rule=rule),
+                lambda x=x, rule=rule: plain_rows(ternary_compress_ref, x, prm[rule][0],
+                                                  rule=rule),
+                m * 3 + 12, rule_ops(rule, 1, m), plain_reps=3)
+    del g
+    print_timings(timings)
+    report["int8_timings"] = timings
+
+    # -- the fast paths: the noise bound, and near-ties that must fall back
+    out["noise_bound"] = noise_bound(torch)
+    ties = near_ties(torch, 4242, INT8_NEAR_TIES)
+    for rule, (x, p) in ties.items():
+        ternary_fallbacks(dev)
+        held("ternary", f"{rule} near ties", ternary_compress_op(x, p, 4242, rule=rule),
+             ternary_compress_ref(x, p, 4242, rule=rule))
+        row4 = ternary_fallbacks(dev)
+        k = ternary_pack2bit_op(x, p, 4242, rule=rule)
+        check(same_bits(k, ternary_pack2bit_ref(x, p, 4242, rule=rule)),
+              f"ternary_pack2bit {rule} near ties differs from its plain version")
+        row5 = ternary_fallbacks(dev)
+        fallbacks[f"{rule} near ties (rows 4, 5)"] = [row4, row5]
+        print(f"[int8] {rule} near ties: rows 4 and 5 bitwise ok; fallbacks {row4} and {row5} "
+              f"of {INT8_NEAR_TIES}")
+        check(row4 > 0 and row5 > 0, f"{rule}'s near ties never fell back")
+    del ties
+
+    # -- the SASS census of the encoder's loops (bf16, no counter map)
+    census = out["sass"] = {}
+    for name in ("sparsign", "ternary"):
+        c = sass_census(build._lib_path(name),
+                        ROOT / "chiprun_out" / "sass" / f"smoke-{name}.sass.gz")
+        for fn, body in c.items():
+            if "encode_rows_kernel" in fn and "nv_bfloat16" in fn and "ELi0EEEv" in fn:
+                census[fn] = [(lp["instructions"], lp["straight"], lp["hot"])
+                              for lp in body["loops"]]
+    for fn, loops in census.items():
+        print(f"[int8] SASS {fn[:110]}: loops (instructions, straight path, hot path) "
+              f"{loops[:4]}")
+    return errs, {}
 
 
 def phase_fl(torch, report):
@@ -3824,7 +4011,7 @@ TP_F64_RATIO = 1.25
 # PERF.md's kernel table (section 6): the contiguous rows' card ms that the
 # slices are timed beside, on "NVIDIA H100 80GB HBM3, 700.00 W"; this run's
 # own times are printed against them, a change beyond 3 % marked
-PERF6_MS = {"sparsign 100x545002 f32": 0.1170,
+PERF6_MS = {"sparsign 100x545002 f32": 0.1046,
             "sparsign_pack2bit w_down bf16": 0.5359,
             "ternary_pack2bit sign w_down bf16": 0.5275,
             "ternary_pack2bit sparsign w_down bf16": 0.5360,
@@ -4611,7 +4798,13 @@ def sass_loops(listing: str) -> dict:
     path through the loop that falls through every predicated branch and
     takes every unconditional forward one: where a loop holds two bodies
     behind a branch on a uniform flag (qsgd8_pack8's hoisted division and its
-    __fdiv_rn path), the first body's instructions.
+    __fdiv_rn path), the first body's instructions. "hot" counts the path
+    from the loop's head to its branch back, over its forward branches, that
+    draws the most uniforms in line (I2FP, one a uniform) and, among those,
+    has the fewest instructions: where a loop holds rare blocks behind
+    predicated branches (the int8 encoder's row crossing, its exact settling
+    of undecided coordinates out of line, its row-state fill), the common
+    case that skips them.
     ``python3 chip_smoke.py --sass LISTING[.gz]`` prints it for a saved listing."""
     census, fn, ins = {}, None, []
 
@@ -4631,6 +4824,34 @@ def sass_loops(listing: str) -> dict:
                 target and int(target.group(1), 16) > addr) else k + 1
         return ops
 
+    def hot(head, tail):
+        at = {a: k for k, (a, *_) in enumerate(ins)}
+        k0, k1 = at[head], at[tail]
+        # index: ((-uniforms, instructions) to it, its predecessor)
+        best = {k0: ((-(ins[k0][1] == "I2FP"), 1), None)}
+        for k in range(k0, k1):
+            if k not in best:
+                continue
+            addr, op, arg, cond = ins[k]
+            target = re.search(r"0x([0-9a-f]+)", arg) if op == "BRA" else None
+            nxt = []
+            if target and addr < int(target.group(1), 16) <= tail:
+                nxt.append(at.get(int(target.group(1), 16)))
+            if op not in ("EXIT", "RET") and not (op == "BRA" and not cond):
+                nxt.append(k + 1)
+            for j in nxt:
+                if j is None:
+                    continue
+                (u, n), _ = best[k]
+                score = (u - (ins[j][1] == "I2FP"), n + 1)
+                if j not in best or score < best[j][0]:
+                    best[j] = (score, k)
+        path, k = [], k1 if k1 in best else None
+        while k is not None:
+            path.append(ins[k][1])
+            k = best[k][1]
+        return path
+
     def close():
         if fn is None:
             return
@@ -4640,9 +4861,10 @@ def sass_loops(listing: str) -> dict:
             if target and int(target.group(1), 16) < addr:
                 head = int(target.group(1), 16)
                 body = [o for a, o, _, _ in ins if head <= a <= addr]
-                path = straight(head, addr)
+                path, common = straight(head, addr), hot(head, addr)
                 loops.append({"instructions": len(body), "by_opcode": by_opcode(body),
-                              "straight": len(path), "straight_by_opcode": by_opcode(path)})
+                              "straight": len(path), "straight_by_opcode": by_opcode(path),
+                              "hot": len(common), "hot_by_opcode": by_opcode(common)})
         census[fn] = {"instructions": len(ins), "loops": loops}
 
     for line in listing.splitlines():
@@ -4721,6 +4943,57 @@ def pack2_split(torch, trees: list) -> dict:
         return calls
 
     return split_trees(torch, trees, ("sparsign_pack2bit", "ternary"), make_calls, "pack2")
+
+
+#: the int8 encoders' shapes of --int8-split and phase 2's w_down timings: one
+#: row of w_down, one row of lm_head's vocabulary slice at T = 2 (2,560 x
+#: 75,968), and the FL rounds' worker rows
+LM_SLICE_N = 2560 * 75968
+INT8_FL_SHAPES = {"sparsign": (100, D_CNN), "ternary": (50, D_MLP)}
+
+
+def int8_split(torch, trees: list) -> dict:
+    """``--int8-split [CSRC ...]``: rows 1 (sparsign) and 4 (ternary, every
+    rule) at w_down and at LM_SLICE_N contiguous coordinates in bf16 and at
+    the FL shapes in float32, and row 5 (every rule) at w_down, through
+    ``split_trees``."""
+    from repro_torch.kernels.sparsign.kernel import sparsign_cuda
+    from repro_torch.kernels.ternary.kernel import ternary_cuda, ternary_pack2bit_cuda
+    from repro_torch.kernels.ternary.rules import RULES
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(27)
+    g = (torch.randn(N_WDOWN, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    seed = torch.full((1,), 12345, dtype=torch.int64, device=dev)
+    prm = {rule: torch.full((1,), PACK2_PARAMS[rule], device=dev) for rule in RULES}
+    fl = {k: torch.randn(shape, generator=gen, device=dev) * 0.01
+          for k, shape in INT8_FL_SHAPES.items()}
+    fl_seeds = {k: torch.arange(shape[0], device=dev) * 7919
+                for k, shape in INT8_FL_SHAPES.items()}
+    fl_prm = torch.rand(INT8_FL_SHAPES["ternary"][0], generator=gen, device=dev) * 0.05 + 0.005
+
+    def make_calls():
+        calls = {}
+        for label, x in (("w_down", g), ("lm_head slice", g[:LM_SLICE_N])):
+            calls[f"sparsign {label} bf16"] = (
+                lambda x=x: sparsign_cuda(x, prm["sparsign"], seed))
+            for rule in RULES:
+                calls[f"ternary {rule} {label} bf16"] = (
+                    lambda x=x, rule=rule: ternary_cuda(x, prm[rule], seed, rule=rule))
+        rows, n = INT8_FL_SHAPES["sparsign"]
+        calls[f"sparsign {rows}x{n} f32"] = lambda: sparsign_cuda(
+            fl["sparsign"], torch.ones(1, device=dev), fl_seeds["sparsign"])
+        rows, n = INT8_FL_SHAPES["ternary"]
+        for rule in RULES:
+            calls[f"ternary {rule} {rows}x{n} f32"] = (
+                lambda rule=rule: ternary_cuda(fl["ternary"], fl_prm, fl_seeds["ternary"],
+                                               rule=rule))
+        for rule in RULES:
+            calls[f"ternary_pack2bit {rule} w_down bf16"] = (
+                lambda rule=rule: ternary_pack2bit_cuda(g, prm[rule], seed, rule=rule))
+        return calls
+
+    return split_trees(torch, trees, ("sparsign", "ternary"), make_calls, "int8")
 
 
 def pack8_split(torch, trees: list) -> dict:
@@ -4825,6 +5098,8 @@ def main() -> int:
                 print(f"  loop of {loop['instructions']}: {loop['by_opcode']}")
                 if loop["straight"] != loop["instructions"]:
                     print(f"    straight path {loop['straight']}: {loop['straight_by_opcode']}")
+                if loop["hot"] != loop["straight"]:
+                    print(f"    hot path {loop['hot']}: {loop['hot_by_opcode']}")
         return 0
     import torch
 
@@ -4833,7 +5108,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     for flag, split in (("--golomb-split", golomb_split), ("--pack2-split", pack2_split),
-                        ("--pack8-split", pack8_split), ("--decode-split", decode_split)):
+                        ("--pack8-split", pack8_split), ("--decode-split", decode_split),
+                        ("--int8-split", int8_split)):
         if flag in sys.argv:
             trees = sys.argv[sys.argv.index(flag) + 1:] or [
                 str(ROOT / "src" / "repro_torch" / "csrc")]
@@ -4872,6 +5148,8 @@ def main() -> int:
 
     timer = Timer(torch)
     errs, main_times = run_phase(phase_kernels, timer, report)
+    for k, v in run_phase(phase_int8, timer, report)[0].items():
+        errs[k] = max(errs[k], v)
     for fn in (phase_wire_kernels, phase_golomb_kernels, phase_pack8_kernels):
         more_errs, more_times = run_phase(fn, timer, report)
         errs.update(more_errs)

@@ -41,7 +41,9 @@ SIGNATURES = {
                                        _p],
                 "ternary_pack2bit_launch": [_p, _p, _p, _p, _ll, _ll, _u32, _i, _i, _p],
                 "ternary_pack2bit_map_launch": [_p, _p, _p, _p, _ll, _ll, _u32, _ll, _u32, _i,
-                                                _i, _p]},
+                                                _i, _p],
+                "noise_table_launch": [_p, _p],
+                "ternary_fallbacks_launch": [_p, _i, _p]},
     "weighted_vote_update": {"weighted_vote_update_launch":
                              [_p, _p, _p, _p, _ll, _c.c_float, _c.c_float, _i, _i, _p]},
     "sparsign_pack2bit": {"sparsign_pack2bit_launch": [_p, _p, _p, _p, _ll, _ll, _u32, _i, _p],
@@ -121,12 +123,16 @@ def build_all(names=SOURCES) -> dict:
 
 def library(name: str, entry: str | None = None):
     """The C entry point ``entry`` (default: the source's first in
-    ``SIGNATURES``) of ``csrc/<name>.cu``, built and loaded on first use."""
+    ``SIGNATURES``) of ``csrc/<name>.cu``, built and loaded on first use. An
+    entry point the library lacks (an older kernel tree's, as the split
+    modes of ``chip_smoke.py`` build them) is left unbound."""
     entry = entry or next(iter(SIGNATURES[name]))
     if (name, entry) not in _LIBS:
         build_all((name,))
         lib = ctypes.CDLL(str(_lib_path(name)))
         for sym, argtypes in SIGNATURES[name].items():
+            if not hasattr(lib, sym):
+                continue
             fn = getattr(lib, sym)
             fn.argtypes = argtypes
             fn.restype = RESTYPES.get(sym, ctypes.c_int)

@@ -100,3 +100,28 @@ def ternary_pack2bit_cuda(g: torch.Tensor, param: torch.Tensor, seed: torch.Tens
 
 ternary_pack2bit_cuda.launches = 0
 ternary_pack2bit_cuda.map_launches = 0
+
+
+def noise_table(device) -> torch.Tensor:
+    """noisy_sign's noise pieces as the kernels compute them (``csrc/ternary.cu``
+    ``noise_table_launch``): a (4, 2^24) float32 tensor on the card, rows Â(u1),
+    A(u1), Ĉ(u2) and C(u2) at u = k 2^-24 (u1 clamped at 1e-12), then the
+    compiled bound delta of ``csrc/pack2_encode.cuh`` (kNoiseDelta) as a 0-d
+    tensor. A = sqrt(-2 log u1) and C = cos(2 pi u2) are the plain version's
+    full-precision values, Â and Ĉ the fast path's."""
+    out = torch.empty(4 * (1 << 24) + 1, dtype=torch.float32, device=device)
+    err = build.library("ternary", "noise_table_launch")(
+        out.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream)
+    build.check_launch("noise_table", err)
+    return out[:-1].reshape(4, 1 << 24), out[-1]
+
+
+def ternary_fallbacks(device, reset: bool = True) -> int:
+    """Coordinates that the fast paths of the ternary library's rules
+    (stochastic_ternary and noisy_sign, rows 4 and 5) sent to the plain
+    version's arithmetic since the last reset; synchronises."""
+    out = torch.empty(1, dtype=torch.int64, device=device)
+    err = build.library("ternary", "ternary_fallbacks_launch")(
+        out.data_ptr(), int(reset), torch.cuda.current_stream(out.device).cuda_stream)
+    build.check_launch("ternary_fallbacks", err)
+    return int(out.item())

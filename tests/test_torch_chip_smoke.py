@@ -489,3 +489,29 @@ def test_phase_tp_rehearses_on_the_cpu(monkeypatch, capsys):
                                           "elastic sparsign allgather_packed")] == [0, 0, 0]
     assert all(r["flips"] <= cs.TP_FLIP_BOUND * r["coords"] for r in rounds.values())
     assert "[tp] qwen1.5-4b" in capsys.readouterr().out
+
+
+def test_sass_loops_hot_path_draws_in_line_and_skips_the_rare_blocks():
+    """The hot path runs from the loop's head to its branch back over forward
+    branches inside the loop: of the paths that draw the most uniforms in
+    line (I2FP) it takes the shortest, so it skips a block behind
+    `if (rare)` (an out-of-line call) but not the drawing, and never leaves
+    the loop by a branch past its end."""
+    listing = """
+        Function : _Z6kernelPf
+        /*0000*/                   MOV R1, R2 ;
+        /*0010*/                   IADD3 R2, R2, 0x1, RZ ;
+        /*0020*/              @!P3 BRA 0x50 ;
+        /*0030*/                   I2FP.F32.U32 R5, R5 ;
+        /*0040*/                   FMUL R5, R5, 2.3283064365386962891e-10 ;
+        /*0050*/              @!P0 BRA 0x80 ;
+        /*0060*/                   CALL.REL.NOINC 0x200 ;
+        /*0070*/                   FFMA R3, R3, R4, R5 ;
+        /*0080*/                   STG.E [R8], R3 ;
+        /*0090*/               @P1 BRA 0xf0 ;
+        /*00a0*/               @P2 BRA 0x10 ;
+        /*00b0*/                   EXIT ;
+"""
+    loop = _chip_smoke().sass_loops(listing)["_Z6kernelPf"]["loops"][0]
+    assert (loop["instructions"], loop["straight"], loop["hot"]) == (10, 10, 8)
+    assert loop["hot_by_opcode"] == {"BRA": 4, "IADD3": 1, "I2FP": 1, "FMUL": 1, "STG": 1}

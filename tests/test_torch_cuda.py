@@ -626,7 +626,8 @@ def test_counter_map_kernels_match_plain_versions_on_card(cuda_device, dtype):
     group (the walker's short-run mode), a counter base that wraps inside
     the slice, a slice cut on a middle axis."""
     cases = [((64, 6912), 2, 1, 12345), ((37, 504), 2, 1, 7), ((8, 34), 2, 0, 2**32 - 40),
-             ((5, 96, 40), 3, 2, 99), ((300, 16), 2, 1, 5), ((129, 6), 3, 2, 2**32 - 9)]
+             ((5, 96, 40), 3, 2, 99), ((300, 16), 2, 1, 5), ((129, 6), 3, 2, 2**32 - 9),
+             ((64, 504), 2, 1, 2**32 - 5000), ((64, 34), 2, 1, 2**32 - 5000)]
     for shape, t, rank, base in cases:
         g = torch.from_numpy(grad_like(int(np.prod(shape)), 3).reshape(shape)).to(
             cuda_device, dtype)
@@ -664,7 +665,8 @@ def test_row4_and_row14_counter_maps_match_plain_versions_on_card(cuda_device, d
     from repro_torch.kernels import map_launch_counts
     from repro_torch.kernels.golomb.ref import sparsign_golomb_ref
     cases = [((64, 6912), 2, 1, 12345), ((37, 504), 2, 1, 7), ((8, 34), 2, 0, 2**32 - 40),
-             ((5, 96, 40), 3, 2, 99), ((300, 16), 2, 1, 5), ((129, 6), 3, 2, 2**32 - 9)]
+             ((5, 96, 40), 3, 2, 99), ((300, 16), 2, 1, 5), ((129, 6), 3, 2, 2**32 - 9),
+             ((64, 504), 2, 1, 2**32 - 5000), ((64, 34), 2, 1, 2**32 - 5000)]
     reset_launch_counts()
     calls = 0
     for shape, t, rank, base in cases:
@@ -782,3 +784,70 @@ def test_tp_trainer_step_on_card_matches_plain_versions(cuda_device, impl):
             assert not any(counts.values())
     for a, b in zip(out[None], out["torch"]):
         np.testing.assert_array_equal(a, b)
+
+
+def int8_rows(rows, n, dtype, device, seed, offset=0):
+    """(rows, n) gradients with +-0, NaN, +-inf and subnormals in every row,
+    starting ``offset`` elements into their storage (16-byte alignment
+    lost for an odd offset)."""
+    g = torch.from_numpy(grad_like(rows * n + offset, seed)).to(device)
+    g[offset:offset + min(8, rows * n)] = torch.tensor(
+        [float("nan"), float("inf"), -float("inf"), 1e-30, -3e-39, 0.0, -0.0, 2.0**-130],
+        device=device)[:min(8, rows * n)]
+    return g.to(dtype)[offset:].reshape(rows, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_encoders_at_tile_edges_and_row_starts_on_card(cuda_device, dtype):
+    """Rows 1 and 4 (every rule, ``csrc/int8_encode.cuh``) against their
+    plain versions, bit for bit: rows about a run (16), a tile (4,096 and
+    8,192) and an FL row (545,002) long, many rows whose starts fall
+    anywhere on a 16-byte line, a gradient off 16-byte alignment, n = 1,
+    per-row seeds and params (NaN, 0, inf among them), and counter bases
+    that wrap inside a row."""
+    cases = [(1, 1, 0, 0), (7, 1, 3, 0), (1000, 5, 2**32 - 9, 0), (33, 17, 0, 1),
+             (3, 4095, 2**32 - 7, 0), (2, 4096, 0, 0), (5, 4097, 17, 1), (9, 8191, 0, 0),
+             (4, 8192, 2**32 - 5000, 0), (3, 8193, 5, 3), (3, 545002, 2**32 - 300000, 0),
+             (2, 545002, 0, 1)]
+    for rows, n, base, offset in cases:
+        g = int8_rows(rows, n, dtype, cuda_device, rows + n, offset)
+        seeds = torch.randint(0, 2**32, (rows,), device=cuda_device)
+        prm = torch.rand(rows, device=cuda_device) * 3
+        prm[:3] = torch.tensor([float("nan"), 0.0, float("inf")], device=cuda_device)[:rows]
+        for p in (prm, torch.tensor([0.7], device=cuda_device)):
+            assert torch.equal(sparsign_op(g, p, seeds, base), sparsign_ref(g, p, seeds, base)), (
+                rows, n, base, offset)
+            for rule in RULES:
+                assert torch.equal(ternary_compress_op(g, p, seeds, base, rule=rule),
+                                   ternary_compress_ref(g, p, seeds, base, rule=rule)), (
+                    rule, rows, n, base, offset)
+
+
+@pytest.mark.cuda
+def test_int8_fast_paths_fall_back_on_near_ties_on_card(cuda_device):
+    """Inputs built to sit in the fast paths' bands: stochastic_ternary's
+    |g| / s at its own uniform, noisy_sign's g at -sigma n of its own noise
+    (and a few ulps off): rows 4 and 5 equal their plain versions bit for
+    bit, and the fallback ran (``ternary_fallbacks``)."""
+    from repro_torch.core import prng
+    from repro_torch.kernels.ternary.kernel import ternary_fallbacks
+    m, seed = 1 << 18, 4242
+    idx = torch.arange(m, device=cuda_device)
+    s = torch.tensor(seed, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    wiggle = 1 + torch.randint(-3, 4, (m,), generator=gen, device=cuda_device).float() * 2.0**-23
+    sign = torch.where(torch.rand(m, generator=gen, device=cuda_device) < 0.5, -1.0, 1.0)
+    near = {"stochastic_ternary": (prng.uniform01(s, idx) * 0.37 * wiggle * sign, 0.37)}
+    u1 = torch.clamp(prng.uniform01(prng.fold_seed(s, 1), idx), min=1e-12)
+    u2 = prng.uniform01(prng.fold_seed(s, 2), idx)
+    noise = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(
+        torch.tensor(2.0 * np.pi, device=cuda_device, dtype=torch.float32) * u2)
+    near["noisy_sign"] = (-(0.3 * noise) * wiggle, 0.3)
+    ternary_fallbacks(cuda_device)
+    for rule, (g, prm) in near.items():
+        assert torch.equal(ternary_compress_op(g, prm, seed, 0, rule=rule),
+                           ternary_compress_ref(g, prm, seed, 0, rule=rule)), rule
+        assert torch.equal(ternary_pack2bit_op(g, prm, seed, 0, rule=rule),
+                           ternary_pack2bit_ref(g, prm, seed, 0, rule=rule)), rule
+        assert ternary_fallbacks(cuda_device) > 0, rule
