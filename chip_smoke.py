@@ -871,7 +871,8 @@ def phase_int8(torch, timer, report):
     fallbacks of rows 4 and 5 on the phase's random gradients and on built
     near-ties (which must fall back, and stay bit for bit); rows 1 and 4 at
     w_down and at LM_SLICE_N contiguous coordinates timed beside their
-    bounds; the SASS census of the encoder's loops."""
+    bounds (the sign rule beside ``torch.sign(g).to(int8)``); the SASS
+    census of the encoder's loops."""
     from repro_torch.kernels import build
     from repro_torch.kernels.sparsign.kernel import sparsign_cuda
     from repro_torch.kernels.sparsign.ops import sparsign_op
@@ -944,11 +945,13 @@ def phase_int8(torch, timer, report):
             lambda x=x: plain_rows(sparsign_ref, x, prm["sparsign"][0]), m * 3 + 12,
             rule_ops("sparsign", 1, m), plain_reps=3)
         for rule in RULES:
+            # the sign rule's PyTorch yardstick, as phase_kernels times it
+            lib = (lambda x=x: torch.sign(x).to(torch.int8)) if rule == "sign" else None
             timings[f"ternary {rule} {label} bf16"] = measure(
                 timer, lambda x=x, rule=rule: ternary_cuda(x, prm[rule], seed, rule=rule),
                 lambda x=x, rule=rule: plain_rows(ternary_compress_ref, x, prm[rule][0],
                                                   rule=rule),
-                m * 3 + 12, rule_ops(rule, 1, m), plain_reps=3)
+                m * 3 + 12, rule_ops(rule, 1, m), plain_reps=3, library=lib)
     del g
     print_timings(timings)
     report["int8_timings"] = timings
@@ -4280,9 +4283,11 @@ def phase_tp(torch, report, totals, dev="cuda", timer=None, slice_shapes=None):
     gradients on psum and allgather_packed bit for bit, scaled_sign_ef to
     rtol 1e-6, the model's own gradients in float32 and bf16 (the share of
     updated coordinates that differ printed; in float32 each leaf's gradient
-    no farther from float64 than TP_F64_RATIO times T = 1's); a checkpoint saved
-    at T = 2 restored at T = 1 bit for bit. ``dev="cpu"`` rehearses it at the
-    smoke size."""
+    no farther from float64 than TP_F64_RATIO times T = 1's); the bucketed
+    uplink and the ring (``tp_bucketed_runs``) and one launcher step each with
+    ``--bucketed --bucket-bytes`` and ``--ring`` (``tp_launcher_runs``); a
+    checkpoint saved at T = 2 restored at T = 1 bit for bit. ``dev="cpu"``
+    rehearses it at the smoke size."""
     import tempfile
 
     import numpy as np
@@ -4452,6 +4457,8 @@ def phase_tp(torch, report, totals, dev="cuda", timer=None, slice_shapes=None):
     out["injected"] = injected
     out["round"] = tp_round_runs(torch, one_round, net, model, params, batch, totals, m, msgs,
                                  leaves, pls)
+    out["bucketed"] = tp_bucketed_runs(torch, one_round, net, model, params, batch, totals, m,
+                                       msgs, leaves, pls, dev)
     check(all(map_totals[k] > 0 for k in TP_NEW_MAPS),
           f"tp: counter-map launches {map_totals}: a new map kernel never ran on the path")
     print(f"[tp] counter-map launches on the path: {map_totals}")
@@ -4491,6 +4498,7 @@ def phase_tp(torch, report, totals, dev="cuda", timer=None, slice_shapes=None):
         del res, p0
     out["own_gradients"] = own
     out["float64"] = tp_float64_check(torch, cut, dev, launch.batch_fn_for(cut(), lm_args)(0))
+    out["launcher"] = tp_launcher_runs(torch, launch, cut, totals, m, dev)
 
     # -- checkpoint: saved at T = 2, restored at T = 1
     whole, step, net = tp_state
@@ -4618,6 +4626,230 @@ def tp_round_runs(torch, one_round, net, model, params, batch, totals, m, msgs, 
               f"{mets[1]['wire_bytes_per_device']:.10g}; nnz {mets[TP_T]['nnz_frac']:.6g} "
               f"(T = 1 {mets[1]['nnz_frac']:.6g}), dropped {mets[TP_T].get('nnz_dropped', '-')}")
         del res
+    return out
+
+
+#: the bucketed uplink and the ring under 'model': a capped bucket's payload
+#: (several buckets on every wire at TP_LAYERS layers: 7 on the 2-bit gather,
+#: 3 on Golomb, 11 on pack8) and the ring's chunk (the trainer's ring runs')
+TP_BUCKET_BYTES = 1 << 24
+TP_RING_ROWS = 8192
+TP_DECODERS = {"pack2": "unpack2bit_sum", "golomb": "ungolomb_sum", "pack8": "unpack8_sum"}
+
+
+def tp_decode_launches(step, kind: str, m: int, t: int, sizes, pls) -> int:
+    """The decode-sum launches of one round of ``step`` (``pls`` None at
+    T = 1): a local rank's bucket once (golomb and pack8 once a slot), on the
+    ring once a message a chunk (golomb a slot); per leaf, once a slice, or
+    on the ring once a message a chunk."""
+    wire, plan = step.wire, step.plan
+    per_msg = m if getattr(wire, "ring_chunk_rows", None) is not None else 1
+    if plan is not None:
+        if kind == "pack2":
+            return t * per_msg * sum(wire.bucket_ring_chunks(b) for b in plan.buckets)
+        return t * per_msg * plan.n_slots
+    total = 0
+    for i, n in enumerate(sizes):
+        sharded = pls is not None and pls[i].sharded
+        w = wire.for_slice(n) if sharded else wire
+        chunks = w.ring_chunks(n // pls[i].parts if sharded else n) if kind == "pack2" else 1
+        total += (t if sharded else 1) * per_msg * chunks
+    return total
+
+
+def tp_bucketed_runs(torch, one_round, net, model, params, batch, totals, m, msgs, leaves,
+                     pls, dev="cuda") -> dict:
+    """The bucketed uplink and the ring under 'model' at TP_LAYERS layers,
+    from one state and one batch of injected gradients, every plain version
+    barred: sparsign (fixed B) on the 2-bit gather, sparsign_golomb under
+    target_sparsity 0.05 and qsgd8 on pack8, each bucketed in one bucket and
+    in TP_BUCKET_BYTES buckets; the first two also on the ring at
+    TP_RING_ROWS rows, per leaf and bucketed. Each run at T = 2: its
+    launches, its wire bytes == its slice plan's (or slices') ledger,
+    nnz_dropped 0, its peak and seconds; held bit for bit against T = 1's
+    bucketed run on the 2-bit gather (a fixed budget: every sum exact), and
+    where a float sum over the whole leaf decides (the target_sparsity
+    bisection, qsgd8's L2 scale) bit for bit against the per-leaf T = 2 run
+    and within TP_FLIP_BOUND of T = 1 beyond float noise; every run bit for
+    bit against the per-leaf T = 2 run, whose and T = 1's bytes, residency,
+    peak, seconds and launches are printed beside."""
+    import numpy as np
+
+    from repro_torch.analysis.drivers import tp_slice_ledger
+    from repro_torch.core.algorithm import CompressionConfig
+    from repro_torch.core.budgets import BudgetConfig
+    from repro_torch.core.compressors import tree_leaves
+
+    sizes = [math.prod(sd.shape) for sd in tree_leaves(model.param_shapes())]
+    cap = TP_BUCKET_BYTES if dev == "cuda" else 2048
+    rows = TP_RING_ROWS if dev == "cuda" else 32
+    ring = {"ring_chunk_rows": rows}
+    variants = (("bucketed", {"bucketed": True}),
+                ("capped", {"bucketed": True, "bucket_bytes": cap}),
+                ("ring", ring), ("bucketed ring", dict(ring, bucketed=True)))
+    families = (  # label, compression, decode kind, encoder, server kernel, exact, variants
+        ("sparsign allgather_packed", CompressionConfig(
+            compressor="sparsign", budget=BudgetConfig(value=2.0), server="majority_vote"),
+         "pack2", "sparsign_pack2bit", "vote_update", True, variants),
+        ("sparsign_golomb target_sparsity", CompressionConfig(
+            compressor="sparsign_golomb",
+            budget=BudgetConfig(kind="target_sparsity", value=GOLOMB_P),
+            server="majority_vote"), "golomb", "sparsign_golomb", "vote_update", False,
+         variants),
+        ("qsgd8 pack8", CompressionConfig(compressor="qsgd8", server="mean"), "pack8",
+         "qsgd8_pack8", None, False, variants[:2]))
+    p0 = tree_leaves(params)
+    out = {}
+
+    def run(label, comp, kind, enc, srv, t, kw):
+        reset_peak(torch)
+        t0 = time.perf_counter()
+        whole, metrics, counts, step = one_round(
+            net, comp, "allgather_packed", t, tree_unflatten_like(model, [p.clone() for p in p0]),
+            batch, **kw)
+        sec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" else 0.0
+        n_msgs = msgs if t > 1 else leaves
+        want = {enc: n_msgs * m, TP_DECODERS[kind]: tp_decode_launches(
+            step, kind, m, t, sizes, pls if t > 1 else None)}
+        if srv:
+            want[srv] = n_msgs
+        check(counts == expected(**want),
+              f"tp {label} T = {t}: launches {counts}, expected {expected(**want)}")
+        if t > 1:
+            for k in totals:
+                totals[k] += counts[k]
+            ledger = float(np.float32(tp_slice_ledger(step, net)))
+            check(metrics["wire_bytes_per_device"] == ledger,
+                  f"tp {label}: wire bytes {metrics['wire_bytes_per_device']} != the slice "
+                  f"ledger {ledger}")
+        check(metrics.get("nnz_dropped", 0.0) == 0.0,
+              f"tp {label} T = {t}: {metrics.get('nnz_dropped')} nonzeros dropped")
+        res = {"seconds": sec, "peak_gb": peak, "buckets": (len(step.plan.buckets)
+                                                            if step.plan is not None else None),
+               "wire_bytes": metrics["wire_bytes_per_device"],
+               "gather_hbm_bytes": metrics["gather_hbm_bytes"],
+               "nnz_frac": metrics["nnz_frac"], "nnz_dropped": metrics.get("nnz_dropped"),
+               "launches": {k: v for k, v in counts.items() if v}}
+        return tree_leaves(whole.params), res
+
+    def line(res) -> str:
+        return (f"{res['buckets'] or 'no'} buckets, gather_hbm_bytes "
+                f"{res['gather_hbm_bytes']:.10g}, nnz {res['nnz_frac']:.6g}, dropped "
+                f"{res['nnz_dropped']}, peak {res['peak_gb']:.2f} GB, {res['seconds']:.3f} s, "
+                f"launches {res['launches']}")
+
+    for label, comp, kind, enc, srv, exact, runs in families:
+        refs = {1: run(f"{label} bucketed", comp, kind, enc, srv, 1, {"bucketed": True}),
+                TP_T: run(f"{label} per leaf", comp, kind, enc, srv, TP_T, {})}
+        for t, what in ((1, "T = 1 bucketed"), (TP_T, f"T = {TP_T} per leaf")):
+            out[f"{label} reference {what}"] = refs[t][1]
+            print(f"[tp] {model.cfg.n_layers} layers, injected gradients, {label}, the "
+                  f"reference {what}: wire bytes {refs[t][1]['wire_bytes']:.10g}, "
+                  f"{line(refs[t][1])}")
+        for vlabel, kw in runs:
+            name = f"{label} {vlabel}"
+            got, res = run(name, comp, kind, enc, srv, TP_T, kw)
+            size = sum(x.numel() for x in got)
+            res["differ_t1"] = sum(int((bits(x) != bits(y)).sum())
+                                   for x, y in zip(got, refs[1][0]))
+            res["flips_t1"] = float_flips(torch, got, refs[1][0], p0)
+            res["differ_per_leaf"] = sum(int((bits(x) != bits(y)).sum())
+                                         for x, y in zip(got, refs[TP_T][0]))
+            check(res["differ_per_leaf"] == 0, f"tp {name}: differs from the per-leaf T = "
+                                               f"{TP_T} run in {res['differ_per_leaf']} "
+                                               f"coordinates")
+            if exact:
+                check(res["differ_t1"] == 0, f"tp {name}: T = {TP_T} differs from T = 1 in "
+                                             f"{res['differ_t1']} coordinates")
+            else:
+                check(res["flips_t1"] <= TP_FLIP_BOUND * size,
+                      f"tp {name}: {res['flips_t1']} of {size} coordinates differ from T = 1 "
+                      f"beyond float noise (bound {TP_FLIP_BOUND})")
+            res.update(coords=size, wire_bytes_per_leaf_t2=refs[TP_T][1]["wire_bytes"],
+                       wire_bytes_t1=refs[1][1]["wire_bytes"])
+            out[name] = res
+            print(f"[tp] {model.cfg.n_layers} layers, injected gradients, {name}: T = {TP_T} "
+                  f"against T = 1 {res['differ_t1']} of {size} coordinates differ in any bit, "
+                  f"{res['flips_t1']} beyond float noise, against the per-leaf T = {TP_T} run "
+                  f"{res['differ_per_leaf']}; wire bytes {res['wire_bytes']:.10g} (the slice "
+                  f"plan's ledger; per leaf {res['wire_bytes_per_leaf_t2']:.10g}, T = 1 "
+                  f"{res['wire_bytes_t1']:.10g}), {line(res)}")
+            del got
+        del refs
+    return out
+
+
+def tp_launcher_runs(torch, launch, cut, totals, m, dev="cuda") -> dict:
+    """``launch.train --host-model 2`` with ``--bucketed --bucket-bytes`` and
+    with ``--ring``, one step each at TP_LAYERS layers (the launcher's
+    ``get_config`` patched to the cut config), sparsign l2_norm 0.1 with
+    majority vote on allgather_packed, every plain version barred: launches,
+    wire bytes == the slice ledger, loss, peak and seconds."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.analysis.drivers import tp_slice_ledger
+    from repro_torch.core.compressors import tree_leaves
+    from repro_torch.train import loop
+
+    where = (["--full", "--seq-len", str(TRAINER_SEQ_LEN)] if dev == "cuda"
+             else ["--device", dev, "--seq-len", "64"])
+    cap = TP_BUCKET_BYTES if dev == "cuda" else 2048
+    rows = TP_RING_ROWS if dev == "cuda" else 32
+    get_config = launch.get_config
+    launch.get_config = lambda arch, smoke=True: cut()
+    out = {}
+    try:
+        for label, flags in (("--bucketed", ["--bucketed", "--bucket-bytes", str(cap)]),
+                             ("--ring", ["--ring", "--ring-chunk-rows", str(rows)])):
+            args = launch.parser().parse_args(
+                ["--arch", "qwen1.5-4b", "--host-data", str(m), "--host-model", str(TP_T),
+                 "--batch", str(m), "--steps", "1", "--seed", "0", "--compressor", "sparsign",
+                 "--budget-kind", "l2_norm", "--budget", "0.1", "--server", "majority_vote",
+                 "--vote-impl", "allgather_packed"] + flags + where)
+            reset_peak(torch)
+            t0 = time.perf_counter()
+            cfg, model, group, step, state, comp = launch.build_everything(args)
+            sizes = [math.prod(sd.shape) for sd in tree_leaves(model.param_shapes())]
+            pls = tree_leaves(step.placements)
+            msgs = sum(TP_T if pl.sharded else 1 for pl in pls)
+            ledger = float(np.float32(tp_slice_ledger(step, model)))
+            kernels.reset_launch_counts()
+            with plain_versions_barred():
+                state, history = loop.run(step, state, launch.batch_fn_for(cfg, args),
+                                          loop.LoopConfig(total_steps=1, log_every=1),
+                                          log=lambda line: None)
+            sync(torch)
+            sec = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            want = expected(sparsign_pack2bit=msgs * m, vote_update=msgs,
+                            unpack2bit_sum=tp_decode_launches(step, "pack2", m, TP_T, sizes,
+                                                              pls))
+            check(counts == want, f"tp launcher {label}: launches {counts}, expected {want}")
+            for k in totals:
+                totals[k] += counts[k]
+            h = history[-1]
+            check(math.isfinite(h["loss"]), f"tp launcher {label}: non-finite loss {h['loss']}")
+            check(h["wire_bytes_per_device"] == ledger,
+                  f"tp launcher {label}: wire bytes {h['wire_bytes_per_device']} != the slice "
+                  f"ledger {ledger}")
+            peak = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" else 0.0
+            out[label] = {"loss": h["loss"], "nnz_frac": h["nnz_frac"],
+                          "wire_bytes_per_device": ledger,
+                          "gather_hbm_bytes": h["gather_hbm_bytes"],
+                          "buckets": len(step.plan.buckets) if step.plan is not None else None,
+                          "seconds": sec, "step_s": h["wall_s"], "peak_gb": peak,
+                          "launches": {k: v for k, v in counts.items() if v}}
+            print(f"[tp] launcher {' '.join(flags)} at {cfg.n_layers} layers, M = {m} x T = "
+                  f"{TP_T}, one step: loss {h['loss']:.6f}, nnz {h['nnz_frac']:.6g}, wire bytes "
+                  f"{ledger:.10g} (== the slice ledger), gather_hbm_bytes "
+                  f"{h['gather_hbm_bytes']:.10g}, {out[label]['buckets'] or 'no'} buckets, peak "
+                  f"{peak:.2f} GB, {sec:.3f} s with the build (step {h['wall_s']:.3f} s), "
+                  f"launches {out[label]['launches']}")
+            del step, state, model
+    finally:
+        launch.get_config = get_config
     return out
 
 

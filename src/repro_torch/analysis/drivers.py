@@ -299,15 +299,25 @@ def run_census_checks(m: int = HYPOTHETICAL_M, device: str = "cuda") -> tuple:
 
 #: the tensor-parallel censuses: a (TP_M, TP_T) ('data', 'model') mesh in one
 #: process. Setup -> (the wire setup whose compression it runs, vote_impl,
-#: elastic): fixed-budget sparsign with majority vote on psum and on the 2-bit
-#: gather, sparsign_golomb under target_sparsity on the Golomb gather (a
-#: slice's capacity: its whole leaf's nonzeros), and the elastic 2-bit gather
+#: elastic, step options): fixed-budget sparsign with majority vote on psum
+#: and on the 2-bit gather, sparsign_golomb under target_sparsity on the
+#: Golomb gather (a slice's capacity: its whole leaf's nonzeros), the elastic
+#: 2-bit gather; the bucketed uplink over the slice plan on the 2-bit and
+#: Golomb gathers, the per-leaf 2-bit ring, and the bucketed Golomb and pack8
+#: rings
 TP_M, TP_T = 4, 2
 TP_SETUPS = {
-    "psum": ("votes", "psum", False),
-    "allgather_packed": ("votes", "allgather_packed", False),
-    "golomb": ("golomb", "allgather_packed", False),
-    "elastic": ("votes", "allgather_packed", True),
+    "psum": ("votes", "psum", False, {}),
+    "allgather_packed": ("votes", "allgather_packed", False, {}),
+    "golomb": ("golomb", "allgather_packed", False, {}),
+    "elastic": ("votes", "allgather_packed", True, {}),
+    "bucketed": ("votes", "allgather_packed", False, {"bucketed": True}),
+    "bucketed_golomb": ("golomb", "allgather_packed", False, {"bucketed": True}),
+    "ring": ("votes", "allgather_packed", False, {"ring_chunk_rows": RING_SWEEP_CHUNK_ROWS}),
+    "ring_bucketed_golomb": ("golomb", "allgather_packed", False,
+                             {"bucketed": True, "ring_chunk_rows": RING_SWEEP_CHUNK_ROWS}),
+    "ring_bucketed_pack8": ("pack8", "allgather_packed", False,
+                            {"bucketed": True, "ring_chunk_rows": RING_SWEEP_CHUNK_ROWS}),
 }
 
 
@@ -319,11 +329,11 @@ def run_tp_step(setup: str, device: str = "cuda"):
     from repro_torch.train.state import LrSchedule, init_state
     from repro_torch.train.step_simple import TrainStepConfig, build_train_step
 
-    mode, vote_impl, elastic = TP_SETUPS[setup]
+    mode, vote_impl, elastic, options = TP_SETUPS[setup]
     model = tiny_model()
     step = build_train_step(model, TrainStepConfig(
         compression=mode_comp(mode), lr=LrSchedule(base=0.05), vote_impl=vote_impl,
-        participation=participation_spec() if elastic else None),
+        participation=participation_spec() if elastic else None, **options),
         make_mesh((TP_M, TP_T), ("data", "model")))
     state = step.shard_state(init_state(model.init(0, device), server="majority_vote",
                                         seed=STEP_SEED))
@@ -334,19 +344,29 @@ def run_tp_step(setup: str, device: str = "cuda"):
 
 def tp_slice_ledger_split(step, model) -> tuple:
     """(payload, scalar) of a device's uplink ledger under tensor
-    parallelism, split as the census splits it: each cut leaf's slice (its
+    parallelism, split as the census splits it. Bucketed, the slice plan's
+    ``plan_ledger`` (``step.plan``: each cut leaf's slice, each replicated
+    leaf whole, in one plan a device). Per leaf, each cut leaf's slice (its
     slice wire, ``VoteWire.for_slice``), each replicated leaf whole; the
-    ternary gather wires' elastic weight and the shared L-inf max are
-    scalars."""
+    ternary gather wires' elastic weight, pack8's decode scale (without a
+    weight beside it) and the shared L-inf max are scalars, the side
+    channels once a ring chunk."""
+    if step.plan is not None:
+        return bucketing.plan_ledger(step.mode, step.wire, step.plan,
+                                     share_linf=step.share_linf)
     pls = tree_leaves(step.placements)
     payload = scalar = 0.0
     for n, pl in zip(_leaf_sizes(model), pls):
         wire = step.wire.for_slice(n) if pl.sharded else step.wire
         n_dev = n // pl.parts if pl.sharded else n
         total = collectives.uplink_ledger(step.mode, wire, n_dev, share_linf=step.share_linf)
+        chunks = wire.ring_chunks(n_dev)
         sc = 0.0
-        if step.mode not in ("decoded", "pack8"):
-            sc += wire.weight_bytes()
+        if step.mode == "pack8":
+            if wire.participation is None:
+                sc += wire.scalar_bytes() * chunks
+        elif step.mode != "decoded":
+            sc += wire.weight_bytes() * chunks
         if step.share_linf:
             sc += collectives.allreduce_scalar_bytes(wire.n_workers)
         payload += total - sc

@@ -418,14 +418,16 @@ def compress_leaf_rows(
     shared_linf=None,
     backend: Optional[str] = None,
     wire=None,
+    leaf_slice: Optional[LeafSlice] = None,
 ) -> CompressedGrad:
     """``compress_leaf`` laid out as a bucket slot: the wire-native message
     as exactly ``rows`` payload rows (``bucketing.as_rows``). The compression
-    is the per-leaf one byte for byte; packed views only drop their sublane
-    padding rows and leaf-shaped votes pad into rows."""
+    is the per-leaf one byte for byte (of a model rank's slice with
+    ``leaf_slice``); packed views only drop their sublane padding rows and
+    leaf-shaped votes pad into rows."""
     from repro_torch.dist import bucketing  # the dist layer imports this module
     msg = compress_leaf(g, cfg, seed, counter_base, shared_linf=shared_linf,
-                        backend=backend, wire=wire)
+                        backend=backend, wire=wire, leaf_slice=leaf_slice)
     return CompressedGrad(values=bucketing.as_rows(msg.values, wire.native_format, rows),
                           scale=msg.scale)
 

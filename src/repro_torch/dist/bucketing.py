@@ -135,7 +135,7 @@ def _tail_pad(rows: int, fmt: str) -> int:
 
 
 def build_bucket_plan(shapes: Sequence, fmt: str, *, bucket_bytes: Optional[int] = None,
-                      rows_fn=None) -> BucketPlan:
+                      rows_fn=None, leaf_sizes: Optional[Sequence[int]] = None) -> BucketPlan:
     """Greedy in-order packing of ``shapes`` (leaf shapes, or objects with a
     ``shape``, in flat leaf order) into buckets of at most ``bucket_bytes``
     of payload (None: one bucket for the whole group). A leaf larger than
@@ -143,12 +143,20 @@ def build_bucket_plan(shapes: Sequence, fmt: str, *, bucket_bytes: Optional[int]
 
     ``rows_fn`` (n -> payload rows) sizes the variable-length golomb
     format's capacity slots (the wire's ``payload_rows``): required for
-    ``fmt='golomb'`` and refused for every other format."""
+    ``fmt='golomb'`` and refused for every other format.
+
+    ``leaf_sizes`` (tensor parallelism): entry i of ``shapes`` is a model
+    rank's slice of a leaf of ``leaf_sizes[i]`` coordinates (its own size
+    for a replicated leaf), and ``rows_fn(n, leaf_sizes[i])`` sizes its
+    slot: a Golomb slice holds its whole leaf's capacity of nonzeros
+    (``GolombWire.payload_rows``)."""
     if (fmt == "golomb") != (rows_fn is not None):
         raise ValueError(
             "rows_fn is how the variable-length golomb format sizes its capacity slots: "
             "required for fmt='golomb' (pass the wire's payload_rows), invalid for the "
             "fixed-rate formats")
+    if leaf_sizes is not None and len(leaf_sizes) != len(shapes):
+        raise ValueError(f"{len(leaf_sizes)} leaf sizes for {len(shapes)} shapes")
     align = format_align_rows(fmt)
     row_bytes = ROW_BYTES[fmt]
     cap_rows = None
@@ -167,7 +175,10 @@ def build_bucket_plan(shapes: Sequence, fmt: str, *, bucket_bytes: Optional[int]
     for i, s in enumerate(shapes):
         shape = tuple(int(d) for d in (s.shape if hasattr(s, "shape") else s))
         n = int(math.prod(shape)) if shape else 1
-        rows = rows_fn(n) if rows_fn is not None else leaf_rows(n, align)
+        if rows_fn is None:
+            rows = leaf_rows(n, align)
+        else:
+            rows = rows_fn(n) if leaf_sizes is None else rows_fn(n, int(leaf_sizes[i]))
         if cap_rows is not None and slots and row + rows > cap_rows:
             flush()
         slots.append(LeafSlot(index=i, size=n, shape=shape, row_start=row, rows=rows))

@@ -1385,10 +1385,12 @@ class GolombWire(VoteWire):
         assert rows is not None, "the golomb bucket ledger needs the bucket's payload rows"
         return float((self.n_workers - 1) * rows * ROW_BYTES)
 
-    def payload_rows(self, n_coords: int) -> int:
+    def payload_rows(self, n_coords: int, leaf_n: Optional[int] = None) -> int:
         """Capacity rows of one n-coordinate message at the wire's plan
-        fraction: the bucket plan's ``rows_fn`` for this wire."""
-        return golomb_rows(n_coords, self.p, self.leaf_n)
+        fraction (a slice of an ``leaf_n``-coordinate leaf: its leaf's
+        capacity, else the wire's ``leaf_n``): the bucket plan's ``rows_fn``
+        for this wire."""
+        return golomb_rows(n_coords, self.p, self.leaf_n if leaf_n is None else leaf_n)
 
     def bucket_ring_chunks(self, bucket):
         return len(_slot_groups(bucket.slots, self.ring_chunk_rows))

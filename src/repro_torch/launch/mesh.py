@@ -27,22 +27,37 @@ def worker_axes_of(mesh) -> tuple:
     return tuple(a for a in mesh.axis_names if a != "model")
 
 
-def _split_groups(n_workers: int, t: int, per: int, world: int, rank: int):
+#: (global ranks) -> (the default group it was made under, the process group)
+_GROUPS: dict = {}
+
+
+def _group_of(ranks) -> object:
+    """The process group of these global ranks, made once and reused by a
+    later mesh over them. Only its members call ``dist.new_group`` (local
+    synchronization, a name hashed from the ranks): the other processes of
+    the default group may build meshes over other subgroups meanwhile, or
+    none."""
+    key = tuple(int(r) for r in ranks)
+    made = _GROUPS.get(key)
+    if made is None or made[0] is not dist.group.WORLD:
+        made = _GROUPS[key] = (dist.group.WORLD,
+                               dist.new_group(list(key), use_local_synchronization=True))
+    return made[1]
+
+
+def _split_groups(n_workers: int, t: int, per: int, rank: int, members):
     """The process groups of a mesh whose processes hold ``per`` < T model
     ranks of one worker: (the worker group of this process's model ranks,
-    its index there, the model group of its worker, its index there). Every
-    process creates every group, in one order (``dist.new_group``'s rule)."""
+    its index there, the model group of its worker, its index there).
+    ``rank`` is this process's index in the mesh's group, whose global
+    ranks are ``members`` (``dist.get_process_group_ranks``); a process
+    makes the two groups it belongs to."""
     blocks = t // per                       # processes a worker
     mine_w, mine_b = divmod(rank, blocks)
-    wgroup = mgroup = None
-    for b in range(blocks):                 # the processes of model block b, worker order
-        g = dist.new_group([w * blocks + b for w in range(n_workers)])
-        if b == mine_b:
-            wgroup = g
-    for w in range(n_workers):              # the processes of worker w, rank order
-        g = dist.new_group([w * blocks + b for b in range(blocks)])
-        if w == mine_w:
-            mgroup = g
+    # the processes of model block mine_b in worker order, and of worker
+    # mine_w in rank order
+    wgroup = _group_of(members[w * blocks + mine_b] for w in range(n_workers))
+    mgroup = _group_of(members[mine_w * blocks + b] for b in range(blocks))
     return wgroup, mine_w, mgroup, mine_b
 
 
@@ -50,8 +65,10 @@ def make_mesh(shape, axes, *, group=None) -> WorkerGroup:
     """The worker group of a mesh of ``shape`` over ``axes`` (row-major),
     with its 'model' axis, if it names one, as ``WorkerGroup.model``. With
     ``torch.distributed`` initialised, the default group's processes split
-    the devices into contiguous blocks; ``group`` picks another group for a
-    mesh without a 'model' axis."""
+    the devices into contiguous blocks; ``group`` picks a subgroup instead,
+    whose processes alone call this (a mesh whose processes cut a worker's
+    model ranks makes its worker and model groups over the subgroup's
+    global ranks)."""
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} and axes {axes} differ")
@@ -68,8 +85,6 @@ def make_mesh(shape, axes, *, group=None) -> WorkerGroup:
     rank, world = dist.get_rank(group), dist.get_world_size(group)
     if t is None:
         return WorkerGroup(axes=waxes, sizes=wsizes, group=group, rank=rank, world=world)
-    if group is not dist.group.WORLD:
-        raise NotImplementedError("a 'model' axis over a process subgroup is not ported yet")
     n_workers = math.prod(wsizes)
     if (n_workers * t) % world:
         raise ValueError(f"{n_workers * t} devices do not split over {world} processes")
@@ -80,7 +95,8 @@ def make_mesh(shape, axes, *, group=None) -> WorkerGroup:
     if t % per:
         raise ValueError(f"{per} devices a process cut the {t} model ranks of a worker "
                          f"unevenly")
-    wgroup, widx, mgroup, mrank = _split_groups(n_workers, t, per, world, rank)
+    wgroup, widx, mgroup, mrank = _split_groups(n_workers, t, per, rank,
+                                                dist.get_process_group_ranks(group))
     return WorkerGroup(axes=waxes, sizes=wsizes, group=wgroup, rank=widx, world=n_workers,
                        model=ModelGroup(t, offset=mrank * per, local=per, group=mgroup,
                                         rank=mrank, world=t // per))

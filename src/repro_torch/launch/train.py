@@ -7,8 +7,8 @@ llama4-scout-17b-a16e; ``--mode`` overrides it) on the card (or, with
 ``--device cpu``, the plain
 versions on the CPU), with the bucketed uplink (``--bucketed``: one bucket
 for the whole tree, or the streamed trainer's double-buffered layer and
-outer buckets) and the ring gather
-(``--ring``, ``--ring-chunk-rows`` rows a chunk, default
+outer buckets; ``--bucket-bytes`` caps a bucket's payload) and the ring
+gather (``--ring``, ``--ring-chunk-rows`` rows a chunk, default
 ``collectives.DEFAULT_RING_CHUNK_ROWS``) on request. ``--ckpt-dir`` saves a
 checkpoint every ``--ckpt-every`` steps and at the end, and resumes from
 the newest compatible one there; ``--fail-at K`` dies before step K
@@ -20,10 +20,10 @@ three position streams equal to ``positions``, as JAX's launcher builds it.
 ``--host-model T`` adds a
 tensor-parallel 'model' axis of T ranks (the simple trainer's dense
 attention families, with every compressor, wire, budget and server, elastic
-participation and local steps; ``train.step_tp``); its checkpoints hold
-whole leaves, so a run resumes at another T or M. What is not ported yet
-raises: a launch on the production meshes, and under T > 1 the bucketed
-uplink and the ring.
+participation, local steps, ``--bucketed`` with or without
+``--bucket-bytes``, and ``--ring``; ``train.step_tp``); its checkpoints
+hold whole leaves, so a run resumes at another T or M. What is not ported
+yet raises: a launch on the production meshes.
 """
 
 from __future__ import annotations
@@ -83,12 +83,12 @@ def build_everything(args, group=None):
     if mode == "simple":
         step = build_train_step(model, TrainStepConfig(
             compression=comp, lr=lr, local_lr=args.local_lr, vote_impl=args.vote_impl,
-            quorum=args.quorum, bucketed=args.bucketed, ring_chunk_rows=ring_rows,
-            participation=participation_of(args)), group)
+            quorum=args.quorum, bucketed=args.bucketed, bucket_bytes=args.bucket_bytes,
+            ring_chunk_rows=ring_rows, participation=participation_of(args)), group)
     else:
         step = build_streamed_train_step(model, StreamedStepConfig(
             compression=comp, lr=lr, vote_impl=args.vote_impl, quorum=args.quorum,
-            bucketed=args.bucketed, ring_chunk_rows=ring_rows,
+            bucketed=args.bucketed, bucket_bytes=args.bucket_bytes, ring_chunk_rows=ring_rows,
             participation=participation_of(args)), group)
     params = model.init(args.seed, device)
     state = init_state(params, server=comp.server, seed=args.seed)
@@ -155,6 +155,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--dropout", type=float, default=0.0)
     ap.add_argument("--worker-weights", default=None)
     ap.add_argument("--bucketed", action="store_true")
+    ap.add_argument("--bucket-bytes", type=int, default=None,
+                    help="payload cap a bucket (default: one bucket)")
     ap.add_argument("--ring", action="store_true")
     ap.add_argument("--ring-chunk-rows", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)

@@ -30,16 +30,27 @@ compressors see the whole logical leaf. Here each model rank of a worker
      worker's mask and weight, and each slice's weighted exchange gives the
      same W.
 
-``wire_bytes_per_device`` bills what one device sends: each sharded leaf's
-slice ledger and each replicated leaf's whole one. JAX's step reports the
-whole leaves' ledger (``g.size`` inside a ``shard_map`` manual over the
-worker axes only).
+``bucketed=True``: each model rank of a worker has its own bucket buffers
+over ONE slice plan (``bucketing.build_bucket_plan`` over a device's leaves
+in flat leaf order: a sharded leaf's slot is its slice, a Golomb slot sized
+by its whole leaf's capacity, a replicated leaf's slot the whole leaf).
+Each slice's message goes straight into its slot of its rank's buffer; a
+replicated leaf's message rides whole in every local rank's bucket, as a
+device of JAX's mesh sends it, and one rank's sum updates it. One exchange
+a bucket a rank replaces the per-leaf ones; the shared L-inf is one vector
+for all leaves. ``ring_chunk_rows`` makes a gather wire the chunked ring,
+per leaf (the workers' messages unstacked) or over a rank's bucket; a
+slice's wire keeps it (``VoteWire.for_slice``).
 
-Every (compressor, wire, budget, server) of the T = 1 step runs. Not ported
-yet under T > 1, each raising: the bucketed uplink and the ring (a counter
-map a bucket segment), and, elsewhere, MoE and mamba2 blocks
-(``models.tensor_parallel``), the streamed trainer and a 'model' axis over a
-process subgroup (``launch.mesh``).
+``wire_bytes_per_device`` bills what one device sends: per leaf, each
+sharded leaf's slice ledger and each replicated leaf's whole one; bucketed,
+the slice plan's ``plan_ledger``. JAX's step reports the whole leaves'
+ledger (``g.size`` inside a ``shard_map`` manual over the worker axes
+only).
+
+Every ``TrainStepConfig`` of the T = 1 step runs. Not ported yet under
+T > 1, each raising elsewhere: MoE and mamba2 blocks
+(``models.tensor_parallel``) and the streamed trainer.
 """
 
 from __future__ import annotations
@@ -52,7 +63,7 @@ import torch
 from repro_torch.core import engine, prng
 from repro_torch.core.algorithm import worker_stream_seed
 from repro_torch.core.compressors import tree_leaves, tree_unflatten
-from repro_torch.dist import collectives
+from repro_torch.dist import bucketing, collectives
 from repro_torch.dist.collectives import WorkerGroup
 from repro_torch.models import tensor_parallel as tp_lib
 from repro_torch.train import sampling
@@ -79,19 +90,10 @@ class TPLeafLayout:
         return False
 
 
-def check_supported(step_cfg) -> None:
-    """Raise for what the tensor-parallel step does not port yet."""
-    for flag, what in ((step_cfg.bucketed, "the bucketed uplink"),
-                       (step_cfg.ring_chunk_rows is not None, "the ring gather")):
-        if flag:
-            raise tp_lib.not_ported(what)
-
-
 def build_tp_train_step(model, step_cfg, group: WorkerGroup):
     """The step of ``step_simple.build_train_step`` for a group with a
     'model' axis of size T > 1. ``state.params`` and the EF residual are in
     the TP layout (``step.shard_state`` cuts a whole state to it)."""
-    check_supported(step_cfg)
     mg = group.model
     comp = step_cfg.compression
     tpm = model.tensor_parallel(mg)
@@ -101,6 +103,8 @@ def build_tp_train_step(model, step_cfg, group: WorkerGroup):
     numels = [int(np.prod(s)) for s in shapes]
     maps = [[tp_lib.slice_counter_map(s, pl, r) for r in mg.ranks] for s, pl in zip(shapes, pls)]
     dev_numel = [n // pl.parts if pl.sharded else n for n, pl in zip(numels, pls)]
+    dev_shapes = [tuple(d // pl.parts if pl.sharded and k == pl.dim else d
+                        for k, d in enumerate(s)) for s, pl in zip(shapes, pls)]
     mode = engine.wire_mode(comp, vote_impl=step_cfg.vote_impl)
     wire_fmt = engine.wire_payload_format(comp, mode, vote_impl=step_cfg.vote_impl)
     part = step_cfg.participation
@@ -110,9 +114,22 @@ def build_tp_train_step(model, step_cfg, group: WorkerGroup):
         step_cfg.vote_impl, group, backend=step_cfg.backend, wire_format=wire_fmt,
         golomb_p=(engine.resolve_golomb_p(comp, step_cfg.golomb_p)
                   if wire_fmt == "golomb" else None),
+        ring_chunk_rows=engine.resolve_ring_chunk_rows(step_cfg.ring_chunk_rows,
+                                                       step_cfg.vote_impl),
         participation=part)
     # a slice's wire: the golomb capacity of a slice is its whole leaf's
     leaf_wires = [wire.for_slice(n) if pl.sharded else wire for n, pl in zip(numels, pls)]
+    plan = None
+    if step_cfg.bucketed:
+        fmt = bucketing.wire_bucket_format(mode, wire)
+        golomb = fmt == "golomb"
+        plan = bucketing.build_bucket_plan(
+            dev_shapes, fmt, bucket_bytes=step_cfg.bucket_bytes,
+            rows_fn=wire.payload_rows if golomb else None, leaf_sizes=numels if golomb else None)
+        # leaf i's (bucket, slot): the plan is in leaf order
+        slot_of = {s.index: (bi, s) for bi, b in enumerate(plan.buckets) for s in b.slots}
+    # the per-leaf ring takes the workers' messages as they are, unstacked
+    ring = mode != "decoded" and getattr(wire, "ring_chunk_rows", None) is not None
     count_dropped = wire.native_format == "golomb"
     share_linf = engine.needs_shared_linf(comp)
     if mode != "votes" and engine.needs_server_ef(comp.server):
@@ -186,9 +203,14 @@ def build_tp_train_step(model, step_cfg, group: WorkerGroup):
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         n_leaves = len(p_leaves)
         # msgs[i][r]: local rank r's messages of leaf i, one a local worker
-        # (a replicated leaf: r = 0 only)
+        # (a replicated leaf: r = 0 only); bucketed, bufs[r][b] is local rank
+        # r's (local, rows, width) buffer of bucket b
         msgs = [[[] for _ in range(mg.local if pl.sharded else 1)] for pl in pls]
         scales = [[[] for _ in range(mg.local if pl.sharded else 1)] for pl in pls]
+        bufs = ([[torch.zeros((group.local, b.rows, bucketing.ROW_WIDTH[plan.fmt]),
+                              dtype=bucketing.ROW_DTYPE[plan.fmt], device=dev)
+                  for b in plan.buckets] for _ in range(mg.local)]
+                if plan is not None else None)
         nnz = [[zero] * mg.local for _ in range(group.local)]
         dropped = [[zero] * mg.local for _ in range(group.local)]
         losses, sources, seeds = [], [], []
@@ -197,29 +219,50 @@ def build_tp_train_step(model, step_cfg, group: WorkerGroup):
             for i, g in enumerate(src):
                 seed_i = prng.fold_seed_int(seeds[j], i)
                 sh = shared[i] if shared is not None else None
-                if pls[i].sharded:
+                sharded = pls[i].sharded
+                if sharded:
                     slices = engine.leaf_slices(comp, list(g.unbind(0)), maps[i], numels[i],
                                                 psum=psum, pmax=pmax)
                     parts = [(r, g[r], slices[r]) for r in range(mg.local)]
                 else:
                     parts = [(0, g, None)]
+                counted = sharded or first_rank   # a replicated leaf's metrics once
+                slot = slot_of[i] if plan is not None else None
                 for r, x, lsl in parts:
-                    kw = {} if mode == "decoded" else {"wire": leaf_wires[i]}
-                    msg = engine.compress_leaf(x, comp, seed_i, backend=backend, shared_linf=sh,
-                                               leaf_slice=lsl, **kw)
                     if mode == "decoded":
+                        msg = engine.compress_leaf(x, comp, seed_i, backend=backend,
+                                                   shared_linf=sh, leaf_slice=lsl)
                         # elastic: the weight premultiplies the decode scale
-                        scales[i][r].append(msg.scale * w_eff[j] if part is not None
-                                            else msg.scale)
-                        msgs[i][r].append(msg.values)
-                        continue
-                    scales[i][r].append(msg.scale)
-                    values = wire.mask_message(msg.values, mask[j])
-                    msgs[i][r].append(values)
-                    if pls[i].sharded or first_rank:
-                        nnz[j][r] = nnz[j][r] + wire.message_nnz(values)
-                        if count_dropped:
-                            dropped[j][r] = dropped[j][r] + wire.message_dropped(values)
+                        sc = msg.scale * w_eff[j] if part is not None else msg.scale
+                        if slot is None:
+                            scales[i][r].append(sc)
+                            msgs[i][r].append(msg.values)
+                            continue
+                        values, k = collectives.decoded_message(msg.values, sc, mask[j],
+                                                                is_ternary=comp.is_ternary)
+                        if counted:
+                            nnz[j][r] = nnz[j][r] + k
+                        values = bucketing.as_rows(values, plan.fmt, slot[1].rows)
+                    else:
+                        kw = dict(backend=backend, wire=leaf_wires[i], shared_linf=sh,
+                                  leaf_slice=lsl)
+                        msg = (engine.compress_leaf(x, comp, seed_i, **kw) if slot is None else
+                               engine.compress_leaf_rows(x, comp, seed_i, rows=slot[1].rows,
+                                                         **kw))
+                        scales[i][r].append(msg.scale)
+                        values = wire.mask_message(msg.values, mask[j])
+                        if counted:
+                            nnz[j][r] = nnz[j][r] + wire.message_nnz(values)
+                            if count_dropped:
+                                dropped[j][r] = dropped[j][r] + wire.message_dropped(values)
+                        if slot is None:
+                            msgs[i][r].append(values)
+                            continue
+                    bi, s = slot
+                    # a replicated leaf rides whole in every local rank's bucket
+                    for rr in ((r,) if sharded else range(mg.local)):
+                        bufs[rr][bi][j, s.row_start:s.row_start + s.rows] = values
+                    del values   # the slots hold it now
 
         for j in range(group.local):
             w = group.rank * group.local + j
@@ -234,20 +277,29 @@ def build_tp_train_step(model, step_cfg, group: WorkerGroup):
             del src
         if share_linf:
             # the whole leaf's L-inf: a max over the model ranks, then over
-            # the sampled workers (exact in any order)
-            shared = []
-            for i in range(n_leaves):
-                per_worker = []
-                for s in sources:
-                    x = s[i]
-                    parts = ([torch.amax(torch.abs(y.to(torch.float32))) for y in x.unbind(0)]
-                             if pls[i].sharded else [torch.amax(torch.abs(x.to(torch.float32)))])
-                    per_worker.append(pmax(parts) if pls[i].sharded else parts[0])
-                local = torch.stack(per_worker)
-                local = torch.where(mask, local, torch.zeros((), device=dev))
+            # the sampled workers (exact in any order); bucketed, one vector
+            # for all leaves
+            def rank_max(x, pl, r):
+                return torch.amax(torch.abs((x[r] if pl.sharded else x).to(torch.float32)))
+
+            if plan is not None:
+                local = torch.stack([pmax([torch.stack([rank_max(x, pl, r)
+                                                        for x, pl in zip(s, pls)])
+                                           for r in range(mg.local)]) for s in sources])
+                local = torch.where(mask[:, None], local, torch.zeros((), device=dev))
                 with collectives.for_model_ranks(mg.ranks):
-                    shared.append(group.all_reduce(torch.amax(local),
-                                                   op=torch.distributed.ReduceOp.MAX))
+                    shared = group.all_reduce(torch.amax(local, dim=0),
+                                              op=torch.distributed.ReduceOp.MAX)
+            else:
+                shared = []
+                for i, pl in enumerate(pls):
+                    local = torch.stack([pmax([rank_max(s[i], pl, r) for r in range(mg.local)])
+                                         if pl.sharded else rank_max(s[i], pl, 0)
+                                         for s in sources])
+                    local = torch.where(mask, local, torch.zeros((), device=dev))
+                    with collectives.for_model_ranks(mg.ranks):
+                        shared.append(group.all_reduce(torch.amax(local),
+                                                       op=torch.distributed.ReduceOp.MAX))
             for j in range(group.local):
                 compress_worker(j, sources[j], shared)
                 sources[j] = None
@@ -257,44 +309,16 @@ def build_tp_train_step(model, step_cfg, group: WorkerGroup):
             n_dec = collectives.scalar_psum(w_eff, group) if part is not None else n_sel
         ef_flat = (tree_leaves(state.ef_residual) if state.ef_residual is not None
                    else [None] * n_leaves)
-        wire_bytes, gather_hbm = 0.0, 0.0
-        for i, p in enumerate(p_leaves):
-            n_dev = dev_numel[i]
-            wire_bytes += collectives.uplink_ledger(mode, leaf_wires[i], n_dev,
-                                                    share_linf=share_linf)
-            if mode != "decoded":
-                gather_hbm = max(gather_hbm, leaf_wires[i].gather_hbm_bytes(n_dev))
+
+        def apply(i, aggs, wtots):
+            """C(.) and SGD on leaf i from its ranks' exchanged sums (one a
+            local rank of a sharded leaf, one for a replicated leaf), written
+            in place."""
+            p = p_leaves[i]
             sharded = pls[i].sharded
             views = list(p.unbind(0)) if sharded else [p]
             efs = (list(ef_flat[i].unbind(0)) if sharded else [ef_flat[i]]) \
                 if ef_flat[i] is not None else [None] * len(views)
-            aggs, wtots = [], []
-            for r, pr in enumerate(views):
-                stack = torch.stack(msgs[i][r])
-                msgs[i][r] = None
-                # the census bills a slice's exchange to its rank's device, a
-                # replicated leaf's to every local rank's
-                with collectives.for_model_ranks((mg.offset + r,) if sharded else mg.ranks):
-                    if mode == "decoded":
-                        agg, k = collectives.decoded_exchange(
-                            stack, torch.stack(scales[i][r]), mask, group,
-                            is_ternary=comp.is_ternary)
-                        n_or_w = n_dec
-                        if sharded or first_rank:
-                            for j in range(group.local):
-                                nnz[j][r] = nnz[j][r] + k[j]
-                    else:
-                        wire_scale = torch.stack(scales[i][r]) if mode == "pack8" else None
-                        if part is not None:
-                            agg, n_or_w = wire.exchange_weighted(stack, pr.numel(),
-                                                                 tuple(pr.shape), weight=w_eff,
-                                                                 scale=wire_scale)
-                        else:
-                            agg, n_or_w = wire.exchange(stack, pr.numel(), tuple(pr.shape),
-                                                        scale=wire_scale), n_sel
-                del stack
-                aggs.append(agg)
-                wtots.append(n_or_w)
             l1 = None
             if sharded and comp.server == "scaled_sign_ef" and mode == "votes":
                 # the whole leaf's L1: the slices' partials in rank order
@@ -318,7 +342,77 @@ def build_tp_train_step(model, step_cfg, group: WorkerGroup):
                 pr.copy_(new_p)
                 if ef is not None and new_ef is not ef:
                     ef.copy_(new_ef)
-            del aggs
+
+        if plan is not None:
+            for bi, b in enumerate(plan.buckets):
+                got = []   # each local rank's (per-slot sums, W)
+                for r in range(mg.local):
+                    buf, bufs[r][bi] = bufs[r][bi], None
+                    bscale = None
+                    if mode == "pack8":   # (local, n_slots): each worker's slot scales
+                        bscale = torch.stack([torch.stack([
+                            scales[s.index][r if pls[s.index].sharded else 0][j]
+                            for s in b.slots]) for j in range(group.local)])
+                    # the census bills each rank's bucket to its own device
+                    with collectives.for_model_ranks((mg.offset + r,)):
+                        if mode == "decoded":
+                            got.append((bucketing.split_bucket(
+                                collectives.decoded_exchange_bucket(buf, group), b), n_dec))
+                        elif part is not None:
+                            # W is per slot (per coordinate) on the psum wires,
+                            # one scalar on the gather wires
+                            got.append(wire.exchange_bucket_weighted(buf, b, weight=w_eff,
+                                                                     scale=bscale))
+                        else:
+                            got.append((wire.exchange_bucket(buf, b, scale=bscale), n_sel))
+                    del buf
+                for k, s in enumerate(b.slots):
+                    ranks = range(mg.local) if pls[s.index].sharded else range(1)
+                    apply(s.index, [got[r][0][k] for r in ranks],
+                          [got[r][1][k] if isinstance(got[r][1], list) else got[r][1]
+                           for r in ranks])
+                del got
+            pay, scal = bucketing.plan_ledger(mode, wire, plan, share_linf=share_linf)
+            wire_bytes = pay + scal
+            gather_hbm = bucketing.plan_gather_hbm_bytes(mode, wire, plan)
+        else:
+            wire_bytes, gather_hbm = 0.0, 0.0
+            for i, p in enumerate(p_leaves):
+                n_dev = dev_numel[i]
+                wire_bytes += collectives.uplink_ledger(mode, leaf_wires[i], n_dev,
+                                                        share_linf=share_linf)
+                if mode != "decoded":
+                    gather_hbm = max(gather_hbm, leaf_wires[i].gather_hbm_bytes(n_dev))
+                sharded = pls[i].sharded
+                aggs, wtots = [], []
+                for r, pr in enumerate(p.unbind(0) if sharded else [p]):
+                    stack = msgs[i][r] if ring else torch.stack(msgs[i][r])
+                    msgs[i][r] = None
+                    # the census bills a slice's exchange to its rank's device, a
+                    # replicated leaf's to every local rank's
+                    with collectives.for_model_ranks((mg.offset + r,) if sharded else mg.ranks):
+                        if mode == "decoded":
+                            agg, k = collectives.decoded_exchange(
+                                stack, torch.stack(scales[i][r]), mask, group,
+                                is_ternary=comp.is_ternary)
+                            n_or_w = n_dec
+                            if sharded or first_rank:
+                                for j in range(group.local):
+                                    nnz[j][r] = nnz[j][r] + k[j]
+                        else:
+                            wire_scale = torch.stack(scales[i][r]) if mode == "pack8" else None
+                            if part is not None:
+                                agg, n_or_w = wire.exchange_weighted(
+                                    stack, pr.numel(), tuple(pr.shape), weight=w_eff,
+                                    scale=wire_scale)
+                            else:
+                                agg, n_or_w = wire.exchange(stack, pr.numel(), tuple(pr.shape),
+                                                            scale=wire_scale), n_sel
+                    del stack
+                    aggs.append(agg)
+                    wtots.append(n_or_w)
+                apply(i, aggs, wtots)
+                del aggs
 
         f32 = np.float32
         total = sum(numels)
@@ -375,7 +469,7 @@ def build_tp_train_step(model, step_cfg, group: WorkerGroup):
     step.wire = wire
     step.mode = mode
     step.share_linf = share_linf
-    step.plan = None
+    step.plan = plan
     step.placements = placements
     step.tp_model = tpm
     step.shard_state = shard_state

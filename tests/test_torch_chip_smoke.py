@@ -454,7 +454,10 @@ def test_phase_tp_rehearses_on_the_cpu(monkeypatch, capsys):
     launcher's M = 4 x T = 2 run with wire bytes at the slice ledger, the
     injected fixed-budget rounds at T = 2 equal to T = 1 bit for bit, the
     paper's round (sign, TernGrad, elastic bit for bit; golomb under
-    target_sparsity and 1-bit L2 QSGD within the flip bound), the float32
+    target_sparsity and 1-bit L2 QSGD within the flip bound), the bucketed
+    uplink and the ring (the 2-bit gather bit for bit against T = 1, Golomb
+    and pack8 against the per-leaf T = 2 run) and the launcher's
+    ``--bucketed`` and ``--ring`` steps, the float32
     gradients no farther from float64 than TP_F64_RATIO times T = 1's, and
     the T = 2 checkpoint restored at T = 1."""
     import torch
@@ -488,7 +491,16 @@ def test_phase_tp_rehearses_on_the_cpu(monkeypatch, capsys):
     assert [rounds[k]["differ"] for k in ("sign psum", "terngrad psum",
                                           "elastic sparsign allgather_packed")] == [0, 0, 0]
     assert all(r["flips"] <= cs.TP_FLIP_BOUND * r["coords"] for r in rounds.values())
-    assert "[tp] qwen1.5-4b" in capsys.readouterr().out
+    bucketed = {k: r for k, r in out["bucketed"].items() if "reference" not in k}
+    assert len(bucketed) == 10 and len(out["bucketed"]) == 16
+    assert all(r["nnz_dropped"] in (None, 0.0) for r in out["bucketed"].values())
+    assert all(r["differ_t1"] == 0 for k, r in bucketed.items() if k.startswith("sparsign "))
+    assert all(r["differ_per_leaf"] == 0 for r in bucketed.values())
+    assert all(r["buckets"] > 1 for k, r in bucketed.items() if k.endswith("capped"))
+    assert set(out["launcher"]) == {"--bucketed", "--ring"}
+    assert out["launcher"]["--bucketed"]["buckets"] > 1
+    printed = capsys.readouterr().out
+    assert "[tp] qwen1.5-4b" in printed and "[tp] launcher --ring" in printed
 
 
 def test_sass_loops_hot_path_draws_in_line_and_skips_the_rare_blocks():

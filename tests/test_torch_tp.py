@@ -15,7 +15,8 @@
     process, and (1 x 2) a model rank a process.
 (d) Checkpoints at T = 2 are the T = 1 files byte for byte and restore
     across T; the launcher's ``--host-model 2``; every path not ported
-    under T > 1 raises.
+    under T > 1 raises (the bucketed uplink, the ring and subgroups:
+    ``tests/test_torch_tp_bucketed.py``).
 """
 
 import os
@@ -780,28 +781,15 @@ def test_launcher_host_model_2_runs_and_resumes_at_t1(tmp_path, capsys):
 REFUSALS = {
     "moe": dict(arch="qwen2-moe-a2.7b"),
     "mamba": dict(arch="mamba2-370m"),
-    "bucketed": dict(bucketed=True),
-    "ring": dict(impl="allgather_packed", ring_chunk_rows=32),
-    "subgroup": dict(subgroup=True),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_what_is_not_ported_under_t2_raises(case):
     """What T > 1 does not port yet raises "not ported yet": MoE and mamba2
-    blocks, the bucketed uplink, the ring, and a 'model' axis over a process
-    subgroup (one gloo process, its subgroup of itself)."""
+    blocks. (The bucketed uplink, the ring and a 'model' axis over a process
+    subgroup run: ``tests/test_torch_tp_bucketed.py``.)"""
     kw = dict(REFUSALS[case])
-    if kw.pop("subgroup", False):
-        import torch.distributed as dist
-        dist.init_process_group("gloo", init_method=f"tcp://localhost:{_free_port()}", rank=0,
-                                world_size=1)
-        try:
-            with pytest.raises(NotImplementedError, match="not ported yet"):
-                make_host_mesh(M, T, group=dist.new_group([0]))
-        finally:
-            dist.destroy_process_group()
-        return
     arch = kw.pop("arch", "qwen1.5-4b")
     comp = CompressionConfig(compressor="sparsign", budget=BudgetConfig(value=1.0),
                              server="majority_vote")

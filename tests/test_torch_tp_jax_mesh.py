@@ -13,8 +13,10 @@ port's T = 1 parameters do. Both counts are printed. Cases: sparsign at a
 fixed B with majority vote on psum, and ``sparsign_golomb`` under
 ``target_sparsity`` 0.05 on allgather_packed (also: no nonzero dropped at
 T = 2 where the whole-leaf messages of the port's T = 1, which JAX's equal,
-drop none). JAX's wire bytes, the whole leaves' ledger, equal the port's
-T = 1, and the losses agree.
+drop none), and both again on the bucketed uplink (``bucketed=True``; the
+Golomb one on the ring at 32 rows a chunk): JAX buckets its whole leaves,
+the port's T = 2 each device's slices. JAX's wire bytes, the whole leaves'
+ledger (or plan's), equal the port's T = 1, and the losses agree.
 """
 
 import os
@@ -30,10 +32,14 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 # compilations of two mesh steps) and more beside other test workers
 CHILD_TIMEOUT = 240
 SEED, LR, BATCH, SEQ = 1234, 0.01, 8, 16
-#: name: (compressor, budget kind, budget value, vote_impl)
-CASES = {"sparsign-fixed-psum": ("sparsign", "fixed", 2.0, "psum"),
+#: name: (compressor, budget kind, budget value, vote_impl, step options)
+CASES = {"sparsign-fixed-psum": ("sparsign", "fixed", 2.0, "psum", {}),
          "golomb-target_sparsity": ("sparsign_golomb", "target_sparsity", 0.05,
-                                    "allgather_packed")}
+                                    "allgather_packed", {}),
+         "sparsign-fixed-packed-bucketed": ("sparsign", "fixed", 2.0, "allgather_packed",
+                                            {"bucketed": True}),
+         "golomb-bucketed-ring": ("sparsign_golomb", "target_sparsity", 0.05,
+                                  "allgather_packed", {"bucketed": True, "ring_chunk_rows": 32})}
 
 
 def make_batch(vocab: int) -> dict:
@@ -65,12 +71,12 @@ def _jax_runs(out_path: str) -> None:
     params = model.init(jax.random.PRNGKey(0))
     batch = {k: jnp.asarray(v) for k, v in make_batch(model.cfg.vocab_size).items()}
     out = {f"p0/{i}": np.asarray(x) for i, x in enumerate(jax.tree_util.tree_leaves(params))}
-    for name, (comp, kind, value, impl) in CASES.items():
+    for name, (comp, kind, value, impl, opts) in CASES.items():
         cc = CompressionConfig(compressor=comp, budget=BudgetConfig(kind=kind, value=value),
                                server="majority_vote")
         step = build_train_step(model, TrainStepConfig(
             compression=cc, lr=LrSchedule(base=LR), worker_axes=("data",), donate=False,
-            vote_impl=impl), mesh)
+            vote_impl=impl, **opts), mesh)
         with compat.set_mesh(mesh):
             state, metrics = step(init_state(params, server=cc.server, seed=SEED), batch)
         for i, x in enumerate(jax.tree_util.tree_leaves(state.params)):
@@ -125,7 +131,7 @@ def _bits(x):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_t2_differs_from_jax_mesh_step_no_more_than_t1(case, jax_mesh, capsys):
-    comp, kind, value, impl = CASES[case]
+    comp, kind, value, impl, opts = CASES[case]
     model = Model(get_config("qwen1.5-4b", smoke=True))
     n = len(tree_leaves(model.param_shapes()))
     p0 = [jax_mesh[f"p0/{i}"] for i in range(n)]
@@ -136,7 +142,8 @@ def test_t2_differs_from_jax_mesh_step_no_more_than_t1(case, jax_mesh, capsys):
     differ, metrics = {}, {}
     for t in (1, 2):
         step = build_train_step(model, TrainStepConfig(
-            compression=cc, lr=LrSchedule(base=LR), vote_impl=impl), make_host_mesh(4, t))
+            compression=cc, lr=LrSchedule(base=LR), vote_impl=impl, **opts),
+            make_host_mesh(4, t))
         state = init_state(tree_unflatten(model.param_shapes(),
                                           tree_leaves(params_from_numpy(p0))),
                            server=cc.server, seed=SEED)
