@@ -220,6 +220,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import gzip
 import io
 import itertools
@@ -4011,6 +4012,12 @@ TP_LAYERS = 4        # the runs held against T = 1, from one state and one batch
 # whatever the split. Each leaf's T = 2 error to float64 may exceed T = 1's by
 # this factor
 TP_F64_RATIO = 1.25
+# The families' float64 checks (``tp_family``) hold the same ratio at
+# TP_FAMILY_F64_LAYERS layers, plus a floor of 32 float32 ulps of the leaf's
+# norm: mamba2-370m's smoke rehearsal on the CPU lies near 1e-6 of a leaf's
+# norm from float64, where the ratio of two float32 runs is the rounding's
+# draw
+TP_F64_FLOOR = 32 * 2.0 ** -23
 # PERF.md's kernel table (section 6): the contiguous rows' card ms that the
 # slices are timed beside, on "NVIDIA H100 80GB HBM3, 700.00 W"; this run's
 # own times are printed against them, a change beyond 3 % marked
@@ -4272,7 +4279,8 @@ def tp_injected_batch(torch, model, m: int, seed: int, dev):
     return out
 
 
-def phase_tp(torch, report, totals, dev="cuda", timer=None, slice_shapes=None):
+def phase_tp(torch, report, totals, dev="cuda", timer=None, slice_shapes=None,
+             family_maps=None):
     """The tensor-parallel 'model' axis at T = 2, qwen1.5-4b at its published
     width, in one process (the card is one; NCCL takes one rank a device):
     the four counter-map kernels on slices; 40 layers, M = 4 workers x T = 2
@@ -4286,8 +4294,11 @@ def phase_tp(torch, report, totals, dev="cuda", timer=None, slice_shapes=None):
     no farther from float64 than TP_F64_RATIO times T = 1's); the bucketed
     uplink and the ring (``tp_bucketed_runs``) and one launcher step each with
     ``--bucketed --bucket-bytes`` and ``--ring`` (``tp_launcher_runs``); a
-    checkpoint saved at T = 2 restored at T = 1 bit for bit. ``dev="cpu"``
-    rehearses it at the smoke size."""
+    checkpoint saved at T = 2 restored at T = 1 bit for bit; then the MoE and
+    mamba2 families (``tp_family_runs``: qwen2-moe-a2.7b's experts on 'model',
+    mamba2-370m's mixer split by heads). ``dev="cpu"`` rehearses it at the
+    smoke size (``family_maps``: smaller leaves for the families' map
+    holds)."""
     import tempfile
 
     import numpy as np
@@ -4495,7 +4506,7 @@ def phase_tp(torch, report, totals, dev="cuda", timer=None, slice_shapes=None):
         print(f"[tp] {layers} layers, the model's own gradients in {dtype}: loss T = 1 "
               f"{res[1][1]['loss']:.7f}, T = {TP_T} {res[TP_T][1]['loss']:.7f} (diff "
               f"{dloss:.3g}); {differ} of {moved} updated coordinates differ ({share:.3g})")
-        del res, p0
+        del res, p0, a, b
     out["own_gradients"] = own
     out["float64"] = tp_float64_check(torch, cut, dev, launch.batch_fn_for(cut(), lm_args)(0))
     out["launcher"] = tp_launcher_runs(torch, launch, cut, totals, m, dev)
@@ -4514,6 +4525,10 @@ def phase_tp(torch, report, totals, dev="cuda", timer=None, slice_shapes=None):
     out["checkpoint_t2_to_t1"] = same
     print(f"[tp] checkpoint saved at T = {TP_T} ({layers} layers, bf16) restored at T = 1: "
           f"bit for bit {same}")
+    del whole, step, net, back, like, state_whole, tp_state, params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    out["families"] = tp_family_runs(torch, one_round, totals, m, dev, family_maps)
 
 
 #: the elastic runs' participation: dyadic weights (every order of the
@@ -4853,20 +4868,26 @@ def tp_launcher_runs(torch, launch, cut, totals, m, dev="cuda") -> dict:
     return out
 
 
-def tp_float64_check(torch, cut, dev, batch) -> dict:
+def tp_float64_check(torch, cut, dev, batch, tag="tp", floor=1e-7) -> dict:
     """Worker 0's gradients in float32 at T = 1 and at T = 2 (gathered), each
     leaf's distance to the float64 gradient of the same weights, relative to
-    its norm: T = 2's at most TP_F64_RATIO times T = 1's (+ 1e-7)."""
+    its norm: T = 2's at most TP_F64_RATIO times T = 1's plus ``floor``. A
+    routed model's choices in the runs are compared too (``route_flips``:
+    tokens whose top-k experts differ, expert selections that differ)."""
     from repro_torch.core.compressors import tree_leaves, tree_unflatten
     from repro_torch.dist.collectives import ModelGroup
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models import tensor_parallel as tpl
     from repro_torch.models.model import Model
 
     one = {k: torch.as_tensor(v[:1]).to(dev) for k, v in batch.items()}
+    routes = []
 
     def grads(loss_fn, params):
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        loss = loss_fn(tree_unflatten(params, leaves), one)[0]
+        with moe_lib.record_routes() as log:
+            loss = loss_fn(tree_unflatten(params, leaves), one)[0]
+        routes.append(log)
         return [g.detach() for g in torch.autograd.grad(loss, leaves)]
 
     net = Model(cut("float32"))
@@ -4883,15 +4904,308 @@ def tp_float64_check(torch, cut, dev, batch) -> dict:
     e1 = [float((a.double() - c).norm() / c.norm()) for a, c in zip(g1, g64)]
     e2 = [float((b.double() - c).norm() / c.norm()) for b, c in zip(g2, g64)]
     t2_t1 = [float((b - a).norm() / a.norm()) for a, b in zip(g1, g2)]
-    worse = [i for i, (a, b) in enumerate(zip(e1, e2)) if b > TP_F64_RATIO * a + 1e-7]
-    print(f"[tp] float32 gradients against float64 (worker 0): T = 1 {min(e1):.3g}-{max(e1):.3g} "
-          f"of a leaf's norm, T = {TP_T} {min(e2):.3g}-{max(e2):.3g}; T = {TP_T} against T = 1 "
-          f"{min(t2_t1):.3g}-{max(t2_t1):.3g}; leaves farther than {TP_F64_RATIO} x T = 1's: "
-          f"{worse}")
-    check(not worse, f"tp float32: leaves {worse} lie farther from float64 at T = {TP_T} "
+    bound = [TP_F64_RATIO * a + floor for a in e1]
+    worse = [i for i, (b, lim) in enumerate(zip(e2, bound)) if b > lim]
+    names = ["t2_vs_t1", "t1_vs_f64", "t2_vs_f64"]
+    flips = ({k: moe_lib.route_flips(routes[a], routes[b])
+              for k, (a, b) in zip(names, [(0, 1), (0, 2), (1, 2)])} if routes[0] else None)
+    ratios = [b / a for a, b in zip(e1, e2)]
+    print(f"[{tag}] float32 gradients against float64 (worker 0, {net.cfg.n_layers} layers): "
+          f"T = 1 {min(e1):.3g}-{max(e1):.3g} of a leaf's norm, T = {TP_T} "
+          f"{min(e2):.3g}-{max(e2):.3g}; T = {TP_T} against T = 1 "
+          f"{min(t2_t1):.3g}-{max(t2_t1):.3g}; each leaf's T = {TP_T} / T = 1 distance ratio "
+          f"{min(ratios):.3g}-{max(ratios):.3g}"
+          + f"; leaves farther than {TP_F64_RATIO} x T = 1's: {worse}"
+          + (f"; routing flips (tokens, selections) "
+             + ", ".join(f"{k} {tuple(v.values())}" for k, v in flips.items()) if flips else ""))
+    check(not worse, f"{tag} float32: leaves {worse} lie farther from float64 at T = {TP_T} "
                      f"({[e2[i] for i in worse]}) than {TP_F64_RATIO} x T = 1's "
-                     f"({[e1[i] for i in worse]})")
-    return {"t1_err": e1, "t2_err": e2, "t2_vs_t1": t2_t1}
+                     f"({[e1[i] for i in worse]}) plus {floor}")
+    return {"t1_err": e1, "t2_err": e2, "t2_vs_t1": t2_t1, "bound": bound,
+            "route_flips": flips}
+
+
+#: the families this slice puts on 'model' (PERF.md section 4: [tp moe] and
+#: [tp mamba2]) and the depth each trains at: qwen2-moe-a2.7b at its zoo cut,
+#: 2 of 24 layers (ZOO_LAYERS), mamba2-370m at its whole 48
+TP_FAMILY_LAYERS = {"qwen2-moe-a2.7b": 2, "mamba2-370m": 48}
+#: the depth of each family's float64 check: mamba2-370m's at TP_LAYERS, as
+#: qwen1.5-4b's. At its 48 layers float32's own rounding decides the ratio:
+#: on an H100 80GB HBM3 at 700 W final_norm lay 2.93e-4 (T = 1) and 4.79e-4
+#: (T = 2) from float64, a ratio of 1.63; on a CPU (d_model 256, 48 layers, two
+#: seeds) the ratio ran 0.66-1.22 at T = 2 and 0.46-1.06 at T = 4, alike on
+#: every leaf (PERF.md, section 6)
+TP_FAMILY_F64_LAYERS = {"qwen2-moe-a2.7b": 2, "mamba2-370m": TP_LAYERS}
+TP_FAMILY_TAG = {"qwen2-moe-a2.7b": "tp moe", "mamba2-370m": "tp mamba2"}
+#: rows 6 and 14's counter maps on a cut leaf of each family, model rank 1's
+#: slice: (the whole leaf's shape, its cut dim). qwen2-moe-a2.7b's stacked
+#: moe_w_gate at 2 layers cut on its experts (a slice of [2, 32, 2048, 1408],
+#: 184,549,376 coordinates in two runs), mamba2-370m's conv_x cut on d_inner
+#: (192 runs of 1,024 in rows of 2,048)
+TP_FAMILY_MAPS = {"qwen2-moe-a2.7b moe_w_gate": ((2, 64, 2048, 1408), 1),
+                  "mamba2-370m ssm_conv_x": ((48, 4, 2048), 2)}
+
+
+def tp_family_maps(torch, dev="cuda", shapes=None) -> dict:
+    """Rows 6 (sparsign_pack2bit) and 14 (sparsign_golomb) with the counter
+    map of model rank 1's slice of each TP_FAMILY_MAPS leaf in bf16, bit for
+    bit against their plain versions on the same slice; row 14 at its leaf's
+    capacity drops no nonzero."""
+    from repro_torch.dist.sharding import Placement
+    from repro_torch.kernels.golomb.ops import sparsign_golomb_op
+    from repro_torch.kernels.golomb.ref import sparsign_golomb_ref
+    from repro_torch.kernels.sparsign_pack2bit.ops import sparsign_pack2bit_op
+    from repro_torch.kernels.sparsign_pack2bit.ref import sparsign_pack2bit_ref
+    from repro_torch.models import tensor_parallel as tpl
+
+    gen = torch.Generator(device=dev).manual_seed(27)
+    out = {}
+    for name, (shape, dim) in (shapes or TP_FAMILY_MAPS).items():
+        g = (torch.randn(shape, generator=gen, device=dev) * 0.01).to(torch.bfloat16)
+        cmap = tpl.slice_counter_map(shape, Placement(dim, TP_T), 1)
+        s = g.chunk(TP_T, dim=dim)[1].contiguous()
+        seed, base = 12345, (1 << 32) - 5000
+        pairs = {
+            "sparsign_pack2bit (row 6)": (
+                lambda: sparsign_pack2bit_op(s, 50.0, seed, base, counter_map=cmap),
+                lambda: sparsign_pack2bit_ref(s, 50.0, seed, base, counter_map=cmap)),
+            "sparsign_golomb (row 14)": (
+                lambda: sparsign_golomb_op(s, TP_GOLOMB_BUDGET, seed, base, p=GOLOMB_P,
+                                           counter_map=cmap, leaf_n=g.numel()),
+                lambda: sparsign_golomb_ref(s, TP_GOLOMB_BUDGET, seed, base, p=GOLOMB_P,
+                                            counter_map=cmap, leaf_n=g.numel())),
+        }
+        res = {}
+        for label, (kern, plain) in pairs.items():
+            a, b = kern(), plain()
+            err = max_abs_err(a, b)
+            check(same_bits(a, b), f"tp map {name} {label}: the slice's kernel differs from its "
+                                   f"plain version (max |err| {err})")
+            dropped = golomb_header(a)[1] if label.startswith("sparsign_golomb") else 0
+            check(dropped == 0, f"tp map {name} {label}: {dropped} nonzeros dropped")
+            res[label] = {"max_abs_err": err, "coords": s.numel(), "dropped": dropped}
+            del a, b
+        print(f"[tp] {name} slice {tuple(s.shape)} of {tuple(shape)} (counter map: run "
+              f"{cmap[0]}, leaf run {cmap[1]}, offset {cmap[2]}; {s.numel()} coordinates, a "
+              f"wrapping base): rows 6 and 14 0 bytes from their plain versions, 0 dropped")
+        out[name] = res
+        del g, s
+    return out
+
+
+def tp_family_runs(torch, one_round, totals, m, dev="cuda", map_shapes=None) -> dict:
+    """The MoE and mamba2 families under 'model' (``[tp moe]``,
+    ``[tp mamba2]``): rows 6 and 14's counter maps on their cut leaves
+    (``tp_family_maps``), then each family at its TP_FAMILY_LAYERS depth
+    (``tp_family``)."""
+    out = {"maps": tp_family_maps(torch, dev, map_shapes)}
+    for arch, tag in TP_FAMILY_TAG.items():
+        out[arch] = tp_family(torch, one_round, arch, tag, totals, m, dev)
+    return out
+
+
+def tp_family(torch, one_round, arch, tag, totals, m, dev="cuda") -> dict:
+    """One family at published widths and its TP_FAMILY_LAYERS depth (the
+    smoke config on the CPU): a launcher run at M = 4 x T = 2, one 4,096-token
+    sequence a worker, two steps of sparsign l2_norm 0.1 with majority vote
+    on allgather_packed, every plain version barred (launches counted, wire
+    bytes == the slice ledger, step times, peak); for a routed model the
+    tokens routed otherwise at T = 2 than at T = 1 on worker 0's sequence from
+    the run's first state; injected-gradient rounds from one state, T = 2
+    against T = 1: fixed sparsign on psum and on the 2-bit gather bit for
+    bit, sparsign_golomb under target_sparsity 0.05 within TP_FLIP_BOUND
+    (the bisection's float sums, printed) with no nonzero dropped; worker 0's
+    float32 gradients against float64 at TP_FAMILY_F64_LAYERS layers
+    (``tp_float64_check``)."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.analysis.drivers import tp_slice_ledger
+    from repro_torch.core.algorithm import CompressionConfig
+    from repro_torch.core.budgets import BudgetConfig
+    from repro_torch.core.compressors import tree_leaves
+    from repro_torch.dist import collectives
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.model import Model
+    from repro_torch.train import loop
+
+    where = (["--full", "--seq-len", str(TRAINER_SEQ_LEN)] if dev == "cuda"
+             else ["--device", dev, "--seq-len", "64"])
+    get_config = launch.get_config
+    base = get_config(arch, smoke=dev != "cuda")
+    layers = min(base.n_layers, TP_FAMILY_LAYERS[arch])
+
+    def cut(dtype=None, depth=layers):
+        c = dataclasses.replace(base, n_layers=depth)
+        return dataclasses.replace(c, dtype=dtype) if dtype else c
+
+    def cut_f64(dtype=None):
+        return cut(dtype, min(base.n_layers, TP_FAMILY_F64_LAYERS[arch]))
+
+    out = {}
+    args = launch.parser().parse_args(
+        ["--arch", arch, "--host-data", str(m), "--host-model", str(TP_T), "--batch", str(m),
+         "--steps", "2", "--seed", "0", "--compressor", "sparsign", "--budget-kind", "l2_norm",
+         "--budget", "0.1", "--server", "majority_vote", "--vote-impl", "allgather_packed"]
+        + where)
+    # the earlier runs' states may sit in reference cycles until a collection
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    reset_peak(torch)
+    resident = torch.cuda.memory_allocated() / 1e9 if dev == "cuda" else 0.0
+    t0 = time.perf_counter()
+    launch.get_config = lambda a, smoke=True: cut()
+    try:
+        cfg, model, group, step, state, comp = launch.build_everything(args)
+    finally:
+        launch.get_config = get_config
+    sync(torch)
+    build_s = time.perf_counter() - t0
+    pls = tree_leaves(step.placements)
+    sizes = [math.prod(sd.shape) for sd in tree_leaves(model.param_shapes())]
+    per_device = sum(n // pl.parts if pl.sharded else n for n, pl in zip(sizes, pls))
+    replicated = sum(n for n, pl in zip(sizes, pls) if not pl.sharded)
+    msgs = sum(TP_T if pl.sharded else 1 for pl in pls)
+    ledger = float(np.float32(tp_slice_ledger(step, model)))
+    whole_ledger = float(np.float32(sum(collectives.uplink_ledger(step.mode, step.wire, n)
+                                        for n in sizes)))
+    batch_fn = launch.batch_fn_for(cfg, args)
+    flips = None
+    if cfg.n_experts:   # routing at T = 2 against T = 1, worker 0, the first state
+        one = {k: torch.as_tensor(v[:1]).to(dev) for k, v in batch_fn(0).items()}
+        with torch.no_grad():
+            with moe_lib.record_routes() as r2:
+                step.tp_model.forward_hidden(state.params, one)
+            whole = step.whole_state(state).params
+            with moe_lib.record_routes() as r1:
+                model.forward_hidden(whole, one)
+            del whole, one
+        flips = moe_lib.route_flips(r1, r2)
+        flips["routed_tokens"] = cfg.n_layers * args.seq_len
+        flips["expert_selections"] = cfg.n_layers * cfg.n_experts_padded
+        del r1, r2
+    kernels.reset_launch_counts()
+    with plain_versions_barred():
+        state, history = loop.run(step, state, batch_fn,
+                                  loop.LoopConfig(total_steps=2, log_every=1),
+                                  log=lambda line: None)
+    sync(torch)
+    counts = kernels.launch_counts()
+    want = expected(sparsign_pack2bit=msgs * m * 2, unpack2bit_sum=msgs * 2,
+                    vote_update=msgs * 2)
+    check(counts == want, f"{tag}: launches {counts}, expected {want}")
+    for k in totals:
+        totals[k] += counts[k]
+    walls = [h["wall_s"] for h in history]
+    step_s = [b - a for a, b in zip([0.0] + walls[:-1], walls)]
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" else 0.0
+    for h in history:
+        check(math.isfinite(h["loss"]), f"{tag}: non-finite loss {h['loss']}")
+        check(h["wire_bytes_per_device"] == ledger,
+              f"{tag}: wire bytes {h['wire_bytes_per_device']} != the slice ledger {ledger}")
+    check(all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params)),
+          f"{tag}: non-finite parameters")
+    out["launcher"] = {"layers": cfg.n_layers, "workers": m, "model_ranks": TP_T,
+                       "tokens_per_worker": args.seq_len, "parameters": sum(sizes),
+                       "coordinates_a_device": per_device, "replicated": replicated,
+                       "messages_a_worker": msgs, "build_s": build_s, "step_s": step_s,
+                       "resident_gb": resident, "peak_gb": peak,
+                       "loss": [h["loss"] for h in history],
+                       "nnz_frac": [h["nnz_frac"] for h in history],
+                       "nnz_dropped": [h.get("nnz_dropped") for h in history],
+                       "wire_bytes_per_device": ledger, "whole_leaf_ledger": whole_ledger,
+                       "route_flips": flips, "launches": counts}
+    print(f"[{tag}] {cfg.name} {cfg.n_layers} layers at d_model {cfg.d_model}, M = {m} x "
+          f"T = {TP_T} ({sum(sizes)} parameters, {per_device} coordinates a device of which "
+          f"{replicated} replicated, {msgs} messages a worker), {args.seq_len} tokens a worker: "
+          f"build {build_s:.2f} s, steps {[round(x, 3) for x in step_s]} s, peak {peak:.2f} GB "
+          f"({resident:.2f} GB resident before the build), "
+          f"losses {[round(h['loss'], 6) for h in history]}, nnz "
+          f"{[round(h['nnz_frac'], 6) for h in history]}, wire bytes {ledger:.10g} (== the "
+          f"slice ledger; whole leaves {whole_ledger:.10g}), nnz_dropped "
+          f"{[h.get('nnz_dropped', '-') for h in history]} (the 2-bit wire drops none), "
+          + (f"routing flips T = {TP_T} against T = 1: {flips['tokens']} of "
+             f"{flips['routed_tokens']} tokens' top-{cfg.top_k} sets, {flips['selections']} "
+             f"of {flips['expert_selections']} experts' capacity selections, " if flips else "")
+          + f"launches { {k: v for k, v in counts.items() if v} }")
+    del step, state, model, history
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # injected gradients: T = 2 against T = 1 from one state and one batch
+    model = Model(cut())
+    net = InjectedGrads(model)
+    leaves = len(tree_leaves(model.param_shapes()))
+    pls = tree_leaves(net.tensor_parallel(make_host_mesh(m, TP_T).model).placements)
+    msgs = sum(TP_T if pl.sharded else 1 for pl in pls)
+    params = model.init(3, dev)
+    p0 = tree_leaves(params)
+    batch = tp_injected_batch(torch, model, m, 11, dev)
+    fixed = CompressionConfig(compressor="sparsign", budget=BudgetConfig(value=2.0),
+                              server="majority_vote")
+    golomb = CompressionConfig(compressor="sparsign_golomb",
+                               budget=BudgetConfig(kind="target_sparsity", value=GOLOMB_P),
+                               server="majority_vote")
+    injected = out["injected"] = {}
+    for label, comp, impl, kern, exact in (
+            ("fixed psum", fixed, "psum", {"sparsign": 1, "vote_update": 1}, True),
+            ("fixed allgather_packed", fixed, "allgather_packed",
+             {"sparsign_pack2bit": 1, "unpack2bit_sum": 1, "vote_update": 1}, True),
+            ("sparsign_golomb target_sparsity allgather_packed", golomb, "allgather_packed",
+             {"sparsign_golomb": 1, "ungolomb_sum": 1, "vote_update": 1}, False)):
+        res, mets = {}, {}
+        for t, n in ((1, leaves), (TP_T, msgs)):
+            whole, metrics, counts, step = one_round(
+                net, comp, impl, t, tree_unflatten_like(model, [p.clone() for p in p0]), batch)
+            want = expected(**{k: n * (m if k.startswith("sparsign") else 1) for k in kern})
+            check(counts == want, f"{tag} injected {label} T = {t}: launches {counts}, "
+                                  f"expected {want}")
+            if t > 1:
+                for k in totals:
+                    totals[k] += counts[k]
+                ledger = float(np.float32(tp_slice_ledger(step, net)))
+                check(metrics["wire_bytes_per_device"] == ledger,
+                      f"{tag} injected {label}: wire bytes {metrics['wire_bytes_per_device']} "
+                      f"!= the slice ledger {ledger}")
+            check(metrics.get("nnz_dropped", 0.0) == 0.0,
+                  f"{tag} injected {label} T = {t}: {metrics.get('nnz_dropped')} nonzeros "
+                  f"dropped")
+            res[t], mets[t] = whole, metrics
+            del step
+        a, b = tree_leaves(res[TP_T].params), tree_leaves(res[1].params)
+        size = sum(x.numel() for x in a)
+        differ = sum(int((bits(x) != bits(y)).sum()) for x, y in zip(a, b))
+        moved = sum(int(((x != p) | (y != p)).sum()) for x, y, p in zip(a, b, p0))
+        flipped = float_flips(torch, a, b, p0)
+        if exact:
+            check(differ == 0, f"{tag} injected {label}: T = {TP_T} differs from T = 1 in "
+                               f"{differ} coordinates")
+        else:
+            check(flipped <= TP_FLIP_BOUND * size,
+                  f"{tag} injected {label}: {flipped} of {size} coordinates differ from T = 1 "
+                  f"beyond float noise (bound {TP_FLIP_BOUND})")
+        injected[label] = {"differ": differ, "flips": flipped, "updated": moved, "coords": size,
+                           "wire_bytes_t1": mets[1]["wire_bytes_per_device"],
+                           "wire_bytes_t2": mets[TP_T]["wire_bytes_per_device"],
+                           "nnz_dropped": mets[TP_T].get("nnz_dropped")}
+        print(f"[{tag}] {layers} layers, injected gradients, {label}: T = {TP_T} against T = 1 "
+              f"{differ} of {size} coordinates differ in any bit, {flipped} beyond float noise "
+              f"({moved} updated); wire bytes T = {TP_T} "
+              f"{mets[TP_T]['wire_bytes_per_device']:.10g} (the slice ledger), T = 1 "
+              f"{mets[1]['wire_bytes_per_device']:.10g}; nnz_dropped "
+              f"{mets[TP_T].get('nnz_dropped', '-')}")
+        del res
+    del batch, params, p0, net, model
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    out["float64"] = tp_float64_check(torch, cut_f64, dev, batch_fn(0), tag=tag,
+                                      floor=TP_F64_FLOOR)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def tree_unflatten_like(model, leaves):

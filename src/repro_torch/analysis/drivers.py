@@ -103,6 +103,32 @@ def tiny_model():
     return Model(cfg)
 
 
+def tiny_moe_model():
+    """The tiny model with routed experts (3 real, padded to 4: model rank 1
+    of two holds the null one) and a shared expert."""
+    from repro_torch.configs.base import LayerSpec, ModelConfig
+    from repro_torch.models.model import Model
+    cfg = ModelConfig(name="analysis-tiny-moe", family="moe", n_layers=2, d_model=32,
+                      n_heads=4, n_kv_heads=2, d_ff=16, vocab_size=64,
+                      pattern=(LayerSpec(mixer="attn", moe=True),), n_experts=3,
+                      n_experts_padded=4, top_k=2, moe_d_ff=16, n_shared_experts=1,
+                      capacity_factor=2.0, dtype="float32", attn_chunk=8, q_chunk=8,
+                      loss_chunk=8, remat=False)
+    return Model(cfg)
+
+
+def tiny_mamba_model():
+    """A tiny mamba2 stack: mixer-only blocks of 4 heads, tied embeddings."""
+    from repro_torch.configs.base import LayerSpec, ModelConfig
+    from repro_torch.models.model import Model
+    cfg = ModelConfig(name="analysis-tiny-mamba2", family="ssm", n_layers=2, d_model=32,
+                      n_heads=1, n_kv_heads=1, d_ff=0, vocab_size=64,
+                      pattern=(LayerSpec(mixer="mamba", ffn=False),), ssm_state=8,
+                      ssm_head_dim=16, ssm_chunk=4, tie_embeddings=True, dtype="float32",
+                      loss_chunk=8, remat=False)
+    return Model(cfg)
+
+
 def tiny_batch(vocab: int, b: int, s: int = 8, seed: int = 0) -> dict:
     rng = np.random.RandomState(seed)
     return {"inputs": rng.randint(0, vocab, (b, s)).astype(np.int32),
@@ -304,7 +330,9 @@ def run_census_checks(m: int = HYPOTHETICAL_M, device: str = "cuda") -> tuple:
 #: Golomb gather (a slice's capacity: its whole leaf's nonzeros), the elastic
 #: 2-bit gather; the bucketed uplink over the slice plan on the 2-bit and
 #: Golomb gathers, the per-leaf 2-bit ring, and the bucketed Golomb and pack8
-#: rings
+#: rings; the 2-bit gather on the tiny MoE model (experts on 'model') and the
+#: tiny mamba2 model (its mixer split by heads). ``TP_MODELS`` names a setup's
+#: model where it is not ``tiny_model``
 TP_M, TP_T = 4, 2
 TP_SETUPS = {
     "psum": ("votes", "psum", False, {}),
@@ -318,7 +346,10 @@ TP_SETUPS = {
                              {"bucketed": True, "ring_chunk_rows": RING_SWEEP_CHUNK_ROWS}),
     "ring_bucketed_pack8": ("pack8", "allgather_packed", False,
                             {"bucketed": True, "ring_chunk_rows": RING_SWEEP_CHUNK_ROWS}),
+    "moe": ("votes", "allgather_packed", False, {}),
+    "mamba2": ("votes", "allgather_packed", False, {}),
 }
+TP_MODELS = {"moe": tiny_moe_model, "mamba2": tiny_mamba_model}
 
 
 @functools.lru_cache(maxsize=None)
@@ -330,7 +361,7 @@ def run_tp_step(setup: str, device: str = "cuda"):
     from repro_torch.train.step_simple import TrainStepConfig, build_train_step
 
     mode, vote_impl, elastic, options = TP_SETUPS[setup]
-    model = tiny_model()
+    model = TP_MODELS.get(setup, tiny_model)()
     step = build_train_step(model, TrainStepConfig(
         compression=mode_comp(mode), lr=LrSchedule(base=0.05), vote_impl=vote_impl,
         participation=participation_spec() if elastic else None, **options),
@@ -385,7 +416,9 @@ def run_tp_census_checks(device: str = "cuda") -> tuple:
     recorded wire bytes == the slice ledger, payload and billed scalars, and
     a note of the 'model' axis's own reductions (role ``tp``: the ordered
     all-reduces of the row-parallel partials, the embedding, the loss and
-    the whole-leaf statistics), which the uplink ledger does not bill."""
+    the whole-leaf statistics; the MoE FFN's expert partials; the mamba2
+    mixer's gated-norm sums of squares, counted apart by their
+    ``CollectiveRecord.what``), which the uplink ledger does not bill."""
     rule = CollectiveCensus()
     findings, checks = [], 0
     for setup in TP_SETUPS:
@@ -397,12 +430,17 @@ def run_tp_census_checks(device: str = "cuda") -> tuple:
                                    ledger_scalar=scalar)
             checks += 1
         tp = census.tp_records()
+        named = {}
+        for r in tp:
+            if r.what:
+                named[r.what] = named.get(r.what, 0) + 1
+        among = "".join(f", {n} of them the {what}" for what, n in sorted(named.items()))
         findings.append(rule.finding(
             f"step[tp {TP_M}x{TP_T} {setup}]",
             f"{len(tp)} reductions over 'model' (role tp: {len(tp)} calls, "
             f"{sum(r.ring_bytes() for r in tp):.1f} B billed as all-reduces, "
             f"{sum(r.moved_bytes() for r in tp):.1f} B moved as rank-order gathers between "
-            f"processes), not in the uplink ledger", severity="info"))
+            f"processes{among}), not in the uplink ledger", severity="info"))
     return findings, checks
 
 

@@ -187,7 +187,8 @@ class CollectiveRecord:
     shipped all zeros. ``model_ranks``: under tensor parallelism, the model
     ranks whose devices this call stands for (one for a slice's exchange,
     every local rank for a replicated leaf's, which one process makes once);
-    role ``tp`` is a reduction over 'model' itself."""
+    role ``tp`` is a reduction over 'model' itself, ``what`` naming the
+    ones a census notes apart (the gated norm's sums of squares)."""
 
     primitive: str
     in_elems: int
@@ -199,6 +200,7 @@ class CollectiveRecord:
     zero_workers: tuple = ()
     moved: str = ""
     model_ranks: tuple = ()   # the model ranks whose devices make the call (): all
+    what: str = ""
 
     def _bytes(self, primitive: str) -> float:
         m = self.n_workers
@@ -431,7 +433,8 @@ class ModelGroup:
         return range(self.offset, self.offset + self.local)
 
 
-def _record_tp(primitive: str, parts: Sequence[torch.Tensor], mg: ModelGroup) -> None:
+def _record_tp(primitive: str, parts: Sequence[torch.Tensor], mg: ModelGroup,
+               what: str = "") -> None:
     """Record one 'model'-axis reduction (role ``tp``: neither the uplink
     ledger nor a protocol scalar): one rank's operand, over T ranks."""
     t0 = parts[0]
@@ -439,7 +442,7 @@ def _record_tp(primitive: str, parts: Sequence[torch.Tensor], mg: ModelGroup) ->
                            in_bytes=t0.numel() * t0.element_size(),
                            dtype=str(t0.dtype).split(".")[-1], n_workers=mg.size, role="tp",
                            first_worker=mg.offset,
-                           moved="all_gather" if primitive == "psum" else "")
+                           moved="all_gather" if primitive == "psum" else "", what=what)
     for census in _CENSUSES:
         census.add(rec)
 
@@ -455,13 +458,13 @@ def tp_gather(parts: Sequence[torch.Tensor], mg: ModelGroup) -> list:
     return list(out.unbind(0))
 
 
-def tp_sum(parts: Sequence[torch.Tensor], mg: ModelGroup) -> torch.Tensor:
+def tp_sum(parts: Sequence[torch.Tensor], mg: ModelGroup, what: str = "") -> torch.Tensor:
     """The ordered all-reduce over 'model': ``parts`` holds one partial a
     local rank; every rank's is gathered, then they are added in rank order
     (((p0 + p1) + p2) + ...), the same bits in any process layout. Recorded
-    as a ``psum`` of role ``tp``."""
+    as a ``psum`` of role ``tp`` (``what``: ``CollectiveRecord.what``)."""
     if _CENSUSES:
-        _record_tp("psum", parts, mg)
+        _record_tp("psum", parts, mg, what)
     every = tp_gather(parts, mg)
     acc = every[0]
     for x in every[1:]:

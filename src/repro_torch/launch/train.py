@@ -18,12 +18,14 @@ streamed trainer re-cuts its slices from them), and majority-vote state has
 no per-worker terms. An M-RoPE model's batch carries ``positions3``, the
 three position streams equal to ``positions``, as JAX's launcher builds it.
 ``--host-model T`` adds a
-tensor-parallel 'model' axis of T ranks (the simple trainer's dense
-attention families, with every compressor, wire, budget and server, elastic
-participation, local steps, ``--bucketed`` with or without
+tensor-parallel 'model' axis of T ranks (every ``simple``-mode family: the
+dense attention ones, the MoE ones with their experts on 'model', mamba2
+with its mixer split by heads; every compressor, wire, budget and server,
+elastic participation, local steps, ``--bucketed`` with or without
 ``--bucket-bytes``, and ``--ring``; ``train.step_tp``); its checkpoints
 hold whole leaves, so a run resumes at another T or M. What is not ported
-yet raises: a launch on the production meshes.
+yet raises: a launch on the production meshes, the streamed trainer under
+T > 1.
 """
 
 from __future__ import annotations

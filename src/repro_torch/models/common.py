@@ -10,10 +10,14 @@ import torch
 import torch.nn.functional as F
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """x / rms(x) * (1 + scale), computed in float32 and cast back to x's dtype."""
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             var: torch.Tensor | None = None) -> torch.Tensor:
+    """x / rms(x) * (1 + scale), computed in float32 and cast back to x's dtype.
+    ``var``, where given, is the float32 mean square to divide by: a norm
+    whose last axis is cut over model ranks takes the whole width's."""
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if var is None:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
     return (normed * (1.0 + scale.to(torch.float32))).to(x.dtype)
 

@@ -161,31 +161,49 @@ def ssd_chunked(x, dt, a_log, b_mat, c_mat, d_skip, dims: MambaDims, init_state=
     return y, state
 
 
+def head_inputs(params: dict, hidden: torch.Tensor, conv_in_bc=None):
+    """What every head reads: B and C through their projection and causal
+    convolution, and dt (float32, with its bias). Returns (bc_conv
+    [B, S, 2n], dt [B, S, H], the convolution's tail)."""
+    bc_conv, tail_bc = _causal_conv(hidden @ params["w_bc"], params["conv_bc"],
+                                    params["conv_b_bc"], conv_in_bc)
+    dt = (hidden @ params["w_dt"]).to(torch.float32) + params["dt_bias"]
+    return bc_conv, dt, tail_bc
+
+
+def gated_heads(params: dict, hidden: torch.Tensor, bc_conv: torch.Tensor, dt: torch.Tensor,
+                a_log: torch.Tensor, d_skip: torch.Tensor, dims: MambaDims, conv_in_x=None,
+                ssd_init=None):
+    """The heads of ``dims`` (all of them, or one model rank's), ungated by
+    the norm: z's and x's projections, x's convolution, the SSD scan on
+    those heads' columns of ``dt``, ``a_log`` and ``d_skip``, times silu(z).
+    Returns (y [B, S, di] in hidden's dtype, x's convolution tail, the final
+    state)."""
+    bsz, s, _ = hidden.shape
+    n = dims.d_state
+    z = hidden @ params["w_z"]                                 # [B, S, di]
+    x_conv, tail_x = _causal_conv(hidden @ params["w_x"], params["conv_x"],
+                                  params["conv_b_x"], conv_in_x)
+    x = x_conv.reshape(bsz, s, dims.n_heads, dims.head_dim)
+    y, final_state = ssd_chunked(x, dt, a_log, bc_conv[..., :n], bc_conv[..., n:], d_skip,
+                                 dims, ssd_init)
+    y = y.reshape(bsz, s, dims.d_inner).to(hidden.dtype)
+    return y * F.silu(z.to(torch.float32)).to(y.dtype), tail_x, final_state
+
+
 def mamba_forward(params: dict, hidden: torch.Tensor, dims: MambaDims, conv_init=None,
                   ssd_init=None, return_cache: bool = False):
     """The full mixer: projections -> conv -> SSD -> gated norm -> out_proj.
 
     hidden: [B, S, Dm]; conv_init: [B, K-1, di + 2n]. Returns out [B, S, Dm]
     (and (conv_tail, final_state) with ``return_cache``)."""
-    bsz, s, _ = hidden.shape
-    di, n = dims.d_inner, dims.d_state
-    z = hidden @ params["w_z"]                                 # [B, S, di]
-    x_raw = hidden @ params["w_x"]
-    bc_raw = hidden @ params["w_bc"]
-    dt = (hidden @ params["w_dt"]).to(torch.float32) + params["dt_bias"]
-
+    di = dims.d_inner
     conv_in_x = conv_init[..., :di] if conv_init is not None else None
     conv_in_bc = conv_init[..., di:] if conv_init is not None else None
-    x_conv, tail_x = _causal_conv(x_raw, params["conv_x"], params["conv_b_x"], conv_in_x)
-    bc_conv, tail_bc = _causal_conv(bc_raw, params["conv_bc"], params["conv_b_bc"], conv_in_bc)
-
-    x = x_conv.reshape(bsz, s, dims.n_heads, dims.head_dim)
-    b_mat, c_mat = bc_conv[..., :n], bc_conv[..., n:]
-    y, final_state = ssd_chunked(x, dt, params["A_log"], b_mat, c_mat, params["D"], dims,
-                                 ssd_init)
-    y = y.reshape(bsz, s, di).to(hidden.dtype)
-    y = rms_norm(y * F.silu(z.to(torch.float32)).to(y.dtype), params["norm"])
-    out = y @ params["w_out"]
+    bc_conv, dt, tail_bc = head_inputs(params, hidden, conv_in_bc)
+    y, tail_x, final_state = gated_heads(params, hidden, bc_conv, dt, params["A_log"],
+                                         params["D"], dims, conv_in_x, ssd_init)
+    out = rms_norm(y, params["norm"]) @ params["w_out"]
     if return_cache:
         return out, (torch.cat([tail_x, tail_bc], dim=-1), final_state)
     return out

@@ -20,10 +20,15 @@ sums each token's contributions in ascending expert order into float32
 zeros, one expert at a time with no repeated index inside a write, so no
 float atomics run: a step gives the same bits on every run on the card. The
 gather's backward is that same sum, and the combine's backward a gather.
+
+``record_routes()`` notes each routed FFN's choices (the top-k experts a
+token, the tokens an expert takes) inside its block; ``route_flips`` counts
+where two runs' choices part.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -75,10 +80,57 @@ def _topk_gates(probs: torch.Tensor, dims: MoEDims):
     return gate_vals, expert_idx
 
 
+_ROUTES: list = []   # the open record_routes blocks' logs, innermost last
+
+
+@contextlib.contextmanager
+def record_routes():
+    """Inside the block every routed FFN appends its choices to the yielded
+    list, in call order: ("experts", [T, k] expert indices) at the top-k
+    gates, ("tokens", [E, C] token indices) at the gather's capacity
+    selection. A remat'ed block records again when its backward recomputes
+    it: record a forward under ``torch.no_grad``."""
+    log: list = []
+    _ROUTES.append(log)
+    try:
+        yield log
+    finally:
+        _ROUTES.pop()
+
+
+def _record(kind: str, idx: torch.Tensor) -> None:
+    for log in _ROUTES:
+        log.append((kind, idx.detach().clone()))
+
+
+def route_flips(a: list, b: list) -> dict:
+    """Where two ``record_routes`` logs of the same model and batch part:
+    ``tokens``, the (layer, token) pairs whose top-k expert set differs;
+    ``selections``, the (layer, expert) pairs whose capacity selection takes
+    another set of tokens."""
+    if [k for k, _ in a] != [k for k, _ in b]:
+        raise ValueError("the two logs record different routed FFNs")
+    out = {"tokens": 0, "selections": 0}
+    for (kind, x), (_, y) in zip(a, b):
+        key = "tokens" if kind == "experts" else "selections"
+        differ = x.sort(-1).values.cpu() != y.sort(-1).values.cpu()
+        out[key] += int(differ.any(-1).sum())
+    return out
+
+
 def _gate_matrix(probs: torch.Tensor, dims: MoEDims) -> torch.Tensor:
     """[T, E_padded] float32: each token's top-k gates, 0 where not routed."""
     gate_vals, expert_idx = _topk_gates(probs, dims)
+    _record("experts", expert_idx)
     return torch.zeros_like(probs).scatter(1, expert_idx, gate_vals)
+
+
+def capacity_select(assign: torch.Tensor, dims: MoEDims):
+    """assign [T, E_padded] gates -> (sel_gate, sel_tok) [E, C]: each
+    expert's top-C tokens by gate, C = ``capacity``."""
+    sel_gate, sel_tok = top_k(assign.T, capacity(dims, assign.shape[0]))
+    _record("tokens", sel_tok)
+    return sel_gate, sel_tok
 
 
 def _sum_per_token(rows: torch.Tensor, sel: torch.Tensor, n_tokens: int) -> torch.Tensor:
@@ -128,24 +180,49 @@ def _expert_ffn(xin: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     return torch.bmm(h, w_down)
 
 
-def moe_ffn_gather(params: dict, x: torch.Tensor, dims: MoEDims) -> torch.Tensor:
-    """x [T, Dm] -> [T, Dm]."""
-    t = x.shape[0]
-    assign = _gate_matrix(router_probs(x, params["router"], dims), dims)
-    c = capacity(dims, t)
-    sel_gate, sel_tok = top_k(assign.T, c)      # [E, C]: each expert's top-C tokens
+def route(x: torch.Tensor, w_router: torch.Tensor, dims: MoEDims) -> torch.Tensor:
+    """x [T, Dm] -> [T, E_padded] float32: each token's top-k gates, 0 where
+    not routed."""
+    return _gate_matrix(router_probs(x, w_router, dims), dims)
+
+
+def routed_partial(params: dict, x: torch.Tensor, sel_gate: torch.Tensor,
+                   sel_tok: torch.Tensor) -> torch.Tensor:
+    """The gather's experts on their capacity selections: ``params``'
+    ``w_gate``/``w_up``/``w_down`` hold E' experts and ``sel_gate``/``sel_tok``
+    their rows [E', C]; x [T, Dm] -> [T, Dm] float32, the combine of those
+    experts' outputs (all experts, or a range of them: expert parallelism
+    sums the ranges' partials)."""
     xin = _Dispatch.apply(x, sel_tok)
     out = _expert_ffn(xin.to(x.dtype), params["w_gate"], params["w_up"], params["w_down"])
     out = out * (sel_gate * (sel_gate > 0.0))[..., None].to(out.dtype)
-    return _Combine.apply(out.to(torch.float32), sel_tok, t).to(x.dtype)
+    return _Combine.apply(out.to(torch.float32), sel_tok, x.shape[0])
+
+
+def moe_ffn_gather(params: dict, x: torch.Tensor, dims: MoEDims) -> torch.Tensor:
+    """x [T, Dm] -> [T, Dm]."""
+    sel_gate, sel_tok = capacity_select(route(x, params["router"], dims), dims)   # [E, C]
+    return routed_partial(params, x, sel_gate, sel_tok).to(x.dtype)
+
+
+def dense_partial(params: dict, x: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
+    """The oracle's experts on every token: ``params``' E' experts and their
+    columns of the gates [T, E'] -> [T, Dm] float32."""
+    outs = swiglu(torch.matmul(x, params["w_gate"]), torch.matmul(x, params["w_up"]))
+    outs = torch.matmul(outs, params["w_down"])     # [E', T, Dm]
+    return torch.einsum("te,etd->td", gates, outs.to(torch.float32))
 
 
 def moe_ffn_dense(params: dict, x: torch.Tensor, dims: MoEDims) -> torch.Tensor:
     """The oracle: every expert on every token, top-k gates, no drops."""
-    gates = _gate_matrix(router_probs(x, params["router"], dims), dims)
-    outs = swiglu(torch.matmul(x, params["w_gate"]), torch.matmul(x, params["w_up"]))
-    outs = torch.matmul(outs, params["w_down"])     # [E, T, Dm]
-    return torch.einsum("te,etd->td", gates, outs.to(torch.float32)).to(x.dtype)
+    return dense_partial(params, x, route(x, params["router"], dims)).to(x.dtype)
+
+
+def shared_expert(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The always-on shared expert's SwiGLU (``shared_*``, whole or a column
+    slice of its hidden width)."""
+    return swiglu(x @ params["shared_w_gate"], x @ params["shared_w_up"]) @ \
+        params["shared_w_down"]
 
 
 def moe_ffn(params: dict, x: torch.Tensor, dims: MoEDims, impl: str = "gather") -> torch.Tensor:
@@ -153,8 +230,7 @@ def moe_ffn(params: dict, x: torch.Tensor, dims: MoEDims, impl: str = "gather") 
     fn = moe_ffn_gather if impl == "gather" else moe_ffn_dense
     y = fn(params, x, dims)
     if "shared_w_gate" in params:
-        shared = swiglu(x @ params["shared_w_gate"], x @ params["shared_w_up"])
-        y = y + shared @ params["shared_w_down"]
+        y = y + shared_expert(params, x)
     return y
 
 

@@ -1,5 +1,6 @@
-"""Tensor parallelism on the 'model' axis: Megatron's split of the dense
-attention families, driven by ``dist.sharding.tp_param_placements``.
+"""Tensor parallelism on the 'model' axis: Megatron's split of the attention
+and dense FFN blocks, expert parallelism for the routed experts and a split
+by heads of the mamba2 mixer, driven by ``dist.sharding.tp_param_placements``.
 
 Parameters sit in the *TP layout*: a leaf the placement cuts on 'model' is a
 tensor of this process's model slices stacked on a new leading axis
@@ -15,11 +16,27 @@ The split (``TPModel.loss``):
 - row-parallel: ``wo``, ``w_down`` and ``w2``, each followed by the ordered
   all-reduce (``collectives.tp_sum``); ``b2`` and the norms are replicated,
   ``b2`` added after the reduce;
+- the routed experts (``moe_w_*``, cut on the expert axis: rank m holds
+  experts [m E/T, (m + 1) E/T) of the E padded ones): the router, the top-k
+  gates and each expert's capacity selection run once on the replicated
+  input; each rank dispatches its experts' selections, runs them and
+  combines into its own float32 zeros, the partials reduced over 'model'.
+  The gates reach each rank through ``tp_copy``, so the router's gradient
+  is the ordered sum of the ranks' and whole on every process. The shared
+  expert is a column/row-parallel SwiGLU over its ``ff`` cut;
+- the mamba2 mixer, split by heads: ``w_z``, ``w_x``, ``conv_x``,
+  ``conv_b_x``, ``norm`` and ``w_out`` are cut on d_inner (heads
+  [m H/T, (m + 1) H/T) a rank); ``w_bc``, ``w_dt``, their convolution and
+  ``dt`` run once on the replicated input, and each rank reads its heads'
+  columns of ``dt``, ``A_log`` and ``D`` from ``tp_copy`` aliases. The gated
+  RMSNorm averages over the whole d_inner: each rank's sum of squares is
+  reduced in rank order and divided by the whole width; ``w_out`` is
+  row-parallel;
 - vocab-parallel embedding: each rank looks up the ids of its slice, the
   rest masked to zero, then the all-reduce;
 - vocab-parallel head and cross-entropy: the max (exact), the sum of
   exponentials and the target logit are reduced over 'model'; tied
-  embeddings (gemma3) use the embedding's slice as the head;
+  embeddings (gemma3, mamba2) use the embedding's slice as the head;
 - a leaf cut off head boundaries (granite-34b's single kv head at T = 2,
   128 columns into halves of 64) is all-gathered over 'model' before use
   and its part computed replicated on each rank, every rank taking the kv
@@ -32,9 +49,9 @@ reverse); ``tp_gather_leaf``'s backward is the ordered sum cut back to the
 slices. A process runs its model ranks one after another inside each
 block, in lockstep, so one process and several give the same bits.
 
-Not ported yet under T > 1 (they raise): MoE blocks (the 'expert' axis is
-expert parallelism), mamba2 blocks, query heads or FFN widths or
-vocabularies the model axis does not divide.
+Not ported yet under T > 1 (they raise): query heads, mamba heads, padded
+experts, FFN or shared-expert widths or vocabularies the model axis does
+not divide.
 """
 
 from __future__ import annotations
@@ -51,13 +68,18 @@ from repro_torch.dist import collectives
 from repro_torch.dist.collectives import ModelGroup
 from repro_torch.dist.sharding import MeshDesc, tp_param_placements
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.blocks import _rope_qk
+from repro_torch.models import mamba2
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.blocks import _rope_qk, _sub_params, mamba_dims, moe_dims
 from repro_torch.models.common import gelu, rms_norm, swiglu
 
 # the block leaves each rank holds a slice of, and how the split uses them
 COLUMN = ("wq", "wk", "wv", "bq", "bk", "bv", "w_gate", "w_up", "w1", "b1")
 ROW = ("wo", "w_down", "w2")
 KV_LEAVES = ("wk", "wv", "bk", "bv")
+EXPERT = ("moe_w_gate", "moe_w_up", "moe_w_down")
+SHARED = ("moe_shared_w_gate", "moe_shared_w_up", "moe_shared_w_down")
+MAMBA_CUT = ("ssm_w_z", "ssm_w_x", "ssm_conv_x", "ssm_conv_b_x", "ssm_norm", "ssm_w_out")
 
 
 def not_ported(what: str) -> NotImplementedError:
@@ -90,13 +112,13 @@ class _Reduce(torch.autograd.Function):
     backward: the output's gradient to every partial."""
 
     @staticmethod
-    def forward(ctx, mg, *parts):
+    def forward(ctx, mg, what, *parts):
         ctx.n = len(parts)
-        return collectives.tp_sum(parts, mg)
+        return collectives.tp_sum(parts, mg, what)
 
     @staticmethod
     def backward(ctx, grad):
-        return (None,) + (grad,) * ctx.n
+        return (None, None) + (grad,) * ctx.n
 
 
 class _GatherLeaf(torch.autograd.Function):
@@ -124,8 +146,8 @@ def tp_copy(x: torch.Tensor, mg: ModelGroup) -> tuple:
     return _Copy.apply(x, mg, mg.local)
 
 
-def tp_reduce(parts, mg: ModelGroup) -> torch.Tensor:
-    return _Reduce.apply(mg, *parts)
+def tp_reduce(parts, mg: ModelGroup, what: str = "") -> torch.Tensor:
+    return _Reduce.apply(mg, what, *parts)
 
 
 def tp_gather_leaf(slices, mg: ModelGroup, dim: int) -> tuple:
@@ -196,30 +218,43 @@ class TPModel:
         self.model, self.cfg, self.mg = model, cfg, mg
         t = mg.size
         self.placements = placements_for(model, t)
-        for spec in tuple(cfg.pattern) + tuple(cfg.tail_pattern):
-            if spec.mixer != "attn":
+        specs = tuple(cfg.pattern) + tuple(cfg.tail_pattern)
+        for spec in specs:
+            if spec.mixer not in ("attn", "mamba"):
                 raise not_ported(f"a {spec.mixer} block ({cfg.name})")
-            if spec.moe:
-                raise not_ported(f"the MoE FFN's expert parallelism ({cfg.name})")
-        if cfg.n_heads % t:
+        attn = any(spec.mixer == "attn" for spec in specs)
+        if attn and cfg.n_heads % t:
             raise not_ported(f"{cfg.n_heads} query heads over {t} model ranks ({cfg.name})")
+        if any(spec.mixer == "mamba" for spec in specs) and cfg.ssm_heads % t:
+            raise not_ported(f"{cfg.ssm_heads} mamba heads over {t} model ranks ({cfg.name})")
+        if any(spec.moe and spec.ffn for spec in specs):
+            self.moe_dims = moe_dims(cfg)
+            if self.moe_dims.n_experts_padded % t:
+                raise not_ported(f"{self.moe_dims.n_experts_padded} experts (padded) over {t} "
+                                 f"model ranks ({cfg.name})")
         shapes = model.param_shapes()
         pls = self.placements
         for bp, bpl in zip(tuple(shapes["blocks"]) + tuple(shapes.get("tail", ())),
                            tuple(pls["blocks"]) + tuple(pls.get("tail", ()))):
             for name, pl in bpl.items():
-                if name in COLUMN + ROW and not pl.sharded:
+                if name in COLUMN + ROW + EXPERT + SHARED + MAMBA_CUT and not pl.sharded:
                     raise not_ported(f"a replicated {name} of {tuple(bp[name].shape)} "
                                      f"({cfg.name})")
         for name in ("embed", "lm_head"):
             if name in pls and not pls[name].sharded:
                 raise not_ported(f"a vocabulary of {cfg.vocab_size} over {t} ranks")
         self.kv_split = cfg.n_kv_heads % t == 0
-        self.heads = cfg.n_heads // t
-        self.rcfg = dataclasses.replace(
-            cfg, n_heads=self.heads,
-            n_kv_heads=cfg.n_kv_heads // t if self.kv_split else self.heads,
-            d_ff=cfg.d_ff // t)
+        self.rcfg = cfg
+        if attn:
+            self.heads = cfg.n_heads // t
+            self.rcfg = dataclasses.replace(
+                cfg, n_heads=self.heads,
+                n_kv_heads=cfg.n_kv_heads // t if self.kv_split else self.heads,
+                d_ff=cfg.d_ff // t)
+        if any(spec.mixer == "mamba" for spec in specs):
+            md = mamba_dims(cfg)
+            self.mamba_dims = dataclasses.replace(md, d_inner=md.d_inner // t,
+                                                  n_heads=md.n_heads // t)
 
     # ------------------------------------------------------------ layers
 
@@ -247,10 +282,31 @@ class TPModel:
         return layers
 
     def _block(self, spec, rep, ranks, dims, h, positions, positions3):
-        cfg, rcfg, mg = self.cfg, self.rcfg, self.mg
-        b, s, _ = h.shape
-        hd = cfg.head_dim
+        cfg, mg = self.cfg, self.mg
         x = rms_norm(h, rep["ln1"], cfg.norm_eps)
+        if spec.mixer == "mamba":
+            h = h + self._mamba(rep, ranks, x)
+        else:
+            h = h + self._attention(spec, ranks, dims, x, positions, positions3)
+        if not spec.ffn:
+            return h
+        x = rms_norm(h, rep["ln2"], cfg.norm_eps)
+        if spec.moe:
+            return h + self._moe(rep, ranks, x)
+        xs = tp_copy(x, mg)
+        if cfg.mlp_variant == "swiglu":
+            parts = [swiglu(xs[r] @ p["w_gate"], xs[r] @ p["w_up"]) @ p["w_down"]
+                     for r, p in enumerate(ranks)]
+            return h + tp_reduce(parts, mg)
+        parts = [gelu(xs[r] @ p["w1"] + p["b1"]) @ p["w2"] for r, p in enumerate(ranks)]
+        return h + (tp_reduce(parts, mg) + rep["b2"])
+
+    def _attention(self, spec, ranks, dims, x, positions, positions3):
+        """The attention mixer's output (reduced over 'model'), each rank on
+        its query heads."""
+        cfg, rcfg, mg = self.cfg, self.rcfg, self.mg
+        b, s, _ = x.shape
+        hd = cfg.head_dim
         xs = tp_copy(x, mg)
         whole = {}
         if not self.kv_split:   # kv leaves cut off head boundaries: gathered
@@ -289,17 +345,59 @@ class TPModel:
                                                  window=spec.window, chunk=cfg.attn_chunk,
                                                  remat=cfg.remat)
             parts.append(out.reshape(b, s, self.heads * hd) @ p["wo"])
-        h = h + tp_reduce(parts, mg)
-        if not spec.ffn:
-            return h
-        x = rms_norm(h, rep["ln2"], cfg.norm_eps)
-        xs = tp_copy(x, mg)
-        if cfg.mlp_variant == "swiglu":
-            parts = [swiglu(xs[r] @ p["w_gate"], xs[r] @ p["w_up"]) @ p["w_down"]
-                     for r, p in enumerate(ranks)]
-            return h + tp_reduce(parts, mg)
-        parts = [gelu(xs[r] @ p["w1"] + p["b1"]) @ p["w2"] for r, p in enumerate(ranks)]
-        return h + (tp_reduce(parts, mg) + rep["b2"])
+        return tp_reduce(parts, mg)
+
+    def _moe(self, rep, ranks, x):
+        """``moe.moe_ffn`` expert-parallel: routing once on the replicated
+        input, each rank's experts on their selections, the float32
+        partials reduced over 'model'; then the shared expert."""
+        cfg, mg, dims = self.cfg, self.mg, self.moe_dims
+        b, s, d = x.shape
+        xt = x.reshape(b * s, d)
+        per = dims.n_experts_padded // mg.size
+        assign = moe_lib.route(xt, rep["moe_router"], dims)
+        xs = tp_copy(xt, mg)
+        subs = [_sub_params(p, "moe_") for p in ranks]
+        los = [(mg.offset + r) * per for r in range(mg.local)]
+        if cfg.moe_impl == "gather":
+            sel_gate, sel_tok = moe_lib.capacity_select(assign, dims)   # [E, C]
+            gates = tp_copy(sel_gate, mg)
+            parts = [moe_lib.routed_partial(sub, xs[r], gates[r][lo:lo + per],
+                                            sel_tok[lo:lo + per])
+                     for r, (sub, lo) in enumerate(zip(subs, los))]
+        else:
+            gates = tp_copy(assign, mg)
+            parts = [moe_lib.dense_partial(sub, xs[r], gates[r][:, lo:lo + per])
+                     for r, (sub, lo) in enumerate(zip(subs, los))]
+        y = tp_reduce(parts, mg, what="routed experts' partials").to(x.dtype)
+        if "shared_w_gate" in subs[0]:
+            y = y + tp_reduce([moe_lib.shared_expert(sub, xs[r])
+                               for r, sub in enumerate(subs)], mg)
+        return y.reshape(b, s, d)
+
+    def _mamba(self, rep, ranks, x):
+        """``mamba2.mamba_forward`` split by heads (reduced over 'model')."""
+        mg, md = self.mg, self.mamba_dims
+        hr = md.n_heads
+        shared = _sub_params(rep, "ssm_")
+        bc_conv, dt, _ = mamba2.head_inputs(shared, x)
+        xs, bcs, dts = tp_copy(x, mg), tp_copy(bc_conv, mg), tp_copy(dt, mg)
+        a_logs, skips = tp_copy(shared["A_log"], mg), tp_copy(shared["D"], mg)
+        subs = [_sub_params(p, "ssm_") for p in ranks]
+        gated = []
+        for r, sub in enumerate(subs):
+            heads = slice((mg.offset + r) * hr, (mg.offset + r + 1) * hr)
+            y, _, _ = mamba2.gated_heads(sub, xs[r], bcs[r], dts[r][..., heads],
+                                         a_logs[r][heads], skips[r][heads], md)
+            gated.append(y)
+        # the gated RMSNorm over the whole d_inner: the ranks' sums of squares
+        # in rank order, then tp_copy, so each rank's share of the variance's
+        # gradient is summed over 'model' before it reaches the partials
+        ss = tp_reduce([torch.sum(g.to(torch.float32) ** 2, dim=-1, keepdim=True)
+                        for g in gated], mg, what="gated norm sum of squares")
+        ss = tp_copy(ss, mg)
+        return tp_reduce([rms_norm(g, sub["norm"], var=ss[r] / self.cfg.d_inner) @ sub["w_out"]
+                          for r, (g, sub) in enumerate(zip(gated, subs))], mg)
 
     # ------------------------------------------------------------ stages
 

@@ -48,9 +48,12 @@ the slice plan's ``plan_ledger``. JAX's step reports the whole leaves'
 ledger (``g.size`` inside a ``shard_map`` manual over the worker axes
 only).
 
-Every ``TrainStepConfig`` of the T = 1 step runs. Not ported yet under
-T > 1, each raising elsewhere: MoE and mamba2 blocks
-(``models.tensor_parallel``) and the streamed trainer.
+Every ``TrainStepConfig`` of the T = 1 step runs, on every ``simple``-mode
+family: a stacked expert leaf is cut on its expert axis (dim 1), mamba2's
+``conv_x`` on its last (dim 2), and both take the same slice maps, wires,
+buckets, rings and checkpoint layouts as any cut leaf. Not ported yet under
+T > 1, each raising elsewhere: the streamed trainer, and what
+``models.tensor_parallel`` refuses (heads or experts T does not divide).
 """
 
 from __future__ import annotations

@@ -458,8 +458,12 @@ def test_phase_tp_rehearses_on_the_cpu(monkeypatch, capsys):
     uplink and the ring (the 2-bit gather bit for bit against T = 1, Golomb
     and pack8 against the per-leaf T = 2 run) and the launcher's
     ``--bucketed`` and ``--ring`` steps, the float32
-    gradients no farther from float64 than TP_F64_RATIO times T = 1's, and
-    the T = 2 checkpoint restored at T = 1."""
+    gradients no farther from float64 than TP_F64_RATIO times T = 1's, the
+    T = 2 checkpoint restored at T = 1; then the MoE and mamba2 families:
+    rows 6 and 14's maps on an expert slice and conv_x's short runs, each
+    family's launcher run at M = 4 x T = 2 (the routing flips counted), its
+    injected rounds (fixed budgets bit for bit against T = 1) and its
+    float64 check."""
     import torch
 
     cs = _chip_smoke()
@@ -471,7 +475,8 @@ def test_phase_tp_rehearses_on_the_cpu(monkeypatch, capsys):
         return {"ms": 1.0, "p25": 1.0, "p75": 1.0}
 
     cs.phase_tp(torch, report, {k: 0 for k in cs.REPLACES}, dev="cpu", timer=stub_timer,
-                slice_shapes={"w_up": (8, 96), "lm_head": (8, 256)})
+                slice_shapes={"w_up": (8, 96), "lm_head": (8, 256)},
+                family_maps={"expert": ((2, 8, 16, 12), 1), "conv_x": ((3, 4, 96), 2)})
     out = report["tp"]
     assert out["full"]["messages_a_worker"] == 27 and out["full"]["model_ranks"] == 2
     assert out["full"]["wire_bytes_per_device"] <= out["full"]["whole_leaf_ledger"]
@@ -499,8 +504,25 @@ def test_phase_tp_rehearses_on_the_cpu(monkeypatch, capsys):
     assert all(r["buckets"] > 1 for k, r in bucketed.items() if k.endswith("capped"))
     assert set(out["launcher"]) == {"--bucketed", "--ring"}
     assert out["launcher"]["--bucketed"]["buckets"] > 1
+    fam = out["families"]
+    assert set(fam) == {"maps", "qwen2-moe-a2.7b", "mamba2-370m"}
+    assert all(r["max_abs_err"] == 0 and r["dropped"] == 0
+               for leaf in fam["maps"].values() for r in leaf.values())
+    moe, mamba = fam["qwen2-moe-a2.7b"], fam["mamba2-370m"]
+    assert moe["launcher"]["route_flips"]["tokens"] == 0
+    assert mamba["launcher"]["route_flips"] is None
+    for f in (moe, mamba):
+        assert f["launcher"]["wire_bytes_per_device"] <= f["launcher"]["whole_leaf_ledger"]
+        assert [f["injected"][k]["differ"] for k in ("fixed psum", "fixed allgather_packed")] \
+            == [0, 0]
+        assert f["injected"]["sparsign_golomb target_sparsity allgather_packed"][
+            "nnz_dropped"] == 0.0
+        f64 = f["float64"]
+        assert all(cs.TP_F64_RATIO * a + cs.TP_F64_FLOOR <= lim and b <= lim
+                   for a, b, lim in zip(f64["t1_err"], f64["t2_err"], f64["bound"]))
     printed = capsys.readouterr().out
     assert "[tp] qwen1.5-4b" in printed and "[tp] launcher --ring" in printed
+    assert "[tp moe] qwen2-moe-a2.7b" in printed and "[tp mamba2] mamba2-370m" in printed
 
 
 def test_sass_loops_hot_path_draws_in_line_and_skips_the_rare_blocks():

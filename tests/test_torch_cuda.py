@@ -751,13 +751,15 @@ def test_tp_round_variants_on_card_match_plain_versions(cuda_device, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("impl", ["psum", "allgather_packed"])
-def test_tp_trainer_step_on_card_matches_plain_versions(cuda_device, impl):
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "qwen2-moe-a2.7b", "mamba2-370m"])
+def test_tp_trainer_step_on_card_matches_plain_versions(cuda_device, arch, impl):
     """One smoke-size step at M = 4 x T = 2 through the kernels and through
     the plain versions (backend='torch') on the card: the same parameters,
     bit for bit, and the counter-map kernels launched once a worker and
-    message."""
+    message (also with the experts on 'model' and the mamba2 mixer split by
+    heads)."""
     from repro_torch.launch.mesh import make_host_mesh
-    model = Model(get_config("qwen1.5-4b", smoke=True))
+    model = Model(get_config(arch, smoke=True))
     comp = CompressionConfig(compressor="sparsign",
                              budget=BudgetConfig(kind="l2_norm", value=0.1),
                              server="majority_vote")
@@ -777,9 +779,11 @@ def test_tp_trainer_step_on_card_matches_plain_versions(cuda_device, impl):
         torch.cuda.synchronize()
         counts = launch_counts()
         out[backend] = [tbits(t) for t in tree_leaves(step.whole_state(state).params)]
-        if backend is None:   # 12 leaves cut on 'model', 3 replicated: 27 messages a worker
+        # qwen1.5-4b: 12 leaves cut on 'model', 3 replicated: 27 messages a worker
+        msgs = sum(2 if pl.sharded else 1 for pl in tree_leaves(step.placements))
+        if backend is None:
             encoder = "sparsign" if impl == "psum" else "sparsign_pack2bit"
-            assert counts[encoder] == 27 * 4 and counts["vote_update"] == 27
+            assert counts[encoder] == msgs * 4 and counts["vote_update"] == msgs
         else:
             assert not any(counts.values())
     for a, b in zip(out[None], out["torch"]):

@@ -1,22 +1,32 @@
 """The tensor-parallel 'model' axis of the port's simple trainer, on the CPU.
 
 (a) The model at T = 2 (``models.tensor_parallel``), float32, the smoke
-    configs of the five dense families: loss and reassembled gradients
-    against T = 1, and for qwen1.5-4b and granite-34b (its single kv head
-    cut inside the head) against JAX's ``Model.loss`` / ``jax.grad``.
+    configs of the five dense families, the MoE families (qwen2-moe-a2.7b,
+    llama4-scout's sigmoid top-1 router; the experts on 'model'), mamba2-370m
+    (the mixer split by heads) and jamba (mamba, MoE and attention in one
+    pattern): loss and reassembled gradients against T = 1, and for
+    qwen1.5-4b, granite-34b (its single kv head cut inside the head),
+    qwen2-moe-a2.7b and mamba2-370m against JAX's ``Model.loss`` /
+    ``jax.grad``.
 (b) The (4, 2) round with injected per-worker gradients: each model rank
     compresses its slice with the whole leaf's counters and statistics,
     exchanges over the workers and updates its slice; reassembled, the
     parameters equal JAX's engine on whole leaves bit for bit (``fixed``
     sparsign on psum, hier and allgather_packed; qsgd8 on pack8 and the
     decoded psum), ``scaled_sign_ef`` to rtol 1e-6, the L2 budget within a
-    flip bound; wire bytes are the slice ledger.
+    flip bound; wire bytes are the slice ledger. On the MoE and mamba2
+    smoke models' own leaves (an expert slice, ``conv_x``'s short runs),
+    fixed sparsign on psum and allgather_packed equal T = 1 bit for bit.
 (c) Two gloo processes equal one: (2 data x 2 model) whole workers a
-    process, and (1 x 2) a model rank a process.
+    process, and (1 x 2) a model rank a process, also on mamba2 (its
+    replicated per-head leaves and the gated norm's reduction).
 (d) Checkpoints at T = 2 are the T = 1 files byte for byte and restore
-    across T; the launcher's ``--host-model 2``; every path not ported
-    under T > 1 raises (the bucketed uplink, the ring and subgroups:
-    ``tests/test_torch_tp_bucketed.py``).
+    across T, also the MoE model's; the launcher's ``--host-model 2`` (also
+    on qwen2-moe-a2.7b and mamba2-370m); what is not ported under T > 1
+    raises: experts or mamba heads T does not divide, the streamed trainer
+    (the bucketed uplink, the ring and subgroups run:
+    ``tests/test_torch_tp_bucketed.py``; JAX's (4, 2) mesh step on the MoE
+    and mamba2 families: ``tests/test_torch_tp_families.py``).
 """
 
 import os
@@ -59,12 +69,18 @@ LOSS_RTOL = 1e-6
 # 4e-4 of a leaf's norm from a float64 run (test_torch_window), and the T = 2
 # split's other sums land 7.5e-5 from T = 1, inside that noise; held as
 # test_torch_window holds it
-GRAD_RTOL_DEEP = {"gemma3-27b": 1e-3}
+# test_torch_window holds it; jamba's smoke model is 8 layers deep too: its
+# float32 gradients at T = 1 lie up to 1.2e-4 of a leaf's norm from a float64
+# run, T = 2's up to 1.4e-4, and T = 2 lies 7.3e-5 from T = 1 (the small
+# conv_b_bc and w_bc leaves of its mamba blocks); held to twice T = 1's own
+# float32 error
+GRAD_RTOL_DEEP = {"gemma3-27b": 1e-3, "jamba-1.5-large-398b": 2.5e-4}
 M, T = 4, 2
 #: the noisy_sign flip bound against JAX (tests/test_torch_ternary.py): at most 1
 #: symbol in 10^5
 NOISY_FLIP_RATE = 1e-5
-FAMILIES = ["qwen1.5-4b", "qwen2.5-32b", "granite-34b", "gemma3-27b", "hubert-xlarge"]
+FAMILIES = ["qwen1.5-4b", "qwen2.5-32b", "granite-34b", "gemma3-27b", "hubert-xlarge",
+            "qwen2-moe-a2.7b", "mamba2-370m", "jamba-1.5-large-398b", "llama4-scout-17b-a16e"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -120,10 +136,12 @@ def test_tp_model_matches_t1(arch):
     assert any(pl.sharded for pl in tree_leaves(tpm.placements))
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-4b", "granite-34b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "granite-34b", "qwen2-moe-a2.7b",
+                                  "mamba2-370m"])
 def test_tp_model_matches_jax(arch):
     """The T = 2 model from JAX's weights against JAX's Model.loss and
-    jax.grad (granite-34b's kv leaves are cut inside its one head)."""
+    jax.grad (granite-34b's kv leaves are cut inside its one head;
+    qwen2-moe-a2.7b's experts and mamba2-370m's heads on 'model')."""
     jm = JModel(jget_config(arch, smoke=True))
     jp = jm.init(jax.random.PRNGKey(1))
     params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
@@ -617,6 +635,129 @@ def test_tp_fixed_budget_model_step_equals_t1_on_votes():
     assert out[2][1]["wire_bytes_per_device"] < out[1][1]["wire_bytes_per_device"]
 
 
+class InjectedFamily:
+    """``InjectedTPModel`` on a model's own parameter tree: the loss is
+    sum_i <p_i, g_i>, so each rank's gradient is its slice of the injected
+    g_i and the round sees exactly the leaves' own placements (an expert
+    slice, ``conv_x`` cut on its last axis, the replicated per-head leaves)."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def param_shapes(self):
+        return self.model.param_shapes()
+
+    def param_logical_axes(self):
+        return self.model.param_logical_axes()
+
+    loss = InjectedTPModel.loss
+
+    def tensor_parallel(self, mg):
+        return _InjectedTP(self.model, mg)
+
+
+def _family_injected(net, seed, rounds=2):
+    """Parameters and ``rounds`` batches of per-worker gradients (numpy)."""
+    rng = np.random.RandomState(seed)
+    shapes = [s.shape for s in tree_leaves(net.param_shapes())]
+    params = [rng.randn(*s).astype(np.float32) for s in shapes]
+    batches = []
+    for _ in range(rounds):
+        per = [rng.randn(M, *s).astype(np.float32) * 0.3 for s in shapes]
+        batches.append({f"g{i}": g for i, g in enumerate(per)})
+    return params, batches
+
+
+#: name: (arch, compressor, budget kind, budget value, vote_impl): fixed
+#: budgets held bit for bit, target_sparsity's 30 bisection means within the
+#: float-sum flip bound
+FAMILY_ROUNDS = {
+    f"{arch}-{name}": (arch, *case) for arch in ("qwen2-moe-a2.7b", "mamba2-370m")
+    for name, case in (("sparsign-psum", ("sparsign", "fixed", 2.0, "psum")),
+                       ("sparsign-packed", ("sparsign", "fixed", 2.0, "allgather_packed")),
+                       ("golomb-target_sparsity", ("sparsign_golomb", "target_sparsity", 0.05,
+                                                   "allgather_packed")))}
+
+
+@pytest.mark.parametrize("case", list(FAMILY_ROUNDS))
+def test_tp_family_injected_rounds_equal_t1(case):
+    """Two (4, 2) rounds against (4, 1) from one state on the MoE and mamba2
+    smoke models' own leaves, injected gradients: fixed-budget sparsign on
+    psum and on the 2-bit gather equal T = 1 bit for bit, metrics too but
+    the per-device wire bytes (the slice ledger); sparsign_golomb under
+    target_sparsity 0.05 within the float-sum flip bound, no nonzero
+    dropped (the counts printed)."""
+    arch, comp_name, kind, value, impl = FAMILY_ROUNDS[case]
+    net = InjectedFamily(Model(get_config(arch, smoke=True)))
+    tc = CompressionConfig(compressor=comp_name, budget=BudgetConfig(kind=kind, value=value),
+                           server="majority_vote")
+    params, batches = _family_injected(net, 3)
+    steps = {t: build_train_step(net, TrainStepConfig(
+        compression=tc, lr=LrSchedule(base=0.05), vote_impl=impl), make_host_mesh(M, t))
+        for t in (1, T)}
+    state0 = init_state(tree_unflatten(net.param_shapes(), list(params_from_numpy(params))),
+                        server="majority_vote", seed=11)
+    s1, s2 = state0, steps[T].shard_state(state0)
+    for batch in batches:
+        s1, m1 = steps[1](s1, batch)
+        s2, m2 = steps[T](s2, batch)
+    m1 = {k: float(v) for k, v in m1.items()}
+    m2 = {k: float(v) for k, v in m2.items()}
+    a, b = _leaves(steps[T].whole_state(s2).params), _leaves(s1.params)
+    bpl = steps[T].placements["blocks"][0]
+    if arch == "qwen2-moe-a2.7b":   # a stacked expert leaf, cut on its expert axis
+        assert bpl["moe_w_gate"].dim == 1 and not bpl["moe_router"].sharded
+    else:   # conv_x cut on d_inner, the per-head leaves replicated
+        assert bpl["ssm_conv_x"].dim == 2 and not bpl["ssm_A_log"].sharded
+    assert m2["wire_bytes_per_device"] == np.float32(tp_slice_ledger(steps[T], net))
+    assert m2["wire_bytes_per_device"] <= m1["wire_bytes_per_device"]
+    differ = sum(int((f32bits(x) != f32bits(y)).sum()) for x, y in zip(a, b))
+    size = sum(x.size for x in a)
+    assert any((x != p).any() for x, p in zip(a, params))
+    if kind == "fixed":
+        assert differ == 0
+        for k in m1:   # the injected loss at T = 2 is a rank's slices' share
+            if k not in ("wire_bytes_per_device", "gather_hbm_bytes", "loss"):
+                assert m2[k] == m1[k], k
+    else:
+        flips = float_flips(a, b, params)
+        print(f"{case} at (4, 2), two rounds: {flips} of {size} coordinates differ from "
+              f"T = 1 beyond float noise, {differ} in any bit")
+        assert flips <= 1e-4 * size
+        assert m1["nnz_dropped"] == 0.0 and m2["nnz_dropped"] == 0.0
+
+
+def test_route_flips_counts_tokens_routed_otherwise():
+    """``moe.record_routes`` logs each routed FFN's top-k experts and capacity
+    selections in call order, at T = 2 as at T = 1; ``route_flips`` reads 0
+    between them (the smoke model's sums part by rounding only) and counts
+    the tokens of a run whose first router was moved."""
+    import dataclasses
+
+    from repro_torch.models import moe as moe_lib
+    # capacity factor 1: 32 of the 48 tokens an expert, so selections can part
+    model = Model(dataclasses.replace(get_config("qwen2-moe-a2.7b", smoke=True),
+                                      capacity_factor=1.0))
+    params = model.init(0, "cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _batch(model.cfg, 2, 24, seed=1).items()}
+    mg = ModelGroup(T)
+    tpm = model.tensor_parallel(mg)
+    with torch.no_grad():
+        with moe_lib.record_routes() as one:
+            model.forward_hidden(params, batch)
+        with moe_lib.record_routes() as two:
+            tpm.forward_hidden(tpl.shard_tree(params, tpm.placements, mg), batch)
+        moved = tree_unflatten(params, [p.clone() for p in tree_leaves(params)])
+        moved["blocks"][0]["moe_router"][0] *= -1.0
+        with moe_lib.record_routes() as other:
+            model.forward_hidden(moved, batch)
+    assert [k for k, _ in one] == ["experts", "tokens"] * model.cfg.n_layers
+    assert moe_lib.route_flips(one, two) == {"tokens": 0, "selections": 0}
+    flips = moe_lib.route_flips(one, other)
+    assert 0 < flips["tokens"] <= 2 * 24 * model.cfg.n_layers
+    assert 0 < flips["selections"] <= 8 * model.cfg.n_layers
+
+
 # ------------------------------------------------- (c) processes == one
 
 CHILD = r"""
@@ -634,8 +775,8 @@ from repro_torch.models.model import Model
 from repro_torch.train.state import LrSchedule, init_state
 from repro_torch.train.step_simple import TrainStepConfig, build_train_step
 
-def run(data, impl, budget, compressor="sparsign", participation=None):
-    model = Model(get_config("qwen1.5-4b", smoke=True))
+def run(data, impl, budget, compressor="sparsign", participation=None, arch="qwen1.5-4b"):
+    model = Model(get_config(arch, smoke=True))
     comp = CompressionConfig(compressor=compressor, budget=budget, server="majority_vote")
     step = build_train_step(model, TrainStepConfig(
         compression=comp, lr=LrSchedule(base=0.05), vote_impl=impl,
@@ -658,7 +799,9 @@ if __name__ == "__main__":
                "1x2": run(1, "psum", BudgetConfig(kind="l2_norm", value=0.1)),
                "1x2-golomb-elastic": run(
                    1, "allgather_packed", BudgetConfig(kind="target_sparsity", value=0.05),
-                   "sparsign_golomb", ParticipationSpec(weights=(1.5,), dropout=0.25))}
+                   "sparsign_golomb", ParticipationSpec(weights=(1.5,), dropout=0.25)),
+               "1x2-mamba2": run(1, "allgather_packed", BudgetConfig(kind="l2_norm", value=0.1),
+                                 arch="mamba2-370m")}
         torch.save(res, out)
     finally:
         if dist.is_initialized():
@@ -700,15 +843,18 @@ def proc_runs(tmp_path_factory):
     return torch.load(tmp / "w1r0.pt"), [torch.load(tmp / f"w2r{r}.pt") for r in range(2)]
 
 
-@pytest.mark.parametrize("key", ["2x2", "1x2", "1x2-golomb-elastic"])
+@pytest.mark.parametrize("key", ["2x2", "1x2", "1x2-golomb-elastic", "1x2-mamba2"])
 def test_two_processes_equal_one(key, proc_runs):
     """(2 data x 2 model): each process holds a whole worker; (1 x 2): each
     holds one model rank, so every TP all-reduce crosses the processes, as
     does each of target_sparsity's 30 bisection sums (the Golomb wire, with
-    an elastic weight and dropout: the ranks end on one budget). Both
-    ranks' gathered parameters and the metrics equal one process's bit for
-    bit (the L2 budget's sums of squares, the bisection's means and the
-    loss reductions are ordered)."""
+    an elastic weight and dropout: the ranks end on one budget) and, on
+    mamba2, the gated norm's sums of squares and the gradients of the
+    replicated per-head leaves (A_log, D, dt_bias, w_dt), which each
+    process reads only at its heads. Both ranks' gathered parameters (their
+    own replicated leaves among them) and the metrics equal one process's
+    bit for bit (the L2 budget's sums of squares, the bisection's means and
+    the loss reductions are ordered)."""
     one, two = proc_runs
     for res in two:
         for a, b in zip(res[key]["params"], one[key]["params"]):
@@ -748,6 +894,40 @@ def test_checkpoint_at_t2_restores_across_t(tmp_path):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+def test_checkpoint_of_the_moe_model_at_t2_restores_across_t(tmp_path):
+    """qwen2-moe-a2.7b's smoke model, an EF round of its own gradients at
+    T = 2, saved whole: it restores at T = 1 and onto a (2, 2) placement's
+    slices (the stacked expert leaves cut on their expert axis, the shared
+    expert on its width), parameters and residual bit for bit."""
+    model = Model(get_config("qwen2-moe-a2.7b", smoke=True))
+    tc = CompressionConfig(compressor="sparsign", budget=BudgetConfig(value=2.0),
+                           server="scaled_sign_ef")
+
+    def fresh(seed):
+        return init_state(model.init(seed, "cpu"), server="scaled_sign_ef", seed=3)
+
+    def built(data):
+        return build_train_step(model, TrainStepConfig(
+            compression=tc, lr=LrSchedule(base=0.05), vote_impl="psum"),
+            make_mesh((data, T), ("data", "model")))
+
+    t2 = built(M)
+    batch = lm_batch(LMStreamConfig(vocab_size=256, seq_len=16, global_batch=4, seed=5), 0)
+    s2, _ = t2(t2.shard_state(fresh(0)), batch)
+    assert t2.placements["blocks"][0]["moe_w_down"].dim == 1
+    whole, write = t2.checkpoint_state(s2)
+    assert write
+    ckpt.save(str(tmp_path), 1, whole)
+    back1, _ = ckpt.restore(str(tmp_path), fresh(1))
+    for a, b in zip(_state_leaves(back1), _state_leaves(whole)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    t22 = built(2)
+    like = t22.shard_state(fresh(1))
+    back2, _ = ckpt.restore(str(tmp_path), like, shardings=t22.state_shardings(like))
+    for a, b in zip(_state_leaves(back2), _state_leaves(s2)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def test_checkpoint_of_a_votes_round_is_byte_for_byte_the_t1_save(tmp_path):
     """Majority vote at T = 2 and T = 1 from one state and one batch: equal
     parameters, so the two checkpoints are the same files byte for byte."""
@@ -778,25 +958,51 @@ def test_launcher_host_model_2_runs_and_resumes_at_t1(tmp_path, capsys):
     assert len(hist1) == 1
 
 
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-370m"])
+def test_launcher_host_model_2_trains_the_moe_and_mamba2_families(arch):
+    """``--host-model 2`` on qwen2-moe-a2.7b (experts on 'model') and
+    mamba2-370m (its mixer split by heads): two steps, finite losses, wire
+    bytes a device == the slice ledger (at the smoke size a 2-bit slice
+    still fills the canonical rows its whole leaf fills)."""
+    from repro_torch.launch import train as tlaunch
+    argv = ["--arch", arch, "--device", "cpu", "--host-data", "2", "--batch", "4",
+            "--seq-len", "16", "--vote-impl", "allgather_packed", "--server", "majority_vote",
+            "--host-model", "2", "--steps", "2"]
+    _, hist = tlaunch.main(argv)
+    assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
+    _, model, _, step, _, _ = tlaunch.build_everything(tlaunch.parser().parse_args(argv))
+    assert all(h["wire_bytes_per_device"] == np.float32(tp_slice_ledger(step, model))
+               for h in hist)
+
+
+def _refused(arch, **changes):
+    import dataclasses
+    return Model(dataclasses.replace(get_config(arch, smoke=True), **changes))
+
+
+#: case: (model, the message naming it). T = 2 does not divide 7 padded
+#: experts, nor mamba heads of 128 (one head) or of 32 (three heads, d_inner
+#: 96: its 48-column slices would cut a head)
 REFUSALS = {
-    "moe": dict(arch="qwen2-moe-a2.7b"),
-    "mamba": dict(arch="mamba2-370m"),
+    "moe": (lambda: _refused("qwen2-moe-a2.7b", n_experts=7, n_experts_padded=7), "7 experts"),
+    "mamba": (lambda: _refused("mamba2-370m", ssm_head_dim=128), "1 mamba heads"),
+    "mamba-heads-cut": (lambda: _refused("mamba2-370m", d_model=48, ssm_head_dim=32),
+                        "3 mamba heads"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_what_is_not_ported_under_t2_raises(case):
-    """What T > 1 does not port yet raises "not ported yet": MoE and mamba2
-    blocks. (The bucketed uplink, the ring and a 'model' axis over a process
-    subgroup run: ``tests/test_torch_tp_bucketed.py``.)"""
-    kw = dict(REFUSALS[case])
-    arch = kw.pop("arch", "qwen1.5-4b")
+    """What T > 1 does not port yet raises "not ported yet", naming it:
+    padded experts or mamba heads the model axis does not divide. (MoE and
+    mamba2 blocks run; so do the bucketed uplink, the ring and a 'model'
+    axis over a process subgroup: ``tests/test_torch_tp_bucketed.py``.)"""
+    make, what = REFUSALS[case]
     comp = CompressionConfig(compressor="sparsign", budget=BudgetConfig(value=1.0),
                              server="majority_vote")
-    cfg = TrainStepConfig(compression=comp, lr=LrSchedule(), vote_impl=kw.pop("impl", "psum"),
-                          **kw)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_train_step(Model(get_config(arch, smoke=True)), cfg, make_host_mesh(M, T))
+    cfg = TrainStepConfig(compression=comp, lr=LrSchedule(), vote_impl="psum")
+    with pytest.raises(NotImplementedError, match=f"{what} .*not ported yet"):
+        build_train_step(make(), cfg, make_host_mesh(M, T))
 
 
 def test_streamed_trainer_under_t2_raises():
@@ -811,14 +1017,19 @@ def test_streamed_trainer_under_t2_raises():
 def test_tp_census_each_rank_equals_the_slice_ledger():
     """The analysis gate's tensor-parallel census at (4, 2) on psum, the
     2-bit gather, the Golomb gather (target_sparsity) and the elastic 2-bit
-    gather: each model rank's recorded wire bytes equal the slice ledger,
-    which the step reports as wire_bytes_per_device; the 'model' axis's own
-    reductions are a note, not a finding."""
+    gather, also on the tiny MoE and mamba2 models: each model rank's
+    recorded wire bytes equal the slice ledger, which the step reports as
+    wire_bytes_per_device; the 'model' axis's own reductions are a note, not
+    a finding, which counts the experts' partials and the gated norm's sums
+    of squares apart."""
     from repro_torch.analysis import drivers
     findings, checks = drivers.run_tp_census_checks(device="cpu")
     assert checks == len(drivers.TP_SETUPS) * drivers.TP_T
     assert [f.severity for f in findings] == ["info"] * len(drivers.TP_SETUPS)
     assert all("reductions over 'model'" in f.message for f in findings)
+    notes = dict(zip(drivers.TP_SETUPS, (f.message for f in findings)))
+    assert "the gated norm sum of squares" in notes["mamba2"]
+    assert "the routed experts' partials" in notes["moe"]
     census, model, step = drivers.run_tp_step("allgather_packed", "cpu")
     assert census.tp_records() and all(r.role == "tp" for r in census.tp_records())
     assert (census.for_model_rank(0).payload_bytes()
