@@ -90,14 +90,13 @@ the first, in order; any failure exits non-zero before the last line:
      repro_torch.launch.train's build path, M = 4 workers on the card, one
      sequence of 4096 tokens each (train_4k's length; the global batch cut
      from 256 to 4), 2 steps a run (sign, noisy_sign, TernGrad and the
-     elastic 2-bit and pack8 runs 1; the elastic, bucketed and ring runs,
-     the golomb and pack8 runs their rings are held against, sign,
-     noisy_sign, TernGrad and the decoded psum cut to VARIANT_LAYERS = 4
-     layers):
-     sparsign/majority vote on the allgather_packed, psum and hier (2 x 2) wires
-     (parameters bitwise equal across the three; after the psum run its
-     state, 15.8 GB on disk, is saved with train.checkpoint, restored into
-     a fresh state and held bit for bit), sparsign/scaled_sign_ef, sign,
+     elastic 2-bit and pack8 runs 1; all but the 40-layer allgather_packed
+     run cut to VARIANT_LAYERS = 4 layers):
+     sparsign/majority vote on the allgather_packed wire at 40 layers
+     (after it its state, 15.8 GB on disk, is saved with train.checkpoint,
+     restored into a fresh state and held bit for bit) and at 4 on the
+     allgather_packed, psum and hier (2 x 2) wires (parameters bitwise
+     equal across the three), sparsign/scaled_sign_ef, sign,
      noisy_sign and TernGrad on allgather_packed, the elastic vote (weights,
      dropout 0.25);
      sparsign_golomb with a target_sparsity budget of 0.05 on the golomb
@@ -112,8 +111,9 @@ the first, in order; any failure exits non-zero before the last line:
      seconds and peak memory (a ring run's beside its monolithic twin's);
      launch counts checked with every plain version barred from running (a
      ring run's derived from its plan and chunks); one step each of the
-     packed and the golomb run traced with torch.profiler; the
-     target_sparsity bisection timed on its own; then the zoo at published
+     40-layer packed run and the 4-layer golomb run traced with
+     torch.profiler; the target_sparsity bisection timed on its own (4
+     layers); then the zoo at published
      widths (phase_zoo): qwen2.5-32b (GQA 40:8, QKV bias), granite-34b (MQA
      48:1) and qwen2-moe-a2.7b (60 routed experts padded to 64, top 4, 4
      shared) cut to 2 layers, gemma3-27b (5:1 windowed:global, window
@@ -175,7 +175,13 @@ the first, in order; any failure exits non-zero before the last line:
      cut to 8 of 80 layers, STREAMED_STEPS streamed steps on
      allgather_packed, then the launcher's serving loop on the same config,
      a timed 4 x 2048 prefill and decode against the full forward within
-     DECODE_REL_TOL from the trained weights;
+     DECODE_REL_TOL from the trained weights; under M = 4 x T = 2 ([tp
+     streamed]): S1T, S1's cut through the launcher (wire bytes == the
+     slice ledger, launches a message a rank), and S2T, injected gradients
+     at S2's depth, one step a run: psum, the 2-bit gather, bucketed (one
+     bucket, 16 MiB) and step_tp bit for bit against T = 1, Golomb under
+     target_sparsity within TP_FLIP_BOUND, scaled_sign_ef within float
+     noise with the same coordinates moving;
  11. jamba-1.5-large-398b (phase_jamba), J1: its published widths with the
      pattern cut to positions 2-4 (jamba15_large.card_config: mamba + dense,
      mamba + MoE, attention without RoPE + dense; 12.9 B parameters), M = 4
@@ -185,7 +191,8 @@ the first, in order; any failure exits non-zero before the last line:
      peak memory; the trained state served through the launcher's loop
      (batch 4, a 32-token prompt, 16 new tokens), a timed 4 x 2048 prefill
      and decode of token 2,048 against the full forward within
-     MAMBA_DECODE_REL_TOL; then, the state freed, sparsign_pack2bit at
+     MAMBA_DECODE_REL_TOL; J1T, the same cut's step at M = 4 x T = 2
+     through the launcher; then, the state freed, sparsign_pack2bit at
      counter base 0 and at a base whose counter wraps, unpack2bit_sum of
      four messages into int8 and vote_update on a bf16 weight, all on one
      expert leaf's 3,221,225,472 coordinates, against their plain versions
@@ -2359,15 +2366,22 @@ def phase_trainer(torch, report, totals):
     cut = f" ({VARIANT_LAYERS} layers)"
     runs = [  # label, flags, worker group (None: --host-data), launches a step (None:
               # ring_run_launches), steps, layers (None: all 40)
-        ("sparsign/majority_vote psum", sparsign + majority + ["--vote-impl", "psum"], None,
-         dict(sparsign=leaves * m, vote_update=leaves), 2, None),
-        ("sparsign/majority_vote hier 2x2", sparsign + majority + ["--vote-impl", "hier"],
-         ((2, 2), ("pod", "data")), dict(sparsign=leaves * m, vote_update=leaves), 2, None),
         ("sparsign/majority_vote allgather_packed", sparsign + majority + packed, None,
          dict(sparsign_pack2bit=leaves * m, **voted), 2, None),
-        ("sparsign/scaled_sign_ef allgather_packed", sparsign + ["--server", "scaled_sign_ef"]
-         + packed, None, dict(sparsign_pack2bit=leaves * m, unpack2bit_sum=leaves,
-                              ef_server=leaves), 2, None),
+        # the three vote wires held bit for bit, and the EF server,
+        # VARIANT_LAYERS deep: they pay for the streamed phase's runs under
+        # the 'model' axis (a leaf's launches do not depend on the depth)
+        ("sparsign/majority_vote psum" + cut, sparsign + majority + ["--vote-impl", "psum"],
+         None, dict(sparsign=leaves * m, vote_update=leaves), 2, VARIANT_LAYERS),
+        ("sparsign/majority_vote hier 2x2" + cut, sparsign + majority + ["--vote-impl", "hier"],
+         ((2, 2), ("pod", "data")), dict(sparsign=leaves * m, vote_update=leaves), 2,
+         VARIANT_LAYERS),
+        ("sparsign/majority_vote allgather_packed" + cut, sparsign + majority + packed, None,
+         dict(sparsign_pack2bit=leaves * m, **voted), 2, VARIANT_LAYERS),
+        ("sparsign/scaled_sign_ef allgather_packed" + cut, sparsign
+         + ["--server", "scaled_sign_ef"] + packed, None,
+         dict(sparsign_pack2bit=leaves * m, unpack2bit_sum=leaves, ef_server=leaves), 2,
+         VARIANT_LAYERS),
         # one step each, as the elastic runs: their launches are per step, no
         # run is held against them, and the run must make room for the
         # mamba2-370m, checkpoint and zoo phases; VARIANT_LAYERS deep, which
@@ -2380,10 +2394,6 @@ def phase_trainer(torch, report, totals):
         ("terngrad/mean allgather_packed" + cut, ["--compressor", "terngrad", "--server",
                                                   "mean"] + packed, None,
          dict(ternary_pack2bit=leaves * m, unpack2bit_sum=leaves), 1, VARIANT_LAYERS),
-        (golomb, ["--compressor", "sparsign_golomb"] + target + majority + packed, None,
-         golomb_voted, 2, None),
-        (pack8, qsgd8 + packed, None, dict(qsgd8_pack8=leaves * m, unpack8_sum=leaves), 2,
-         None),
         # the variant runs, cut to VARIANT_LAYERS layers so the zoo's phases
         # fit the time: elastic, bucketed and ring, and the monolithic runs
         # the rings are held against at the same depth
@@ -2420,9 +2430,10 @@ def phase_trainer(torch, report, totals):
     # worker order). The pack8 ring sums in ring order: its difference is
     # printed in bf16 ulps (its sums are held bit for bit in the ring phase)
     ring2 = "sparsign target_sparsity/majority_vote allgather_packed bucketed ring" + cut
-    compare = {"sparsign/majority_vote hier 2x2": ("sparsign/majority_vote psum", "bits"),
-               "sparsign/majority_vote allgather_packed": ("sparsign/majority_vote psum",
-                                                           "bits"),
+    compare = {"sparsign/majority_vote hier 2x2" + cut: ("sparsign/majority_vote psum" + cut,
+                                                         "bits"),
+               "sparsign/majority_vote allgather_packed" + cut: (
+                   "sparsign/majority_vote psum" + cut, "bits"),
                ring2: (golomb + cut, "bits"),
                golomb + " bucketed ring" + cut: (golomb + cut, "bits"),
                "qsgd8/mean psum (decoded)" + cut: (pack8 + cut, "bits"),
@@ -2432,7 +2443,7 @@ def phase_trainer(torch, report, totals):
     mono_of = {ring2: (golomb + cut,), golomb + " bucketed ring" + cut: (golomb + cut,),
                pack8 + " ring" + cut: (pack8 + cut,)}
     traced_runs = {"sparsign/majority_vote allgather_packed": "trainer_profile",
-                   golomb: "trainer_profile_golomb"}
+                   golomb + cut: "trainer_profile_golomb"}
     check(set(compare) | {r for r, _ in compare.values()} | set(traced_runs)
           <= {r[0] for r in runs}, "phase_trainer: a compared or traced run is not in the list")
     held, peaks_of, losses_of = {}, {}, {}
@@ -2562,7 +2573,7 @@ def phase_trainer(torch, report, totals):
                   f"top: {top}")
         if label == runs[0][0]:   # majority vote: no EF state
             report["checkpoint_roundtrip"] = checkpoint_round_trip(torch, model, state)
-        if label == golomb:
+        if label == golomb + cut:
             bisect_ms = time_bisection(torch, model, m)
             report["bisection_ms_per_step"] = bisect_ms
             print(f"[trainer] target_sparsity bisection: {bisect_ms:.1f} ms of device time a "
@@ -3435,11 +3446,14 @@ def phase_streamed(torch, report, totals, dev="cuda"):
     holds the streamed step (per leaf, repeated, bucketed) and the simple
     step bit for bit at STREAMED_LAYERS[1] layers and the EF server per leaf
     against bucketed; S3 trains qwen2-vl-72b cut to STREAMED_LAYERS[2]
-    layers and serves it. ``dev="cpu"`` rehearses it at the smoke sizes,
-    where only the launch counts cannot hold."""
+    layers and serves it. Under a 'model' axis of TP_T: S1T trains S1's cut
+    through the launcher, S2T holds injected rounds at S2's depth against
+    T = 1 (``tp_streamed_injected``). ``dev="cpu"`` rehearses it at the smoke
+    sizes, where only the launch counts cannot hold."""
     import numpy as np
 
     from repro_torch import kernels
+    from repro_torch.analysis.drivers import tp_slice_ledger
     from repro_torch.core.algorithm import CompressionConfig
     from repro_torch.core.budgets import BudgetConfig
     from repro_torch.core.compressors import tree_leaves, tree_unflatten
@@ -3480,18 +3494,21 @@ def phase_streamed(torch, report, totals, dev="cuda"):
             totals[k] += counts[k]
         return res, counts
 
-    def train_args(arch, steps):
+    def train_args(arch, steps, t=1):
         return launch.parser().parse_args([
-            "--arch", arch, "--host-data", str(m), "--batch", str(m), "--steps", str(steps),
-            "--seed", "0", "--compressor", "sparsign", "--budget-kind", "l2_norm", "--budget",
-            "0.1", "--server", "majority_vote", "--vote-impl", "allgather_packed"] + where)
+            "--arch", arch, "--host-data", str(m), "--host-model", str(t), "--batch", str(m),
+            "--steps", str(steps), "--seed", "0", "--compressor", "sparsign", "--budget-kind",
+            "l2_norm", "--budget", "0.1", "--server", "majority_vote", "--vote-impl",
+            "allgather_packed"] + where)
 
-    def run_loop(arch, steps, label):
-        """The launcher's build and loop: (cfg, model, step, state, history,
-        counts, peak)."""
-        args = train_args(arch, steps)
+    def run_loop(arch, steps, label, t=1):
+        """The launcher's build and loop at a 'model' axis of ``t``: (cfg,
+        model, step, state, numbers)."""
+        args = train_args(arch, steps, t)
         reset_peak(torch)
         cfg, model, group, step, state, comp = launch.build_everything(args)
+        init_peak = peak_gb()
+        reset_peak(torch)
         batch_fn, draw_s = launch.batch_fn_for(cfg, args), []
 
         def timed_batch(i):   # the host's draw of the batch, inside the loop's wall
@@ -3503,25 +3520,29 @@ def phase_streamed(torch, report, totals, dev="cuda"):
         (state, history), counts = counted(lambda: loop.run(
             step, state, timed_batch,
             loop.LoopConfig(total_steps=steps, log_every=1), log=lambda line: None))
-        peak = peak_gb()
+        train_peak = peak_gb()
+        peak = max(init_peak, train_peak)
         walls = [h["wall_s"] for h in history]
         step_s = [b - a for a, b in zip([0.0] + walls[:-1], walls)]
-        ledger = float(np.float32(step.ledger[0]))
+        ledger = float(np.float32(tp_slice_ledger(step, model)))
+        check(ledger == float(np.float32(step.ledger[0])),
+              f"{label}: the slice ledger {ledger} against the step's {step.ledger[0]}")
         check(all(math.isfinite(h["loss"]) and h["wire_bytes_per_device"] == ledger
                   for h in history), f"{label}: {history}")
         check(all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params)),
               f"{label}: non-finite parameters")
         n_blk = len(tree_leaves(model.param_shapes()["blocks"]))
         per_step = cfg.n_repeats * n_blk + len(tree_leaves(model.param_shapes())) - n_blk
-        want = expected(sparsign_pack2bit=m * per_step * steps, unpack2bit_sum=per_step * steps,
-                        vote_update=per_step * steps)
+        want = streamed_expected(step, "pack2", m, steps)
         check(counts == want, f"{label}: launches {counts}, expected {want}")
-        res = {"layers": cfg.n_layers, "parameters": model.param_count(),
+        res = {"config": cfg.name, "layers": cfg.n_layers, "parameters": model.param_count(),
                "leaves": len(tree_leaves(model.param_shapes())), "exchanges_a_step": per_step,
-               "tokens_per_worker": seq, "step_s": step_s, "batch_draw_s": draw_s,
+               "workers": m, "tokens_per_worker": seq, "step_s": step_s, "batch_draw_s": draw_s,
                "loss": [h["loss"] for h in history],
                "nnz_frac": [h["nnz_frac"] for h in history], "wire_bytes_per_device": ledger,
-               "peak_gb": peak, "launches": counts}
+               "peak_gb": peak, "init_peak_gb": init_peak, "train_peak_gb": train_peak,
+               "launches": {k: v for k, v in counts.items() if v},
+               "map_launches": {k: v for k, v in kernels.map_launch_counts().items() if v}}
         return cfg, model, step, state, res
 
     try:
@@ -3546,6 +3567,13 @@ def phase_streamed(torch, report, totals, dev="cuda"):
               f"trainer's {s1['simple_need_gb']:.1f} GB of weights and one worker's gradient, "
               f"launches { {k: v for k, v in s1['launches'].items() if v} }")
         out["S1"] = s1
+        del step, state, model
+        if on_card:
+            torch.cuda.empty_cache()
+        # -- S1T: the same cut under a 'model' axis of TP_T ----------------
+        cfg, model, step, state, s1t = run_loop(arch, STREAMED_STEPS, "S1T", t=TP_T)
+        tp_streamed_line("S1T", s1t, s1)
+        out["S1T"] = s1t
         del step, state, model
         if on_card:
             torch.cuda.empty_cache()
@@ -3687,6 +3715,8 @@ def phase_streamed(torch, report, totals, dev="cuda"):
         del model
         if on_card:
             torch.cuda.empty_cache()
+        # -- S2T: injected gradients at T = TP_T against T = 1 -------------
+        out["S2T"] = tp_streamed_injected(torch, totals, m, cfg, dev)
 
         # -- S3: qwen2-vl-72b, 8 layers: train, then serve -----------------
         arch = STREAMED_ARCHS[1]
@@ -3755,6 +3785,346 @@ def phase_streamed(torch, report, totals, dev="cuda"):
         launch.get_config = get_config
         launch_serve.get_config = serve_get_config
     report["streamed"] = out
+
+
+# ---------------------------------------------------------------------------
+# [tp streamed]: the streamed trainer under the 'model' axis (TP_T ranks)
+# ---------------------------------------------------------------------------
+
+#: S2T's fixed sparsign budget on the injected gradients (values in [-1/2,
+#: 1/2): about half the coordinates vote), its Golomb target and the plan
+#: fraction of a layer's coded message (above the target: a layer's message
+#: truncates where its realized density outruns the plan)
+TP_STREAMED_BUDGET = 2.0
+TP_STREAMED_TARGET = 0.05
+TP_STREAMED_GOLOMB_P = 0.06
+
+
+def injected_streamed_net(torch, model):
+    """``model``'s shapes, logical axes and placements with stages whose
+    backward injects each leaf's gradient: frac(997 p + s) - 1/2 of the
+    leaf's own values p and a scalar s of the incoming cotangent, exactly
+    rounded operations a coordinate, so a model slice's gradient is the
+    slice of the whole leaf's and T = 2 meets T = 1 bit for bit wherever
+    the round itself does. ``h`` passes through every block; the head's
+    loss is mean(h^2) and hands h the cotangent h / 64. The net is its own
+    ``tensor_parallel`` (with the placements ``step_tp`` reads), and its
+    ``loss`` runs the stages over every repeat, for the simple steps."""
+    from repro_torch.core.compressors import tree_leaves, tree_unflatten
+    from repro_torch.models import tensor_parallel as tpl
+    from repro_torch.models.common import rms_norm
+
+    def frac_grad(p, s):
+        x = p.to(torch.float32) * 997.0 + s
+        return (x - torch.floor(x) - 0.5).to(p.dtype)
+
+    class Inject(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, h, *leaves):
+            ctx.save_for_backward(*leaves)
+            return h.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            s = torch.sum(g.to(torch.float32) ** 2)
+            return (g,) + tuple(frac_grad(p, s) for p in ctx.saved_tensors)
+
+    class InjectHead(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, h, *leaves):
+            loss = torch.mean(h.to(torch.float32) ** 2)
+            ctx.save_for_backward(h, loss, *leaves)
+            return loss
+
+        @staticmethod
+        def backward(ctx, g):
+            h, loss, *leaves = ctx.saved_tensors
+            return (h * (g / 64.0).to(h.dtype),) + tuple(frac_grad(p, loss) for p in leaves)
+
+    def tensors(tree):
+        return [y for x in tree_leaves(tree) for y in (x if isinstance(x, (list, tuple))
+                                                       else [x])]
+
+    class Net:
+        def __init__(self, placements=None):
+            self.model, self.cfg, self.placements = model, model.cfg, placements
+
+        def param_shapes(self):
+            return model.param_shapes()
+
+        def param_logical_axes(self):
+            return model.param_logical_axes()
+
+        def init(self, seed, device=None):
+            return model.init(seed, device)
+
+        def tensor_parallel(self, mg):
+            return Net(tpl.placements_for(model, mg.size))
+
+        def embed_stage(self, params, batch):
+            x = torch.as_tensor(batch["inputs"])
+            if self.cfg.input_kind != "tokens":
+                return x.to(self.cfg.activation_dtype)
+            d = torch.arange(self.cfg.d_model, dtype=torch.float32, device=x.device)
+            y = x.to(torch.float32)[..., None] * 0.618 + d * 0.37
+            return Inject.apply((y - torch.floor(y) - 0.5).to(self.cfg.activation_dtype),
+                                *tensors(params["embed"]))
+
+        def superblock_apply(self, layer_slices, h, positions, positions3=None):
+            return Inject.apply(h, *tensors(layer_slices))
+
+        def head_loss(self, params, h, labels):
+            return InjectHead.apply(h, *tensors([params[k] for k in sorted(params)
+                                                 if k not in ("blocks", "embed")]))
+
+        def loss(self, params, batch):
+            """The stages over every repeat: a leaf the placement cuts is its
+            stacked slices (the TP layout), layer l at [:, l]."""
+            h = self.embed_stage(params, batch)
+            pls = (tree_leaves(self.placements["blocks"]) if self.placements is not None
+                   else None)
+            blocks = tree_leaves(params["blocks"])
+            for l in range(self.cfg.n_repeats):
+                layer = tree_unflatten(params["blocks"], [
+                    x[:, l] if pls is not None and pls[i].sharded else x[l]
+                    for i, x in enumerate(blocks)])
+                h = self.superblock_apply(layer, h, batch["positions"], batch.get("positions3"))
+            loss = self.head_loss(params, rms_norm(h, params["final_norm"], self.cfg.norm_eps),
+                                  batch["labels"])
+            return loss, {"loss": loss}
+
+    return Net()
+
+
+def streamed_expected(step, kind: str, m: int, steps: int = 1) -> dict:
+    """The launches of ``steps`` streamed steps (per leaf or bucketed) at M =
+    ``m``: a message a worker of each layer's leaf (a slice a rank of a leaf
+    cut on 'model') and of each outer leaf, one server launch a message's
+    exchange, one decode an exchange (bucketed: a bucket a rank, each block
+    bucket ``n_repeats + 1`` times). ``kind``: pack2, psum, golomb or ef
+    (sparsign on psum with the EF server)."""
+    from repro_torch.core.compressors import tree_leaves
+    lay = step.layout
+    outer = [lay[k] for k in sorted(lay) if k != "blocks"]
+    blocks = tree_leaves(lay["blocks"])
+    ranks = max([x.parts for x in blocks + outer if x.tp], default=1)
+
+    def msgs(lays):
+        return sum(x.parts if x.tp else 1 for x in lays)
+
+    per = step.n_repeats * msgs(blocks) + msgs(outer)
+    block_plan, outer_plan = step.plans
+    decodes = per if block_plan is None else ranks * (
+        (step.n_repeats + 1) * len(block_plan.buckets) + len(outer_plan.buckets))
+    enc, dec, srv = {"pack2": ("sparsign_pack2bit", "unpack2bit_sum", "vote_update"),
+                     "psum": ("sparsign", None, "vote_update"),
+                     "golomb": ("sparsign_golomb", "ungolomb_sum", "vote_update"),
+                     "ef": ("sparsign", None, "ef_server")}[kind]
+    want = {enc: m * per * steps, srv: per * steps}
+    if dec is not None:
+        want[dec] = decodes * steps
+    return expected(**want)
+
+
+def tp_streamed_injected(torch, totals, m, cfg, dev="cuda") -> dict:
+    """S2T: ``cfg`` (llama4-scout at STREAMED_LAYERS[1] layers) with injected
+    gradients (``injected_streamed_net``), one step a run from one state, M =
+    ``m``, every plain version barred: the streamed step at T = TP_T against
+    T = 1 on the 2-bit gather bit for bit (chunked bit digests) with fixed
+    sparsign on psum and on the 2-bit gather, bucketed in one bucket and in
+    TP_BUCKET_BYTES, and the simple T = TP_T step (``step_tp``, the stages
+    over both repeats); ``sparsign_golomb`` under ``target_sparsity`` within
+    TP_FLIP_BOUND of T = 1 beyond float noise with nothing dropped;
+    ``scaled_sign_ef`` on psum to rtol 1e-6 of T = 1 (bf16 weights: within
+    float noise) with the same coordinates moving. Launches, seconds, peaks and wire bytes (== the
+    slice ledger) a run."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.analysis.drivers import tp_slice_ledger
+    from repro_torch.core.algorithm import CompressionConfig
+    from repro_torch.core.budgets import BudgetConfig
+    from repro_torch.core.compressors import tree_leaves, tree_unflatten
+    from repro_torch.data.synthetic import LMStreamConfig, lm_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.train.state import LrSchedule, init_state
+    from repro_torch.train.step_simple import TrainStepConfig, build_train_step
+    from repro_torch.train.step_streamed import StreamedStepConfig, build_streamed_train_step
+
+    on_card = dev == "cuda"
+    net = injected_streamed_net(torch, Model(cfg))
+    seq = TRAINER_SEQ_LEN if on_card else 64
+    batch = lm_batch(LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=m,
+                                    seed=0), 0)
+    lr = LrSchedule(base=0.05)
+    fixed = CompressionConfig(compressor="sparsign",
+                              budget=BudgetConfig(value=TP_STREAMED_BUDGET),
+                              server="majority_vote")
+    golomb = CompressionConfig(compressor="sparsign_golomb", budget=BudgetConfig(
+        kind="target_sparsity", value=TP_STREAMED_TARGET), server="majority_vote")
+    ef = dataclasses.replace(fixed, server="scaled_sign_ef")
+    cap = TP_BUCKET_BYTES if on_card else 2048
+    pristine = net.init(0, dev)
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+
+    def run(label, comp, impl, t, kind, simple=False, params=None, **kw):
+        """One step from a copy of the pristine parameters (or from
+        ``params``, consumed): (the whole parameters, numbers)."""
+        group = make_host_mesh(m, t)
+        if params is None:
+            params = tree_unflatten(pristine, [x.clone() for x in tree_leaves(pristine)])
+        if simple:
+            step = build_train_step(net, TrainStepConfig(compression=comp, lr=lr,
+                                                         vote_impl=impl, **kw), group)
+        else:
+            step = build_streamed_train_step(net, StreamedStepConfig(
+                compression=comp, lr=lr, vote_impl=impl, **kw), group)
+        state = step.shard_state(init_state(params, server=comp.server, seed=3))
+        del params
+        reset_peak(torch)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with plain_versions_barred():
+            state, met = step(state, batch)
+        sync(torch)
+        sec = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        for k in totals:
+            totals[k] += counts[k]
+        if simple:   # a message a worker of each leaf (a slice a rank of a cut one)
+            msgs = sum(TP_T if pl.sharded else 1 for pl in tree_leaves(step.placements))
+            want = expected(sparsign_pack2bit=m * msgs, unpack2bit_sum=msgs,
+                            vote_update=msgs)
+        else:
+            want = streamed_expected(step, kind, m)
+        check(counts == want, f"S2T {label}: launches {counts}, expected {want}")
+        ledger = float(np.float32(tp_slice_ledger(step, net)))
+        check(float(met["wire_bytes_per_device"]) == ledger,
+              f"S2T {label}: wire bytes {float(met['wire_bytes_per_device'])} against the "
+              f"slice ledger {ledger}")
+        peak = peak_gb()
+        whole = step.whole_state(dataclasses.replace(state, ef_residual=None)).params
+        del state
+        res = {"step_s": sec, "peak_gb": peak, "loss": float(met["loss"]),
+               "nnz_frac": float(met["nnz_frac"]),
+               "nnz_dropped": float(met.get("nnz_dropped", 0.0)),
+               "wire_bytes_per_device": float(met["wire_bytes_per_device"]),
+               "launches": {k: v for k, v in counts.items() if v},
+               "map_launches": {k: v for k, v in kernels.map_launch_counts().items() if v}}
+        return whole, res
+
+    def digests(params):
+        return [bit_digest(torch, x) for x in tree_leaves(params)]
+
+    out, dig = {}, {}
+    for label, comp, impl, t, kind, kw in (
+            ("psum", fixed, "psum", TP_T, "psum", {}),
+            ("pack2 T=1", fixed, "allgather_packed", 1, "pack2", {}),
+            ("pack2", fixed, "allgather_packed", TP_T, "pack2", {}),
+            ("bucketed", fixed, "allgather_packed", TP_T, "pack2", {"bucketed": True}),
+            ("bucketed capped", fixed, "allgather_packed", TP_T, "pack2",
+             {"bucketed": True, "bucket_bytes": cap})):
+        whole, out[label] = run(label, comp, impl, t, kind, **kw)
+        dig[label] = digests(whole)
+        del whole
+        if on_card:
+            torch.cuda.empty_cache()
+    whole, out["step_tp"] = run("step_tp", fixed, "allgather_packed", TP_T, "pack2",
+                                simple=True)
+    dig["step_tp"] = digests(whole)
+    del whole
+    equal = {}   # the psum and 2-bit wires sum the same votes (tests/test_torch_streamed.py)
+    for label in ("psum", "pack2", "bucketed", "bucketed capped", "step_tp"):
+        equal[label] = dig[label] == dig["pack2 T=1"]
+    check(all(equal.values()), f"S2T: T = {TP_T} runs whose bit digests differ from the "
+                               f"streamed T = 1 2-bit run's: {equal}")
+    out["digests_equal"] = equal
+    # golomb under target_sparsity: T = 2 within the flip bound of T = 1
+    kw = {"golomb_p": TP_STREAMED_GOLOMB_P}
+    ref, out["golomb T=1"] = run("golomb T=1", golomb, "allgather_packed", 1, "golomb", **kw)
+    got, out["golomb"] = run("golomb", golomb, "allgather_packed", TP_T, "golomb", **kw)
+    a, b, p0 = tree_leaves(got), tree_leaves(ref), tree_leaves(pristine)
+    size = sum(x.numel() for x in a)
+    flips = float_flips(torch, a, b, p0)
+    apart = sum(int((x.view(torch.int16) != y.view(torch.int16)).sum()) if x.element_size() == 2
+                else int((x.view(torch.int32) != y.view(torch.int32)).sum())
+                for x, y in zip(a, b))
+    out["golomb_flips"], out["golomb_bits_apart"], out["coordinates"] = flips, apart, size
+    check(flips <= TP_FLIP_BOUND * size and out["golomb"]["nnz_dropped"] == 0.0
+          and out["golomb T=1"]["nnz_dropped"] == 0.0,
+          f"S2T golomb: {flips} of {size} coordinates beyond float noise (bound "
+          f"{TP_FLIP_BOUND}), dropped {out['golomb']['nnz_dropped']}, T = 1 "
+          f"{out['golomb T=1']['nnz_dropped']}")
+    del got, ref, a, b
+    if on_card:
+        torch.cuda.empty_cache()
+    # scaled_sign_ef on psum: T = 2 to rtol 1e-6 of T = 1, the same coordinates
+    # moving. The float32 residual leaves no room for a pristine copy beside
+    # two runs: each run draws the parameters again from the seed, T = 1's
+    # result waits in host memory
+    del pristine, p0
+    if on_card:
+        torch.cuda.empty_cache()
+    ref, out["ef T=1"] = run("ef T=1", ef, "psum", 1, "ef", params=net.init(0, dev))
+    ref_host = [x.to("cpu") for x in tree_leaves(ref)]
+    del ref
+    if on_card:
+        torch.cuda.empty_cache()
+    got, out["ef"] = run("ef", ef, "psum", TP_T, "ef", params=net.init(0, dev))
+    if on_card:
+        torch.cuda.empty_cache()
+    # rtol 1e-6 in float32 weights; in bf16 an update an ulp apart may round
+    # to the next bf16 value, so the card's weights are held to float noise
+    # (float_flips: 1e-5 of the largest update plus two ulps of the dtype)
+    worst, moved_apart, ef_flips = 0.0, 0, 0
+    for x, y, p in zip(tree_leaves(got), ref_host, tree_leaves(net.init(0, dev))):
+        y = y.to(x.device)
+        x32, y32 = x.float(), y.float()
+        worst = max(worst, float(((x32 - y32).abs() / (y32.abs() + 1e-30)).max()))
+        moved_apart += int(((x != p) != (y != p)).sum())
+        ef_flips += float_flips(torch, [x], [y], [p])
+        del x32, y32, y
+    out["ef_max_rel"], out["ef_moved_apart"], out["ef_flips"] = worst, moved_apart, ef_flips
+    f32 = all(x.dtype == torch.float32 for x in ref_host)
+    check((worst <= 1e-6 if f32 else ef_flips == 0) and moved_apart == 0,
+          f"S2T ef: largest relative difference from T = 1 {worst:.3g} (rtol 1e-6 in "
+          f"float32), {ef_flips} coordinates beyond float noise, {moved_apart} moved on one "
+          f"side only")
+    del got, ref_host
+    if on_card:
+        torch.cuda.empty_cache()
+    runs = [k for k in out if isinstance(out[k], dict) and "step_s" in out[k]]
+    print(f"[tp streamed S2T] {cfg.name} at {cfg.n_layers} layers, injected gradients, M = "
+          f"{m} x T = {TP_T} against T = 1 from one state, one step each: bit digests equal "
+          f"{equal}; golomb target_sparsity {TP_STREAMED_TARGET} (plan {TP_STREAMED_GOLOMB_P}) "
+          f"{flips} of {size} coordinates beyond float noise, {apart} in any bit, dropped "
+          f"{out['golomb']['nnz_dropped']:.0f}; scaled_sign_ef largest relative difference "
+          f"{worst:.3g}, {ef_flips} beyond float noise, moved on one side only {moved_apart}; "
+          f"seconds, peak GB, wire bytes: "
+          + "; ".join(f"{k} {out[k]['step_s']:.3f} s, {out[k]['peak_gb']:.2f} GB, "
+                      f"{out[k]['wire_bytes_per_device']:.10g}" for k in runs)
+          + "; launches " + "; ".join(f"{k} {out[k]['launches']}"
+                                      for k in ("pack2", "bucketed", "golomb", "ef")))
+    return out
+
+
+def tp_streamed_line(tag: str, res: dict, t1: dict) -> None:
+    """One launcher run under T = TP_T beside its T = 1 twin."""
+    print(f"[tp streamed {tag}] {res['config']}, {res['layers']} layers, M = {res['workers']} "
+          f"x T = {TP_T}, {res['tokens_per_worker']} tokens a worker, sparsign l2_norm 0.1, "
+          f"majority vote on allgather_packed, through the launcher: step "
+          f"{[round(x, 3) for x in res['step_s']]} s (T = 1 "
+          f"{[round(x, 3) for x in t1['step_s']]}), peak {res['peak_gb']:.2f} GB (T = 1 "
+          f"{t1['peak_gb']:.2f}; the step's {res.get('train_peak_gb', res['peak_gb']):.2f}, "
+          f"init {res.get('init_peak_gb', 0.0):.2f}), wire bytes a device "
+          f"{res['wire_bytes_per_device']:.10g} (== "
+          f"the slice ledger; T = 1 {t1['wire_bytes_per_device']:.10g}, "
+          f"{res['wire_bytes_per_device'] / t1['wire_bytes_per_device']:.5f}x), loss "
+          f"{res['loss']} (T = 1 {t1['loss']}), launches a step "
+          f"{res['launches']}, counter maps {res['map_launches']}")
 
 
 JAMBA_ARCH = "jamba-1.5-large-398b"
@@ -3836,11 +4206,13 @@ def phase_jamba(torch, report, totals, dev="cuda"):
     JAMBA_WORKERS in one process through the launcher, launches counted
     with every plain version barred; the trained state served through the
     launcher's loop, a timed prefill and decode against the full forward;
-    then ``huge_leaf_check``. ``dev="cpu"`` rehearses it at the smoke
+    J1T, one launcher step at M = JAMBA_WORKERS x T = TP_T; then
+    ``huge_leaf_check``. ``dev="cpu"`` rehearses it at the smoke
     widths, where only the launch counts cannot hold."""
     import numpy as np
 
     from repro_torch import kernels
+    from repro_torch.analysis.drivers import tp_slice_ledger
     from repro_torch.configs import jamba15_large
     from repro_torch.core.compressors import tree_leaves
     from repro_torch.launch import serve as launch_serve
@@ -3973,6 +4345,48 @@ def phase_jamba(torch, report, totals, dev="cuda"):
               f"token longer {floor:.4g}; tolerance {MAMBA_DECODE_REL_TOL}), argmax agrees for "
               f"{agree:.0%}")
         del params, model, prefill, toks, pos
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # -- J1T: the card cut under a 'model' axis of TP_T -----------------
+        args = launch.parser().parse_args([
+            "--arch", JAMBA_ARCH, "--host-data", str(m), "--host-model", str(TP_T), "--batch",
+            str(m), "--steps", "1", "--seed", "0", "--compressor", "sparsign", "--budget-kind",
+            "l2_norm", "--budget", "0.1", "--server", "majority_vote", "--vote-impl",
+            "allgather_packed"] + where)
+        reset_peak(torch)
+        t0 = time.perf_counter()
+        cfg, model, group, step, state, comp = launch.build_everything(args)
+        sync(torch)
+        init_s = time.perf_counter() - t0
+        init_peak = peak_gb()
+        reset_peak(torch)
+        kernels.reset_launch_counts()
+        with plain_versions_barred():
+            state, history = loop.run(step, state, launch.batch_fn_for(cfg, args),
+                                      loop.LoopConfig(total_steps=1, log_every=1),
+                                      log=lambda line: None)
+        sync(torch)
+        counts = kernels.launch_counts()
+        for k in totals:
+            totals[k] += counts[k]
+        want = streamed_expected(step, "pack2", m)
+        check(counts == want, f"J1T: launches {counts}, expected {want}")
+        h = history[0]
+        ledger = float(np.float32(tp_slice_ledger(step, model)))
+        check(math.isfinite(h["loss"]) and h["wire_bytes_per_device"] == ledger,
+              f"J1T: {h} against the slice ledger {ledger}")
+        check(all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params)),
+              "J1T: non-finite parameters")
+        j1t = {"config": cfg.name, "layers": cfg.n_layers, "workers": m,
+               "tokens_per_worker": seq, "init_s": init_s, "step_s": [h["wall_s"]],
+               "loss": h["loss"], "nnz_frac": h["nnz_frac"], "wire_bytes_per_device": ledger,
+               "peak_gb": peak_gb(), "init_peak_gb": init_peak,
+               "launches": {k: v for k, v in counts.items() if v},
+               "map_launches": {k: v for k, v in kernels.map_launch_counts().items() if v}}
+        tp_streamed_line("J1T", j1t, {**j1, "step_s": [j1["step_s"]]})
+        out["J1T"] = j1t
+        del step, state, model
         if on_card:
             torch.cuda.empty_cache()
     finally:

@@ -331,8 +331,10 @@ def run_census_checks(m: int = HYPOTHETICAL_M, device: str = "cuda") -> tuple:
 #: 2-bit gather; the bucketed uplink over the slice plan on the 2-bit and
 #: Golomb gathers, the per-leaf 2-bit ring, and the bucketed Golomb and pack8
 #: rings; the 2-bit gather on the tiny MoE model (experts on 'model') and the
-#: tiny mamba2 model (its mixer split by heads). ``TP_MODELS`` names a setup's
-#: model where it is not ``tiny_model``
+#: tiny mamba2 model (its mixer split by heads); the streamed (FSDP) trainer
+#: (``streamed`` in the options) on llama4-scout's smoke model, per leaf on
+#: psum and the 2-bit gather and bucketed on the Golomb gather. ``TP_MODELS``
+#: names a setup's model where it is not ``tiny_model``
 TP_M, TP_T = 4, 2
 TP_SETUPS = {
     "psum": ("votes", "psum", False, {}),
@@ -348,8 +350,25 @@ TP_SETUPS = {
                             {"bucketed": True, "ring_chunk_rows": RING_SWEEP_CHUNK_ROWS}),
     "moe": ("votes", "allgather_packed", False, {}),
     "mamba2": ("votes", "allgather_packed", False, {}),
+    "streamed_psum": ("votes", "psum", False, {"streamed": True}),
+    "streamed_allgather_packed": ("votes", "allgather_packed", False, {"streamed": True}),
+    "streamed_bucketed_golomb": ("golomb", "allgather_packed", False,
+                                 {"streamed": True, "bucketed": True}),
 }
-TP_MODELS = {"moe": tiny_moe_model, "mamba2": tiny_mamba_model}
+
+
+def streamed_tiny_model():
+    """llama4-scout-17b-a16e's smoke model: the streamed trainer's MoE
+    pattern with the sigmoid top-1 router, at 2 layers."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    return Model(get_config("llama4-scout-17b-a16e", smoke=True))
+
+
+TP_MODELS = {"moe": tiny_moe_model, "mamba2": tiny_mamba_model,
+             "streamed_psum": streamed_tiny_model,
+             "streamed_allgather_packed": streamed_tiny_model,
+             "streamed_bucketed_golomb": streamed_tiny_model}
 
 
 @functools.lru_cache(maxsize=None)
@@ -359,13 +378,18 @@ def run_tp_step(setup: str, device: str = "cuda"):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train.state import LrSchedule, init_state
     from repro_torch.train.step_simple import TrainStepConfig, build_train_step
+    from repro_torch.train.step_streamed import StreamedStepConfig, build_streamed_train_step
 
     mode, vote_impl, elastic, options = TP_SETUPS[setup]
+    options = dict(options)
     model = TP_MODELS.get(setup, tiny_model)()
-    step = build_train_step(model, TrainStepConfig(
-        compression=mode_comp(mode), lr=LrSchedule(base=0.05), vote_impl=vote_impl,
-        participation=participation_spec() if elastic else None, **options),
-        make_mesh((TP_M, TP_T), ("data", "model")))
+    group = make_mesh((TP_M, TP_T), ("data", "model"))
+    kw = dict(compression=mode_comp(mode), lr=LrSchedule(base=0.05), vote_impl=vote_impl,
+              participation=participation_spec() if elastic else None)
+    if options.pop("streamed", False):
+        step = build_streamed_train_step(model, StreamedStepConfig(**kw, **options), group)
+    else:
+        step = build_train_step(model, TrainStepConfig(**kw, **options), group)
     state = step.shard_state(init_state(model.init(0, device), server="majority_vote",
                                         seed=STEP_SEED))
     with collectives.record_collectives() as census:
@@ -373,34 +397,57 @@ def run_tp_step(setup: str, device: str = "cuda"):
     return census, model, step
 
 
+def _slice_split(step, n: int, parts: int) -> tuple:
+    """(payload, scalar) of one exchange of a leaf of n coordinates, cut into
+    ``parts`` model slices (1: whole), as the census splits it."""
+    wire = step.wire.for_slice(n) if parts > 1 else step.wire
+    n_dev = n // parts
+    total = collectives.uplink_ledger(step.mode, wire, n_dev, share_linf=step.share_linf)
+    chunks = wire.ring_chunks(n_dev)
+    sc = 0.0
+    if step.mode == "pack8":
+        if wire.participation is None:
+            sc += wire.scalar_bytes() * chunks
+    elif step.mode != "decoded":
+        sc += wire.weight_bytes() * chunks
+    if step.share_linf:
+        sc += collectives.allreduce_scalar_bytes(wire.n_workers)
+    return total - sc, sc
+
+
 def tp_slice_ledger_split(step, model) -> tuple:
     """(payload, scalar) of a device's uplink ledger under tensor
     parallelism, split as the census splits it. Bucketed, the slice plan's
     ``plan_ledger`` (``step.plan``: each cut leaf's slice, each replicated
-    leaf whole, in one plan a device). Per leaf, each cut leaf's slice (its
-    slice wire, ``VoteWire.for_slice``), each replicated leaf whole; the
-    ternary gather wires' elastic weight, pack8's decode scale (without a
-    weight beside it) and the shared L-inf max are scalars, the side
+    leaf whole, in one plan a device), or the streamed step's two plans'
+    ``streamed_plan_ledger`` (``step.plans``). Per leaf, each cut leaf's
+    slice (its slice wire, ``VoteWire.for_slice``), each replicated leaf
+    whole, the streamed step's block leaves once a layer at a layer's size;
+    the ternary gather wires' elastic weight, pack8's decode scale (without
+    a weight beside it) and the shared L-inf max are scalars, the side
     channels once a ring chunk."""
+    if hasattr(step, "plans"):   # the streamed step
+        block_plan, outer_plan = step.plans
+        if block_plan is not None:
+            return bucketing.streamed_plan_ledger(step.mode, step.wire, block_plan, outer_plan,
+                                                  step.n_repeats, share_linf=step.share_linf)
+        shapes = model.param_shapes()
+        payload = scalar = 0.0
+        for k in sorted(shapes):
+            times, skip = (step.n_repeats, 1) if k == "blocks" else (1, 0)
+            for sd, lay in zip(tree_leaves(shapes[k]), tree_leaves(step.layout[k])):
+                p, sc = _slice_split(step, math.prod(sd.shape[skip:]),
+                                     lay.parts if lay.tp else 1)
+                payload += times * p
+                scalar += times * sc
+        return payload, scalar
     if step.plan is not None:
         return bucketing.plan_ledger(step.mode, step.wire, step.plan,
                                      share_linf=step.share_linf)
-    pls = tree_leaves(step.placements)
     payload = scalar = 0.0
-    for n, pl in zip(_leaf_sizes(model), pls):
-        wire = step.wire.for_slice(n) if pl.sharded else step.wire
-        n_dev = n // pl.parts if pl.sharded else n
-        total = collectives.uplink_ledger(step.mode, wire, n_dev, share_linf=step.share_linf)
-        chunks = wire.ring_chunks(n_dev)
-        sc = 0.0
-        if step.mode == "pack8":
-            if wire.participation is None:
-                sc += wire.scalar_bytes() * chunks
-        elif step.mode != "decoded":
-            sc += wire.weight_bytes() * chunks
-        if step.share_linf:
-            sc += collectives.allreduce_scalar_bytes(wire.n_workers)
-        payload += total - sc
+    for n, pl in zip(_leaf_sizes(model), tree_leaves(step.placements)):
+        p, sc = _slice_split(step, n, pl.parts if pl.sharded else 1)
+        payload += p
         scalar += sc
     return payload, scalar
 

@@ -22,10 +22,12 @@ tensor-parallel 'model' axis of T ranks (every ``simple``-mode family: the
 dense attention ones, the MoE ones with their experts on 'model', mamba2
 with its mixer split by heads; every compressor, wire, budget and server,
 elastic participation, local steps, ``--bucketed`` with or without
-``--bucket-bytes``, and ``--ring``; ``train.step_tp``); its checkpoints
-hold whole leaves, so a run resumes at another T or M. What is not ported
-yet raises: a launch on the production meshes, the streamed trainer under
-T > 1.
+``--bucket-bytes``, and ``--ring``; ``train.step_tp``), and the streamed
+trainer's three architectures (``train.step_streamed``: each device a
+shard of its model slice of every leaf); its checkpoints hold whole
+leaves, so a run resumes at another T or M. What is not ported yet raises:
+a launch on the production meshes, a streamed 'model' axis whose ranks
+span processes.
 """
 
 from __future__ import annotations
@@ -46,8 +48,7 @@ from repro_torch.models.model import Model
 from repro_torch.train import loop as loop_lib
 from repro_torch.train.state import LrSchedule, init_state
 from repro_torch.train.step_simple import TrainStepConfig, build_train_step
-from repro_torch.train.step_streamed import (StreamedStepConfig, build_streamed_train_step,
-                                             shard_state)
+from repro_torch.train.step_streamed import StreamedStepConfig, build_streamed_train_step
 
 
 def participation_of(args):
@@ -92,11 +93,8 @@ def build_everything(args, group=None):
             compression=comp, lr=lr, vote_impl=args.vote_impl, quorum=args.quorum,
             bucketed=args.bucketed, bucket_bytes=args.bucket_bytes, ring_chunk_rows=ring_rows,
             participation=participation_of(args)), group)
-    params = model.init(args.seed, device)
-    state = init_state(params, server=comp.server, seed=args.seed)
-    if mode == "streamed":
-        state = shard_state(state, step.layout)
-    elif group.model_size > 1:
+    state = init_state(model.init(args.seed, device), server=comp.server, seed=args.seed)
+    if mode == "streamed" or group.model_size > 1:
         state = step.shard_state(state)
     return cfg, model, group, step, state, comp
 

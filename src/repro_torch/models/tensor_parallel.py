@@ -421,6 +421,27 @@ class TPModel:
             return [e.T for e in params["embed"].unbind(0)]
         return list(params["lm_head"].unbind(0))
 
+    def superblock_apply(self, layer_slices, h, positions, positions3=None) -> torch.Tensor:
+        """One repeat of the pattern (``Model.superblock_apply`` under T):
+        ``layer_slices`` holds one dict of a layer's leaves a pattern
+        position, a leaf held whole on 'model' as its layer, a cut one as its
+        local ranks' slices of the layer (stacked, or a sequence). As
+        ``Model``'s, each block is remat'ed on its own only in a pattern of
+        several blocks."""
+        cfg, mg = self.cfg, self.mg
+        remat = cfg.remat and len(cfg.pattern) > 1
+        for spec, bp, bpl in zip(cfg.pattern, layer_slices, self.placements["blocks"]):
+            rep = {k: v for k, v in bp.items() if not bpl[k].sharded}
+            sl = {k: list(v) for k, v in bp.items() if bpl[k].sharded}
+            ranks = [{k: v[r] for k, v in sl.items()} for r in range(mg.local)]
+            dims = {k: bpl[k].dim - 1 for k in sl}
+            if remat:
+                h = checkpoint(self._block, spec, rep, ranks, dims, h, positions, positions3,
+                               use_reentrant=False)
+            else:
+                h = self._block(spec, rep, ranks, dims, h, positions, positions3)
+        return h
+
     def forward_hidden(self, params, batch) -> torch.Tensor:
         cfg = self.cfg
         h = self.embed_stage(params, batch)

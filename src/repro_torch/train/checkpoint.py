@@ -187,11 +187,7 @@ def _read_leaf(path: str, like, layout=None):
     ``layout``'s slice of it, when given), or a host int."""
     arr = np.load(path, mmap_mode="r")
     if layout is not None and not layout.whole:
-        arr = arr[(slice(None),) * layout.axis + (slice(layout.start,
-                                                         layout.start + layout.size),)]
-        pieces = getattr(layout, "pieces", 1)
-        if pieces > 1:   # a tensor-parallel leaf: its model slices, stacked
-            arr = np.stack(np.split(arr, pieces, axis=layout.axis))
+        arr = layout.cut_array(arr)
     if isinstance(like, np.generic):
         return int(arr)
     if isinstance(like, np.ndarray):
@@ -227,7 +223,7 @@ def _unflatten(like, leaves):
 
 
 def _is_layout(x) -> bool:
-    return all(hasattr(x, a) for a in ("shape", "axis", "start", "size", "whole"))
+    return all(hasattr(x, a) for a in ("shape", "axis", "start", "size", "whole", "cut_array"))
 
 
 def _flat_shardings(sh, like, path: str = "") -> list:
@@ -269,9 +265,11 @@ def restore(ckpt_dir: str, like, *, step: Optional[int] = None, shardings=None):
     leaves are this process's slices, the checkpoint's the whole leaves, and
     each file is mapped and only the slice copied, so a resume at another M
     or in another number of processes re-cuts the slices from the same
-    files. A layout with ``pieces`` (``step_tp.TPLeafLayout``) restores its
-    block as that many model slices stacked on a new leading axis: the
-    tensor-parallel layout, at any T."""
+    files. Each layout cuts its own piece of the mapped file (``cut_array``):
+    ``step_tp.TPLeafLayout`` its block as its model slices stacked on a new
+    leading axis, the tensor-parallel layout; ``step_streamed.LeafLayout``
+    its shards, and under T its model slices' shards stacked so, at any
+    (M, T)."""
     steps = latest_steps(ckpt_dir)
     if not steps:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")

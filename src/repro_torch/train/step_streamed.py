@@ -55,10 +55,18 @@ worker order (``collectives.ordered_sum`` of the gathered partials), where
 JAX sums them over the FSDP axis; a replicated leaf's server math runs once
 a process. Like the simple step's, the step writes each new slice into the
 input state's tensors; the input state must not be read again.
+
+Under a tensor-parallel 'model' axis of T > 1 (JAX's step is manual over the
+worker and FSDP axes and leaves 'model' to GSPMD) each device holds its
+shard of its model slice of every leaf, the stages run tensor-parallel
+(``models.tensor_parallel.TPModel``) and each model rank compresses,
+exchanges and updates its slice of a layer as ``train/step_tp.py`` does a
+leaf's (``build_streamed_train_step`` says how).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Optional, Tuple
@@ -71,7 +79,8 @@ from repro_torch.core.algorithm import CompressionConfig, worker_stream_seed
 from repro_torch.core.compressors import tree_leaves, tree_unflatten
 from repro_torch.dist import bucketing, collectives
 from repro_torch.dist.collectives import ParticipationSpec, WorkerGroup
-from repro_torch.dist.sharding import TP_RULES
+from repro_torch.dist.sharding import TP_RULES, Placement
+from repro_torch.models import tensor_parallel as tp_lib
 from repro_torch.models.common import rms_norm
 from repro_torch.train import sampling
 from repro_torch.train.state import LrSchedule, TrainState
@@ -143,59 +152,116 @@ def build_fsdp_layout(shapes_tree, n_shards: int, min_axis: int = 1, logical_tre
 class LeafLayout:
     """Where one leaf lives: its whole ``shape``, its shard ``axis`` (or
     REPLICATED) and this process's slice along it, ``size`` indices from
-    ``start``: the ``shard``-sized shards of its local workers."""
+    ``start``: the ``shard``-sized shards of its local workers. Under a
+    'model' axis of ``parts`` > 1 ranks a leaf the placement cuts on
+    ``tp_dim`` is held as this process's model ``ranks``' slices, stacked
+    on a new leading axis (``step_tp``'s TP layout), each of them cut on the
+    shard axis; a leaf replicated over 'model' has ``tp_dim`` None."""
     shape: Tuple[int, ...]
     axis: int
     start: int
     size: int
     shard: int
+    tp_dim: Optional[int] = None
+    ranks: Tuple[int, ...] = ()
+    parts: int = 1
+
+    @property
+    def tp(self) -> bool:
+        """Whether the leaf is cut on 'model' (held as stacked slices)."""
+        return self.tp_dim is not None
+
+    @property
+    def fsdp_whole(self) -> bool:
+        """Whether this process holds the whole shard axis."""
+        return self.axis == REPLICATED or self.size == self.shape[self.axis]
 
     @property
     def whole(self) -> bool:
-        """Whether this process holds the whole leaf."""
-        return self.axis == REPLICATED or self.size == self.shape[self.axis]
+        """Whether this process holds the whole leaf as one tensor."""
+        return self.fsdp_whole and not self.tp
 
     def cut(self, x: torch.Tensor, axis: Optional[int] = None) -> torch.Tensor:
-        """This process's slice of a whole leaf ``x`` (a view; ``x`` itself
-        when the process holds all of it). ``axis`` overrides the shard axis,
-        for one layer of a stacked leaf."""
-        if self.whole:
+        """This process's shards of ``x`` along the shard axis (a view; ``x``
+        itself when the process holds all of it): a whole leaf's, a model
+        slice's, or with ``axis`` one layer's of a stacked leaf."""
+        if self.fsdp_whole:
             return x
         return x.narrow(self.axis if axis is None else axis, self.start, self.size)
 
+    def place(self, x: torch.Tensor) -> torch.Tensor:
+        """A whole leaf -> this process's piece of it (a copy, unless the
+        process holds it whole)."""
+        if self.whole:
+            return x
+        if self.tp:
+            pieces = x.chunk(self.parts, dim=self.tp_dim)
+            return torch.stack([self.cut(pieces[r]) for r in self.ranks])
+        return self.cut(x).clone()
+
+    def cut_array(self, arr: np.ndarray) -> np.ndarray:
+        """``place`` for a mapped checkpoint file: only this process's
+        piece is read."""
+        if not self.fsdp_whole:
+            arr = arr[(slice(None),) * self.axis + (slice(self.start, self.start + self.size),)]
+        if self.tp:
+            pieces = np.split(arr, self.parts, axis=self.tp_dim)
+            arr = np.stack([pieces[r] for r in self.ranks])
+        return arr
+
 
 def streamed_layout(model, group: WorkerGroup) -> dict:
-    """The parameter tree of ``LeafLayout``s over the group's M workers: the
-    port's counterpart of JAX's ``streamed_shardings``."""
+    """The parameter tree of ``LeafLayout``s over the group's M workers and
+    its 'model' axis: the port's counterpart of JAX's ``streamed_shardings``.
+    The shard axis is the same at every T (``build_fsdp_layout`` avoids the
+    axes that ``TP_RULES`` places), so it never meets a leaf's model cut."""
     shapes, logical = model.param_shapes(), model.param_logical_axes()
     n, rank, local = group.n_workers, group.rank, group.local
+    t = group.model_size
+    placements = tp_lib.placements_for(model, t) if t > 1 else None
+    ranks = tuple(group.model.ranks) if t > 1 else ()
     out = {}
     for k in shapes:
         axes = tree_leaves(build_fsdp_layout(shapes[k], n, min_axis=1 if k == "blocks" else 0,
                                              logical_tree=logical[k]))
+        pls = (tree_leaves(placements[k]) if placements is not None
+               else [None] * len(axes))
         lays = []
-        for sd, ax in zip(tree_leaves(shapes[k]), axes):
+        for sd, ax, pl in zip(tree_leaves(shapes[k]), axes, pls):
             shape = tuple(sd.shape)
+            tp = dict(tp_dim=pl.dim, ranks=ranks, parts=t) if pl is not None and pl.sharded \
+                else {}
+            assert not tp or ax != pl.dim, (k, shape, ax, pl)   # JAX's assert
             if ax == REPLICATED:
-                lays.append(LeafLayout(shape, REPLICATED, 0, 0, 0))
+                lays.append(LeafLayout(shape, REPLICATED, 0, 0, 0, **tp))
                 continue
             shard = shape[ax] // n
-            lays.append(LeafLayout(shape, ax, rank * local * shard, local * shard, shard))
+            lays.append(LeafLayout(shape, ax, rank * local * shard, local * shard, shard, **tp))
         out[k] = tree_unflatten(shapes[k], lays)
     return out
 
 
 def shard_tree(tree, layout):
-    """A tree of whole leaves cut to this process's slices (copies, so the
-    whole leaves can be freed); a leaf the process holds whole is kept as
-    it is."""
-    return tree_unflatten(tree, [x if lay.whole else lay.cut(x).clone()
-                                 for x, lay in zip(tree_leaves(tree), tree_leaves(layout))])
+    """A tree of whole leaves cut to this process's pieces, in place: each
+    dict entry of ``tree`` is replaced by its piece (a copy; a leaf the
+    process holds whole is kept as it is) as it is made, so each whole leaf
+    is freed at once where nothing else holds it. A T > 1 layout copies
+    every cut leaf, and a second tree would hold twice the weights until the
+    first one went. Returns ``tree``."""
+    def walk(t, lt):
+        for k in (sorted(t) if isinstance(t, dict) else range(len(t))):
+            if isinstance(t[k], torch.Tensor):
+                t[k] = lt[k].place(t[k])
+            else:
+                walk(t[k], lt[k])
+
+    walk(tree, layout)
+    return tree
 
 
 def shard_state(state: TrainState, layout) -> TrainState:
-    """A state of whole leaves cut to this process's slices: the port's
-    ``fsdp_param_shardings`` placement."""
+    """A state of whole leaves cut to this process's slices (in place, as
+    ``shard_tree``): the port's ``fsdp_param_shardings`` placement."""
     return TrainState(params=shard_tree(state.params, layout),
                       ef_residual=(shard_tree(state.ef_residual, layout)
                                    if state.ef_residual is not None else None),
@@ -210,11 +276,24 @@ def state_shardings(layout, state: TrainState) -> TrainState:
                       step=None, seed=None)
 
 
+def gather_leaf(x: torch.Tensor, lay: LeafLayout, group: WorkerGroup) -> torch.Tensor:
+    """This process's piece of a leaf -> the whole leaf: its shards gathered
+    over the processes, then its model slices joined (every rank of a
+    worker lives in its process)."""
+    if lay.whole:
+        return x
+    if not lay.fsdp_whole:
+        x = collectives.fsdp_all_gather(x, group, lay.axis + (1 if lay.tp else 0))
+    if lay.tp:
+        assert len(lay.ranks) == lay.parts, lay
+        x = torch.cat(list(x.unbind(0)), dim=lay.tp_dim)
+    return x
+
+
 def gather_tree(tree, layout, group: WorkerGroup):
     """This process's slices -> whole leaves (the leaves themselves in one
-    process)."""
-    return tree_unflatten(tree, [x if lay.whole else
-                                 collectives.fsdp_all_gather(x, group, lay.axis)
+    process at T = 1)."""
+    return tree_unflatten(tree, [gather_leaf(x, lay, group)
                                  for x, lay in zip(tree_leaves(tree), tree_leaves(layout))])
 
 
@@ -224,35 +303,71 @@ def gather_tree(tree, layout, group: WorkerGroup):
 
 class _Messages:
     """One exchange group's messages for this process's workers: a layer's
-    block leaves, or the outer leaves. Per leaf, each worker's message and
-    decode scale (decoded mode: its values and scale); bucketed, a
-    (local, rows, width) buffer a bucket that each message is written into."""
+    block leaves, or the outer leaves. ``msgs[i][r]`` and ``scales[i][r]``
+    hold each worker's message and decode scale (decoded mode: its values
+    and scale) of leaf i's slice r (r = 0 only for a leaf held whole on
+    'model'); bucketed, ``bufs[r]`` holds local model rank r's (local, rows,
+    width) buffer a bucket that each message is written into."""
 
-    def __init__(self, plan, n_leaves: int, local: int, device, zero_scales: bool = False):
+    def __init__(self, plan, leaf_ranks, n_ranks: int, local: int, device,
+                 zero_scales: bool = False):
         self.plan = plan
-        self.msgs = [[] for _ in range(n_leaves)]
-        self.scales = [[] for _ in range(n_leaves)]
+        self.msgs = [[[] for _ in range(k)] for k in leaf_ranks]
+        self.scales = [[[] for _ in range(k)] for k in leaf_ranks]
         self.bufs = None
         if plan is not None:
             self.slot_of = {s.index: (bi, s) for bi, b in enumerate(plan.buckets)
                             for s in b.slots}
-            self.bufs = [torch.zeros((local, b.rows, bucketing.ROW_WIDTH[plan.fmt]),
-                                     dtype=bucketing.ROW_DTYPE[plan.fmt], device=device)
-                         for b in plan.buckets]
+            self.bufs = [[torch.zeros((local, b.rows, bucketing.ROW_WIDTH[plan.fmt]),
+                                      dtype=bucketing.ROW_DTYPE[plan.fmt], device=device)
+                          for b in plan.buckets] for _ in range(n_ranks)]
             if zero_scales:   # the priming buckets: every decode scale 1.0
                 one = torch.ones((), dtype=torch.float32, device=device)
-                self.scales = [[one] * local for _ in range(n_leaves)]
+                self.scales = [[[one] * local for _ in range(k)] for k in leaf_ranks]
+
+
+@dataclasses.dataclass(frozen=True)
+class _Leaf:
+    """A leaf of an exchange group as one message of a layer (or of the
+    outer leaves): its whole coordinates ``n``, whether 'model' cuts it, and
+    a device's share (``dev_shape``, ``dev_n``), its slice wire and its
+    ranks' counter maps."""
+    n: int
+    sharded: bool
+    dev_shape: Tuple[int, ...]
+    dev_n: int
+    wire: Any
+    maps: tuple
 
 
 def build_streamed_train_step(model, step_cfg: StreamedStepConfig,
                               group: WorkerGroup) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics), ``state``
     holding this process's slices (``shard_state``). Build-time refusals
-    (``ValueError``): tail blocks, tied embeddings, tau > 1. A 'model' axis
-    of size T > 1 is not ported yet (``NotImplementedError``)."""
-    if group.model_size > 1:
-        raise NotImplementedError("the streamed trainer with a tensor-parallel 'model' axis "
-                                  f"of {group.model_size} is not ported yet")
+    (``ValueError``): tail blocks, tied embeddings, tau > 1.
+
+    With a 'model' axis of T > 1 (``group.model``) each device holds its
+    shard, on the worker axes, of its model slice of every leaf
+    (``LeafLayout``), the stages run tensor-parallel
+    (``models.tensor_parallel.TPModel``: ``embed_stage``,
+    ``superblock_apply``, ``head_loss``) and each rank compresses its slice
+    of a layer's gradient so its symbols are the whole layer's at the same
+    coordinates, ``step_tp``'s way: the layer's counters through the slice's
+    counter map at base ``l * n``, each whole-layer statistic reduced over
+    'model' in rank order (``engine.leaf_slices``), a Golomb slice at its
+    layer's capacity, a leaf held whole on 'model' compressed whole. Each
+    rank's messages go over the worker axes and its server updates its shard
+    of its slice; ``scaled_sign_ef``'s L1 is the rank-order sum of the
+    ranks' worker-order sums of their shards' partials. ``bucketed=True``
+    builds the two plans over a device's slices. ``wire_bytes_per_device``
+    and ``gather_hbm_bytes`` bill one device's slices (JAX's figure, the
+    whole leaves', is T = 1's). The model ranks of a worker must live in its
+    process (``NotImplementedError`` otherwise)."""
+    mg = group.model if group.model_size > 1 else None
+    if mg is not None and mg.world > 1:
+        raise NotImplementedError(
+            f"the streamed trainer with a 'model' axis whose {mg.size} ranks span "
+            f"{mg.world} processes is not ported yet: give each process whole workers")
     cfg = model.cfg
     comp = step_cfg.compression
     if cfg.tail_pattern:
@@ -264,6 +379,7 @@ def build_streamed_train_step(model, step_cfg: StreamedStepConfig,
     if comp.local_steps != 1:
         raise ValueError(f"the streamed trainer runs Algorithm 1's exchange (tau = 1), got "
                          f"tau = {comp.local_steps}; use the simple trainer for Algorithm 2")
+    net = model.tensor_parallel(mg) if mg is not None else model   # runs the stages
     mode = engine.wire_mode(comp, vote_impl=step_cfg.vote_impl)
     wire_fmt = engine.wire_payload_format(comp, mode, vote_impl=step_cfg.vote_impl)
     part = step_cfg.participation
@@ -302,34 +418,56 @@ def build_streamed_train_step(model, step_cfg: StreamedStepConfig,
         at += len(flat_idx[k])
     blocks_idx = flat_idx["blocks"]
     outer_idx = [flat_idx[k][0] for k in outer_keys]
-    block_shapes = [tuple(sd.shape[1:]) for sd in tree_leaves(shapes["blocks"])]
-    outer_shapes = [tuple(shapes[k].shape) for k in outer_keys]
     block_lays = tree_leaves(layout["blocks"])
     outer_lays = [layout[k] for k in outer_keys]
-    n_rep, n_blk = cfg.n_repeats, len(block_shapes)
+    n_ranks = mg.local if mg is not None else 1
+
+    def leaf_of(shape, lay: LeafLayout, dim_shift: int) -> _Leaf:
+        """A message of ``shape`` (one layer of a block leaf: its model cut
+        ``dim_shift`` = 1 dim earlier than the stacked leaf's)."""
+        n = math.prod(shape)
+        if not lay.tp:
+            return _Leaf(n, False, shape, n, wire, ())
+        pl = Placement(lay.tp_dim - dim_shift, lay.parts)
+        dev_shape = tuple(d // pl.parts if k == pl.dim else d for k, d in enumerate(shape))
+        return _Leaf(n, True, dev_shape, n // pl.parts, wire.for_slice(n),
+                     tuple(tp_lib.slice_counter_map(shape, pl, r) for r in lay.ranks))
+
+    block_leaves = [leaf_of(tuple(sd.shape[1:]), lay, 1)
+                    for sd, lay in zip(tree_leaves(shapes["blocks"]), block_lays)]
+    outer_leaves = [leaf_of(tuple(shapes[k].shape), lay, 0)
+                    for k, lay in zip(outer_keys, outer_lays)]
+    block_ranks = [n_ranks if lf.sharded else 1 for lf in block_leaves]
+    outer_ranks = [n_ranks if lf.sharded else 1 for lf in outer_leaves]
+    n_rep, n_blk = cfg.n_repeats, len(block_leaves)
     total = sum(math.prod(sd.shape) for sd in tree_leaves(shapes))
 
     # the per-device uplink ledger: a block leaf exchanges once a layer at its
-    # layer's size, an outer leaf once at its size (JAX's sums, in its order)
-    def exchange_bytes(n: int) -> float:
-        return collectives.uplink_ledger(mode, wire, n, share_linf=share_linf)
+    # layer's size (a model slice's under T), an outer leaf once at its size
+    # (JAX's sums, in its order)
+    def exchange_bytes(lf: _Leaf) -> float:
+        return collectives.uplink_ledger(mode, lf.wire, lf.dev_n, share_linf=share_linf)
 
-    wire_ledger = sum(n_rep * exchange_bytes(math.prod(s)) for s in block_shapes)
-    wire_ledger += sum(exchange_bytes(math.prod(s)) for s in outer_shapes)
+    wire_ledger = sum(n_rep * exchange_bytes(lf) for lf in block_leaves)
+    wire_ledger += sum(exchange_bytes(lf) for lf in outer_leaves)
     gather_hbm = 0.0
     if mode != "decoded":
-        gather_hbm = max([wire.gather_hbm_bytes(math.prod(s))
-                          for s in block_shapes + outer_shapes], default=0.0)
+        gather_hbm = max([lf.wire.gather_hbm_bytes(lf.dev_n)
+                          for lf in block_leaves + outer_leaves], default=0.0)
     block_plan = outer_plan = None
     if step_cfg.bucketed:
         fmt = bucketing.wire_bucket_format(mode, wire)
-        rows_fn = wire.payload_rows if fmt == "golomb" else None
-        block_plan = bucketing.build_bucket_plan(block_shapes, fmt,
-                                                 bucket_bytes=step_cfg.bucket_bytes,
-                                                 rows_fn=rows_fn)
-        outer_plan = bucketing.build_bucket_plan(outer_shapes, fmt,
-                                                 bucket_bytes=step_cfg.bucket_bytes,
-                                                 rows_fn=rows_fn)
+        golomb = fmt == "golomb"
+        rows_fn = wire.payload_rows if golomb else None
+
+        def plan_of(leaves):
+            # a device's slices; a Golomb slice's slot at its layer's capacity
+            return bucketing.build_bucket_plan(
+                [lf.dev_shape for lf in leaves], fmt, bucket_bytes=step_cfg.bucket_bytes,
+                rows_fn=rows_fn,
+                leaf_sizes=[lf.n for lf in leaves] if golomb and mg is not None else None)
+
+        block_plan, outer_plan = plan_of(block_leaves), plan_of(outer_leaves)
         pay, scal = bucketing.streamed_plan_ledger(mode, wire, block_plan, outer_plan, n_rep,
                                                    share_linf=share_linf)
         wire_ledger = pay + scal
@@ -338,6 +476,20 @@ def build_streamed_train_step(model, step_cfg: StreamedStepConfig,
     ring = mode != "decoded" and getattr(wire, "ring_chunk_rows", None) is not None
     n_workers, local = group.n_workers, group.local
     backend = step_cfg.backend
+
+    def on_ranks(sharded: bool = False, r: int = 0):
+        """The devices a wire call stands for in the census under T > 1: a
+        slice's rank's, or every local rank's for a leaf held whole on
+        'model' (or a vector over all leaves)."""
+        if mg is None:
+            return contextlib.nullcontext()
+        return collectives.for_model_ranks((mg.offset + r,) if sharded else mg.ranks)
+
+    def tp_psum(parts):
+        return collectives.tp_sum(parts, mg)
+
+    def tp_pmax(parts):
+        return collectives.tp_max(parts, mg)
 
     def l1_reduce_of(lay: LeafLayout, axis: int):
         """The scaled-sign L1 of a sharded leaf: each local worker's shard's
@@ -359,6 +511,7 @@ def build_streamed_train_step(model, step_cfg: StreamedStepConfig,
         dev = blk[0].device
         widx = collectives.worker_index(group, dev)
         rseed = sampling.round_seed(state.seed, state.step)
+        # every model rank of a worker takes the worker's mask and weight
         mask = sampling.participation_mask(rseed, state.step, widx,
                                            comp.worker_sample_fraction)
         w_eff = None
@@ -375,177 +528,271 @@ def build_streamed_train_step(model, step_cfg: StreamedStepConfig,
         micro = [worker_batch(batch, w, n_workers, 0, dev) for w in workers]
 
         def full_layer(l: int) -> list:
-            return [x[l] if lay.whole else collectives.fsdp_all_gather(x[l], group, lay.axis - 1)
-                    for x, lay in zip(blk, block_lays)]
+            """Layer l of every block leaf, gathered over the workers: a
+            tensor, or under T one a local model rank."""
+            out = []
+            for x, lay in zip(blk, block_lays):
+                if lay.tp:
+                    y = x[:, l]
+                    if not lay.fsdp_whole:
+                        y = collectives.fsdp_all_gather(y, group, lay.axis)
+                    out.append(list(y.unbind(0)))
+                else:
+                    out.append(x[l] if lay.whole else
+                               collectives.fsdp_all_gather(x[l], group, lay.axis - 1))
+            return out
 
         def as_blocks(leaves):
             return tree_unflatten(shapes["blocks"], leaves)
 
-        def compress(msgs: _Messages, j: int, i: int, g, seed_i, base, shared):
-            """Worker j's message of leaf i of a group, into ``msgs``."""
+        def compress(msgs: _Messages, lf: _Leaf, j: int, i: int, g, seed_i, base, shared,
+                     r: int = 0, leaf_slice=None):
+            """Worker j's message of leaf i (its slice r) of a group, into
+            ``msgs``."""
             slot = msgs.slot_of[i] if msgs.plan is not None else None
             if mode == "decoded":
                 msg = engine.compress_leaf(g, comp, seed_i, base, backend=backend,
-                                           shared_linf=shared)
+                                           shared_linf=shared, leaf_slice=leaf_slice)
                 sc = msg.scale * w_eff[j] if part is not None else msg.scale
                 if slot is None:
-                    msgs.msgs[i].append(msg.values)
-                    msgs.scales[i].append(sc)
+                    msgs.msgs[i][r].append(msg.values)
+                    msgs.scales[i][r].append(sc)
                     return
                 values, k = collectives.decoded_message(msg.values, sc, mask[j],
                                                         is_ternary=comp.is_ternary)
                 nnz[j] = nnz[j] + k
                 values = bucketing.as_rows(values, msgs.plan.fmt, slot[1].rows)
             else:
-                if slot is None:
-                    msg = engine.compress_leaf(g, comp, seed_i, base, backend=backend,
-                                               wire=wire, shared_linf=shared)
-                else:
-                    msg = engine.compress_leaf_rows(g, comp, seed_i, base, rows=slot[1].rows,
-                                                    backend=backend, wire=wire,
-                                                    shared_linf=shared)
+                kw = dict(backend=backend, wire=lf.wire, shared_linf=shared,
+                          leaf_slice=leaf_slice)
+                msg = (engine.compress_leaf(g, comp, seed_i, base, **kw) if slot is None else
+                       engine.compress_leaf_rows(g, comp, seed_i, base, rows=slot[1].rows,
+                                                 **kw))
                 values = wire.mask_message(msg.values, mask[j])
-                msgs.scales[i].append(msg.scale)
+                msgs.scales[i][r].append(msg.scale)
                 nnz[j] = nnz[j] + wire.message_nnz(values)
                 if count_dropped:
                     dropped[j] = dropped[j] + wire.message_dropped(values)
                 if slot is None:
-                    msgs.msgs[i].append(values)
+                    msgs.msgs[i][r].append(values)
                     return
             bi, s = slot
-            msgs.bufs[bi][j, s.row_start:s.row_start + s.rows] = values
+            # a leaf held whole on 'model' rides whole in every local rank's bucket
+            for rr in ((r,) if lf.sharded else range(len(msgs.bufs))):
+                msgs.bufs[rr][bi][j, s.row_start:s.row_start + s.rows] = values
 
-        def compress_all(msgs, grads, salts, bases):
-            """Every local worker's messages of a group: ``grads[j]`` holds
-            worker j's leaves (all workers' at once for a shared L-inf)."""
-            shared = None
-            if share_linf:
-                if msgs.plan is not None:
-                    vec = collectives.worker_shared_linf_many(grads, group, mask=mask)
-                    shared = [vec[i] for i in range(len(salts))]
-                else:
-                    shared = [collectives.worker_shared_linf([g[i] for g in grads], group,
-                                                             mask=mask)
-                              for i in range(len(salts))]
-            for j, src in enumerate(grads):
-                for i, g in enumerate(src):
-                    compress(msgs, j, i, g, prng.fold_seed_int(seeds[j], salts[i]), bases[i],
+        def compress_one(msgs, lf: _Leaf, j: int, i: int, g, salt, base, shared):
+            """Worker j's message of leaf i of a group from its gradient ``g``
+            (under T, a cut leaf's as a list of its local ranks' slices)."""
+            seed_i = prng.fold_seed_int(seeds[j], salt)
+            if not lf.sharded:
+                compress(msgs, lf, j, i, g, seed_i, base, shared)
+                return
+            slices = engine.leaf_slices(comp, g, lf.maps, lf.n, psum=tp_psum, pmax=tp_pmax)
+            for r, (x, lsl) in enumerate(zip(g, slices)):
+                compress(msgs, lf, j, i, x, seed_i, base, shared, r, lsl)
+
+        def compress_worker(msgs, leaves, j, src, salts, bases, shared):
+            """Worker j's messages of a group from its leaves ``src``."""
+            for i, (lf, g) in enumerate(zip(leaves, src)):
+                compress_one(msgs, lf, j, i, g, salts[i], bases[i],
                              shared[i] if shared is not None else None)
 
-        def apply(i, agg, n_or_w, targets, msgs):
-            """C(.) and SGD on this process's slice of leaf i of a group,
-            written in place."""
-            p, ef, lay, axis, size, li = targets[i]
-            vs = lay.cut(agg, axis)
-            wt = n_or_w if n_or_w.dim() == 0 else lay.cut(n_or_w, axis)
-            if mode != "votes":
-                mean_scale = msgs.scales[i][-1] if mode == "scaled_votes" else None
-                new_p, new_ef = engine.server_apply(p, vs, comp, lr=lr, ef=ef, n_sel=wt,
-                                                    server="mean", scale=mean_scale,
-                                                    backend=backend)
-            elif part is not None:
-                new_p, new_ef = engine.server_apply(p, vs, comp, lr=lr, ef=ef, part_total=wt,
-                                                    q_frac=q_frac_flat[li], backend=backend)
-            else:
-                new_p, new_ef = engine.server_apply(
-                    p, vs, comp, lr=lr, ef=ef, n_sel=n_sel, leaf_size=size,
-                    l1_reduce=l1_reduce_of(lay, axis), quorum=quorum_flat[li],
-                    backend=backend)
-            p.copy_(new_p)
-            if ef is not None and new_ef is not ef:
-                ef.copy_(new_ef)
+        def compress_all(msgs, leaves, grads, salts, bases):
+            """Every local worker's messages of a group under a shared L-inf:
+            ``grads[j]`` holds worker j's leaves. The whole leaf's L-inf is a
+            max over the model ranks, then over the sampled workers (exact
+            in any order); bucketed, one vector for all leaves."""
+            def linf(g):
+                if isinstance(g, list):
+                    return tp_pmax([torch.amax(torch.abs(x.to(torch.float32))) for x in g])
+                return torch.amax(torch.abs(g.to(torch.float32)))
 
-        def exchange(msgs: _Messages, shapes_, targets):
-            """One exchange a leaf or a bucket, then the servers; ``targets``
-            None drops the sums (the priming buckets)."""
+            with on_ranks():
+                if msgs.plan is not None:
+                    per = torch.stack([torch.stack([linf(g) for g in src]) for src in grads])
+                    per = torch.where(mask[:, None], per, torch.zeros((), device=dev))
+                    vec = group.all_reduce(torch.amax(per, dim=0),
+                                           op=torch.distributed.ReduceOp.MAX)
+                    shared = [vec[i] for i in range(len(salts))]
+                else:
+                    shared = []
+                    for i in range(len(salts)):
+                        per = torch.stack([linf(src[i]) for src in grads])
+                        per = torch.where(mask, per, torch.zeros((), device=dev))
+                        shared.append(group.all_reduce(torch.amax(per),
+                                                       op=torch.distributed.ReduceOp.MAX))
+            for j, src in enumerate(grads):
+                compress_worker(msgs, leaves, j, src, salts, bases, shared)
+
+        def apply(i, aggs, wtots, targets, msgs):
+            """C(.) and SGD on this process's shards of leaf i of a group (of
+            each local rank's slice under T), written in place."""
+            ps, efs, lay, axis, size, li, sharded = targets[i]
+            l1 = None
+            if sharded and mode == "votes" and part is None and comp.server == "scaled_sign_ef":
+                # the whole leaf's L1: each rank's shards' partials in worker
+                # order, then the ranks' sums in rank order
+                red = l1_reduce_of(lay, axis)
+                parts = []
+                for agg, ef in zip(aggs, efs):
+                    n = torch.clamp(n_sel, min=1.0)
+                    mag = torch.abs(lay.cut(agg, axis).to(torch.float32) / n
+                                    + ef.to(torch.float32))
+                    parts.append(red(mag) if red is not None else torch.sum(mag))
+                l1 = tp_psum(parts)
+            for r, (p, ef, agg, n_or_w) in enumerate(zip(ps, efs, aggs, wtots)):
+                vs = lay.cut(agg, axis)
+                wt = n_or_w if n_or_w.dim() == 0 else lay.cut(n_or_w, axis)
+                if mode != "votes":
+                    mean_scale = msgs.scales[i][r][-1] if mode == "scaled_votes" else None
+                    new_p, new_ef = engine.server_apply(p, vs, comp, lr=lr, ef=ef, n_sel=wt,
+                                                        server="mean", scale=mean_scale,
+                                                        backend=backend)
+                elif part is not None:
+                    new_p, new_ef = engine.server_apply(p, vs, comp, lr=lr, ef=ef,
+                                                        part_total=wt,
+                                                        q_frac=q_frac_flat[li],
+                                                        backend=backend)
+                else:
+                    reduce_ = ((lambda _mag, whole=l1: whole) if l1 is not None
+                               else l1_reduce_of(lay, axis))
+                    new_p, new_ef = engine.server_apply(
+                        p, vs, comp, lr=lr, ef=ef, n_sel=n_sel, leaf_size=size,
+                        l1_reduce=reduce_, quorum=quorum_flat[li], backend=backend)
+                p.copy_(new_p)
+                if ef is not None and new_ef is not ef:
+                    ef.copy_(new_ef)
+
+        def exchange(msgs: _Messages, leaves, targets):
+            """One exchange a leaf (a slice a rank) or a bucket (one a rank),
+            then the servers; ``targets`` None drops the sums (the priming
+            buckets)."""
             nonlocal nnz
             if msgs.plan is None:
-                for i, shape in enumerate(shapes_):
-                    n = math.prod(shape)
-                    stack = msgs.msgs[i] if ring else torch.stack(msgs.msgs[i])
-                    msgs.msgs[i] = None
-                    if mode == "decoded":
-                        agg, k = collectives.decoded_exchange(
-                            stack, torch.stack(msgs.scales[i]), mask, group,
-                            is_ternary=comp.is_ternary)
-                        nnz = [a + b for a, b in zip(nnz, k)]
-                        n_or_w = n_dec
-                    else:
-                        wire_scale = torch.stack(msgs.scales[i]) if mode == "pack8" else None
-                        if part is not None:
-                            agg, n_or_w = wire.exchange_weighted(stack, n, shape, weight=w_eff,
-                                                                 scale=wire_scale)
-                        else:
-                            agg, n_or_w = wire.exchange(stack, n, shape, scale=wire_scale), n_sel
-                    del stack
-                    apply(i, agg, n_or_w, targets, msgs)
-                    del agg
+                for i, lf in enumerate(leaves):
+                    aggs, wtots = [], []
+                    for r in range(len(msgs.msgs[i])):
+                        stack = msgs.msgs[i][r] if ring else torch.stack(msgs.msgs[i][r])
+                        msgs.msgs[i][r] = None
+                        with on_ranks(lf.sharded, r):
+                            if mode == "decoded":
+                                agg, k = collectives.decoded_exchange(
+                                    stack, torch.stack(msgs.scales[i][r]), mask, group,
+                                    is_ternary=comp.is_ternary)
+                                nnz = [a + b for a, b in zip(nnz, k)]
+                                n_or_w = n_dec
+                            else:
+                                wire_scale = (torch.stack(msgs.scales[i][r]) if mode == "pack8"
+                                              else None)
+                                if part is not None:
+                                    agg, n_or_w = wire.exchange_weighted(
+                                        stack, lf.dev_n, lf.dev_shape, weight=w_eff,
+                                        scale=wire_scale)
+                                else:
+                                    agg = wire.exchange(stack, lf.dev_n, lf.dev_shape,
+                                                        scale=wire_scale)
+                                    n_or_w = n_sel
+                        del stack
+                        aggs.append(agg)
+                        wtots.append(n_or_w)
+                        del agg
+                    apply(i, aggs, wtots, targets, msgs)
+                    del aggs
                 return
+            n_bufs = len(msgs.bufs)
             for bi, b in enumerate(msgs.plan.buckets):
-                buf, msgs.bufs[bi] = msgs.bufs[bi], None
-                bscale = None
-                if mode == "pack8":
-                    bscale = torch.stack([torch.stack([msgs.scales[s.index][j] for s in b.slots])
-                                          for j in range(local)])
-                if mode == "decoded":
-                    parts = bucketing.split_bucket(
-                        collectives.decoded_exchange_bucket(buf, group), b)
-                    wtots = n_dec
-                elif part is not None:
-                    parts, wtots = wire.exchange_bucket_weighted(buf, b, weight=w_eff,
-                                                                 scale=bscale)
-                else:
-                    parts, wtots = wire.exchange_bucket(buf, b, scale=bscale), n_sel
-                del buf
+                got = []   # each local rank's (per-slot sums, W)
+                for r in range(n_bufs):
+                    buf, msgs.bufs[r][bi] = msgs.bufs[r][bi], None
+                    bscale = None
+                    if mode == "pack8":   # (local, n_slots): each worker's slot scales
+                        bscale = torch.stack([torch.stack([
+                            msgs.scales[s.index][r if leaves[s.index].sharded else 0][j]
+                            for s in b.slots]) for j in range(local)])
+                    with on_ranks(True, r):
+                        if mode == "decoded":
+                            got.append((bucketing.split_bucket(
+                                collectives.decoded_exchange_bucket(buf, group), b), n_dec))
+                        elif part is not None:
+                            got.append(wire.exchange_bucket_weighted(buf, b, weight=w_eff,
+                                                                     scale=bscale))
+                        else:
+                            got.append((wire.exchange_bucket(buf, b, scale=bscale), n_sel))
+                    del buf
                 if targets is not None:
-                    for k, (s, agg) in enumerate(zip(b.slots, parts)):
-                        apply(s.index, agg, wtots[k] if isinstance(wtots, list) else wtots,
-                              targets, msgs)
-                del parts
+                    for k, s in enumerate(b.slots):
+                        rs = range(n_bufs) if leaves[s.index].sharded else range(1)
+                        apply(s.index, [got[r][0][k] for r in rs],
+                              [got[r][1][k] if isinstance(got[r][1], list) else got[r][1]
+                               for r in rs], targets, msgs)
+                del got
 
         def layer_targets(l: int) -> list:
-            return [(x[l], ef[l] if ef is not None else None, lay,
-                     lay.axis - 1 if lay.axis != REPLICATED else REPLICATED,
-                     math.prod(shape), li)
-                    for x, ef, lay, shape, li in zip(blk, blk_ef, block_lays, block_shapes,
-                                                     blocks_idx)]
+            out = []
+            for x, ef, lay, lf, li in zip(blk, blk_ef, block_lays, block_leaves, blocks_idx):
+                axis = lay.axis - 1 if lay.axis != REPLICATED else REPLICATED
+                if lay.tp:
+                    ps = list(x[:, l].unbind(0))
+                    efs = list(ef[:, l].unbind(0)) if ef is not None else [None] * len(ps)
+                else:
+                    ps, efs = [x[l]], [ef[l] if ef is not None else None]
+                out.append((ps, efs, lay, axis, lf.n, li, lay.tp))
+            return out
+
+        def grad_leaves(full):
+            """Fresh leaves of a layer's parameters that take gradients (a
+            cut leaf's slices each), and the flat list of them."""
+            ps = [[x.detach().requires_grad_(True) for x in f] if isinstance(f, list)
+                  else f.detach().requires_grad_(True) for f in full]
+            return ps, [x for f in ps for x in (f if isinstance(f, list) else [f])]
+
+        def regroup(flat, like):
+            it = iter(flat)
+            return [[next(it) for _ in f] if isinstance(f, list) else next(it) for f in like]
 
         # -- forward: every worker block by block, each block's input kept --
-        outer_full = {k: params[k] if lay.whole else
-                      collectives.fsdp_all_gather(params[k], group, lay.axis)
-                      for k, lay in zip(outer_keys, outer_lays)}
+        def outer_whole(k, lay):
+            x = params[k]
+            if lay.fsdp_whole:
+                return x
+            return collectives.fsdp_all_gather(x, group, lay.axis + (1 if lay.tp else 0))
+
+        outer_full = {k: outer_whole(k, lay) for k, lay in zip(outer_keys, outer_lays)}
         hs, inputs = [], [[None] * n_rep for _ in range(local)]
         pos = [(mb["positions"], mb.get("positions3")) for mb in micro]
         with torch.no_grad():
             for j in range(local):
-                hs.append(model.embed_stage(outer_full, micro[j]))
+                hs.append(net.embed_stage(outer_full, micro[j]))
             for l in range(n_rep):
                 full = as_blocks(full_layer(l))
                 for j in range(local):
                     inputs[j][l] = hs[j]
-                    hs[j] = model.superblock_apply(full, hs[j], *pos[j])
+                    hs[j] = net.superblock_apply(full, hs[j], *pos[j])
                 del full
 
         # -- head: loss and the head leaves' and h's gradients; each
         # worker's head messages at once (held under a shared L-inf) --------
-        outer = _Messages(outer_plan, len(outer_keys), local, dev)
+        outer = _Messages(outer_plan, outer_ranks, n_ranks, local, dev)
         held_outer = [dict() for _ in range(local)]
         losses, g_h = [], []
 
         def outer_message(j: int, k: str, g):
+            if layout[k].tp:   # a cut outer leaf's gradient: its local ranks' slices
+                g = list(g.unbind(0))
             if share_linf:
                 held_outer[j][k] = g
             else:
                 i = outer_keys.index(k)
-                compress(outer, j, i, g, prng.fold_seed_int(seeds[j], outer_idx[i]), 0, None)
+                compress_one(outer, outer_leaves[i], j, i, g, outer_idx[i], 0, None)
 
         for j in range(local):
             hp = {k: outer_full[k].detach().requires_grad_(True) for k in head_keys}
             hf = hs[j].detach().requires_grad_(True)
             hs[j] = None
             with torch.enable_grad():
-                loss = model.head_loss(hp, rms_norm(hf, hp["final_norm"], cfg.norm_eps),
-                                       micro[j]["labels"])
+                loss = net.head_loss(hp, rms_norm(hf, hp["final_norm"], cfg.norm_eps),
+                                     micro[j]["labels"])
                 grads = torch.autograd.grad(loss, [hp[k] for k in head_keys] + [hf])
             losses.append(loss.detach())
             g_h.append(grads[-1])
@@ -557,44 +804,44 @@ def build_streamed_train_step(model, step_cfg: StreamedStepConfig,
         # -- backward: per layer, per worker; then exchange and server ------
         pending = None
         if block_plan is not None:   # the zero buckets priming the pipe
-            pending = (None, _Messages(block_plan, n_blk, local, dev, zero_scales=True))
+            pending = (None, _Messages(block_plan, block_ranks, n_ranks, local, dev,
+                                       zero_scales=True))
         for l in reversed(range(n_rep)):
             if pending is not None:
                 lp, msgs = pending
-                exchange(msgs, block_shapes, layer_targets(lp) if lp is not None else None)
+                exchange(msgs, block_leaves, layer_targets(lp) if lp is not None else None)
                 pending = None
             full = full_layer(l)
-            msgs = _Messages(block_plan, n_blk, local, dev)
-            bases = [(l * math.prod(s)) & prng.MASK32 for s in block_shapes]
+            msgs = _Messages(block_plan, block_ranks, n_ranks, local, dev)
+            bases = [(l * lf.n) & prng.MASK32 for lf in block_leaves]
             held = []
             for j in range(local):
-                ps = [x.detach().requires_grad_(True) for x in full]
+                ps, flat = grad_leaves(full)
                 h_in = inputs[j][l].detach().requires_grad_(True)
                 inputs[j][l] = None
                 with torch.enable_grad():
-                    out = model.superblock_apply(as_blocks(ps), h_in, *pos[j])
-                    grads = torch.autograd.grad(out, ps + [h_in], g_h[j], allow_unused=True)
+                    out = net.superblock_apply(as_blocks(ps), h_in, *pos[j])
+                    grads = torch.autograd.grad(out, flat + [h_in], g_h[j], allow_unused=True)
                 g_h[j] = grads[-1]
-                g = [gi if gi is not None else torch.zeros_like(p) for gi, p in zip(grads, ps)]
-                del grads, out, ps, h_in
+                g = regroup([gi if gi is not None else torch.zeros_like(p)
+                             for gi, p in zip(grads, flat)], ps)
+                del grads, out, ps, flat, h_in
                 if share_linf:
                     held.append(g)
                 else:
-                    for i, gi in enumerate(g):
-                        compress(msgs, j, i, gi, prng.fold_seed_int(seeds[j], blocks_idx[i]),
-                                 bases[i], None)
+                    compress_worker(msgs, block_leaves, j, g, blocks_idx, bases, None)
                 del g
             if share_linf:
-                compress_all(msgs, held, blocks_idx, bases)
+                compress_all(msgs, block_leaves, held, blocks_idx, bases)
                 del held
             del full
             if block_plan is None:
-                exchange(msgs, block_shapes, layer_targets(l))
+                exchange(msgs, block_leaves, layer_targets(l))
             else:
                 pending = (l, msgs)
             del msgs
         if pending is not None:   # drain: layer 0's buckets
-            exchange(pending[1], block_shapes, layer_targets(pending[0]))
+            exchange(pending[1], block_leaves, layer_targets(pending[0]))
             pending = None
 
         # -- the embedding's gradient and the outer leaves -------------------
@@ -602,21 +849,31 @@ def build_streamed_train_step(model, step_cfg: StreamedStepConfig,
             if cfg.input_kind == "tokens":
                 emb = outer_full["embed"].detach().requires_grad_(True)
                 with torch.enable_grad():
-                    h0 = model.embed_stage({"embed": emb}, micro[j])
+                    h0 = net.embed_stage({"embed": emb}, micro[j])
                     (g,) = torch.autograd.grad(h0, [emb], g_h[j])
                 outer_message(j, "embed", g)
                 del h0, emb, g
             g_h[j] = None
         if share_linf:
-            compress_all(outer, [[held_outer[j][k] for k in outer_keys] for j in range(local)],
+            compress_all(outer, outer_leaves,
+                         [[held_outer[j][k] for k in outer_keys] for j in range(local)],
                          outer_idx, [0] * len(outer_keys))
             del held_outer
         outer_ef = ([state.ef_residual[k] for k in outer_keys] if has_ef
                     else [None] * len(outer_keys))
-        exchange(outer, outer_shapes,
-                 [(params[k], ef, lay, lay.axis, math.prod(s), li)
-                  for k, ef, lay, s, li in zip(outer_keys, outer_ef, outer_lays, outer_shapes,
-                                               outer_idx)])
+
+        def outer_target(k, ef, lay, lf, li):
+            x = params[k]
+            if lay.tp:
+                ps = list(x.unbind(0))
+                efs = list(ef.unbind(0)) if ef is not None else [None] * len(ps)
+            else:
+                ps, efs = [x], [ef]
+            return ps, efs, lay, lay.axis, lf.n, li, lay.tp
+
+        exchange(outer, outer_leaves,
+                 [outer_target(k, ef, lay, lf, li) for k, ef, lay, lf, li
+                  in zip(outer_keys, outer_ef, outer_lays, outer_leaves, outer_idx)])
 
         f32 = np.float32
         loss_mean = collectives.scalar_psum(torch.stack(losses), group) / f32(n_workers)
@@ -632,19 +889,28 @@ def build_streamed_train_step(model, step_cfg: StreamedStepConfig,
                                step=state.step + 1, seed=state.seed)
         return new_state, metrics
 
+    def whole_state(state: TrainState) -> TrainState:
+        """This process's slices gathered into whole leaves."""
+        return TrainState(params=gather_tree(state.params, layout, group),
+                          ef_residual=(gather_tree(state.ef_residual, layout, group)
+                                       if state.ef_residual is not None else None),
+                          step=state.step, seed=state.seed)
+
     def checkpoint_state(state: TrainState):
         """(the whole state, whether this process writes it): the slices
         gathered, written by rank 0 only."""
-        whole = TrainState(params=gather_tree(state.params, layout, group),
-                           ef_residual=(gather_tree(state.ef_residual, layout, group)
-                                        if state.ef_residual is not None else None),
-                           step=state.step, seed=state.seed)
-        return whole, group.rank == 0
+        return whole_state(state), group.rank == 0
 
     step.wire = wire
     step.mode = mode
+    step.share_linf = share_linf
     step.ledger = (float(wire_ledger), float(gather_hbm))   # the metrics' two ledgers
     step.layout = layout
+    step.plans = (block_plan, outer_plan)
+    step.n_repeats = n_rep
+    step.tp_model = net if mg is not None else None
+    step.shard_state = lambda state: shard_state(state, layout)
+    step.whole_state = whole_state
     step.state_shardings = lambda state: state_shardings(layout, state)
     step.checkpoint_state = checkpoint_state
     return step

@@ -51,8 +51,9 @@ only).
 Every ``TrainStepConfig`` of the T = 1 step runs, on every ``simple``-mode
 family: a stacked expert leaf is cut on its expert axis (dim 1), mamba2's
 ``conv_x`` on its last (dim 2), and both take the same slice maps, wires,
-buckets, rings and checkpoint layouts as any cut leaf. Not ported yet under
-T > 1, each raising elsewhere: the streamed trainer, and what
+buckets, rings and checkpoint layouts as any cut leaf. The streamed
+trainer's T > 1 step is ``train/step_streamed.py``'s, on the same model
+stages. Not ported yet under T > 1, raising elsewhere: what
 ``models.tensor_parallel`` refuses (heads or experts T does not divide).
 """
 
@@ -91,6 +92,12 @@ class TPLeafLayout:
     @property
     def whole(self) -> bool:
         return False
+
+    def cut_array(self, arr: np.ndarray) -> np.ndarray:
+        """This process's block of a mapped whole leaf, as its stacked model
+        slices."""
+        arr = arr[(slice(None),) * self.axis + (slice(self.start, self.start + self.size),)]
+        return np.stack(np.split(arr, self.pieces, axis=self.axis))
 
 
 def build_tp_train_step(model, step_cfg, group: WorkerGroup):

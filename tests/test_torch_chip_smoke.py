@@ -324,9 +324,12 @@ def test_ulps_apart_counts_steps_on_the_number_line():
 
 def test_phase_streamed_rehearses_on_the_cpu(monkeypatch, capsys):
     """The streamed phase at the smoke sizes on the CPU: S1 through the
-    launcher's loop, S2's per-leaf, repeated, bucketed and simple steps bit
-    for bit and the EF runs' equal digests, S3's training, serving and
-    decode within DECODE_REL_TOL; the launchers' get_config put back."""
+    launcher's loop, and S1T under a 'model' axis of 2; S2's per-leaf,
+    repeated, bucketed and simple steps bit for bit and the EF runs' equal
+    digests; S2T's injected rounds at T = 2 against T = 1 and step_tp (bit
+    digests, the Golomb flip bound, the EF tolerance); S3's training,
+    serving and decode within DECODE_REL_TOL; the launchers' get_config put
+    back."""
     import torch
 
     from repro_torch.launch import serve as launch_serve
@@ -347,17 +350,28 @@ def test_phase_streamed_rehearses_on_the_cpu(monkeypatch, capsys):
     assert out["S3"]["serve_loop"]["decode_steps"] == 47
     assert cs.STREAMED_LAYERS == (8, 2, 8)
     assert (launch.get_config, launch_serve.get_config) == get_configs
+    s2t = out["S2T"]
+    assert s2t["digests_equal"] == {k: True for k in ("psum", "pack2", "bucketed",
+                                                      "bucketed capped", "step_tp")}
+    assert s2t["golomb"]["nnz_dropped"] == 0.0 and s2t["golomb_flips"] == 0
+    assert s2t["ef_moved_apart"] == 0 and s2t["ef_max_rel"] <= 1e-6
+    # the model's own loss, its vocab-parallel softmax's sums in another order
+    assert abs(out["S1T"]["loss"][0] - out["S1"]["loss"][0]) <= 1e-6 * out["S1"]["loss"][0]
     printed = capsys.readouterr().out
     assert "[streamed S1]" in printed and "[streamed S3]" in printed
+    lines = [x for x in printed.splitlines() if "[tp streamed" in x]
+    assert [x.split("]")[0] for x in lines] == ["[tp streamed S1T", "[tp streamed S2T"]
+    with capsys.disabled():
+        print("\n" + "\n".join(lines))
 
 
 def test_phase_jamba_rehearses_on_the_cpu(monkeypatch, capsys):
     """The jamba phase at the smoke widths on the CPU: J1's streamed step
     through the launcher on the card cut (positions 2-4: mamba + dense,
     mamba + MoE, attention without RoPE), its ledger, serving the trained
-    state through the launcher with decode against the full forward, and
-    the above-2^31 check's control flow at a small size; the launchers'
-    get_config and Model put back."""
+    state through the launcher with decode against the full forward, J1T's
+    step under a 'model' axis of 2, and the above-2^31 check's control flow
+    at a small size; the launchers' get_config and Model put back."""
     import torch
 
     from repro_torch.launch import serve as launch_serve
@@ -383,8 +397,14 @@ def test_phase_jamba_rehearses_on_the_cpu(monkeypatch, capsys):
     assert cs.HUGE_N == 3_221_225_472 and cs.HUGE_N % cs.HUGE_CHUNK == 0
     assert cs.HUGE_BASE + cs.HUGE_N > 2 ** 32 > cs.HUGE_BASE   # the counter wraps
     assert (launch.get_config, launch_serve.get_config, launch_serve.Model) == saved
+    j1t = out["J1T"]
+    # the vocab-parallel softmax adds its sums in another order
+    assert j1t["config"] == j1["config"] and abs(j1t["loss"] - j1["loss"]) <= 1e-6 * j1["loss"]
+    assert j1t["wire_bytes_per_device"] > 0
     printed = capsys.readouterr().out
-    assert printed.count("[jamba J1]") == 3
+    assert printed.count("[jamba J1]") == 3 and "[tp streamed J1T]" in printed
+    with capsys.disabled():
+        print("\n" + next(x for x in printed.splitlines() if "[tp streamed J1T]" in x))
 
 
 def test_huge_leaf_check_counts_differing_bytes(monkeypatch):

@@ -790,6 +790,50 @@ def test_tp_trainer_step_on_card_matches_plain_versions(cuda_device, arch, impl)
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,bucketed", [("psum", False), ("allgather_packed", False),
+                                           ("allgather_packed", True)])
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "jamba-1.5-large-398b"])
+def test_streamed_tp_step_on_card_matches_plain_versions(cuda_device, arch, impl, bucketed):
+    """One smoke-size streamed step at M = 4 x T = 2 through the kernels and
+    through the plain versions (backend='torch') on the card: the same
+    parameters, bit for bit, one encode a worker and message (a slice a rank
+    of a leaf cut on 'model'), one server launch a message."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.step_streamed import StreamedStepConfig, build_streamed_train_step
+    model = Model(get_config(arch, smoke=True))
+    comp = CompressionConfig(compressor="sparsign",
+                             budget=BudgetConfig(kind="l2_norm", value=0.1),
+                             server="majority_vote")
+    rng = np.random.RandomState(0)
+    batch = {"inputs": rng.randint(0, 256, (4, 16)).astype(np.int32),
+             "labels": rng.randint(0, 256, (4, 16)).astype(np.int32),
+             "positions": np.broadcast_to(np.arange(16, dtype=np.int32), (4, 16)).copy()}
+    out = {}
+    for backend in (None, "torch"):
+        step = build_streamed_train_step(model, StreamedStepConfig(
+            compression=comp, lr=LrSchedule(base=0.05), vote_impl=impl, backend=backend,
+            bucketed=bucketed), make_host_mesh(4, 2))
+        state = step.shard_state(init_state(model.init(0, device=cuda_device),
+                                            server=comp.server, seed=1))
+        reset_launch_counts()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        out[backend] = [tbits(t) for t in tree_leaves(step.whole_state(state).params)]
+        lays = tree_leaves(step.layout)
+        per_layer = sum(x.parts if x.tp else 1 for x in tree_leaves(step.layout["blocks"]))
+        msgs = (step.n_repeats * per_layer + sum(x.parts if x.tp else 1 for x in lays)
+                - per_layer)
+        if backend is None:
+            encoder = "sparsign" if impl == "psum" else "sparsign_pack2bit"
+            assert counts[encoder] == msgs * 4 and counts["vote_update"] == msgs
+        else:
+            assert not any(counts.values())
+    for a, b in zip(out[None], out["torch"]):
+        np.testing.assert_array_equal(a, b)
+
+
 def int8_rows(rows, n, dtype, device, seed, offset=0):
     """(rows, n) gradients with +-0, NaN, +-inf and subnormals in every row,
     starting ``offset`` elements into their storage (16-byte alignment

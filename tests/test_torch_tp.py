@@ -24,7 +24,8 @@
     across T, also the MoE model's; the launcher's ``--host-model 2`` (also
     on qwen2-moe-a2.7b and mamba2-370m); what is not ported under T > 1
     raises: experts or mamba heads T does not divide, the streamed trainer
-    (the bucketed uplink, the ring and subgroups run:
+    over model ranks that span processes (the bucketed uplink, the ring and
+    subgroups run:
     ``tests/test_torch_tp_bucketed.py``; JAX's (4, 2) mesh step on the MoE
     and mamba2 families: ``tests/test_torch_tp_families.py``).
 """
@@ -1006,12 +1007,22 @@ def test_what_is_not_ported_under_t2_raises(case):
 
 
 def test_streamed_trainer_under_t2_raises():
+    """The streamed trainer runs under T = 2 when every model rank of a
+    worker lives in its process (``tests/test_torch_streamed_tp.py``); a
+    'model' axis whose ranks span processes still raises, naming it."""
+    from repro_torch.dist.collectives import WorkerGroup
     from repro_torch.train.step_streamed import StreamedStepConfig, build_streamed_train_step
     comp = CompressionConfig(compressor="sparsign", server="majority_vote")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_streamed_train_step(Model(get_config("llama4-scout-17b-a16e", smoke=True)),
-                                  StreamedStepConfig(compression=comp, lr=LrSchedule()),
-                                  make_host_mesh(M, T))
+    model = Model(get_config("llama4-scout-17b-a16e", smoke=True))
+    step = build_streamed_train_step(model, StreamedStepConfig(compression=comp,
+                                                               lr=LrSchedule()),
+                                     make_host_mesh(M, T))
+    assert step.tp_model is not None and step.layout["lm_head"].tp
+    split = WorkerGroup(("data",), (M,), model=ModelGroup(T, offset=1, local=1, rank=1,
+                                                          world=T))
+    with pytest.raises(NotImplementedError, match="span 2 processes is not ported yet"):
+        build_streamed_train_step(model, StreamedStepConfig(compression=comp, lr=LrSchedule()),
+                                  split)
 
 
 def test_tp_census_each_rank_equals_the_slice_ledger():
